@@ -1,0 +1,215 @@
+"""Conformer blocks and the InterCTC conformer stack (port of
+avec_tpu/models/conformer.py), eval only.
+
+Sequences are (B, T, D); masks boolean (B, 1, 1, T); lengths int (B,).
+Parameter names follow the reference state_dict: ff_module{1,2}.layers.{0,1,4},
+self_att_module.{norm,attention}, conv_module.layers.{0,1,3,4,6}, conv_res,
+norm; conformer_blocks.{i} and interctc_modules.{k} in the stack.
+"""
+
+from typing import Dict, List, Sequence, Union
+
+import torch
+import torch.nn as nn
+
+from avec_tpu_torch.ops.activations import get_act, glu, swish
+from avec_tpu_torch.ops.attention import make_attention
+from avec_tpu_torch.ops.layers import BatchNorm, Conv, LayerNorm, Linear
+from avec_tpu_torch.ops.masks import downsample_mask, strided_lengths
+
+
+def _indexed(mods: Dict[int, nn.Module]) -> nn.ModuleDict:
+    """A ModuleDict keyed like the reference's nn.Sequential indices."""
+    return nn.ModuleDict({str(i): m for i, m in mods.items()})
+
+
+class FeedForwardModule(nn.Module):
+    """Pre-norm FFN: LN(1e-6) -> Linear(d_ffn) -> swish -> Linear(d)."""
+
+    def __init__(self, dim_model: int, dim_ffn: int):
+        super().__init__()
+        self.layers = _indexed({0: LayerNorm(dim_model, 1e-6),
+                                1: Linear(dim_model, dim_ffn),
+                                4: Linear(dim_ffn, dim_model)})
+
+    def forward(self, x):
+        x = self.layers["0"](x)
+        return self.layers["4"](swish(self.layers["1"](x)))
+
+
+class AttentionModule(nn.Module):
+    """Pre-norm attention (no residual inside the conformer block)."""
+
+    def __init__(self, dim_model: int, att_params: dict):
+        super().__init__()
+        self.norm = LayerNorm(dim_model, 1e-6)
+        self.attention = make_attention(dim_model, att_params)
+
+    def forward(self, x, mask=None, lengths=None):
+        return self.attention(self.norm(x), mask=mask, lengths=lengths)
+
+
+class ConvolutionModule(nn.Module):
+    """LN -> pointwise 2E -> GLU -> depthwise k (stride) -> eval BN -> swish
+    -> pointwise E; channels-first inside, (B, T, D) at the boundary."""
+
+    def __init__(self, dim_model: int, dim_expand: int, stride: int = 1,
+                 kernel_size: int = 15, padding: str = "same"):
+        super().__init__()
+        self.layers = _indexed({
+            0: LayerNorm(dim_model, 1e-6),
+            1: Conv(dim_model, 2 * dim_expand, 1, ndim=1),
+            3: Conv(dim_expand, dim_expand, kernel_size, ndim=1, stride=stride,
+                    padding=padding, groups=dim_expand),
+            4: BatchNorm(dim_expand),
+            6: Conv(dim_expand, dim_expand, 1, ndim=1)})
+
+    def forward(self, x):
+        x = self.layers["0"](x).transpose(1, 2)
+        x = glu(self.layers["1"](x), dim=1)
+        x = swish(self.layers["4"](self.layers["3"](x)))
+        return self.layers["6"](x).transpose(1, 2)
+
+
+class InterCTCResModule(nn.Module):
+    """logits = proj_1(x); x += proj_2(softmax(logits))."""
+
+    def __init__(self, dim_model: int, vocab_size: int):
+        super().__init__()
+        self.proj_1 = Linear(dim_model, vocab_size)
+        self.proj_2 = Linear(vocab_size, dim_model)
+
+    def forward(self, x):
+        logits = self.proj_1(x)
+        probs = torch.softmax(logits.float(), dim=-1).to(x.dtype)
+        return x + self.proj_2(probs), logits
+
+
+class FusionModule(nn.Module):
+    """concat(audio, video) -> Linear(4 f) -> swish -> Linear(f)."""
+
+    def __init__(self, a_dim_model=360, v_dim_model=360, f_dim_model=360,
+                 ff_ratio=4):
+        super().__init__()
+        self.layers = _indexed({
+            0: Linear(a_dim_model + v_dim_model, ff_ratio * f_dim_model),
+            2: Linear(ff_ratio * f_dim_model, f_dim_model)})
+
+    def forward(self, audio, video):
+        x = self.layers["0"](torch.cat([audio, video], dim=-1))
+        return self.layers["2"](swish(x))
+
+
+class ConformerBlock(nn.Module):
+    """x += ff1/2; x += MHSA(LN(x)); x = res(x) + conv(x); x += ff2/2; LN.
+    A strided block downsamples in its conv module; its residual is a
+    stride-2 max pool (same dim) or a strided pointwise conv (new dim)."""
+
+    def __init__(self, dim_model: int, dim_expand: int, ff_ratio: int,
+                 att_params: dict, conv_stride: int = 1, kernel_size: int = 15,
+                 conv_padding: str = "same"):
+        super().__init__()
+        self.stride = conv_stride
+        self.ff_module1 = FeedForwardModule(dim_model, dim_model * ff_ratio)
+        self.self_att_module = AttentionModule(dim_model, att_params)
+        self.conv_module = ConvolutionModule(dim_model, dim_expand, conv_stride,
+                                             kernel_size, conv_padding)
+        self.conv_res = (Conv(dim_model, dim_expand, 1, ndim=1,
+                              stride=conv_stride)
+                         if dim_model != dim_expand else None)
+        self.ff_module2 = FeedForwardModule(dim_expand, dim_expand * ff_ratio)
+        self.norm = LayerNorm(dim_expand, 1e-6)
+
+    def forward(self, x, mask=None, lengths=None):
+        x = x + 0.5 * self.ff_module1(x)
+        x = x + self.self_att_module(x, mask=mask, lengths=lengths)
+        conv_out = self.conv_module(x)
+        if self.conv_res is not None:
+            res = self.conv_res(x.transpose(1, 2)).transpose(1, 2)
+        else:
+            res = x[:, ::self.stride]
+        x = res + conv_out
+        x = x + 0.5 * self.ff_module2(x)
+        return self.norm(x)
+
+
+class ConformerInterCTC(nn.Module):
+    """Multi-stage conformer stack with InterCTC taps (conformer.py:483).
+
+    The block plan of the JAX `_block_plan` written out flat: stage s has
+    num_blocks[s] blocks at dims[s]; the last block of every stage but the
+    last strides by conv_stride into dims[s+1]. Block i (0-based) carries an
+    InterCTC module when i+1 is in interctc_blocks; outputs are keyed
+    "{loss_prefix}_{i}". Masks and lengths are re-strided after each strided
+    block."""
+
+    def __init__(self, dim_model: Union[int, Sequence[int]],
+                 num_blocks: Union[int, Sequence[int]],
+                 interctc_blocks: Sequence[int], vocab_size: int,
+                 att_params, loss_prefix: str = "ctc", kernel_size: int = 15,
+                 ff_ratio: int = 4, conv_stride: int = 2,
+                 conv_padding: str = "same"):
+        super().__init__()
+        dims = [dim_model] if isinstance(dim_model, int) else list(dim_model)
+        nblocks = [num_blocks] if isinstance(num_blocks, int) else list(num_blocks)
+        self.loss_prefix = loss_prefix
+        self.interctc_at: List[int] = []
+        blocks, inter = [], []
+        i = 0
+        for stage in range(len(nblocks)):
+            att = (att_params[stage] if isinstance(att_params, (list, tuple))
+                   else att_params)
+            for block_id in range(nblocks[stage]):
+                down = block_id == nblocks[stage] - 1 and stage < len(nblocks) - 1
+                dim_out = dims[stage + 1] if down else dims[stage]
+                blocks.append(ConformerBlock(
+                    dims[stage], dim_out, ff_ratio, att,
+                    conv_stride=conv_stride if down else 1,
+                    kernel_size=kernel_size, conv_padding=conv_padding))
+                if i + 1 in set(interctc_blocks):
+                    self.interctc_at.append(i)
+                    inter.append(InterCTCResModule(dim_out, vocab_size))
+                i += 1
+        self.conformer_blocks = nn.ModuleList(blocks)
+        self.interctc_modules = nn.ModuleList(inter)
+
+    def forward(self, x, lengths=None, mask=None):
+        interctc_outputs = {}
+        for i, block in enumerate(self.conformer_blocks):
+            x = block(x, mask=mask, lengths=lengths)
+            logits = None
+            if i in self.interctc_at:
+                x, logits = self.interctc_modules[self.interctc_at.index(i)](x)
+            if block.stride > 1:
+                mask = downsample_mask(mask, block.stride)
+                if lengths is not None:
+                    lengths = strided_lengths(lengths, block.stride)
+            if logits is not None:
+                interctc_outputs[f"{self.loss_prefix}_{i}"] = [logits, lengths]
+        return x, lengths, interctc_outputs
+
+
+class ConvNeuralNetwork(nn.Module):
+    """Conv -> eval BN -> act stack, channels-first; each layer updates
+    lengths by (len-1)//2+1 (the reference hardcodes stride-2 updates)."""
+
+    def __init__(self, in_ch: int, dim_layers: Sequence[int], kernel_size,
+                 ndim: int = 2, strides=1, act_fun="Swish",
+                 padding="same"):
+        super().__init__()
+        layers, prev = [], in_ch
+        for dim in dim_layers:
+            layers.append(nn.ModuleList([
+                Conv(prev, dim, kernel_size, ndim=ndim, stride=strides,
+                     padding=padding),
+                BatchNorm(dim)]))
+            prev = dim
+        self.layers = nn.ModuleList(layers)
+        self.act = get_act(act_fun)
+
+    def forward(self, x, lengths=None):
+        for conv, bn in self.layers:
+            x = self.act(bn(conv(x)))
+            if lengths is not None:
+                lengths = torch.div(lengths - 1, 2, rounding_mode="floor") + 1
+        return x if lengths is None else (x, lengths)

@@ -1,0 +1,75 @@
+"""Task models (port of avec_tpu/models/zoo.py): the AV model's forward.
+
+Weights are drawn from an explicit `torch.Generator` (default seed 0) on the
+CPU, so a seed gives the same model on every device, then moved to `device`.
+Entry points default to CUDA and raise when it is absent.
+"""
+
+from typing import Optional, Sequence
+
+import torch
+import torch.nn as nn
+
+from avec_tpu_torch.models.encoders import AudioVisualEfficientConformerEncoder
+from avec_tpu_torch.ops.layers import init_params
+
+
+def resolve_device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
+                           "the plain versions on the CPU")
+    return device
+
+
+class AudioVisualEfficientConformerInterCTC(nn.Module):
+    """AV Efficient Conformer with InterCTC (zoo.py:200-260), eval forward.
+
+    forward(video, video_len, audio, audio_len) returns
+    {"outputs": [logits (B, T, vocab), lengths], "<prefix>_<i>": [...]}."""
+
+    def __init__(self, vocab_size: int = 256,
+                 v_interctc_blocks: Sequence[int] = (3, 6),
+                 a_interctc_blocks: Sequence[int] = (8, 11),
+                 f_interctc_blocks: Sequence[int] = (2,),
+                 use_flash: bool = False,
+                 v_num_blocks: Sequence[int] = (6, 1),
+                 a_num_blocks: Sequence[int] = (5, 6, 1),
+                 f_num_blocks: int = 5, stem_mode: Optional[str] = None,
+                 device="cuda", generator: Optional[torch.Generator] = None):
+        super().__init__()
+        device = resolve_device(device)
+        self.encoder = AudioVisualEfficientConformerEncoder(
+            vocab_size=vocab_size, v_interctc_blocks=v_interctc_blocks,
+            a_interctc_blocks=a_interctc_blocks,
+            f_interctc_blocks=f_interctc_blocks, v_num_blocks=v_num_blocks,
+            a_num_blocks=a_num_blocks, f_num_blocks=f_num_blocks,
+            use_flash=use_flash, stem_mode=stem_mode)
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        init_params(self, generator)
+        self.eval()
+        self.to(device)
+
+    def set_kernels(self, enabled: bool) -> None:
+        """Route every kernel-holding module through its CUDA kernel (True)
+        or through the kernel's plain version (False)."""
+        for m in self.modules():
+            if hasattr(m, "use_kernel"):
+                m.use_kernel = enabled
+
+    @torch.no_grad()
+    def forward(self, video, video_len, audio, audio_len):
+        x, lengths, inter = self.encoder(video, video_len, audio, audio_len)
+        return {"outputs": [x, lengths], **inter}
+
+
+def randomize_batch_stats(model: nn.Module, generator: torch.Generator):
+    """Seeded, non-trivial BN running statistics (so eval BN is not the
+    identity): mean ~ N(0, 0.1^2), var ~ U(0.5, 1.5)."""
+    for name, buf in model.named_buffers():
+        if name.endswith("running_mean"):
+            buf.copy_(torch.randn(buf.shape, generator=generator) * 0.1)
+        elif name.endswith("running_var"):
+            buf.copy_(torch.rand(buf.shape, generator=generator) + 0.5)
+    return model

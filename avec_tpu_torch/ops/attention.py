@@ -1,0 +1,153 @@
+"""Multi-head attention (port of avec_tpu/ops/attention.py), eval only.
+
+Sequences are (B, T, D); masks are boolean, additive -1e9. The rel-pos layer
+computes its relative scores through the exact sin/cos factorization (the JAX
+in-model default), or, with `use_flash`, through the flash kernel of
+`ops/flash_attention.py` with key-padding lengths.
+"""
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from avec_tpu_torch.ops.flash_attention import rel_pos_flash_attention
+from avec_tpu_torch.ops.layers import Linear, avg_pool, upsample_nearest
+from avec_tpu_torch.ops.masks import apply_mask, min_pool_mask
+
+
+def _split_heads(x, num_heads, dim_head):
+    b = x.shape[0]
+    return x.reshape(b, -1, num_heads, dim_head).transpose(1, 2)
+
+
+def _merge_heads(x):
+    b, h, t, d = x.shape
+    return x.transpose(1, 2).reshape(b, t, h * d)
+
+
+def _attend(scores, v, mask):
+    scores = apply_mask(scores, mask)
+    att = torch.softmax(scores.float(), dim=-1).to(v.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", att, v)
+
+
+class MultiHeadAttention(nn.Module):
+    """Scaled dot-product MHA (attention.py:92)."""
+
+    def __init__(self, dim_model: int, num_heads: int):
+        super().__init__()
+        self.dim_model, self.num_heads = dim_model, num_heads
+        self.query_layer = Linear(dim_model, dim_model)
+        self.key_layer = Linear(dim_model, dim_model)
+        self.value_layer = Linear(dim_model, dim_model)
+        self.output_layer = Linear(dim_model, dim_model)
+
+    @property
+    def dim_head(self):
+        return self.dim_model // self.num_heads
+
+    def _heads(self, q, k, v):
+        q, k, v = self.query_layer(q), self.key_layer(k), self.value_layer(v)
+        return tuple(_split_heads(a, self.num_heads, self.dim_head)
+                     for a in (q, k, v))
+
+    def forward(self, x, mask=None, lengths=None):
+        q, k, v = self._heads(x, x, x)
+        scores = torch.einsum("bhqd,bhkd->bhqk", q, k) / self.dim_head ** 0.5
+        return self.output_layer(_merge_heads(_attend(scores, v, mask)))
+
+
+class RelPos1dMultiHeadAttention(MultiHeadAttention):
+    """Relative-position MHA (attention.py:187) on the factorized path, or the
+    flash kernel when `use_flash` (attention.py:277-294).
+
+    The flash route takes key-padding `lengths`; given none it recovers them
+    from a (B, 1, 1, T) mask, and a full (B, 1, T, T) mask falls back to the
+    exact factorized path. `use_kernel=False` runs the flash route through
+    the kernel's plain version on any device."""
+
+    def __init__(self, dim_model: int, num_heads: int, use_flash: bool = False):
+        super().__init__(dim_model, num_heads)
+        self.use_flash = use_flash
+        self.use_kernel = True
+        self.pos_layer = Linear(dim_model, dim_model)
+
+    def _rel_scores_factorized(self, q, t):
+        d_model, half = self.dim_model, self.dim_model // 2
+        dtype = q.dtype
+        w = self.pos_layer.weight.t().reshape(d_model, self.num_heads,
+                                              self.dim_head).to(dtype)
+        ws, wc = w[0::2], w[1::2]
+        bh = self.pos_layer.bias.reshape(self.num_heads, self.dim_head).to(dtype)
+        us = torch.einsum("bhid,mhd->bhim", q, ws)
+        uc = torch.einsum("bhid,mhd->bhim", q, wc)
+        pos = torch.arange(t, dtype=torch.float32, device=q.device)
+        inv_freq = torch.from_numpy((1.0 / (10000.0 ** (
+            2.0 * np.arange(half) / d_model))).astype(np.float32)).to(q.device)
+        ang = pos[:, None] * inv_freq[None, :]
+        sin_t, cos_t = torch.sin(ang).to(dtype), torch.cos(ang).to(dtype)
+        a1 = us * sin_t + uc * cos_t
+        a2 = uc * sin_t - us * cos_t
+        scores = (torch.einsum("bhim,jm->bhij", a1, cos_t)
+                  + torch.einsum("bhim,jm->bhij", a2, sin_t))
+        return scores + torch.einsum("bhid,hd->bhi", q, bh)[..., None]
+
+    def forward(self, x, mask=None, lengths=None):
+        t = x.shape[1]
+        q, k, v = self._heads(x, x, x)
+        flash_ok = self.use_flash
+        if flash_ok and lengths is None and mask is not None:
+            if mask.shape[2] == 1:
+                lengths = mask[:, 0, 0, :].sum(dim=-1).to(torch.int32)
+            else:
+                flash_ok = False
+        if flash_ok:
+            o = rel_pos_flash_attention(
+                q, k, v, self.pos_layer.weight.t(), self.pos_layer.bias,
+                self.dim_model, self.num_heads, lengths=lengths,
+                use_kernel=self.use_kernel)
+            return self.output_layer(_merge_heads(o))
+        scores = (torch.einsum("bhqd,bhkd->bhqk", q, k)
+                  + self._rel_scores_factorized(q, t)) / self.dim_head ** 0.5
+        return self.output_layer(_merge_heads(_attend(scores, v, mask)))
+
+
+class RelPosPatch1dMultiHeadAttention(RelPos1dMultiHeadAttention):
+    """Patch attention (attention.py:313-351): avg-pool by patch_size, attend
+    with a min-pooled mask, nearest-upsample, crop to T."""
+
+    def __init__(self, dim_model: int, num_heads: int, patch_size: int = 3):
+        super().__init__(dim_model, num_heads, use_flash=False)
+        self.patch_size = patch_size
+
+    def forward(self, x, mask=None, lengths=None):
+        t, p = x.shape[1], self.patch_size
+        pad = (-t) % p
+        if pad:
+            x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+            if mask is None:
+                mask = torch.ones((1, 1, 1, t), dtype=torch.bool,
+                                  device=x.device)
+                mask = torch.nn.functional.pad(mask, (0, pad), value=False)
+            else:
+                qpad = pad if mask.shape[2] > 1 else 0
+                mask = torch.nn.functional.pad(mask, (0, pad, 0, qpad),
+                                               value=False)
+        if mask is not None:
+            mask = min_pool_mask(mask, p)
+        x = avg_pool(x, (p,), (p,))
+        o = super().forward(x, mask)
+        return upsample_nearest(o, p, axis=1)[:, :t]
+
+
+att_dict = {
+    "MultiHeadAttention": MultiHeadAttention,
+    "RelPos1dMultiHeadAttention": RelPos1dMultiHeadAttention,
+    "RelPosPatch1dMultiHeadAttention": RelPosPatch1dMultiHeadAttention,
+}
+
+
+def make_attention(dim_model: int, att_params: dict) -> nn.Module:
+    """Instantiate from a {'class': .., 'params': ..} spec."""
+    return att_dict[att_params["class"]](dim_model=dim_model,
+                                         **dict(att_params.get("params", {})))

@@ -1,0 +1,93 @@
+"""Log-mel filterbank front end (port of avec_tpu/ops/audio.py), fp32.
+
+torchaudio-compatible: |STFT|^2 with n_fft 512, periodic hann window of 400
+samples centred in n_fft, hop 160, reflect padding of n_fft//2; HTK mel
+scale, 80 mels over 0-8 kHz, no norm; log(x + 1e-9); lengths // hop + 1.
+The windowed real-DFT basis turns the STFT into one fp32 matmul.
+"""
+
+import functools
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+def hz_to_mel(f):
+    return 2595.0 * np.log10(1.0 + np.asarray(f, dtype=np.float64) / 700.0)
+
+
+def mel_to_hz(m):
+    return 700.0 * (10.0 ** (np.asarray(m, dtype=np.float64) / 2595.0) - 1.0)
+
+
+def mel_filterbank(n_freqs: int, n_mels: int, sample_rate: int,
+                   f_min: float = 0.0, f_max: Optional[float] = None):
+    """Triangular HTK mel filterbank (n_freqs, n_mels), no norm."""
+    f_max = f_max if f_max is not None else sample_rate / 2.0
+    all_freqs = np.linspace(0.0, sample_rate / 2.0, n_freqs)
+    f_pts = mel_to_hz(np.linspace(hz_to_mel(f_min), hz_to_mel(f_max),
+                                  n_mels + 2))
+    f_diff = f_pts[1:] - f_pts[:-1]
+    slopes = f_pts[None, :] - all_freqs[:, None]
+    down = -slopes[:, :-2] / f_diff[:-1]
+    up = slopes[:, 2:] / f_diff[1:]
+    return np.maximum(0.0, np.minimum(down, up)).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=8)
+def _dft_basis(n_fft: int, win_length: int) -> np.ndarray:
+    """Windowed real-DFT basis (n_fft, 2 * (n_fft//2 + 1)) [cos | -sin]."""
+    n_freq = n_fft // 2 + 1
+    window = 0.5 * (1.0 - np.cos(2.0 * np.pi * np.arange(win_length)
+                                 / win_length))
+    pad_l = (n_fft - win_length) // 2
+    win_full = np.zeros(n_fft)
+    win_full[pad_l:pad_l + win_length] = window
+    angle = 2.0 * np.pi * np.arange(n_fft)[:, None] * np.arange(n_freq)[None] / n_fft
+    basis = np.concatenate([np.cos(angle), -np.sin(angle)], axis=1)
+    return (basis * win_full[:, None]).astype(np.float32)
+
+
+def power_spectrogram(x: torch.Tensor, basis: torch.Tensor, n_fft: int = 512,
+                      hop_length: int = 160) -> torch.Tensor:
+    """(B, T) -> (B, T // hop + 1, n_fft//2 + 1) power spectrum, fp32."""
+    pad = n_fft // 2
+    xp = F.pad(x.float()[:, None, :], (pad, pad), mode="reflect")[:, 0]
+    frames = xp.unfold(-1, n_fft, hop_length)          # (B, n_frames, n_fft)
+    out = frames @ basis
+    n_freq = n_fft // 2 + 1
+    real, imag = out[..., :n_freq], out[..., n_freq:]
+    return real * real + imag * imag
+
+
+class AudioPreprocessing(nn.Module):
+    """(B, T) audio -> (B, n_mels, T // hop + 1) log-mels in x's dtype, and
+    lengths // hop + 1. Computed in fp32 whatever the input dtype."""
+
+    def __init__(self, sample_rate=16000, n_fft=512, win_length_ms=25,
+                 hop_length_ms=10, n_mels=80, normalize=False, mean=0.0,
+                 std=1.0):
+        super().__init__()
+        self.n_fft = n_fft
+        self.win_length = int(sample_rate * win_length_ms) // 1000
+        self.hop_length = int(sample_rate * hop_length_ms) // 1000
+        self.normalize, self.mean, self.std = normalize, mean, std
+        self.register_buffer("basis", torch.from_numpy(
+            _dft_basis(n_fft, self.win_length)), persistent=False)
+        self.register_buffer("mel", torch.from_numpy(mel_filterbank(
+            n_fft // 2 + 1, n_mels, sample_rate, 0.0, 8000.0)),
+            persistent=False)
+
+    def forward(self, x, lengths=None):
+        spec = power_spectrogram(x, self.basis, self.n_fft, self.hop_length)
+        out = torch.log(spec @ self.mel + 1e-9)
+        if self.normalize:
+            out = (out - self.mean) / self.std
+        out = out.transpose(1, 2).to(x.dtype)
+        if lengths is None:
+            return out
+        return out, torch.div(lengths, self.hop_length,
+                              rounding_mode="floor") + 1

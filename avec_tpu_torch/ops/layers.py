@@ -1,0 +1,209 @@
+"""Layer library (port of avec_tpu/ops/layers.py), eval only.
+
+Parameters keep the reference PyTorch layouts and names (Linear weight
+(O, I), Conv weight (O, I/groups, *k), norm weight/bias, BN running stats),
+so the reference state_dict and `avec_tpu_torch.convert` share one map.
+Parameters stay fp32 and are cast to the activation dtype inside each op.
+
+Layouts: `Conv` and `BatchNorm` take channels-first tensors (N, C, *spatial)
+as PyTorch does; `Linear`, `LayerNorm` and the pooling helpers work on the
+last axis / channels-last tensors, as the JAX package does. The JAX
+`_polyphase_fold`/`_polyphase_conv` are TPU layout tricks with identical
+outputs: here a plain `F.conv{1,2,3}d` with the same padding.
+"""
+
+import math
+from typing import Sequence, Tuple, Union
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+PaddingLike = Union[str, int, Sequence]
+
+
+def _tuple(v, n):
+    if isinstance(v, (tuple, list)):
+        assert len(v) == n
+        return tuple(v)
+    return (v,) * n
+
+
+def conv_padding(kernel_size: Tuple[int, ...], padding: PaddingLike):
+    """Reference padding policy -> explicit (lo, hi) pairs per axis:
+    same = ((k-1)//2, k//2), same-left = (k//2, (k-1)//2), causal = (k-1, 0)."""
+    n = len(kernel_size)
+    if isinstance(padding, str):
+        rule = {"valid": lambda k: (0, 0),
+                "same": lambda k: ((k - 1) // 2, k // 2),
+                "same-left": lambda k: (k // 2, (k - 1) // 2),
+                "causal": lambda k: (k - 1, 0)}
+        if padding not in rule:
+            raise ValueError(f"unknown padding policy: {padding}")
+        return tuple(rule[padding](k) for k in kernel_size)
+    if (isinstance(padding, (tuple, list))
+            and any(isinstance(p, str) for p in padding)):
+        assert len(padding) == n
+        return tuple(conv_padding((k,), p)[0]
+                     for k, p in zip(kernel_size, padding))
+    return tuple((p, p) for p in _tuple(padding, n))
+
+
+def _uniform_(t: torch.Tensor, bound: float, gen: torch.Generator):
+    with torch.no_grad():
+        t.uniform_(-bound, bound, generator=gen)
+
+
+class Linear(nn.Module):
+    """Dense layer over the last axis; torch-default init."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.bias = nn.Parameter(torch.empty(out_features)) if bias else None
+
+    def init_(self, gen: torch.Generator):
+        bound = 1.0 / math.sqrt(self.weight.shape[1])
+        _uniform_(self.weight, bound, gen)
+        if self.bias is not None:
+            _uniform_(self.bias, bound, gen)
+
+    def forward(self, x):
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), b)
+
+
+class Conv(nn.Module):
+    """N-d convolution (N, C, *spatial) with the reference padding policies.
+    Bias-free convs (the ResNet trunk) init he-normal, others torch-default."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size, ndim: int = 1,
+                 stride=1, padding: PaddingLike = "same", groups: int = 1,
+                 bias: bool = True):
+        super().__init__()
+        self.ndim = ndim
+        self.kernel_size = _tuple(kernel_size, ndim)
+        self.stride = _tuple(stride, ndim)
+        self.pads = conv_padding(self.kernel_size, padding)
+        self.groups = groups
+        self.weight = nn.Parameter(
+            torch.empty((out_ch, in_ch // groups) + self.kernel_size))
+        self.bias = nn.Parameter(torch.empty(out_ch)) if bias else None
+
+    def init_(self, gen: torch.Generator):
+        fan_in = self.weight[0].numel()
+        with torch.no_grad():
+            if self.bias is None:
+                self.weight.normal_(0.0, math.sqrt(2.0 / fan_in), generator=gen)
+            else:
+                _uniform_(self.weight, 1.0 / math.sqrt(fan_in), gen)
+                _uniform_(self.bias, 1.0 / math.sqrt(fan_in), gen)
+
+    def forward(self, x):
+        conv = (F.conv1d, F.conv2d, F.conv3d)[self.ndim - 1]
+        if all(lo == hi for lo, hi in self.pads):
+            padding = tuple(lo for lo, _ in self.pads)
+        else:
+            flat = [p for pair in reversed(self.pads) for p in pair]
+            x = F.pad(x, flat)
+            padding = 0
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return conv(x, self.weight.to(x.dtype), b, stride=self.stride,
+                    padding=padding, groups=self.groups)
+
+
+def _to_channels_first(x):
+    return x.movedim(-1, 1)
+
+
+def _to_channels_last(x):
+    return x.movedim(1, -1)
+
+
+def max_pool(x, kernel_size, strides=None, padding: PaddingLike = "valid"):
+    """Channels-last (B, *spatial, C) max pool; pads are -inf."""
+    n = x.ndim - 2
+    ks = _tuple(kernel_size, n)
+    st = _tuple(strides if strides is not None else kernel_size, n)
+    pads = conv_padding(ks, padding)
+    y = _to_channels_first(x)
+    if any(p != (0, 0) for p in pads):
+        y = F.pad(y, [p for pair in reversed(pads) for p in pair],
+                  value=float("-inf"))
+    pool = (F.max_pool1d, F.max_pool2d, F.max_pool3d)[n - 1]
+    return _to_channels_last(pool(y, ks, st))
+
+
+def avg_pool(x, kernel_size, strides=None, padding: PaddingLike = "valid"):
+    """Channels-last average pool; zero pads count (torch default)."""
+    n = x.ndim - 2
+    ks = _tuple(kernel_size, n)
+    st = _tuple(strides if strides is not None else kernel_size, n)
+    pads = conv_padding(ks, padding)
+    y = _to_channels_first(x)
+    if any(p != (0, 0) for p in pads):
+        y = F.pad(y, [p for pair in reversed(pads) for p in pair])
+    pool = (F.avg_pool1d, F.avg_pool2d, F.avg_pool3d)[n - 1]
+    return _to_channels_last(pool(y, ks, st))
+
+
+def upsample_nearest(x, scale_factor: int, axis: int = 1):
+    """Nearest-neighbour upsample along one axis."""
+    return torch.repeat_interleave(x, scale_factor, dim=axis)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the last axis: fp32 stats, normalised value rounded to
+    x's dtype before the affine (as the JAX `_ln_apply`)."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def init_(self, gen: torch.Generator):
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+
+    def forward(self, x):
+        xf = x.float()
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = (xf - mean).square().mean(dim=-1, keepdim=True)
+        y = ((xf - mean) * torch.rsqrt(var + self.eps)).to(x.dtype)
+        return y * self.weight.to(x.dtype) + self.bias.to(x.dtype)
+
+
+class BatchNorm(nn.Module):
+    """Eval BatchNorm over channel axis 1 with running statistics; the
+    normalise-and-affine runs in fp32 and is rounded to x's dtype."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def init_(self, gen: torch.Generator):
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+            self.running_mean.zero_()
+            self.running_var.fill_(1.0)
+
+    def forward(self, x):
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        inv = torch.rsqrt(self.running_var + self.eps).view(shape)
+        y = (x.float() - self.running_mean.view(shape)) * inv
+        return (y * self.weight.view(shape) + self.bias.view(shape)).to(x.dtype)
+
+
+def init_params(module: nn.Module, gen: torch.Generator) -> nn.Module:
+    """Draw every parameter of `module` from `gen` (torch-default inits)."""
+    for m in module.modules():
+        if hasattr(m, "init_"):
+            m.init_(gen)
+    return module

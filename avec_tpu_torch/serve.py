@@ -1,0 +1,124 @@
+"""Batched serving of the AV Efficient Conformer (port of tools/serve.py:57-286).
+
+Requests are dicts of arrays, {"video": (Tv, 88, 88, 1) float32 frames at
+25 fps, "audio": (Ta,) float32 samples at 16 kHz}. A batch of requests is
+padded to a power-of-two length bucket and batch bucket, run through one
+forward, and collapsed greedily on the device; each result carries its token
+ids, latency and real-time factor. Padding is masked by the model's length
+semantics, so neither bucket nor batch padding changes a transcription.
+
+Reading wav/mp4 files and detokenization are not ported yet.
+"""
+
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from avec_tpu_torch.decode.greedy import CTCGreedySearchDecoder
+from avec_tpu_torch.models.zoo import (AudioVisualEfficientConformerInterCTC,
+                                       resolve_device)
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def _bucket(n: int, floor: int = 4000) -> int:
+    b = floor
+    while b < n:
+        b *= 2
+    return b
+
+
+def _batch_bucket(n: int) -> int:
+    b = 1
+    while b < n:
+        b *= 2
+    return b
+
+
+class Server:
+    """AV serving loop: bucket -> forward -> greedy collapse -> token ids.
+
+    model_kwargs go to AudioVisualEfficientConformerInterCTC (defaults: the
+    reference depth, vocab 256). The activations run in `precision`
+    (bf16 by default, as tools/serve.py); parameters stay fp32."""
+
+    # Batch-padding rows: zero audio/video with this many valid samples, so
+    # every mask row has real frames (no all-masked attention).
+    PAD_ROW_SAMPLES = 2560
+
+    def __init__(self, model: Optional[torch.nn.Module] = None,
+                 device="cuda", precision: str = "bfloat16", seed: int = 0,
+                 **model_kwargs):
+        self.device = resolve_device(device)
+        self.dtype = _DTYPES[precision]
+        if model is None:
+            model = AudioVisualEfficientConformerInterCTC(
+                device=self.device,
+                generator=torch.Generator().manual_seed(seed), **model_kwargs)
+        self.model = model
+        self.decoder = CTCGreedySearchDecoder()
+        self.latencies: List[float] = []
+        self.rtfs: List[float] = []
+
+    def _inputs_for_batch(self, reqs, bucket_len: int, batch_bucket: int):
+        """Pad requests into one batch: [video, video_len, audio, audio_len]
+        as numpy arrays (float32 / int32)."""
+        pad_samples = min(self.PAD_ROW_SAMPLES, bucket_len)
+        audio = np.zeros((batch_bucket, bucket_len), np.float32)
+        alens = np.full((batch_bucket,), pad_samples, np.int32)
+        vb = bucket_len // 640 + 1
+        vshape = reqs[0]["video"].shape[1:]
+        video = np.zeros((batch_bucket, vb) + vshape, np.float32)
+        vlens = np.full((batch_bucket,), pad_samples // 640 + 1, np.int32)
+        for i, r in enumerate(reqs):
+            audio[i, :len(r["audio"])] = r["audio"]
+            alens[i] = len(r["audio"])
+            video[i, :r["video"].shape[0]] = r["video"]
+            vlens[i] = r["video"].shape[0]
+        return [video, vlens, audio, alens]
+
+    def forward(self, inputs, dtype: Optional[torch.dtype] = None):
+        """Padded numpy inputs -> (logits, lengths) on the device. Float
+        inputs are cast to the activation dtype."""
+        dtype = dtype or self.dtype
+        args = []
+        for a in inputs:
+            t = torch.as_tensor(a).to(self.device)
+            args.append(t.to(dtype) if t.is_floating_point() else t)
+        return self.model(*args)["outputs"]
+
+    def transcribe_batch(self, reqs: List[Dict], enqueue_times=None):
+        """Serve requests as one device batch. Latency runs from
+        enqueue_times[i] (default: now) to the moment the result is ready."""
+        if enqueue_times is None:
+            enqueue_times = [time.perf_counter()] * len(reqs)
+        samples = [len(r["audio"]) for r in reqs]
+        inputs = self._inputs_for_batch(reqs, _bucket(max(samples)),
+                                        _batch_bucket(len(reqs)))
+        logits, lengths = self.forward(inputs)
+        tokens, tok_lens = self.decoder.device_fn((logits, lengths))
+        ids = self.decoder((tokens[:len(reqs)], tok_lens[:len(reqs)]))
+        done = time.perf_counter()
+        results = []
+        for i, n in enumerate(samples):
+            dt = done - enqueue_times[i]
+            rtf = dt / max(n / 16000.0, 1e-6)
+            self.latencies.append(dt)
+            self.rtfs.append(rtf)
+            results.append({"tokens": ids[i], "latency_s": round(dt, 4),
+                            "rtf": round(rtf, 5), "batch_size": len(reqs)})
+        return results
+
+    def stats_summary(self):
+        """Latency / RTF stats over the server's lifetime."""
+        if not self.latencies:
+            return {"requests": 0}
+        lat = np.sort(np.asarray(self.latencies))
+        return {"requests": int(lat.size),
+                "latency_p50_s": float(lat[lat.size // 2]),
+                "latency_p95_s": float(lat[min(lat.size - 1,
+                                               int(lat.size * 0.95))]),
+                "latency_mean_s": float(lat.mean()),
+                "rtf_mean": float(np.mean(self.rtfs))}

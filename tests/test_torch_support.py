@@ -1,0 +1,126 @@
+"""Shared helpers for the PyTorch-port tests, and the port's purity tests.
+
+The port (`avec_tpu_torch`) must import neither JAX nor `avec_tpu`; only
+these tests import both. Inputs and weights are made with numpy from a seed:
+JAX variables are drawn for a flax module's parameter shapes and carried into
+the port with `avec_tpu_torch.convert.params_from_jax`.
+"""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from avec_tpu_torch.convert import params_from_jax
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def t(a) -> torch.Tensor:
+    """numpy / jax array -> CPU torch tensor (copied)."""
+    return torch.from_numpy(np.array(a))
+
+
+def _draw(path, shape, rng):
+    name = path[-1]
+    if name == "mean":
+        return rng.randn(*shape) * 0.1
+    if name == "var":
+        return rng.rand(*shape) + 0.5
+    if name == "scale":
+        return 1.0 + rng.randn(*shape) * 0.1
+    if name in ("bias", "pos_bias"):
+        return rng.randn(*shape) * 0.1
+    stacked = any(p.startswith("blocks_") for p in path)
+    fan_in = int(np.prod(shape[1 if stacked else 0:-1]))
+    bound = 1.0 / np.sqrt(max(fan_in, 1))
+    return rng.uniform(-bound, bound, size=shape)
+
+
+def random_variables(shapes, seed: int = 0):
+    """Seeded numpy values for a flax variables shape tree (from
+    jax.eval_shape of `init`): torch-default-scale weights, non-trivial
+    norm affines and BN running statistics."""
+    rng = np.random.RandomState(seed)
+    paths = jax.tree_util.tree_flatten_with_path(shapes)[0]
+    out = {}
+    for path, leaf in paths:
+        keys = [p.key for p in path]
+        node = out
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = _draw(keys[1:], leaf.shape, rng).astype(np.float32)
+    return out.get("params", {}), out.get("batch_stats", {})
+
+
+def init_variables(module, *args, seed: int = 0, **kwargs):
+    """Random (params, batch_stats) for a flax module without compiling its
+    init: eval_shape gives the shapes, numpy draws the values."""
+    shapes = jax.eval_shape(
+        lambda: module.init({"params": jax.random.PRNGKey(0)}, *args,
+                            **kwargs))
+    return random_variables(shapes, seed)
+
+
+def port_state(params, batch_stats=None, wrap=None, strip=""):
+    """params_from_jax, optionally wrapping the trees in a scope name (so the
+    path rules see the module's place in a model) and stripping the
+    resulting key prefix."""
+    if wrap:
+        params = {wrap: params}
+        batch_stats = {wrap: batch_stats} if batch_stats else None
+    sd = params_from_jax(params, batch_stats)
+    return {k[len(strip):]: v for k, v in sd.items() if k.startswith(strip)}
+
+
+def _port_files():
+    files = sorted((REPO / "avec_tpu_torch").rglob("*.py"))
+    smoke = REPO / "chip_smoke.py"
+    return files + ([smoke] if smoke.exists() else [])
+
+
+def test_port_imports_no_jax():
+    """Importing the port pulls in neither jax nor avec_tpu (run in a fresh
+    interpreter: this test process already imported JAX)."""
+    code = ("import sys, avec_tpu_torch, avec_tpu_torch.serve, "
+            "avec_tpu_torch.convert\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'avec_tpu')]\n"
+            "assert not bad, bad\nprint('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and "ok" in res.stdout, res.stderr
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.name)
+def test_port_source_has_no_jax_reference(path):
+    """No import of jax/flax and no import of `avec_tpu` (as opposed to
+    `avec_tpu_torch`), in any statement form, in any port source or in
+    chip_smoke.py. Docstrings may still name the JAX file a module ports."""
+    src = path.read_text()
+    mod = r"(jax|jaxlib|flax|avec_tpu(?!_torch))\b"
+    assert not re.search(r"^\s*(import|from)\s+" + mod, src, re.M), path
+    assert not re.search(r"import\s+[\w., ]*\b" + mod, src), path
+    assert not re.search(r"(import_module|__import__)\(\s*['\"]" + mod, src), path
+
+
+def test_entry_points_default_to_cuda():
+    """Entry points run on the card unless the caller asks for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the CUDA default is valid here")
+    from avec_tpu_torch.models.zoo import AudioVisualEfficientConformerInterCTC
+    from avec_tpu_torch.serve import Server
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        AudioVisualEfficientConformerInterCTC(vocab_size=8, v_num_blocks=(1, 1),
+                                              a_num_blocks=(1, 1, 1),
+                                              f_num_blocks=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Server(vocab_size=8)
