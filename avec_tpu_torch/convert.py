@@ -16,6 +16,11 @@ rules of the JAX package's torch converter apply here in the other direction:
 
 Inputs are nested dicts of numpy arrays (the flax `params` and
 `batch_stats` trees); the output maps state_dict keys to fp32 CPU tensors.
+
+`state_to_jax` and `grads_to_jax_layout` are the inverse map: the port's
+tensors by state_dict key (parameters, their gradients, or updated running
+statistics) back into trees of the JAX layout, transposes and scan stacking
+included, so that they compare leaf by leaf with the JAX trees.
 """
 
 import re
@@ -61,6 +66,26 @@ def _audio_stem_linear(k):
     c, f = out_dim, in_dim // out_dim
     return np.ascontiguousarray(k.reshape(f, c, out_dim).transpose(2, 1, 0)
                                 .reshape(out_dim, c * f))
+
+
+def _conv_inv(w):
+    """(O, I/g, *k) -> (*k, I/g, O)."""
+    w = np.asarray(w)
+    nd = w.ndim - 2
+    return np.ascontiguousarray(w.transpose(tuple(range(2, nd + 2)) + (1, 0)))
+
+
+def _audio_stem_linear_inv(w):
+    """(O, C*F) channel-major -> (F*C, O) frequency-major; C == O."""
+    w = np.asarray(w)
+    out_dim, in_dim = w.shape
+    c, f = out_dim, in_dim // out_dim
+    return np.ascontiguousarray(w.reshape(out_dim, c, f).transpose(2, 1, 0)
+                                .reshape(f * c, out_dim))
+
+
+_INVERSE = {_linear: _linear, _conv: _conv_inv, _identity: _identity,
+            _audio_stem_linear: _audio_stem_linear_inv}
 
 
 def _leaf_rule(segs: List[str], leaf: str, in_batch_stats: bool):
@@ -198,3 +223,50 @@ def params_from_jax(params, batch_stats=None) -> "OrderedDict[str, torch.Tensor]
             sd[key] = torch.from_numpy(
                 np.ascontiguousarray(tf(a), dtype=np.float32))
     return sd
+
+
+def _flatten_paths(tree, prefix=()) -> List[Tuple[str, ...]]:
+    paths = []
+    for k, v in tree.items():
+        if hasattr(v, "items"):
+            paths += _flatten_paths(v, prefix + (str(k),))
+        else:
+            paths.append(prefix + (str(k),))
+    return paths
+
+
+def _to_numpy(v) -> np.ndarray:
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu().float().numpy()
+    return np.asarray(v)
+
+
+def _tree_to_jax(values, template, in_bs: bool, ordinals):
+    out = {}
+    for path in _flatten_paths(template):
+        segs, leaf = list(path[:-1]), path[-1]
+        entries = _torch_entries(segs, leaf, in_bs, ordinals)
+        arrs = [_INVERSE[tf](_to_numpy(values[key])) for key, tf in entries]
+        arr = arrs[0] if len(arrs) == 1 else np.stack(arrs)
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = arr
+    return out
+
+
+def state_to_jax(values, params_template, batch_stats_template=None):
+    """The port's tensors by state_dict key -> (params, batch_stats) trees
+    in the JAX layout. The templates are the JAX trees (any leaves): only
+    their structure is read."""
+    paths = _flatten_paths(params_template)
+    paths += _flatten_paths(batch_stats_template or {})
+    ordinals = _interctc_ordinals([p[:-1] for p in paths])
+    params = _tree_to_jax(values, params_template, False, ordinals)
+    stats = _tree_to_jax(values, batch_stats_template or {}, True, ordinals)
+    return params, stats
+
+
+def grads_to_jax_layout(grads, params_template):
+    """Gradients by parameter name -> a tree shaped like the JAX `params`."""
+    return state_to_jax(grads, params_template)[0]

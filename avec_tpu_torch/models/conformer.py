@@ -1,10 +1,15 @@
 """Conformer blocks and the InterCTC conformer stack (port of
-avec_tpu/models/conformer.py), eval only.
+avec_tpu/models/conformer.py), eval and training.
 
 Sequences are (B, T, D); masks boolean (B, 1, 1, T); lengths int (B,).
 Parameter names follow the reference state_dict: ff_module{1,2}.layers.{0,1,4},
 self_att_module.{norm,attention}, conv_module.layers.{0,1,3,4,6}, conv_res,
 norm; conformer_blocks.{i} and interctc_modules.{k} in the stack.
+
+Training mode (`nn.Module.train()`): the feed-forward module runs as one
+fused kernel (`ops/ffn.py`), dropout follows the attention, convolution and
+feed-forward modules and opens the stack, the convolution module's BatchNorm
+uses batch statistics and the depthwise conv's bias is detached.
 """
 
 from typing import Dict, List, Sequence, Union
@@ -14,7 +19,9 @@ import torch.nn as nn
 
 from avec_tpu_torch.ops.activations import get_act, glu, swish
 from avec_tpu_torch.ops.attention import make_attention
-from avec_tpu_torch.ops.layers import BatchNorm, Conv, LayerNorm, Linear
+from avec_tpu_torch.ops.ffn import fused_ffn_3d
+from avec_tpu_torch.ops.layers import (BatchNorm, Conv, Dropout, LayerNorm,
+                                       Linear)
 from avec_tpu_torch.ops.masks import downsample_mask, strided_lengths
 
 
@@ -24,51 +31,85 @@ def _indexed(mods: Dict[int, nn.Module]) -> nn.ModuleDict:
 
 
 class FeedForwardModule(nn.Module):
-    """Pre-norm FFN: LN(1e-6) -> Linear(d_ffn) -> swish -> Linear(d)."""
+    """Pre-norm FFN: LN(1e-6) -> Linear(d_ffn) -> swish -> drop -> Linear(d)
+    -> drop (conformer.py:86).
 
-    def __init__(self, dim_model: int, dim_ffn: int):
+    In training mode a (B, T, d) input goes through the fused kernel of
+    `ops/ffn.py` (the JAX gate of conformer.py:103-107: training, pre-norm,
+    3-d input, Swish), with a 31-bit dropout seed drawn from
+    `seed_generator`, a CPU `torch.Generator` set by the owning model. Eval
+    runs the unfused layers. `use_kernel=False` routes the fused path through
+    its plain version; `regularize=False` turns dropout off."""
+
+    def __init__(self, dim_model: int, dim_ffn: int, drop_rate: float = 0.1):
         super().__init__()
         self.layers = _indexed({0: LayerNorm(dim_model, 1e-6),
                                 1: Linear(dim_model, dim_ffn),
                                 4: Linear(dim_ffn, dim_model)})
+        self.dropout = Dropout(drop_rate)
+        self.drop_rate = drop_rate
+        self.use_kernel = True
+        self.regularize = True
+        self.seed_generator = None
+        self.training = False
 
     def forward(self, x):
-        x = self.layers["0"](x)
-        return self.layers["4"](swish(self.layers["1"](x)))
+        norm, lin1, lin2 = (self.layers[k] for k in ("0", "1", "4"))
+        if self.training and x.ndim == 3:
+            rate = self.drop_rate if self.regularize else 0.0
+            seed = None
+            if rate > 0.0:
+                seed = int(torch.randint(0, 2 ** 31, (),
+                                         generator=self.seed_generator))
+            return fused_ffn_3d(x, norm.weight, norm.bias, lin1.weight,
+                                lin1.bias, lin2.weight, lin2.bias, seed=seed,
+                                epsilon=norm.eps, drop_rate=rate,
+                                deterministic=False,
+                                use_kernel=self.use_kernel)
+        x = self.dropout(swish(lin1(norm(x))))
+        return self.dropout(lin2(x))
 
 
 class AttentionModule(nn.Module):
-    """Pre-norm attention (no residual inside the conformer block)."""
+    """Pre-norm attention + dropout (no residual inside the conformer
+    block)."""
 
-    def __init__(self, dim_model: int, att_params: dict):
+    def __init__(self, dim_model: int, att_params: dict,
+                 drop_rate: float = 0.1):
         super().__init__()
         self.norm = LayerNorm(dim_model, 1e-6)
         self.attention = make_attention(dim_model, att_params)
+        self.dropout = Dropout(drop_rate)
 
     def forward(self, x, mask=None, lengths=None):
-        return self.attention(self.norm(x), mask=mask, lengths=lengths)
+        return self.dropout(self.attention(self.norm(x), mask=mask,
+                                           lengths=lengths))
 
 
 class ConvolutionModule(nn.Module):
-    """LN -> pointwise 2E -> GLU -> depthwise k (stride) -> eval BN -> swish
-    -> pointwise E; channels-first inside, (B, T, D) at the boundary."""
+    """LN -> pointwise 2E -> GLU -> depthwise k (stride) -> BN -> swish
+    -> pointwise E -> drop; channels-first inside, (B, T, D) at the boundary.
+    The depthwise conv feeds the BN, so its bias is detached in training."""
 
     def __init__(self, dim_model: int, dim_expand: int, stride: int = 1,
-                 kernel_size: int = 15, padding: str = "same"):
+                 kernel_size: int = 15, padding: str = "same",
+                 drop_rate: float = 0.1):
         super().__init__()
         self.layers = _indexed({
             0: LayerNorm(dim_model, 1e-6),
             1: Conv(dim_model, 2 * dim_expand, 1, ndim=1),
             3: Conv(dim_expand, dim_expand, kernel_size, ndim=1, stride=stride,
-                    padding=padding, groups=dim_expand),
+                    padding=padding, groups=dim_expand,
+                    bias_stop_gradient=True),
             4: BatchNorm(dim_expand),
             6: Conv(dim_expand, dim_expand, 1, ndim=1)})
+        self.dropout = Dropout(drop_rate)
 
     def forward(self, x):
         x = self.layers["0"](x).transpose(1, 2)
         x = glu(self.layers["1"](x), dim=1)
         x = swish(self.layers["4"](self.layers["3"](x)))
-        return self.layers["6"](x).transpose(1, 2)
+        return self.dropout(self.layers["6"](x).transpose(1, 2))
 
 
 class InterCTCResModule(nn.Module):
@@ -107,17 +148,21 @@ class ConformerBlock(nn.Module):
 
     def __init__(self, dim_model: int, dim_expand: int, ff_ratio: int,
                  att_params: dict, conv_stride: int = 1, kernel_size: int = 15,
-                 conv_padding: str = "same"):
+                 conv_padding: str = "same", drop_rate: float = 0.1):
         super().__init__()
         self.stride = conv_stride
-        self.ff_module1 = FeedForwardModule(dim_model, dim_model * ff_ratio)
-        self.self_att_module = AttentionModule(dim_model, att_params)
+        self.ff_module1 = FeedForwardModule(dim_model, dim_model * ff_ratio,
+                                            drop_rate)
+        self.self_att_module = AttentionModule(dim_model, att_params,
+                                               drop_rate)
         self.conv_module = ConvolutionModule(dim_model, dim_expand, conv_stride,
-                                             kernel_size, conv_padding)
+                                             kernel_size, conv_padding,
+                                             drop_rate)
         self.conv_res = (Conv(dim_model, dim_expand, 1, ndim=1,
                               stride=conv_stride)
                          if dim_model != dim_expand else None)
-        self.ff_module2 = FeedForwardModule(dim_expand, dim_expand * ff_ratio)
+        self.ff_module2 = FeedForwardModule(dim_expand, dim_expand * ff_ratio,
+                                            drop_rate)
         self.norm = LayerNorm(dim_expand, 1e-6)
 
     def forward(self, x, mask=None, lengths=None):
@@ -141,15 +186,16 @@ class ConformerInterCTC(nn.Module):
     last strides by conv_stride into dims[s+1]. Block i (0-based) carries an
     InterCTC module when i+1 is in interctc_blocks; outputs are keyed
     "{loss_prefix}_{i}". Masks and lengths are re-strided after each strided
-    block."""
+    block. Dropout opens the stack (conformer.py:591)."""
 
     def __init__(self, dim_model: Union[int, Sequence[int]],
                  num_blocks: Union[int, Sequence[int]],
                  interctc_blocks: Sequence[int], vocab_size: int,
                  att_params, loss_prefix: str = "ctc", kernel_size: int = 15,
                  ff_ratio: int = 4, conv_stride: int = 2,
-                 conv_padding: str = "same"):
+                 conv_padding: str = "same", drop_rate: float = 0.1):
         super().__init__()
+        self.dropout = Dropout(drop_rate)
         dims = [dim_model] if isinstance(dim_model, int) else list(dim_model)
         nblocks = [num_blocks] if isinstance(num_blocks, int) else list(num_blocks)
         self.loss_prefix = loss_prefix
@@ -165,7 +211,8 @@ class ConformerInterCTC(nn.Module):
                 blocks.append(ConformerBlock(
                     dims[stage], dim_out, ff_ratio, att,
                     conv_stride=conv_stride if down else 1,
-                    kernel_size=kernel_size, conv_padding=conv_padding))
+                    kernel_size=kernel_size, conv_padding=conv_padding,
+                    drop_rate=drop_rate))
                 if i + 1 in set(interctc_blocks):
                     self.interctc_at.append(i)
                     inter.append(InterCTCResModule(dim_out, vocab_size))
@@ -175,6 +222,7 @@ class ConformerInterCTC(nn.Module):
 
     def forward(self, x, lengths=None, mask=None):
         interctc_outputs = {}
+        x = self.dropout(x)
         for i, block in enumerate(self.conformer_blocks):
             x = block(x, mask=mask, lengths=lengths)
             logits = None
@@ -190,8 +238,9 @@ class ConformerInterCTC(nn.Module):
 
 
 class ConvNeuralNetwork(nn.Module):
-    """Conv -> eval BN -> act stack, channels-first; each layer updates
-    lengths by (len-1)//2+1 (the reference hardcodes stride-2 updates)."""
+    """Conv -> BN -> act stack, channels-first; each layer updates lengths
+    by (len-1)//2+1 (the reference hardcodes stride-2 updates). Each conv
+    feeds a BN, so its bias is detached in training."""
 
     def __init__(self, in_ch: int, dim_layers: Sequence[int], kernel_size,
                  ndim: int = 2, strides=1, act_fun="Swish",
@@ -201,7 +250,7 @@ class ConvNeuralNetwork(nn.Module):
         for dim in dim_layers:
             layers.append(nn.ModuleList([
                 Conv(prev, dim, kernel_size, ndim=ndim, stride=strides,
-                     padding=padding),
+                     padding=padding, bias_stop_gradient=True),
                 BatchNorm(dim)]))
             prev = dim
         self.layers = nn.ModuleList(layers)

@@ -1,9 +1,15 @@
-"""Efficient Conformer encoders (port of avec_tpu/models/encoders.py), eval only.
+"""Efficient Conformer encoders (port of avec_tpu/models/encoders.py), eval
+and training.
 
 Audio (B, Ta) raw 16 kHz waveform; video (B, Tv, 88, 88, 1) channels-last.
 Audio runs fbank -> conv stem -> 3-stage conformer [180, 256, 360]; video
 runs the Conv3d stem -> per-frame ResNet18 -> 2-stage conformer [256, 360];
 the AV encoder fuses both at 360-d and runs 5 more conformer blocks.
+
+Training mode (`nn.Module.train()`, the JAX `training=True`): SpecAugment
+after the fbank, batch statistics in every BatchNorm (audio stem, video stem,
+ResNet, convolution modules), dropout and the fused feed-forward kernels in
+the conformer stacks. The video stem trains in mode "2d" only.
 """
 
 import os
@@ -16,7 +22,7 @@ import torch.nn.functional as F
 from avec_tpu_torch.models.conformer import (ConformerInterCTC,
                                              ConvNeuralNetwork, FusionModule)
 from avec_tpu_torch.models.resnet import ResNet
-from avec_tpu_torch.ops.audio import AudioPreprocessing
+from avec_tpu_torch.ops.audio import AudioPreprocessing, SpecAugment
 from avec_tpu_torch.ops.layers import BatchNorm, Conv, Linear
 from avec_tpu_torch.ops.masks import make_mask
 from avec_tpu_torch.ops.stem import fused_stem_eval, stem_conv
@@ -29,11 +35,13 @@ def _stem_mode() -> str:
 
 
 class FusedVideoStem(nn.Module):
-    """Conv3d 1->64 k(5,7,7) s(1,2,2) + eval BN + ReLU + 3x3/2 max pool
+    """Conv3d 1->64 k(5,7,7) s(1,2,2) + BN + ReLU + 3x3/2 max pool
     (encoders.py:79). Returns frames flattened: (B*T, 22, 22, 64).
 
-    mode "2d" is plain PyTorch; mode "pallas" runs the BN+ReLU+pool kernel
-    (`ops/stem.py`), or its plain version when `use_kernel` is False."""
+    mode "2d" is plain PyTorch, in eval and in training (batch statistics,
+    running update, detached conv bias: encoders.py:135-152); mode "pallas"
+    runs the eval BN+ReLU+pool kernel (`ops/stem.py`), or its plain version
+    when `use_kernel` is False, and has no training mode yet."""
 
     def __init__(self, mode: str = "2d"):
         super().__init__()
@@ -45,6 +53,7 @@ class FusedVideoStem(nn.Module):
         self.layers = nn.ModuleList([nn.ModuleList([
             Conv(1, 64, (5, 7, 7), ndim=3, stride=(1, 2, 2)),
             BatchNorm(64)])])
+        self.training = False
 
     def forward(self, x):
         if tuple(x.shape[2:]) != (88, 88, 1):
@@ -52,10 +61,15 @@ class FusedVideoStem(nn.Module):
                              f"{tuple(x.shape[2:])}")
         conv, bn = self.layers[0]
         if self.mode == "pallas":
+            if self.training:
+                raise NotImplementedError(
+                    "the train-mode stem kernel is not ported: train with "
+                    "stem mode '2d'")
             return fused_stem_eval(x, conv.weight, conv.bias, bn.weight,
                                    bn.bias, bn.running_mean, bn.running_var,
                                    bn.eps, use_kernel=self.use_kernel)
-        y = bn(stem_conv(x, conv.weight, conv.bias).permute(0, 3, 1, 2))
+        bias = conv.bias.detach() if self.training else conv.bias
+        y = bn(stem_conv(x, conv.weight, bias).permute(0, 3, 1, 2))
         # relu commutes with max: pooling first is exact and 4x cheaper.
         y = torch.relu(F.max_pool2d(y, 3, 2, padding=1))
         return y.permute(0, 2, 3, 1)
@@ -91,6 +105,7 @@ class AudioEfficientConformerEncoder(nn.Module):
         self.preprocessing = AudioPreprocessing(
             sample_rate=16000, n_fft=512, win_length_ms=25, hop_length_ms=10,
             n_mels=n_mels, normalize=False)
+        self.spec_augment = SpecAugment(mF=2, F=27, mT=5, pS=0.05)
         self.subsampling_module = ConvNeuralNetwork(
             1, [filters], 3, ndim=2, strides=2, act_fun="Swish")
         self.linear = Linear(filters * (n_mels // 2), dims[0])
@@ -102,6 +117,7 @@ class AudioEfficientConformerEncoder(nn.Module):
 
     def forward(self, x, lengths):
         x, lengths = self.preprocessing(x, lengths)       # (B, 80, T')
+        x = self.spec_augment(x, lengths)                  # training only
         x, lengths = self.subsampling_module(x[:, None], lengths)
         b, c, f, t = x.shape                               # (B, 180, 40, T'')
         x = self.linear(x.permute(0, 3, 1, 2).reshape(b, t, c * f))

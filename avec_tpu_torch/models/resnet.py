@@ -1,4 +1,5 @@
-"""ResNet trunk (port of avec_tpu/models/resnet.py), eval only, NCHW.
+"""ResNet trunk (port of avec_tpu/models/resnet.py), NCHW; its BatchNorms
+use batch statistics in training mode.
 
 AVEC uses ResNet18 without its stem as the per-frame visual trunk
 (include_stem=False, dim_output=256). Convs are bias-free with "same"

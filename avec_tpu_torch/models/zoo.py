@@ -1,11 +1,12 @@
-"""Task models (port of avec_tpu/models/zoo.py): the AV model's forward.
+"""Task models (port of avec_tpu/models/zoo.py): the AV model, eval and
+training forward.
 
 Weights are drawn from an explicit `torch.Generator` (default seed 0) on the
 CPU, so a seed gives the same model on every device, then moved to `device`.
 Entry points default to CUDA and raise when it is absent.
 """
 
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -23,10 +24,14 @@ def resolve_device(device) -> torch.device:
 
 
 class AudioVisualEfficientConformerInterCTC(nn.Module):
-    """AV Efficient Conformer with InterCTC (zoo.py:200-260), eval forward.
+    """AV Efficient Conformer with InterCTC (zoo.py:200-260).
 
     forward(video, video_len, audio, audio_len) returns
-    {"outputs": [logits (B, T, vocab), lengths], "<prefix>_<i>": [...]}."""
+    {"outputs": [logits (B, T, vocab), lengths], "<prefix>_<i>": [...]}: with
+    the reference blocks the six outputs `outputs`, `v_ctc_2`, `v_ctc_5`,
+    `a_ctc_7`, `a_ctc_10`, `f_ctc_1`. The model is built in eval mode, where
+    the forward records no graph; `.train()` does what `training=True` does
+    in the JAX package (zoo.py:211-227)."""
 
     def __init__(self, vocab_size: int = 256,
                  v_interctc_blocks: Sequence[int] = (3, 6),
@@ -50,6 +55,7 @@ class AudioVisualEfficientConformerInterCTC(nn.Module):
         init_params(self, generator)
         self.eval()
         self.to(device)
+        self.set_generators(0)
 
     def set_kernels(self, enabled: bool) -> None:
         """Route every kernel-holding module through its CUDA kernel (True)
@@ -58,9 +64,47 @@ class AudioVisualEfficientConformerInterCTC(nn.Module):
             if hasattr(m, "use_kernel"):
                 m.use_kernel = enabled
 
-    @torch.no_grad()
+    def set_regularization(self, enabled: bool) -> None:
+        """Dropout and SpecAugment on (True) or off (False) in training
+        mode; batch statistics and the fused kernels stay as they are."""
+        for m in self.modules():
+            if hasattr(m, "regularize"):
+                m.regularize = enabled
+
+    def set_generators(self, seed: int) -> None:
+        """Seed the training noise: one generator on the model's device for
+        the dropout and SpecAugment masks, one on the CPU for the fused
+        feed-forward kernels' integer seeds (drawn without a device sync)."""
+        device = next(self.parameters()).device
+        noise = torch.Generator(device=device).manual_seed(seed)
+        seeds = torch.Generator().manual_seed(seed + 1)
+        for m in self.modules():
+            if hasattr(m, "generator"):
+                m.generator = noise
+            if hasattr(m, "seed_generator"):
+                m.seed_generator = seeds
+
+    def kernel_launches_per_step(self) -> Dict[str, int]:
+        """Kernel launches of one training forward + backward, derived from
+        the module tree: every feed-forward module launches the fused forward
+        and backward once, every flash attention layer the flash forward and
+        both flash backward kernels once."""
+        from avec_tpu_torch.models.conformer import FeedForwardModule
+        from avec_tpu_torch.ops import ffn, flash_attention
+
+        n_ffn = sum(isinstance(m, FeedForwardModule) for m in self.modules())
+        n_flash = sum(bool(getattr(m, "use_flash", False))
+                      for m in self.modules())
+        counts = {ffn.KERNEL_FWD: n_ffn, ffn.KERNEL_BWD: n_ffn,
+                  flash_attention.KERNEL: n_flash,
+                  flash_attention.KERNEL_DQ: n_flash,
+                  flash_attention.KERNEL_DKV: n_flash}
+        return {k: v for k, v in counts.items() if v}
+
     def forward(self, video, video_len, audio, audio_len):
-        x, lengths, inter = self.encoder(video, video_len, audio, audio_len)
+        with torch.set_grad_enabled(self.training):
+            x, lengths, inter = self.encoder(video, video_len, audio,
+                                             audio_len)
         return {"outputs": [x, lengths], **inter}
 
 

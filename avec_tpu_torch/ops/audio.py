@@ -4,6 +4,8 @@ torchaudio-compatible: |STFT|^2 with n_fft 512, periodic hann window of 400
 samples centred in n_fft, hop 160, reflect padding of n_fft//2; HTK mel
 scale, 80 mels over 0-8 kHz, no norm; log(x + 1e-9); lengths // hop + 1.
 The windowed real-DFT basis turns the STFT into one fp32 matmul.
+
+`SpecAugment` is the training-time augmentation of the audio encoder.
 """
 
 import functools
@@ -91,3 +93,55 @@ class AudioPreprocessing(nn.Module):
             return out
         return out, torch.div(lengths, self.hop_length,
                               rounding_mode="floor") + 1
+
+
+class SpecAugment(nn.Module):
+    """SpecAugment with adaptive time masking (audio.py:191) on (B, n_mels, T)
+    log-mels: mF frequency masks of width 0..F shared by the batch, and for
+    each sample mT time masks of width 0..floor(pS * length) placed inside
+    its valid frames; masked entries become 0. Active in training mode only
+    (and only while `regularize`). Draws come from `generator`, a
+    `torch.Generator` on x's device set by the owning model; its stream is
+    not JAX's, so only the masks' statistics match the JAX package."""
+
+    def __init__(self, mF: int = 2, F: int = 27, mT: int = 5,
+                 pS: float = 0.05):
+        super().__init__()
+        self.mF, self.F, self.mT, self.pS = mF, F, mT, pS
+        self.regularize = True
+        self.generator = None
+        self.training = False
+
+    def keep_mask(self, b: int, n_mels: int, t: int, lengths) -> torch.Tensor:
+        """(B, n_mels, T) boolean mask of the entries that stay."""
+        dev = lengths.device
+
+        def uniform(*shape):
+            return torch.rand(shape, generator=self.generator, device=dev)
+
+        keep = torch.ones((b, n_mels, t), dtype=torch.bool, device=dev)
+        freq = torch.arange(n_mels, device=dev)
+        for _ in range(self.mF):
+            width = (uniform() * (self.F + 1)).long()
+            room = torch.clamp(n_mels - width, min=0)
+            start = (uniform() * (room + 1).float()).long()
+            keep &= ~((freq >= start) & (freq < start + width))[None, :, None]
+        time = torch.arange(t, device=dev)[None, :]
+        lens = lengths.long()
+        max_width = (self.pS * lens.float()).long()
+        for _ in range(self.mT):
+            width = (uniform(b) * (max_width + 1).float()).long()
+            room = torch.clamp(lens - width, min=0)
+            start = (uniform(b) * (room + 1).float()).long()
+            tmask = ((time >= start[:, None])
+                     & (time < (start + width)[:, None])
+                     & (time < lens[:, None]))
+            keep &= ~tmask[:, None, :]
+        return keep
+
+    def forward(self, x, lengths):
+        if not (self.training and self.regularize):
+            return x
+        keep = self.keep_mask(x.shape[0], x.shape[1], x.shape[2], lengths)
+        return torch.where(keep, x, torch.zeros((), dtype=x.dtype,
+                                                device=x.device))

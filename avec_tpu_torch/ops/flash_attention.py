@@ -10,6 +10,14 @@ so one online-softmax kernel computes the layer without a (T, T) tensor in
 device memory. `flash_attention_fwd` launches the hand-written CUDA kernel
 (`csrc/flash_attention.cu`) for CUDA tensors and computes the plain version
 for CPU tensors; `flash_attention_reference` is that plain version.
+
+`flash_attention` is differentiable: its backward launches the two kernels of
+`csrc/flash_attention_bwd.cu` (`flash_attention_bwd`), or computes their plain
+version `flash_attention_bwd_reference`. Both follow the rule of the JAX
+custom VJP (pallas_attention.py:220, :260): p = exp(s - lse) is zero where the
+key OR the query lies at or past the true length, so padded queries get a zero
+gradient and a sequence of length 0 gets all-zero gradients.
+`rel_pos_augment` stays plain PyTorch and is differentiated by autograd.
 """
 
 import ctypes
@@ -22,6 +30,8 @@ from avec_tpu_torch.ops import _cuda
 
 NEG_INF = -1e30
 KERNEL = "flash_attention_fwd"
+KERNEL_DQ = "flash_attention_bwd_dq"
+KERNEL_DKV = "flash_attention_bwd_dkv"
 
 
 def flash_attention_reference(q_aug, k_aug, v, lengths=None, scale=1.0
@@ -90,12 +100,125 @@ def flash_attention_fwd(q_aug, k_aug, v, lengths=None, scale=1.0
     return out, lse
 
 
+def flash_attention_bwd_reference(q_aug, k_aug, v, dout, lse, delta,
+                                  lengths=None, scale=1.0):
+    """Plain PyTorch twin of the backward kernels
+    (pallas_attention.py:193-277). dout: (B, H, T, dv); lse, delta: (B*H, T)
+    fp32, delta = rowsum(dout * out). Returns (dq', dk', dv) in the input
+    dtype."""
+    b, h, t, _ = q_aug.shape
+    qf, kf, vf, dof = (a.float() for a in (q_aug, k_aug, v, dout))
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    if lengths is None:
+        ok = torch.ones((b, 1, t, t), dtype=torch.bool, device=q_aug.device)
+    else:
+        valid = (torch.arange(t, device=q_aug.device)[None, :]
+                 < lengths.to(q_aug.device)[:, None])
+        ok = (valid[:, :, None] & valid[:, None, :])[:, None]
+    # Masked entries never reach exp: a row without valid keys has a
+    # degenerate lse.
+    arg = (s - lse.reshape(b, h, t, 1)).masked_fill(~ok, NEG_INF)
+    p = torch.exp(arg).masked_fill(~ok, 0.0)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    ds = p * (dp - delta.reshape(b, h, t, 1))
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    return dq.to(q_aug.dtype), dk.to(k_aug.dtype), dv.to(v.dtype)
+
+
+def _lib_bwd():
+    lib = _cuda.library("flash_attention_bwd")
+    dq, dkv = lib.avec_flash_attention_bwd_dq, lib.avec_flash_attention_bwd_dkv
+    if dq.argtypes is None:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        tail = [ci, ci, ci, ci, ci, ctypes.c_float, ci, vp]
+        dq.argtypes = [vp] * 8 + tail
+        dkv.argtypes = [vp] * 9 + tail
+        dq.restype = dkv.restype = ci
+    return dq, dkv
+
+
+def flash_attention_bwd(q_aug, k_aug, v, dout, lse, delta, lengths=None,
+                        scale=1.0):
+    """(dq', dk', dv) of the flash attention. CPU tensors take the plain
+    version; CUDA tensors launch the dq and the dk'/dV kernel."""
+    if q_aug.device.type == "cpu":
+        return flash_attention_bwd_reference(q_aug, k_aug, v, dout, lse,
+                                             delta, lengths, scale)
+    b, h, t, da = q_aug.shape
+    dv = v.shape[-1]
+    req = _cuda.require
+    tensors = (q_aug, k_aug, v, dout)
+    req(all(a.is_cuda and a.device == q_aug.device for a in tensors),
+        "q', k', v, dout must share one CUDA device")
+    req(q_aug.dtype in (torch.float32, torch.bfloat16)
+        and all(a.dtype == q_aug.dtype for a in tensors),
+        "q', k', v, dout must share one dtype, fp32 or bf16")
+    req(k_aug.shape == q_aug.shape and v.shape == (b, h, t, dv)
+        and dout.shape == v.shape,
+        f"shapes {[tuple(a.shape) for a in tensors]}")
+    req(all(a.is_contiguous() for a in tensors),
+        "q', k', v, dout must be contiguous")
+    req(0 < dv <= 128 and da <= 512,
+        f"d_a={da}, d_v={dv} above the kernels' 512 and 128")
+    if lengths is None:
+        lengths = torch.full((b,), t, dtype=torch.int32, device=q_aug.device)
+    req(lengths.shape == (b,) and lengths.dtype == torch.int32
+        and lengths.device == q_aug.device and lengths.is_contiguous(),
+        "lengths must be a contiguous (B,) int32 tensor on the same device")
+    for name, a in (("lse", lse), ("delta", delta)):
+        req(a.shape == (b * h, t) and a.dtype == torch.float32
+            and a.device == q_aug.device and a.is_contiguous(),
+            f"{name} must be a contiguous (B*H, T) fp32 tensor")
+    dq = torch.empty_like(q_aug)
+    dk = torch.empty_like(k_aug)
+    dvv = torch.empty_like(v)
+    head = (q_aug.data_ptr(), k_aug.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), lengths.data_ptr())
+    tail = (b * h, h, t, da, dv, float(scale),
+            int(q_aug.dtype == torch.bfloat16), _cuda.stream_ptr(q_aug))
+    fn_dq, fn_dkv = _lib_bwd()
+    _cuda.check(fn_dq(*head, dq.data_ptr(), *tail), KERNEL_DQ)
+    _cuda.launches[KERNEL_DQ] += 1
+    _cuda.check(fn_dkv(*head, dk.data_ptr(), dvv.data_ptr(), *tail),
+                KERNEL_DKV)
+    _cuda.launches[KERNEL_DKV] += 1
+    return dq, dk, dvv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward through `flash_attention_fwd`, backward through
+    `flash_attention_bwd` (or both plain versions when use_kernel is False).
+    delta = rowsum(dO * O) is plain PyTorch, as it is plain XLA in the JAX
+    package (pallas_attention.py:307-310)."""
+
+    @staticmethod
+    def forward(ctx, q_aug, k_aug, v, lengths, scale, use_kernel):
+        fwd = flash_attention_fwd if use_kernel else flash_attention_reference
+        out, lse = fwd(q_aug, k_aug, v, lengths, scale)
+        ctx.save_for_backward(q_aug, k_aug, v, out, lse)
+        ctx.lengths, ctx.scale, ctx.use_kernel = lengths, scale, use_kernel
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q_aug, k_aug, v, out, lse = ctx.saved_tensors
+        g = g.to(v.dtype).contiguous()
+        delta = (g.float() * out.float()).sum(dim=-1).reshape(lse.shape)
+        bwd = (flash_attention_bwd if ctx.use_kernel
+               else flash_attention_bwd_reference)
+        dq, dk, dv = bwd(q_aug, k_aug, v, g, lse, delta, ctx.lengths,
+                         ctx.scale)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q_aug, k_aug, v, lengths=None, scale=1.0,
                     use_kernel: bool = True) -> torch.Tensor:
-    """(B, H, T, dv) attention output (pallas_attention.py:163).
-    use_kernel=False runs the plain version on any device."""
-    fn = flash_attention_fwd if use_kernel else flash_attention_reference
-    return fn(q_aug, k_aug, v, lengths, scale)[0]
+    """Differentiable (B, H, T, dv) attention output
+    (pallas_attention.py:163, :281). use_kernel=False runs the plain
+    versions, forward and backward, on any device."""
+    return _FlashAttention.apply(q_aug, k_aug, v, lengths, scale, use_kernel)
 
 
 def rel_pos_augment(q, k, pos_kernel, pos_bias, dim_model, num_heads):
@@ -136,5 +259,6 @@ def rel_pos_flash_attention(q, k, v, pos_kernel, pos_bias, dim_model,
     if lengths is not None:
         lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
     scale = 1.0 / math.sqrt(q.shape[-1])
-    return flash_attention(q_aug, k_aug, v.contiguous(), lengths, scale,
+    return flash_attention(q_aug.contiguous(), k_aug.contiguous(),
+                           v.contiguous(), lengths, scale,
                            use_kernel=use_kernel)

@@ -1,4 +1,4 @@
-"""Layer library (port of avec_tpu/ops/layers.py), eval only.
+"""Layer library (port of avec_tpu/ops/layers.py), eval and training.
 
 Parameters keep the reference PyTorch layouts and names (Linear weight
 (O, I), Conv weight (O, I/groups, *k), norm weight/bias, BN running stats),
@@ -10,6 +10,15 @@ as PyTorch does; `Linear`, `LayerNorm` and the pooling helpers work on the
 last axis / channels-last tensors, as the JAX package does. The JAX
 `_polyphase_fold`/`_polyphase_conv` are TPU layout tricks with identical
 outputs: here a plain `F.conv{1,2,3}d` with the same padding.
+
+Every layer is built in eval mode (unlike `nn.Module`'s default), as the JAX
+layers default to `deterministic=True`; call `.train()` on the model for
+training. Training mode follows `nn.Module.train()`: `BatchNorm` normalises
+with batch statistics and updates its running statistics, `Dropout` draws its
+mask from an explicit `torch.Generator`, and a `Conv(bias_stop_gradient=True)`
+feeding a train-mode BatchNorm detaches its bias, whose gradient is
+analytically zero (autograd alone leaves rounding noise there, which Adam's
+first step would turn into a full lr-sized move).
 """
 
 import math
@@ -75,12 +84,14 @@ class Linear(nn.Module):
 
 class Conv(nn.Module):
     """N-d convolution (N, C, *spatial) with the reference padding policies.
-    Bias-free convs (the ResNet trunk) init he-normal, others torch-default."""
+    Bias-free convs (the ResNet trunk) init he-normal, others torch-default.
+    bias_stop_gradient detaches the bias in training mode (layers.py:265)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size, ndim: int = 1,
                  stride=1, padding: PaddingLike = "same", groups: int = 1,
-                 bias: bool = True):
+                 bias: bool = True, bias_stop_gradient: bool = False):
         super().__init__()
+        self.bias_stop_gradient = bias_stop_gradient
         self.ndim = ndim
         self.kernel_size = _tuple(kernel_size, ndim)
         self.stride = _tuple(stride, ndim)
@@ -89,6 +100,7 @@ class Conv(nn.Module):
         self.weight = nn.Parameter(
             torch.empty((out_ch, in_ch // groups) + self.kernel_size))
         self.bias = nn.Parameter(torch.empty(out_ch)) if bias else None
+        self.training = False
 
     def init_(self, gen: torch.Generator):
         fan_in = self.weight[0].numel()
@@ -107,7 +119,11 @@ class Conv(nn.Module):
             flat = [p for pair in reversed(self.pads) for p in pair]
             x = F.pad(x, flat)
             padding = 0
-        b = None if self.bias is None else self.bias.to(x.dtype)
+        b = self.bias
+        if b is not None:
+            if self.bias_stop_gradient and self.training:
+                b = b.detach()
+            b = b.to(x.dtype)
         return conv(x, self.weight.to(x.dtype), b, stride=self.stride,
                     padding=padding, groups=self.groups)
 
@@ -176,16 +192,24 @@ class LayerNorm(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Eval BatchNorm over channel axis 1 with running statistics; the
-    normalise-and-affine runs in fp32 and is rounded to x's dtype."""
+    """BatchNorm over channel axis 1 (layers.py:537); the normalise-and-affine
+    runs in fp32 and is rounded to x's dtype.
 
-    def __init__(self, num_features: int, eps: float = 1e-5):
+    Eval uses the running statistics. Training uses the batch's: one pass
+    E[x^2] - E[x]^2 in fp32, clamped at 0, differentiated through; the
+    running statistics move by `momentum` (0.1, flax 0.9) towards the batch
+    mean and the unbiased batch variance."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 momentum: float = 0.1):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
+        self.training = False
 
     def init_(self, gen: torch.Generator):
         with torch.no_grad():
@@ -196,9 +220,45 @@ class BatchNorm(nn.Module):
 
     def forward(self, x):
         shape = (1, -1) + (1,) * (x.ndim - 2)
-        inv = torch.rsqrt(self.running_var + self.eps).view(shape)
-        y = (x.float() - self.running_mean.view(shape)) * inv
+        xf = x.float()
+        if self.training:
+            axes = (0,) + tuple(range(2, x.ndim))
+            mean = xf.mean(dim=axes)
+            var = torch.clamp((xf * xf).mean(dim=axes) - mean * mean, min=0.0)
+            n = x.numel() // x.shape[1]
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(1 - m).add_(mean, alpha=m)
+                self.running_var.mul_(1 - m).add_(var,
+                                                  alpha=m * n / max(n - 1, 1))
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (xf - mean.view(shape)) * torch.rsqrt(var + self.eps).view(shape)
         return (y * self.weight.view(shape) + self.bias.view(shape)).to(x.dtype)
+
+
+class Dropout(nn.Module):
+    """Inverted dropout (layers.py:666): in training mode keep each entry
+    with probability 1 - rate and scale it by 1 / (1 - rate). The mask is
+    drawn from `generator`, a `torch.Generator` on x's device that the owning
+    model sets (None: the default generator). `regularize=False` turns the
+    layer into the identity in training mode too."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+        self.regularize = True
+        self.generator = None
+        self.training = False
+
+    def forward(self, x):
+        if not (self.training and self.regularize) or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        mask = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                       device=x.device))
 
 
 def init_params(module: nn.Module, gen: torch.Generator) -> nn.Module:

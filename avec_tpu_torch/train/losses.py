@@ -1,0 +1,54 @@
+"""Training losses (port of avec_tpu/train/losses.py and avec_tpu/ops/ctc.py:215).
+
+CTC is plain XLA in the JAX package, so here it is the library's
+`torch.nn.functional.ctc_loss` on an fp32 `log_softmax`.
+"""
+
+import torch
+import torch.nn.functional as F
+
+REDUCTIONS = ("mean", "sum", "default", "none")
+
+
+def ctc_loss(logits, logit_lengths, labels, label_lengths, blank: int = 0,
+             reduction: str = "mean", zero_infinity: bool = False):
+    """CTC loss over raw logits (B, T, V), computed in fp32 (ctc.py:215-238).
+
+    reduction: "none" (B,) per-sample NLL; "mean" their mean; "sum" their
+    sum; "default" divides each by its target length (at least 1), then
+    takes the mean. zero_infinity gives an infeasible sample a loss of 0 with
+    a zero gradient."""
+    if reduction not in REDUCTIONS:
+        raise ValueError(f"reduction {reduction!r} not in {REDUCTIONS}")
+    log_probs = torch.log_softmax(logits.float(), dim=-1).transpose(0, 1)
+    nll = F.ctc_loss(log_probs, labels.long(), logit_lengths.long(),
+                     label_lengths.long(), blank=blank, reduction="none",
+                     zero_infinity=zero_infinity)
+    if reduction == "none":
+        return nll
+    if reduction == "mean":
+        return nll.mean()
+    if reduction == "sum":
+        return nll.sum()
+    denom = torch.clamp(label_lengths.to(nll.dtype), min=1.0)
+    return (nll / denom).mean()
+
+
+class CTCLoss:
+    """CTC over (y, y_len) targets and (logits, logits_len) outputs
+    (losses.py:164)."""
+
+    def __init__(self, blank: int = 0, reduction: str = "mean",
+                 zero_infinity: bool = False):
+        if reduction not in ("mean", "sum", "default"):
+            raise ValueError(f"reduction {reduction!r}")
+        self.blank = blank
+        self.reduction = reduction
+        self.zero_infinity = zero_infinity
+
+    def __call__(self, targets, outputs):
+        y, y_len = targets
+        logits, logits_len = outputs
+        return ctc_loss(logits, logits_len, y, y_len, blank=self.blank,
+                        reduction=self.reduction,
+                        zero_infinity=self.zero_infinity)

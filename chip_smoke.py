@@ -3,8 +3,9 @@
 
 Run from the repository root on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py            # build, check, serve, time
-    python3 chip_smoke.py --profile  # also trace one served forward
+    python3 chip_smoke.py            # build, check, serve, train, time
+    python3 chip_smoke.py --profile  # also trace one served forward and one
+                                     # train step
 
 Phases, in order; any failure raises and the exit code is non-zero:
  1. device and build: require CUDA, print the card's name and power limit,
@@ -18,9 +19,33 @@ Phases, in order; any failure raises and the exit code is non-zero:
     same batch through the kernels' plain versions in fp32 must give logits
     within 2e-3 and identical greedy token ids;
  4. kernel timings (CUDA events) beside their bounds, the plain versions and
-    a PyTorch library call where one computes the same function.
-The line before the last is a JSON `kernels` line; the last line is
-{"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
+    a PyTorch library call where one computes the same function;
+ 5. the training kernels against their plain versions at the training
+    shapes: fused FFN forward and backward for (d, F) = (180, 720),
+    (256, 1024), (360, 1440) at N = 16 x T rows, fp32 and bf16, dropout off
+    and 0.1 with a fixed seed (the hash masks must agree exactly); flash
+    backward at (T, D) = (151, 256) and (76, 360) with ragged lengths down to
+    1 and one 0. Every error is the max abs difference over the largest entry
+    of the plain result: fp32 1e-4 (y, dx, dq', dk', dv) and 3e-4 (FFN
+    parameter gradients, atomic sums over thousands of rows); bf16 2e-2 and
+    3e-2;
+ 6. training at full width: the same 61.7M-parameter model, use_flash, fused
+    FFN, stem "2d", bf16 compute on fp32 parameters, B=16 utterances of
+    3-6 s in 6 s of padding (151 frames of 88x88, 32 labels), dropout 0.1 and
+    SpecAugment on: 1 warm-up + 3 counted steps. Losses and gradient norm
+    must be finite, every parameter must have a gradient, at least 99% of
+    the leaves and every BN running statistic must move, and the launches
+    per step must equal the counts derived from the module tree. Then, in
+    fp32 with dropout and SpecAugment off, one forward + backward through
+    the kernels against one through their plain versions: total loss and
+    gradient norm within 1e-3, every gradient leaf within 2e-3 of its
+    largest entry;
+ 7. train-step time, utterances/s and peak memory with the kernels and with
+    their plain versions (interleaved), and each training kernel's time at
+    the step's shapes beside its bound, plain version and library call.
+The line before the last is a JSON `kernels` line of six kernels; the last
+line is {"ok": true, "device": {...}}. Details go to
+chiprun_out/chip_smoke.json.
 """
 
 import json
@@ -35,7 +60,8 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_OPS = {"bf16": 989e12, "fp32": 67e12}
-ROUNDS = 5                         # served batches in the timed main path
+ROUNDS = 3                         # served batches in the timed main path
+TRAIN_STEPS = 3                    # counted train steps after one warm-up
 
 
 def log(*args):
@@ -323,10 +349,14 @@ def main() -> int:
          "ms": s_ms, "plain_ms": s_plain, "bound_ms": s_bound,
          "bound_by": s_by, "library_ms": None},
     ]
-    detail["kernels"] = kernels
-
     if "--profile" in sys.argv[1:]:
         detail["profile"] = profile_forward(srv, inputs)
+    del srv, inputs, logits, k_logits, p_logits, y
+    torch.cuda.empty_cache()
+
+    # ---- 5-7. the training slice
+    kernels += training_phases(detail, "--profile" in sys.argv[1:])
+    detail["kernels"] = kernels
 
     os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
     with open(os.path.join(root, "chiprun_out", "chip_smoke.json"), "w") as f:
@@ -339,10 +369,476 @@ def main() -> int:
     return 0
 
 
+def rel_err(got, want) -> float:
+    """Max abs difference over the largest entry of `want`."""
+    return max_abs(got, want) / max(float(want.float().abs().max()), 1e-30)
+
+
+def ffn_inputs(n, d, f, dtype, seed):
+    gen = torch.Generator().manual_seed(seed)
+    dev = torch.device("cuda")
+    x = torch.randn(n, d, generator=gen).to(dev, dtype)
+    g = torch.randn(n, d, generator=gen).to(dev, dtype)
+    params = [1.0 + 0.1 * torch.randn(d, generator=gen),
+              0.1 * torch.randn(d, generator=gen),
+              torch.randn(f, d, generator=gen) / d ** 0.5,
+              0.1 * torch.randn(f, generator=gen),
+              torch.randn(d, f, generator=gen) / f ** 0.5,
+              0.1 * torch.randn(d, generator=gen)]
+    return x, g, [p.to(dev) for p in params]
+
+
+def ffn_run(x, g, params, drop, use_kernel, seed=1234):
+    """y and the gradients of x and the six parameters."""
+    from avec_tpu_torch.ops.ffn import fused_ffn
+
+    leaves = [t.detach().requires_grad_(True) for t in [x] + params]
+    y = fused_ffn(leaves[0], *leaves[1:], seed, 1e-6, drop, True, use_kernel)
+    y.backward(g)
+    return y.detach(), [t.grad for t in leaves]
+
+
+def ffn_cost(n, d, f, es):
+    """(forward bytes, forward ops, backward bytes, backward ops): x read and
+    y written once, fp32 parameters read once (and their gradients written
+    once in the backward, beside x, g and dx); two products forward
+    (4 N d F), five in the backward (u again, ds, dW2, dW1, dh: 10 N d F)."""
+    pbytes = 4 * (2 * d * f + f + 3 * d)
+    return (2 * n * d * es + pbytes, 4.0 * n * d * f,
+            3 * n * d * es + 2 * pbytes, 10.0 * n * d * f)
+
+
+def flash_bwd_cost(h, t, da, dv, lengths, es):
+    """Bytes and operations of the dq kernel and of the dk/dv kernel: each
+    reads the valid rows of q', k', v, dO and lse, delta once and writes its
+    (B*H, T, .) gradients; each forms s and dO V^T on the valid square, dq
+    then one more product over d_a, dk/dv one over d_a and one over d_v."""
+    lens = np.asarray(lengths, dtype=np.float64)
+    valid, sq, b = float(lens.sum()), float((lens ** 2).sum()), len(lens)
+    read = h * valid * (2 * da + 2 * dv) * es + h * valid * 8 + b * 4
+    dq = (read + b * h * t * da * es, 2.0 * h * sq * (2 * da + dv))
+    dkv = (read + b * h * t * (da + dv) * es,
+           2.0 * h * sq * (2 * da + 2 * dv))
+    return dq, dkv
+
+
+def make_train_batch(rng, batch: int = 16, samples: int = 96000,
+                     label_len: int = 32):
+    """B utterances padded to 6 s (151 frames of 88x88), true lengths of
+    3-6 s with the first one full, 32 labels each."""
+    alen = np.array([samples] + [int(v) for v in rng.uniform(
+        samples // 2, samples, batch - 1)], np.int32)
+    frames = samples // 640 + 1
+    video = rng.rand(batch, frames, 88, 88, 1).astype(np.float32)
+    audio = (rng.randn(batch, samples) * 0.1).astype(np.float32)
+    for i, n in enumerate(alen):
+        audio[i, n:] = 0.0
+        video[i, n // 640 + 1:] = 0.0
+    labels = rng.randint(1, 256, size=(batch, label_len)).astype(np.int32)
+    return {"inputs": [video, alen // 640 + 1, audio, alen],
+            "targets": (labels, np.full((batch,), label_len, np.int32))}
+
+
+def kernel_call_shapes(trainer, batch):
+    """One forward in training mode with hooks: how often each fused-FFN
+    shape (N, d, F) and each flash shape (T, D, lengths) occurs in a step."""
+    from avec_tpu_torch.models.conformer import FeedForwardModule
+    from avec_tpu_torch.ops.attention import RelPos1dMultiHeadAttention
+
+    ffn, flash, hooks = {}, {}, []
+
+    def on_ffn(mod, args):
+        x = args[0]
+        key = (x.shape[0] * x.shape[1], x.shape[2],
+               mod.layers["1"].weight.shape[0])
+        ffn[key] = ffn.get(key, 0) + 1
+
+    def on_att(mod, args, kwargs):
+        x, mask = args[0], kwargs.get("mask")
+        lens = tuple(int(v) for v in mask[:, 0, 0, :].sum(dim=-1).tolist())
+        key = (x.shape[1], x.shape[2], lens)
+        flash[key] = flash.get(key, 0) + 1
+
+    for m in trainer.model.modules():
+        if isinstance(m, FeedForwardModule):
+            hooks.append(m.register_forward_pre_hook(on_ffn))
+        elif isinstance(m, RelPos1dMultiHeadAttention) and m.use_flash:
+            hooks.append(m.register_forward_pre_hook(on_att,
+                                                     with_kwargs=True))
+    inputs, _ = trainer._to_device(batch)
+    with torch.no_grad():
+        trainer.model.encoder(*inputs)
+    for hk in hooks:
+        hk.remove()
+    return ffn, flash
+
+
+def training_phases(detail, profile: bool):
+    """Phases 5-7; returns the four training kernels' entries."""
+    import torch.nn.functional as F
+
+    from avec_tpu_torch.ops import _cuda
+    from avec_tpu_torch.ops.ffn import KERNEL_BWD, KERNEL_FWD, fused_ffn
+    from avec_tpu_torch.ops.flash_attention import (
+        KERNEL_DKV, KERNEL_DQ, flash_attention_bwd,
+        flash_attention_bwd_reference, flash_attention_fwd)
+    from avec_tpu_torch.train.losses import CTCLoss
+    from avec_tpu_torch.train.model import Trainer
+
+    dev = torch.device("cuda")
+    errs = {KERNEL_FWD: {}, KERNEL_BWD: {}, KERNEL_DQ: {}, KERNEL_DKV: {}}
+    abs_errs = {k: 0.0 for k in errs}
+
+    # ---- 5. training kernels against their plain versions
+    names = ("x", "ln_w", "ln_b", "w1", "b1", "w2", "b2")
+    for n, d, f in ((16 * 301, 180, 720), (16 * 151, 256, 1024),
+                    (16 * 76, 360, 1440)):
+        for dtype, tol, wtol in ((torch.float32, 1e-4, 3e-4),
+                                 (torch.bfloat16, 2e-2, 3e-2)):
+            x, g, params = ffn_inputs(n, d, f, dtype, seed=d)
+            for drop in (0.0, 0.1):
+                y, grads = ffn_run(x, g, params, drop, True)
+                torch.cuda.synchronize()
+                want_y, want = ffn_run(x, g, params, drop, False)
+                key = f"N{n}_d{d}_F{f}_{str(dtype)[6:]}_drop{drop}"
+                e_fwd = rel_err(y, want_y)
+                e_bwd = {nm: rel_err(a, b)
+                         for nm, a, b in zip(names, grads, want)}
+                errs[KERNEL_FWD][key] = e_fwd
+                errs[KERNEL_BWD][key] = e_bwd
+                if dtype == torch.float32:
+                    abs_errs[KERNEL_FWD] = max(abs_errs[KERNEL_FWD],
+                                               max_abs(y, want_y))
+                    abs_errs[KERNEL_BWD] = max(
+                        abs_errs[KERNEL_BWD],
+                        *(max_abs(a, b) for a, b in zip(grads, want)))
+                if drop and not torch.equal(y == 0, want_y == 0):
+                    raise AssertionError(f"dropout masks differ: {key}")
+                worst_w = max(v for nm, v in e_bwd.items() if nm != "x")
+                log(f"fused_ffn {key}: y {e_fwd:.2e} dx {e_bwd['x']:.2e} "
+                    f"(tol {tol}) params {worst_w:.2e} (tol {wtol})")
+                if not (e_fwd <= tol and e_bwd["x"] <= tol
+                        and worst_w <= wtol):
+                    raise AssertionError(f"FFN kernels disagree: {key} "
+                                         f"{e_fwd} {e_bwd}")
+            del x, g, params
+    bwd_lengths = {151: [151, 140, 133, 120, 111, 99, 90, 88, 77, 64, 50, 33,
+                         17, 2, 1, 0],
+                   76: [76, 70, 67, 60, 56, 50, 45, 44, 39, 32, 25, 17, 9, 2,
+                        1, 0]}
+    for t, d_model in ((151, 256), (76, 360)):
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
+            q, k, v, lens, scale = flash_inputs(16, t, d_model,
+                                                bwd_lengths[t], dtype, seed=t)
+            gen = torch.Generator().manual_seed(t + 1)
+            dout = torch.randn(v.shape, generator=gen).to(dev, dtype)
+            out, lse = flash_attention_fwd(q, k, v, lens, scale)
+            delta = (dout.float() * out.float()).sum(-1).reshape(lse.shape)
+            got = flash_attention_bwd(q, k, v, dout, lse, delta, lens, scale)
+            torch.cuda.synchronize()
+            want = flash_attention_bwd_reference(q, k, v, dout, lse, delta,
+                                                 lens, scale)
+            e = [rel_err(a, b) for a, b in zip(got, want)]
+            key = f"T{t}_D{d_model}_{str(dtype)[6:]}"
+            errs[KERNEL_DQ][key] = e[0]
+            errs[KERNEL_DKV][key] = max(e[1], e[2])
+            if dtype == torch.float32:
+                abs_errs[KERNEL_DQ] = max(abs_errs[KERNEL_DQ],
+                                          max_abs(got[0], want[0]))
+                abs_errs[KERNEL_DKV] = max(abs_errs[KERNEL_DKV],
+                                           max_abs(got[1], want[1]),
+                                           max_abs(got[2], want[2]))
+            finite = all(bool(torch.isfinite(a.float()).all()) for a in got)
+            empty = max(float(a[-1].float().abs().max()) for a in got)
+            log(f"flash_attention_bwd {key}: dq {e[0]:.2e} dk {e[1]:.2e} "
+                f"dv {e[2]:.2e} (tol {tol}); finite {finite}, length-0 row "
+                f"max {empty}")
+            if not (max(e) <= tol and finite and empty == 0.0):
+                raise AssertionError(f"flash backward disagrees: {key} {e}")
+    detail["train_kernel_errors"] = errs
+
+    # ---- 6. training at full width
+    trainer = Trainer(device="cuda", precision="bfloat16", seed=0,
+                      vocab_size=256, use_flash=True, stem_mode="2d",
+                      loss=CTCLoss(zero_infinity=True))
+    model = trainer.model
+    n_params = sum(p.numel() for p in model.parameters())
+    batch = make_train_batch(np.random.RandomState(0))
+    per_step = model.kernel_launches_per_step()
+    log(f"train: {n_params / 1e6:.2f}M params, B=16, audio "
+        f"{min(batch['inputs'][3]) / 16000:.2f}-"
+        f"{max(batch['inputs'][3]) / 16000:.2f} s; launches per step derived "
+        f"from the module tree: {per_step}")
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    stats0 = {n: b.detach().clone() for n, b in model.named_buffers()
+              if "running_" in n}
+    trainer.train_step(batch)                        # warm-up
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    history = []
+    for _ in range(TRAIN_STEPS):
+        losses, infos = trainer.train_step(batch)
+        history.append({**{k: float(v) for k, v in losses.items()},
+                        "lr": infos["lr"],
+                        "grad_norm": float(infos["grad_norm"])})
+    torch.cuda.synchronize()
+    train_launches = dict(_cuda.launches)
+    log(f"main path launches over {TRAIN_STEPS} train steps: {train_launches}")
+    for row in history:
+        log("  step " + json.dumps({k: round(v, 6) if k != "lr" else v
+                                    for k, v in row.items()}))
+    if train_launches != {k: v * TRAIN_STEPS for k, v in per_step.items()}:
+        raise AssertionError(f"launches {train_launches} != {TRAIN_STEPS} x "
+                             f"{per_step}")
+    if len(history[-1]) != 9 or not all(
+            math.isfinite(v) for row in history for v in row.values()):
+        raise AssertionError(f"losses or gradient norm not finite: {history}")
+    no_grad = [n for n, p in model.named_parameters() if p.grad is None]
+    changed = sum(not torch.equal(p, before[n])
+                  for n, p in model.named_parameters())
+    stuck = [n for n, b in model.named_buffers()
+             if n in stats0 and torch.equal(b, stats0[n])]
+    log(f"  parameters without gradient: {len(no_grad)}; leaves changed "
+        f"{changed}/{len(before)}; BN statistics that did not move: "
+        f"{len(stuck)}/{len(stats0)}")
+    if no_grad or changed < 0.99 * len(before) or stuck:
+        raise AssertionError(f"no_grad {no_grad[:5]} changed {changed} "
+                             f"stuck {stuck[:5]}")
+    del before, stats0
+
+    # fp32, no dropout, no SpecAugment: kernels against plain versions
+    trainer32 = Trainer(model=model, device="cuda", precision="float32",
+                        loss=CTCLoss(zero_infinity=True))
+    model.set_regularization(False)
+    model.set_kernels(True)
+    loss_k, grads_k = trainer32.loss_and_grads(batch)
+    model.set_kernels(False)
+    _cuda.reset_launches()
+    loss_p, grads_p = trainer32.loss_and_grads(batch)
+    if dict(_cuda.launches):
+        raise AssertionError(f"plain path launched {dict(_cuda.launches)}")
+    model.set_kernels(True)
+    model.set_regularization(True)
+
+    def gnorm(grads):
+        return float(torch.sqrt(sum((g.double() ** 2).sum()
+                                    for g in grads.values())))
+
+    lk, lp = float(loss_k["loss"]), float(loss_p["loss"])
+    nk, npl = gnorm(grads_k), gnorm(grads_p)
+    gmax = max(float(g.abs().max()) for g in grads_p.values())
+    rows, noise = [], 0
+    for name, gp in grads_p.items():
+        leaf_max = float(gp.abs().max())
+        if leaf_max <= 1e-6 * gmax:
+            noise += 1          # analytically zero: key and positional biases
+            continue
+        rows.append((max_abs(grads_k[name], gp) / leaf_max, leaf_max, name))
+    rows.sort(reverse=True)
+    log(f"fp32 kernels vs plain: loss {lk:.6f} vs {lp:.6f} "
+        f"(rel {abs(lk - lp) / abs(lp):.2e}, tol 1e-3); grad norm {nk:.6f} "
+        f"vs {npl:.6f} (rel {abs(nk - npl) / npl:.2e}, tol 1e-3); "
+        f"{len(rows)} leaves compared, {noise} below 1e-6 of the largest "
+        "gradient left out")
+    for err, leaf_max, name in rows[:5]:
+        log(f"  leaf {name}: max abs diff / max abs {err:.2e} "
+            f"(max abs {leaf_max:.3e})")
+    train = {"params_m": n_params / 1e6, "batch": 16, "steps": history,
+             "launches_per_step": per_step,
+             "fp32_loss_rel": abs(lk - lp) / abs(lp),
+             "fp32_grad_norm_rel": abs(nk - npl) / npl,
+             "fp32_worst_leaf_rel": rows[0][0], "fp32_worst_leaf": rows[0][2]}
+    if not (abs(lk - lp) <= 1e-3 * abs(lp) and abs(nk - npl) <= 1e-3 * npl
+            and rows[0][0] <= 2e-3):
+        raise AssertionError("training kernel path disagrees with the plain "
+                             f"path: {train}")
+    del grads_k, grads_p, trainer32
+
+    # ---- 7. timings
+    def step_ms(kernels: bool):
+        model.set_kernels(kernels)
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_time_ms(lambda: trainer.train_step(batch), iters=3,
+                          warmup=0)
+        return ms, torch.cuda.max_memory_allocated() / 2 ** 30
+
+    runs = [(k, *step_ms(k)) for k in (False, True, True, False)]
+    model.set_kernels(True)
+    for name, flag in (("kernels", True), ("plain", False)):
+        ms = [r[1] for r in runs if r[0] is flag]
+        train[f"step_ms_{name}_bf16"] = sum(ms) / len(ms)
+        train[f"utterances_per_s_{name}"] = 16 / (sum(ms) / len(ms)) * 1e3
+        train[f"peak_gib_{name}"] = max(r[2] for r in runs if r[0] is flag)
+    log("train " + json.dumps({k: v for k, v in train.items()
+                               if k != "steps"}))
+
+    ffn_shapes, flash_shapes = kernel_call_shapes(trainer, batch)
+    acc = {k: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0.0,
+               "library_ms": 0.0} for k in errs}
+    for (n, d, f), count in sorted(ffn_shapes.items()):
+        x, g, params = ffn_inputs(n, d, f, torch.bfloat16, seed=n)
+
+        def fwd(use_kernel):
+            with torch.no_grad():
+                fused_ffn(x, *params, 77, 1e-6, 0.1, True, use_kernel)
+
+        def both(use_kernel):
+            ffn_run(x, g, params, 0.1, use_kernel, seed=77)
+
+        got = ffn_run(x, g, params, 0.1, True, seed=77)[1]
+        direct = time_ffn_bwd_kernel(x, g, params, 0.1, 77, check=True)
+        if max(rel_err(a, b) for a, b in zip(direct, got)) > 3e-2:
+            raise AssertionError("direct backward launch disagrees with the "
+                                 "wrapper's")
+
+        t_f, t_fp = cuda_time_ms(lambda: fwd(True)), cuda_time_ms(
+            lambda: fwd(False))
+        t_b = time_ffn_bwd_kernel(x, g, params, 0.1, 77)
+        t_bp = cuda_time_ms(lambda: both(False)) - t_fp
+        fb, fo, bb, bo = ffn_cost(n, d, f, 2)
+        log(f"fused_ffn N={n} d={d} F={f} x{count}: fwd {t_f:.4f} ms (plain "
+            f"{t_fp:.4f}, bound {bound(fb, fo, 'bf16')[0]:.5f}); bwd "
+            f"{t_b:.4f} ms (plain {t_bp:.4f}, bound "
+            f"{bound(bb, bo, 'bf16')[0]:.5f})")
+        detail[f"ffn_N{n}_d{d}"] = {"count": count, "fwd_ms": t_f,
+                                    "fwd_plain_ms": t_fp, "bwd_ms": t_b,
+                                    "bwd_plain_ms": t_bp}
+        for key, ms, pms, nb, no in ((KERNEL_FWD, t_f, t_fp, fb, fo),
+                                     (KERNEL_BWD, t_b, t_bp, bb, bo)):
+            acc[key]["ms"] += count * ms
+            acc[key]["plain_ms"] += count * pms
+            acc[key]["bytes"] += count * nb
+            acc[key]["ops"] += count * no
+        del x, g, params
+    for (t, d_model, lens), count in sorted(flash_shapes.items()):
+        q, k, v, lt, scale = flash_inputs(16, t, d_model, lens,
+                                          torch.bfloat16, seed=9)
+        dout = torch.randn_like(v)
+        out, lse = flash_attention_fwd(q, k, v, lt, scale)
+        delta = (dout.float() * out.float()).sum(-1).reshape(lse.shape)
+        t_both = cuda_time_ms(lambda: flash_attention_bwd(
+            q, k, v, dout, lse, delta, lt, scale))
+        t_plain = cuda_time_ms(lambda: flash_attention_bwd_reference(
+            q, k, v, dout, lse, delta, lt, scale))
+        t_dq = time_single_bwd_kernel(q, k, v, dout, lse, delta, lt, scale)
+        keymask = (torch.arange(t, device=dev)[None, :]
+                   < lt[:, None])[:, None, None, :]
+        leaves = [a.detach().requires_grad_(True) for a in (q, k, v)]
+
+        def sdpa(backward: bool):
+            o = F.scaled_dot_product_attention(*leaves, attn_mask=keymask,
+                                               scale=scale)
+            if backward:
+                o.backward(dout)
+
+        t_lib = cuda_time_ms(lambda: sdpa(True)) - cuda_time_ms(
+            lambda: sdpa(False))
+        (dq_b, dq_o), (dkv_b, dkv_o) = flash_bwd_cost(
+            4, t, q.shape[-1], v.shape[-1], lens, 2)
+        log(f"flash_attention_bwd T={t} D={d_model} x{count}: dq "
+            f"{t_dq:.4f} ms, dkv {t_both - t_dq:.4f} ms, plain (both) "
+            f"{t_plain:.4f}, sdpa backward {t_lib:.4f}; bounds "
+            f"{bound(dq_b, dq_o, 'bf16')[0]:.5f} / "
+            f"{bound(dkv_b, dkv_o, 'bf16')[0]:.5f}")
+        detail[f"flash_bwd_T{t}"] = {"count": count, "dq_ms": t_dq,
+                                     "dkv_ms": t_both - t_dq,
+                                     "plain_ms": t_plain, "library_ms": t_lib,
+                                     "lengths": list(lens)}
+        for key, ms, nb, no in ((KERNEL_DQ, t_dq, dq_b, dq_o),
+                                (KERNEL_DKV, t_both - t_dq, dkv_b, dkv_o)):
+            acc[key]["ms"] += count * ms
+            acc[key]["plain_ms"] += count * t_plain
+            acc[key]["library_ms"] += count * t_lib
+            acc[key]["bytes"] += count * nb
+            acc[key]["ops"] += count * no
+
+    if profile:
+        detail["profile_train"] = profile_train_step(trainer, batch)
+    detail["training"] = train
+
+    sources = {KERNEL_FWD: ("avec_tpu_torch/csrc/ffn.cu",
+                            "avec_tpu/ops/pallas_ffn.py:253"),
+               KERNEL_BWD: ("avec_tpu_torch/csrc/ffn.cu",
+                            "avec_tpu/ops/pallas_ffn.py:279"),
+               KERNEL_DQ: ("avec_tpu_torch/csrc/flash_attention_bwd.cu",
+                           "avec_tpu/ops/pallas_attention.py:316"),
+               KERNEL_DKV: ("avec_tpu_torch/csrc/flash_attention_bwd.cu",
+                            "avec_tpu/ops/pallas_attention.py:339")}
+    entries = []
+    for key, (src, replaces) in sources.items():
+        b_ms, b_by = bound(acc[key]["bytes"], acc[key]["ops"], "bf16")
+        flash = key in (KERNEL_DQ, KERNEL_DKV)
+        entries.append({
+            "name": key, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": train_launches[key], "max_abs_err": abs_errs[key],
+            "ms": acc[key]["ms"], "plain_ms": acc[key]["plain_ms"],
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": acc[key]["library_ms"] if flash else None})
+    return entries
+
+
+def time_ffn_bwd_kernel(x, g, params, drop, seed, check: bool = False):
+    """Time of the fused-FFN backward kernel alone, through the library's C
+    entry point with the wrapper's own arguments and preallocated gradient
+    buffers (the wrapper's autograd bookkeeping and its six zero-fills are
+    host work that a slow host would add to the time; this call is outside
+    any count). With `check` it launches once into zeroed buffers and returns
+    (dx, six parameter gradients) instead."""
+    from avec_tpu_torch.ops import _cuda, ffn
+
+    n, d = x.shape
+    f = params[2].shape[0]
+    thr, inv_keep = ffn._threshold(1.0 - drop)
+    dx = torch.empty_like(x)
+    grads = [torch.zeros_like(p) for p in params]
+    args = (x.data_ptr(), g.data_ptr(), *(p.data_ptr() for p in params[:5]),
+            dx.data_ptr(), *(t.data_ptr() for t in grads), n, d, f, 1e-6, 1,
+            seed, thr, inv_keep, int(x.dtype == torch.bfloat16),
+            _cuda.stream_ptr(x))
+    bwd = ffn._lib()[1]
+
+    def launch():
+        _cuda.check(bwd(*args), "fused_ffn_bwd")
+
+    if check:
+        launch()
+        torch.cuda.synchronize()
+        return [dx] + grads
+    return cuda_time_ms(launch)
+
+
+def time_single_bwd_kernel(q, k, v, dout, lse, delta, lengths, scale):
+    """Time of the dq kernel alone, through the library's C entry point with
+    the wrapper's own arguments (the wrapper launches dq and dk/dv together
+    and counts both; this call is outside any count)."""
+    from avec_tpu_torch.ops import _cuda
+    from avec_tpu_torch.ops.flash_attention import _lib_bwd
+
+    b, h, t, da = q.shape
+    dq = torch.empty_like(q)
+    fn_dq, _ = _lib_bwd()
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), lengths.data_ptr(),
+            dq.data_ptr(), b * h, h, t, da, v.shape[-1], float(scale),
+            int(q.dtype == torch.bfloat16), _cuda.stream_ptr(q))
+
+    def launch():
+        _cuda.check(fn_dq(*args), "flash_attention_bwd_dq")
+
+    return cuda_time_ms(launch)
+
+
 def _category(name: str) -> str:
     low = name.lower()
     for cat, keys in (("flash kernel (K4)", ("flash_fwd_kernel",)),
+                      ("flash backward kernels (K4b)", ("flash_bwd_",)),
+                      ("fused FFN forward kernel (K1)", ("ffn_fwd_",)),
+                      ("fused FFN backward kernel (K1b)", ("ffn_bwd_",)),
                       ("stem kernel (K5)", ("bn_relu_pool_kernel",)),
+                      ("CTC loss", ("ctc_loss",)),
+                      ("optimizer (Adam, foreach)", ("multi_tensor",)),
                       ("host-to-device copy", ("memcpy htod",)),
                       ("device copy / cast", ("copy",)),
                       ("convolution", ("conv", "fprop", "implicit")),
@@ -353,16 +849,27 @@ def _category(name: str) -> str:
 
 
 def profile_forward(srv, inputs):
-    """Device time of one served bf16 forward: kernels only (the CPU-side
-    operator rows are left out so nothing counts twice), by category and by
-    kernel name, beside the forward's CUDA-event time."""
+    """Device time of one served bf16 forward, beside its CUDA-event time."""
+    srv.model.set_kernels(True)
+    return profile_call("forward", lambda: srv.forward(inputs))
+
+
+def profile_train_step(trainer, batch):
+    """Device time of one bf16 train step, beside its CUDA-event time."""
+    trainer.model.set_kernels(True)
+    return profile_call("train step", lambda: trainer.train_step(batch))
+
+
+def profile_call(what: str, fn):
+    """Device time of one call of `fn`: kernels only (the CPU-side operator
+    rows are left out so nothing counts twice), by category and by kernel
+    name, beside the call's CUDA-event time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    srv.model.set_kernels(True)
-    fwd_ms = cuda_time_ms(lambda: srv.forward(inputs), iters=3, warmup=1)
+    fwd_ms = cuda_time_ms(fn, iters=3, warmup=1)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
-        srv.forward(inputs)
+        fn()
         torch.cuda.synchronize()
     rows, cats = [], {}
     for e in p.key_averages():
@@ -376,14 +883,15 @@ def profile_forward(srv, inputs):
             cats[cat] = cats.get(cat, 0.0) + us / 1e3
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) / 1e3
-    log(f"profile: forward {fwd_ms:.3f} ms (CUDA events), device busy "
-        f"{busy:.3f} ms in the traced forward, idle share "
+    log(f"profile: {what} {fwd_ms:.3f} ms (CUDA events), device busy "
+        f"{busy:.3f} ms in the traced {what}, idle share "
         f"{max(0.0, 1 - busy / fwd_ms):.3f}")
     for cat, ms in sorted(cats.items(), key=lambda kv: -kv[1]):
         log(f"  {ms:9.4f} ms  {cat}")
     for us, count, key in rows[:12]:
         log(f"  {us / 1e3:9.4f} ms {count:5d}x {key[:100]}")
-    return {"forward_ms": fwd_ms, "busy_ms": busy, "categories_ms": cats,
+    return {"what": what, "ms": fwd_ms, "busy_ms": busy,
+            "idle_share": max(0.0, 1 - busy / fwd_ms), "categories_ms": cats,
             "top": [{"ms": us / 1e3, "count": c, "name": k}
                     for us, c, k in rows[:40]]}
 

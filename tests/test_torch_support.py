@@ -89,7 +89,9 @@ def test_port_imports_no_jax():
     """Importing the port pulls in neither jax nor avec_tpu (run in a fresh
     interpreter: this test process already imported JAX)."""
     code = ("import sys, avec_tpu_torch, avec_tpu_torch.serve, "
-            "avec_tpu_torch.convert\n"
+            "avec_tpu_torch.convert, avec_tpu_torch.ops.ffn, "
+            "avec_tpu_torch.train.model, avec_tpu_torch.train.losses, "
+            "avec_tpu_torch.train.optim, avec_tpu_torch.train.schedulers\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'avec_tpu')]\n"
             "assert not bad, bad\nprint('ok')\n")
@@ -124,3 +126,14 @@ def test_entry_points_default_to_cuda():
                                               f_num_blocks=1)
     with pytest.raises(RuntimeError, match="CUDA"):
         Server(vocab_size=8)
+    from avec_tpu_torch.train.model import Trainer
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(vocab_size=8)
+
+
+def test_import_scan_covers_the_training_modules():
+    names = {p.relative_to(REPO).as_posix() for p in _port_files()}
+    assert {"avec_tpu_torch/ops/ffn.py", "avec_tpu_torch/train/model.py",
+            "avec_tpu_torch/train/losses.py", "avec_tpu_torch/train/optim.py",
+            "avec_tpu_torch/train/schedulers.py", "chip_smoke.py"} <= names
