@@ -7,18 +7,23 @@ self_att_module.{norm,attention}, conv_module.layers.{0,1,3,4,6}, conv_res,
 norm; conformer_blocks.{i} and interctc_modules.{k} in the stack.
 
 Training mode (`nn.Module.train()`): the feed-forward module runs as one
-fused kernel (`ops/ffn.py`), dropout follows the attention, convolution and
-feed-forward modules and opens the stack, the convolution module's BatchNorm
-uses batch statistics and the depthwise conv's bias is detached.
+fused kernel (`ops/ffn.py`), and so does the attention module
+(`ops/attention_module.py`) where `fused_att` is on; dropout follows the
+attention, convolution and feed-forward modules and opens the stack, the
+convolution module's BatchNorm uses batch statistics and the depthwise conv's
+bias is detached.
 """
 
-from typing import Dict, List, Sequence, Union
+import os
+from typing import Dict, List, Optional, Sequence, Union
 
 import torch
 import torch.nn as nn
 
 from avec_tpu_torch.ops.activations import get_act, glu, swish
-from avec_tpu_torch.ops.attention import make_attention
+from avec_tpu_torch.ops.attention import (RelPos1dMultiHeadAttention,
+                                          make_attention)
+from avec_tpu_torch.ops.attention_module import fused_attention_module_3d
 from avec_tpu_torch.ops.ffn import fused_ffn_3d
 from avec_tpu_torch.ops.layers import (BatchNorm, Conv, Dropout, LayerNorm,
                                        Linear)
@@ -57,10 +62,7 @@ class FeedForwardModule(nn.Module):
         norm, lin1, lin2 = (self.layers[k] for k in ("0", "1", "4"))
         if self.training and x.ndim == 3:
             rate = self.drop_rate if self.regularize else 0.0
-            seed = None
-            if rate > 0.0:
-                seed = int(torch.randint(0, 2 ** 31, (),
-                                         generator=self.seed_generator))
+            seed = _draw_seed(self.seed_generator) if rate > 0.0 else None
             return fused_ffn_3d(x, norm.weight, norm.bias, lin1.weight,
                                 lin1.bias, lin2.weight, lin2.bias, seed=seed,
                                 epsilon=norm.eps, drop_rate=rate,
@@ -70,18 +72,74 @@ class FeedForwardModule(nn.Module):
         return self.dropout(lin2(x))
 
 
+def _fused_att_enabled() -> bool:
+    """AVEC_TPU_FUSED_ATT=1 routes eligible attention modules through the
+    fused kernels in training (conformer.py:65-72)."""
+    return os.environ.get("AVEC_TPU_FUSED_ATT", "") == "1"
+
+
+def _draw_seed(generator) -> int:
+    """A 31-bit dropout seed for a fused kernel, drawn on the CPU."""
+    return int(torch.randint(0, 2 ** 31, (), generator=generator))
+
+
 class AttentionModule(nn.Module):
     """Pre-norm attention + dropout (no residual inside the conformer
-    block)."""
+    block).
+
+    With `fused_att` (None: the environment variable AVEC_TPU_FUSED_ATT) the
+    module runs as one fused kernel per direction (`ops/attention_module.py`)
+    where the JAX gate of conformer.py:153-174 lets it: training mode, a 3-d
+    input, `RelPos1dMultiHeadAttention` itself (not the patch subclass) with
+    `use_flash` off, and no mask or a key-padding mask (B, 1, 1, T). The
+    lengths are the `lengths` argument, else the mask's row sums; the 31-bit
+    dropout seed comes from `seed_generator`, as in `FeedForwardModule`.
+    Eval always runs the unfused layers. `use_kernel=False` routes the fused
+    path through its plain version; `regularize=False` turns its dropout
+    off."""
 
     def __init__(self, dim_model: int, att_params: dict,
-                 drop_rate: float = 0.1):
+                 drop_rate: float = 0.1, fused_att: Optional[bool] = None):
         super().__init__()
         self.norm = LayerNorm(dim_model, 1e-6)
         self.attention = make_attention(dim_model, att_params)
         self.dropout = Dropout(drop_rate)
+        self.drop_rate = drop_rate
+        self.fused_att = (_fused_att_enabled() if fused_att is None
+                          else bool(fused_att))
+        self.use_kernel = True
+        self.regularize = True
+        self.seed_generator = None
+        self.training = False
+
+    def fused_eligible(self, ndim: int = 3, mask=None) -> bool:
+        """Whether a training-mode call with an input of `ndim` axes and this
+        mask takes the fused kernels."""
+        att = self.attention
+        return (self.fused_att and ndim == 3
+                and type(att) is RelPos1dMultiHeadAttention
+                and not att.use_flash
+                and (mask is None or (mask.ndim == 4 and mask.shape[2] == 1))
+                and att.dim_model % att.num_heads == 0
+                and att.dim_model % 2 == 0)
 
     def forward(self, x, mask=None, lengths=None):
+        if self.training and self.fused_eligible(x.ndim, mask):
+            att = self.attention
+            rate = self.drop_rate if self.regularize else 0.0
+            seed = _draw_seed(self.seed_generator) if rate > 0.0 else None
+            if lengths is None and mask is not None:
+                lengths = mask[:, 0, 0, :].sum(dim=-1).to(torch.int32)
+            return fused_attention_module_3d(
+                x, self.norm.weight, self.norm.bias,
+                att.query_layer.weight, att.query_layer.bias,
+                att.key_layer.weight, att.key_layer.bias,
+                att.value_layer.weight, att.value_layer.bias,
+                att.pos_layer.weight, att.pos_layer.bias,
+                att.output_layer.weight, att.output_layer.bias,
+                num_heads=att.num_heads, lengths=lengths, seed=seed,
+                drop_rate=rate, deterministic=False, residual=False,
+                ln_eps=self.norm.eps, use_kernel=self.use_kernel)
         return self.dropout(self.attention(self.norm(x), mask=mask,
                                            lengths=lengths))
 
@@ -148,13 +206,14 @@ class ConformerBlock(nn.Module):
 
     def __init__(self, dim_model: int, dim_expand: int, ff_ratio: int,
                  att_params: dict, conv_stride: int = 1, kernel_size: int = 15,
-                 conv_padding: str = "same", drop_rate: float = 0.1):
+                 conv_padding: str = "same", drop_rate: float = 0.1,
+                 fused_att: Optional[bool] = None):
         super().__init__()
         self.stride = conv_stride
         self.ff_module1 = FeedForwardModule(dim_model, dim_model * ff_ratio,
                                             drop_rate)
         self.self_att_module = AttentionModule(dim_model, att_params,
-                                               drop_rate)
+                                               drop_rate, fused_att)
         self.conv_module = ConvolutionModule(dim_model, dim_expand, conv_stride,
                                              kernel_size, conv_padding,
                                              drop_rate)
@@ -193,7 +252,8 @@ class ConformerInterCTC(nn.Module):
                  interctc_blocks: Sequence[int], vocab_size: int,
                  att_params, loss_prefix: str = "ctc", kernel_size: int = 15,
                  ff_ratio: int = 4, conv_stride: int = 2,
-                 conv_padding: str = "same", drop_rate: float = 0.1):
+                 conv_padding: str = "same", drop_rate: float = 0.1,
+                 fused_att: Optional[bool] = None):
         super().__init__()
         self.dropout = Dropout(drop_rate)
         dims = [dim_model] if isinstance(dim_model, int) else list(dim_model)
@@ -212,7 +272,7 @@ class ConformerInterCTC(nn.Module):
                     dims[stage], dim_out, ff_ratio, att,
                     conv_stride=conv_stride if down else 1,
                     kernel_size=kernel_size, conv_padding=conv_padding,
-                    drop_rate=drop_rate))
+                    drop_rate=drop_rate, fused_att=fused_att))
                 if i + 1 in set(interctc_blocks):
                     self.interctc_at.append(i)
                     inter.append(InterCTCResModule(dim_out, vocab_size))

@@ -9,7 +9,9 @@ the AV encoder fuses both at 360-d and runs 5 more conformer blocks.
 Training mode (`nn.Module.train()`, the JAX `training=True`): SpecAugment
 after the fbank, batch statistics in every BatchNorm (audio stem, video stem,
 ResNet, convolution modules), dropout and the fused feed-forward kernels in
-the conformer stacks. The video stem trains in mode "2d" only.
+the conformer stacks (and, with `fused_att`, the fused attention kernels).
+The video stem trains in mode "2d" (plain PyTorch) or "pallas" (the BN + ReLU
++ pool kernel applied with batch statistics).
 """
 
 import os
@@ -25,7 +27,8 @@ from avec_tpu_torch.models.resnet import ResNet
 from avec_tpu_torch.ops.audio import AudioPreprocessing, SpecAugment
 from avec_tpu_torch.ops.layers import BatchNorm, Conv, Linear
 from avec_tpu_torch.ops.masks import make_mask
-from avec_tpu_torch.ops.stem import fused_stem_eval, stem_conv
+from avec_tpu_torch.ops.stem import (fused_stem_eval, fused_stem_train,
+                                     stem_conv)
 
 
 def _stem_mode() -> str:
@@ -40,8 +43,11 @@ class FusedVideoStem(nn.Module):
 
     mode "2d" is plain PyTorch, in eval and in training (batch statistics,
     running update, detached conv bias: encoders.py:135-152); mode "pallas"
-    runs the eval BN+ReLU+pool kernel (`ops/stem.py`), or its plain version
-    when `use_kernel` is False, and has no training mode yet."""
+    runs the BN+ReLU+pool kernel (`ops/stem.py`), or its plain version when
+    `use_kernel` is False: in eval with the running statistics, in training
+    with the batch's (`fused_stem_train`), moving the running statistics
+    towards the batch mean and the unbiased batch variance
+    (encoders.py:183-191)."""
 
     def __init__(self, mode: str = "2d"):
         super().__init__()
@@ -62,9 +68,11 @@ class FusedVideoStem(nn.Module):
         conv, bn = self.layers[0]
         if self.mode == "pallas":
             if self.training:
-                raise NotImplementedError(
-                    "the train-mode stem kernel is not ported: train with "
-                    "stem mode '2d'")
+                pooled, mean, var = fused_stem_train(
+                    x, conv.weight, conv.bias, bn.weight, bn.bias, bn.eps,
+                    use_kernel=self.use_kernel)
+                bn.update_running(mean, var, pooled.shape[0] * 44 * 44)
+                return pooled
             return fused_stem_eval(x, conv.weight, conv.bias, bn.weight,
                                    bn.bias, bn.running_mean, bn.running_var,
                                    bn.eps, use_kernel=self.use_kernel)
@@ -99,7 +107,8 @@ class AudioEfficientConformerEncoder(nn.Module):
                  att_type: str = "patch",
                  interctc_blocks: Sequence[int] = (3, 6, 10, 13),
                  num_blocks: Sequence[int] = (5, 6, 5),
-                 loss_prefix: str = "ctc", use_flash: bool = False):
+                 loss_prefix: str = "ctc", use_flash: bool = False,
+                 fused_att: Optional[bool] = None):
         super().__init__()
         n_mels, filters, dims, heads = 80, 180, [180, 256, 360], 4
         self.preprocessing = AudioPreprocessing(
@@ -112,7 +121,7 @@ class AudioEfficientConformerEncoder(nn.Module):
         self.back_end = ConformerInterCTC(
             dims, list(num_blocks), list(interctc_blocks), vocab_size,
             _att_params_audio(att_type, heads, use_flash),
-            loss_prefix=loss_prefix)
+            loss_prefix=loss_prefix, fused_att=fused_att)
         self.head = Linear(dims[-1], vocab_size) if include_head else None
 
     def forward(self, x, lengths):
@@ -134,7 +143,8 @@ class VisualEfficientConformerEncoder(nn.Module):
     def __init__(self, include_head: bool = True, vocab_size: int = 256,
                  interctc_blocks: Sequence[int] = (3, 6, 9),
                  num_blocks: Sequence[int] = (6, 6), loss_prefix: str = "ctc",
-                 stem_mode: Optional[str] = None):
+                 stem_mode: Optional[str] = None,
+                 fused_att: Optional[bool] = None):
         super().__init__()
         dims = [256, 360]
         self.front_end = nn.ModuleDict({
@@ -144,7 +154,7 @@ class VisualEfficientConformerEncoder(nn.Module):
                "params": {"num_heads": 4}}
         self.back_end = ConformerInterCTC(
             dims, list(num_blocks), list(interctc_blocks), vocab_size, att,
-            loss_prefix=loss_prefix)
+            loss_prefix=loss_prefix, fused_att=fused_att)
         self.head = Linear(dims[-1], vocab_size) if include_head else None
 
     def forward(self, x, lengths):
@@ -168,23 +178,24 @@ class AudioVisualEfficientConformerEncoder(nn.Module):
                  v_num_blocks: Sequence[int] = (6, 1),
                  a_num_blocks: Sequence[int] = (5, 6, 1),
                  f_num_blocks: int = 5, use_flash: bool = False,
-                 stem_mode: Optional[str] = None):
+                 stem_mode: Optional[str] = None,
+                 fused_att: Optional[bool] = None):
         super().__init__()
         dim = 360
         self.video_encoder = VisualEfficientConformerEncoder(
             include_head=False, vocab_size=vocab_size,
             interctc_blocks=v_interctc_blocks, num_blocks=v_num_blocks,
-            loss_prefix="v_ctc", stem_mode=stem_mode)
+            loss_prefix="v_ctc", stem_mode=stem_mode, fused_att=fused_att)
         self.audio_encoder = AudioEfficientConformerEncoder(
             include_head=False, vocab_size=vocab_size,
             interctc_blocks=a_interctc_blocks, num_blocks=a_num_blocks,
-            loss_prefix="a_ctc", use_flash=use_flash)
+            loss_prefix="a_ctc", use_flash=use_flash, fused_att=fused_att)
         self.fusion_module = FusionModule(dim, dim, dim)
         att = {"class": "RelPos1dMultiHeadAttention",
                "params": {"num_heads": 4}}
         self.audio_visual_encoder = ConformerInterCTC(
             dim, f_num_blocks, list(f_interctc_blocks), vocab_size, att,
-            loss_prefix="f_ctc")
+            loss_prefix="f_ctc", fused_att=fused_att)
         self.head = Linear(dim, vocab_size) if include_head else None
 
     def forward(self, video, video_len, audio, audio_len):

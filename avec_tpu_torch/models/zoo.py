@@ -41,7 +41,8 @@ class AudioVisualEfficientConformerInterCTC(nn.Module):
                  v_num_blocks: Sequence[int] = (6, 1),
                  a_num_blocks: Sequence[int] = (5, 6, 1),
                  f_num_blocks: int = 5, stem_mode: Optional[str] = None,
-                 device="cuda", generator: Optional[torch.Generator] = None):
+                 fused_att: Optional[bool] = None, device="cuda",
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         device = resolve_device(device)
         self.encoder = AudioVisualEfficientConformerEncoder(
@@ -49,7 +50,7 @@ class AudioVisualEfficientConformerInterCTC(nn.Module):
             a_interctc_blocks=a_interctc_blocks,
             f_interctc_blocks=f_interctc_blocks, v_num_blocks=v_num_blocks,
             a_num_blocks=a_num_blocks, f_num_blocks=f_num_blocks,
-            use_flash=use_flash, stem_mode=stem_mode)
+            use_flash=use_flash, stem_mode=stem_mode, fused_att=fused_att)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         init_params(self, generator)
@@ -74,7 +75,7 @@ class AudioVisualEfficientConformerInterCTC(nn.Module):
     def set_generators(self, seed: int) -> None:
         """Seed the training noise: one generator on the model's device for
         the dropout and SpecAugment masks, one on the CPU for the fused
-        feed-forward kernels' integer seeds (drawn without a device sync)."""
+        kernels' integer seeds (drawn without a device sync)."""
         device = next(self.parameters()).device
         noise = torch.Generator(device=device).manual_seed(seed)
         seeds = torch.Generator().manual_seed(seed + 1)
@@ -88,17 +89,30 @@ class AudioVisualEfficientConformerInterCTC(nn.Module):
         """Kernel launches of one training forward + backward, derived from
         the module tree: every feed-forward module launches the fused forward
         and backward once, every flash attention layer the flash forward and
-        both flash backward kernels once."""
-        from avec_tpu_torch.models.conformer import FeedForwardModule
-        from avec_tpu_torch.ops import ffn, flash_attention
+        both flash backward kernels once, every attention module that takes
+        the fused route (with the key-padding masks the encoders build) the
+        fused attention forward and backward once, and a "pallas" video stem
+        its BN + ReLU + pool kernel once (its backward launches no kernel)."""
+        from avec_tpu_torch.models.conformer import (AttentionModule,
+                                                     FeedForwardModule)
+        from avec_tpu_torch.models.encoders import FusedVideoStem
+        from avec_tpu_torch.ops import (attention_module, ffn,
+                                        flash_attention, stem)
 
-        n_ffn = sum(isinstance(m, FeedForwardModule) for m in self.modules())
-        n_flash = sum(bool(getattr(m, "use_flash", False))
-                      for m in self.modules())
+        mods = list(self.modules())
+        n_ffn = sum(isinstance(m, FeedForwardModule) for m in mods)
+        n_flash = sum(bool(getattr(m, "use_flash", False)) for m in mods)
+        n_att = sum(isinstance(m, AttentionModule) and m.fused_eligible()
+                    for m in mods)
+        n_stem = sum(isinstance(m, FusedVideoStem) and m.mode == "pallas"
+                     for m in mods)
         counts = {ffn.KERNEL_FWD: n_ffn, ffn.KERNEL_BWD: n_ffn,
                   flash_attention.KERNEL: n_flash,
                   flash_attention.KERNEL_DQ: n_flash,
-                  flash_attention.KERNEL_DKV: n_flash}
+                  flash_attention.KERNEL_DKV: n_flash,
+                  attention_module.KERNEL_FWD: n_att,
+                  attention_module.KERNEL_BWD: n_att,
+                  stem.KERNEL: n_stem}
         return {k: v for k, v in counts.items() if v}
 
     def forward(self, video, video_len, audio, audio_len):

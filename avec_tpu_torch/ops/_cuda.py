@@ -25,7 +25,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "avec_tpu_torch"
 SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu", "ffn.cu",
-           "stem.cu")
+           "stem.cu", "attention_module.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -54,15 +54,17 @@ def _threshold(keep: float) -> Tuple[int, float]:
 
 
 def dropout_mask(seed: int, n: int, ncols: int, draw: int, keep: float,
-                 device="cpu") -> torch.Tensor:
+                 device="cpu", tile_rows: int = _TILE_N) -> torch.Tensor:
     """(n, ncols) fp32 multipliers, 0 or 1/keep, of draw 1 (inner, ncols=F)
-    or 2 (outer, ncols=d) for rows 0..n-1."""
+    or 2 (outer, ncols=d) for rows 0..n-1. The hash restarts every
+    `tile_rows` rows with the next tile's key: 256 for the feed-forward
+    module, T for the attention module (one tile per sequence)."""
     thr, inv_keep = _threshold(keep)
     rows = torch.arange(n, dtype=torch.int64, device=device)
     cols = torch.arange(ncols, dtype=torch.int64, device=device)
-    base = (int(seed) + (rows // _TILE_N) * _SEED_STRIDE) & _M32
+    base = (int(seed) + (rows // tile_rows) * _SEED_STRIDE) & _M32
     key = _mix32((base + (draw * _GOLDEN) % (2 ** 32)) & _M32)
-    flat = (((rows % _TILE_N) * ncols)[:, None] + cols[None, :]) & _M32
+    flat = (((rows % tile_rows) * ncols)[:, None] + cols[None, :]) & _M32
     bits = _mix32(flat ^ key[:, None])
     return (bits < thr).to(torch.float32) * inv_keep
 

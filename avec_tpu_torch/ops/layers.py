@@ -218,6 +218,14 @@ class BatchNorm(nn.Module):
             self.running_mean.zero_()
             self.running_var.fill_(1.0)
 
+    @torch.no_grad()
+    def update_running(self, mean, var, n: int) -> None:
+        """Move the running statistics by `momentum` towards a batch mean and
+        the unbiased form of a (biased) batch variance over n positions."""
+        m = self.momentum
+        self.running_mean.mul_(1 - m).add_(mean, alpha=m)
+        self.running_var.mul_(1 - m).add_(var, alpha=m * n / max(n - 1, 1))
+
     def forward(self, x):
         shape = (1, -1) + (1,) * (x.ndim - 2)
         xf = x.float()
@@ -225,12 +233,7 @@ class BatchNorm(nn.Module):
             axes = (0,) + tuple(range(2, x.ndim))
             mean = xf.mean(dim=axes)
             var = torch.clamp((xf * xf).mean(dim=axes) - mean * mean, min=0.0)
-            n = x.numel() // x.shape[1]
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.mul_(1 - m).add_(mean, alpha=m)
-                self.running_var.mul_(1 - m).add_(var,
-                                                  alpha=m * n / max(n - 1, 1))
+            self.update_running(mean, var, x.numel() // x.shape[1])
         else:
             mean, var = self.running_mean, self.running_var
         y = (xf - mean.view(shape)) * torch.rsqrt(var + self.eps).view(shape)

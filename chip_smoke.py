@@ -5,7 +5,7 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py            # build, check, serve, train, time
     python3 chip_smoke.py --profile  # also trace one served forward and one
-                                     # train step
+                                     # train step of each training path
 
 Phases, in order; any failure raises and the exit code is non-zero:
  1. device and build: require CUDA, print the card's name and power limit,
@@ -43,7 +43,26 @@ Phases, in order; any failure raises and the exit code is non-zero:
  7. train-step time, utterances/s and peak memory with the kernels and with
     their plain versions (interleaved), and each training kernel's time at
     the step's shapes beside its bound, plain version and library call.
-The line before the last is a JSON `kernels` line of six kernels; the last
+ 8. the fused attention module's kernels (K2 forward, K2b backward) against
+    the plain version at (B, T, d, H) = (16, 151, 256, 4) and (16, 76, 360,
+    4), fp32 and bf16, lengths from T down to 1 and one 0, dropout 0 and 0.1
+    (exactly the hash mask's entries dropped on both sides), with and without
+    the residual: y, dx and every parameter gradient, max abs over the
+    largest entry; fp32 1e-4 (y) and 5e-4 (gradients), bf16 2e-2 and 3e-2;
+ 9. the train-mode stem (`fused_stem_train`) on the card, B=16 x 151 frames,
+    kernel route against plain route: pooled (fp32 1e-5, bf16 exact), mean,
+    var, the gradients of the conv weight, BN scale and BN bias, and a
+    conv-bias gradient of exactly zero;
+10. training at full width through those kernels: fused attention, fused
+    FFN, stem "pallas", use_flash off: the launch counts per step must be 19
+    + 19 attention, 48 + 48 FFN, 1 stem and no flash; 1 warm-up + 3 counted
+    steps with the checks of phase 6; then fp32 kernels against plain
+    versions (loss 1e-5, gradient norm 1e-3, every leaf 2e-3);
+11. step time, utterances/s and peak memory of that path and of phase 6's
+    path, interleaved in this one call, and the attention kernels' times per
+    launch and per step beside their bounds, the plain version and the
+    port's own unfused attention module (PyTorch library calls).
+The line before the last is a JSON `kernels` line of eight kernels; the last
 line is {"ok": true, "device": {...}}. Details go to
 chiprun_out/chip_smoke.json.
 """
@@ -62,6 +81,14 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_OPS = {"bf16": 989e12, "fp32": 67e12}
 ROUNDS = 3                         # served batches in the timed main path
 TRAIN_STEPS = 3                    # counted train steps after one warm-up
+
+
+# B=16 lengths for the kernel checks at the training shapes: T, short ones, 0
+RAGGED_TRAIN_LENGTHS = {
+    151: [151, 140, 133, 120, 111, 99, 90, 88, 77, 64, 50, 33, 17, 2, 1, 0],
+    76: [76, 70, 67, 60, 56, 50, 45, 44, 39, 32, 25, 17, 9, 2, 1, 0]}
+ATT_LEAVES = ("x", "ln_w", "ln_b", "wq", "bq", "wk", "bk", "wv", "bv", "pos_w",
+              "pos_b", "wo", "bo")
 
 
 def log(*args):
@@ -355,7 +382,15 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 5-7. the training slice
-    kernels += training_phases(detail, "--profile" in sys.argv[1:])
+    profile = "--profile" in sys.argv[1:]
+    entries, trainer, batch = training_phases(detail, profile)
+    kernels += entries
+
+    # ---- 8-11. the fused attention module and the train-mode stem
+    entries, stem_train_launches = fused_phases(detail, profile, trainer,
+                                                batch)
+    kernels += entries
+    kernels[1]["launches_train_path"] = stem_train_launches
     detail["kernels"] = kernels
 
     os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
@@ -473,11 +508,112 @@ def kernel_call_shapes(trainer, batch):
     return ffn, flash
 
 
+def counted_train_steps(trainer, batch, per_step):
+    """One warm-up step, then TRAIN_STEPS steps with the launch counts set to
+    0 just before and read just after: the counts must equal `per_step` per
+    step, the losses and the gradient norm must be finite, every parameter
+    must have a gradient, and at least 99% of the leaves and every BN running
+    statistic must move. Returns (per-step losses, launch counts)."""
+    from avec_tpu_torch.ops import _cuda
+
+    model = trainer.model
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    stats0 = {n: b.detach().clone() for n, b in model.named_buffers()
+              if "running_" in n}
+    trainer.train_step(batch)                        # warm-up
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    history = []
+    for _ in range(TRAIN_STEPS):
+        losses, infos = trainer.train_step(batch)
+        history.append({**{k: float(v) for k, v in losses.items()},
+                        "lr": infos["lr"],
+                        "grad_norm": float(infos["grad_norm"])})
+    torch.cuda.synchronize()
+    train_launches = dict(_cuda.launches)
+    log(f"main path launches over {TRAIN_STEPS} train steps: {train_launches}")
+    for row in history:
+        log("  step " + json.dumps({k: round(v, 6) if k != "lr" else v
+                                    for k, v in row.items()}))
+    if train_launches != {k: v * TRAIN_STEPS for k, v in per_step.items()}:
+        raise AssertionError(f"launches {train_launches} != {TRAIN_STEPS} x "
+                             f"{per_step}")
+    if len(history[-1]) != 9 or not all(
+            math.isfinite(v) for row in history for v in row.values()):
+        raise AssertionError(f"losses or gradient norm not finite: {history}")
+    no_grad = [n for n, p in model.named_parameters() if p.grad is None]
+    changed = sum(not torch.equal(p, before[n])
+                  for n, p in model.named_parameters())
+    stuck = [n for n, b in model.named_buffers()
+             if n in stats0 and torch.equal(b, stats0[n])]
+    log(f"  parameters without gradient: {len(no_grad)}; leaves changed "
+        f"{changed}/{len(before)}; BN statistics that did not move: "
+        f"{len(stuck)}/{len(stats0)}")
+    if no_grad or changed < 0.99 * len(before) or stuck:
+        raise AssertionError(f"no_grad {no_grad[:5]} changed {changed} "
+                             f"stuck {stuck[:5]}")
+    return history, train_launches
+
+
+def compare_fp32_step(model, batch, loss_tol):
+    """fp32, dropout and SpecAugment off: one forward + backward through the
+    kernels against one through their plain versions (which must launch
+    nothing). Total loss within `loss_tol` and gradient norm within 1e-3,
+    relative; every gradient leaf within 2e-3 of its largest entry."""
+    from avec_tpu_torch.ops import _cuda
+    from avec_tpu_torch.train.losses import CTCLoss
+    from avec_tpu_torch.train.model import Trainer
+
+    trainer32 = Trainer(model=model, device="cuda", precision="float32",
+                        loss=CTCLoss(zero_infinity=True))
+    model.set_regularization(False)
+    model.set_kernels(True)
+    loss_k, grads_k = trainer32.loss_and_grads(batch)
+    model.set_kernels(False)
+    _cuda.reset_launches()
+    loss_p, grads_p = trainer32.loss_and_grads(batch)
+    if dict(_cuda.launches):
+        raise AssertionError(f"plain path launched {dict(_cuda.launches)}")
+    model.set_kernels(True)
+    model.set_regularization(True)
+
+    def gnorm(grads):
+        return float(torch.sqrt(sum((g.double() ** 2).sum()
+                                    for g in grads.values())))
+
+    lk, lp = float(loss_k["loss"]), float(loss_p["loss"])
+    nk, npl = gnorm(grads_k), gnorm(grads_p)
+    gmax = max(float(g.abs().max()) for g in grads_p.values())
+    rows, noise = [], 0
+    for name, gp in grads_p.items():
+        leaf_max = float(gp.abs().max())
+        if leaf_max <= 1e-6 * gmax:
+            noise += 1          # analytically zero: key and positional biases
+            continue
+        rows.append((max_abs(grads_k[name], gp) / leaf_max, leaf_max, name))
+    rows.sort(reverse=True)
+    log(f"fp32 kernels vs plain: loss {lk:.6f} vs {lp:.6f} "
+        f"(rel {abs(lk - lp) / abs(lp):.2e}, tol {loss_tol}); grad norm "
+        f"{nk:.6f} vs {npl:.6f} (rel {abs(nk - npl) / npl:.2e}, tol 1e-3); "
+        f"{len(rows)} leaves compared, {noise} below 1e-6 of the largest "
+        "gradient left out")
+    for err, leaf_max, name in rows[:5]:
+        log(f"  leaf {name}: max abs diff / max abs {err:.2e} "
+            f"(max abs {leaf_max:.3e})")
+    out = {"fp32_loss_rel": abs(lk - lp) / abs(lp),
+           "fp32_grad_norm_rel": abs(nk - npl) / npl,
+           "fp32_worst_leaf_rel": rows[0][0], "fp32_worst_leaf": rows[0][2]}
+    if not (abs(lk - lp) <= loss_tol * abs(lp)
+            and abs(nk - npl) <= 1e-3 * npl and rows[0][0] <= 2e-3):
+        raise AssertionError("training kernel path disagrees with the plain "
+                             f"path: {out}")
+    return out
+
+
 def training_phases(detail, profile: bool):
     """Phases 5-7; returns the four training kernels' entries."""
     import torch.nn.functional as F
 
-    from avec_tpu_torch.ops import _cuda
     from avec_tpu_torch.ops.ffn import KERNEL_BWD, KERNEL_FWD, fused_ffn
     from avec_tpu_torch.ops.flash_attention import (
         KERNEL_DKV, KERNEL_DQ, flash_attention_bwd,
@@ -522,10 +658,7 @@ def training_phases(detail, profile: bool):
                     raise AssertionError(f"FFN kernels disagree: {key} "
                                          f"{e_fwd} {e_bwd}")
             del x, g, params
-    bwd_lengths = {151: [151, 140, 133, 120, 111, 99, 90, 88, 77, 64, 50, 33,
-                         17, 2, 1, 0],
-                   76: [76, 70, 67, 60, 56, 50, 45, 44, 39, 32, 25, 17, 9, 2,
-                        1, 0]}
+    bwd_lengths = RAGGED_TRAIN_LENGTHS
     for t, d_model in ((151, 256), (76, 360)):
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
             q, k, v, lens, scale = flash_inputs(16, t, d_model,
@@ -569,90 +702,10 @@ def training_phases(detail, profile: bool):
         f"{min(batch['inputs'][3]) / 16000:.2f}-"
         f"{max(batch['inputs'][3]) / 16000:.2f} s; launches per step derived "
         f"from the module tree: {per_step}")
-    before = {n: p.detach().clone() for n, p in model.named_parameters()}
-    stats0 = {n: b.detach().clone() for n, b in model.named_buffers()
-              if "running_" in n}
-    trainer.train_step(batch)                        # warm-up
-    torch.cuda.synchronize()
-    _cuda.reset_launches()
-    history = []
-    for _ in range(TRAIN_STEPS):
-        losses, infos = trainer.train_step(batch)
-        history.append({**{k: float(v) for k, v in losses.items()},
-                        "lr": infos["lr"],
-                        "grad_norm": float(infos["grad_norm"])})
-    torch.cuda.synchronize()
-    train_launches = dict(_cuda.launches)
-    log(f"main path launches over {TRAIN_STEPS} train steps: {train_launches}")
-    for row in history:
-        log("  step " + json.dumps({k: round(v, 6) if k != "lr" else v
-                                    for k, v in row.items()}))
-    if train_launches != {k: v * TRAIN_STEPS for k, v in per_step.items()}:
-        raise AssertionError(f"launches {train_launches} != {TRAIN_STEPS} x "
-                             f"{per_step}")
-    if len(history[-1]) != 9 or not all(
-            math.isfinite(v) for row in history for v in row.values()):
-        raise AssertionError(f"losses or gradient norm not finite: {history}")
-    no_grad = [n for n, p in model.named_parameters() if p.grad is None]
-    changed = sum(not torch.equal(p, before[n])
-                  for n, p in model.named_parameters())
-    stuck = [n for n, b in model.named_buffers()
-             if n in stats0 and torch.equal(b, stats0[n])]
-    log(f"  parameters without gradient: {len(no_grad)}; leaves changed "
-        f"{changed}/{len(before)}; BN statistics that did not move: "
-        f"{len(stuck)}/{len(stats0)}")
-    if no_grad or changed < 0.99 * len(before) or stuck:
-        raise AssertionError(f"no_grad {no_grad[:5]} changed {changed} "
-                             f"stuck {stuck[:5]}")
-    del before, stats0
-
-    # fp32, no dropout, no SpecAugment: kernels against plain versions
-    trainer32 = Trainer(model=model, device="cuda", precision="float32",
-                        loss=CTCLoss(zero_infinity=True))
-    model.set_regularization(False)
-    model.set_kernels(True)
-    loss_k, grads_k = trainer32.loss_and_grads(batch)
-    model.set_kernels(False)
-    _cuda.reset_launches()
-    loss_p, grads_p = trainer32.loss_and_grads(batch)
-    if dict(_cuda.launches):
-        raise AssertionError(f"plain path launched {dict(_cuda.launches)}")
-    model.set_kernels(True)
-    model.set_regularization(True)
-
-    def gnorm(grads):
-        return float(torch.sqrt(sum((g.double() ** 2).sum()
-                                    for g in grads.values())))
-
-    lk, lp = float(loss_k["loss"]), float(loss_p["loss"])
-    nk, npl = gnorm(grads_k), gnorm(grads_p)
-    gmax = max(float(g.abs().max()) for g in grads_p.values())
-    rows, noise = [], 0
-    for name, gp in grads_p.items():
-        leaf_max = float(gp.abs().max())
-        if leaf_max <= 1e-6 * gmax:
-            noise += 1          # analytically zero: key and positional biases
-            continue
-        rows.append((max_abs(grads_k[name], gp) / leaf_max, leaf_max, name))
-    rows.sort(reverse=True)
-    log(f"fp32 kernels vs plain: loss {lk:.6f} vs {lp:.6f} "
-        f"(rel {abs(lk - lp) / abs(lp):.2e}, tol 1e-3); grad norm {nk:.6f} "
-        f"vs {npl:.6f} (rel {abs(nk - npl) / npl:.2e}, tol 1e-3); "
-        f"{len(rows)} leaves compared, {noise} below 1e-6 of the largest "
-        "gradient left out")
-    for err, leaf_max, name in rows[:5]:
-        log(f"  leaf {name}: max abs diff / max abs {err:.2e} "
-            f"(max abs {leaf_max:.3e})")
+    history, train_launches = counted_train_steps(trainer, batch, per_step)
+    fp32 = compare_fp32_step(model, batch, loss_tol=1e-3)
     train = {"params_m": n_params / 1e6, "batch": 16, "steps": history,
-             "launches_per_step": per_step,
-             "fp32_loss_rel": abs(lk - lp) / abs(lp),
-             "fp32_grad_norm_rel": abs(nk - npl) / npl,
-             "fp32_worst_leaf_rel": rows[0][0], "fp32_worst_leaf": rows[0][2]}
-    if not (abs(lk - lp) <= 1e-3 * abs(lp) and abs(nk - npl) <= 1e-3 * npl
-            and rows[0][0] <= 2e-3):
-        raise AssertionError("training kernel path disagrees with the plain "
-                             f"path: {train}")
-    del grads_k, grads_p, trainer32
+             "launches_per_step": per_step, **fp32}
 
     # ---- 7. timings
     def step_ms(kernels: bool):
@@ -776,7 +829,363 @@ def training_phases(detail, profile: bool):
             "ms": acc[key]["ms"], "plain_ms": acc[key]["plain_ms"],
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": acc[key]["library_ms"] if flash else None})
-    return entries
+    return entries, trainer, batch
+
+
+def att_inputs(b, t, d, dtype, seed):
+    """x, a cotangent and the attention module's twelve parameters in the
+    port's layout (weights (out, in)), seeded."""
+    gen = torch.Generator().manual_seed(seed)
+    dev = torch.device("cuda")
+    x = torch.randn(b, t, d, generator=gen).to(dev, dtype)
+    g = torch.randn(b, t, d, generator=gen).to(dev, dtype)
+    params = [1.0 + 0.1 * torch.randn(d, generator=gen),
+              0.1 * torch.randn(d, generator=gen)]
+    for _ in range(5):
+        params += [torch.randn(d, d, generator=gen) / d ** 0.5,
+                   0.1 * torch.randn(d, generator=gen)]
+    return x, g, [p.to(dev) for p in params]
+
+
+def att_run(x, g, params, heads, lens, drop, residual, use_kernel, seed=4321):
+    """y and the gradients of x and the twelve parameters."""
+    from avec_tpu_torch.ops.attention_module import fused_attention_module_3d
+
+    leaves = [a.detach().requires_grad_(True) for a in [x] + params]
+    y = fused_attention_module_3d(
+        leaves[0], *leaves[1:], num_heads=heads, lengths=lens, seed=seed,
+        drop_rate=drop, deterministic=False, residual=residual,
+        use_kernel=use_kernel)
+    y.backward(g)
+    return y.detach(), [a.grad for a in leaves]
+
+
+def att_cost(b, t, d, heads, es):
+    """(forward bytes, forward ops, backward bytes, backward ops) of the
+    attention module with n = b t rows: x read and y written once, the fp32
+    parameters (2 d + 5 (d^2 + d)) and the (t, d) angle table read once, the
+    lengths; in the backward x, g and dx, the parameters read and their
+    gradients written. Forward products: q, k, v and the output projection
+    (8 n d^2), the rel-pos projection of q (2 n d^2), q k^T and att v
+    (4 b t^2 d), the rel-pos score term contracted over d for every head
+    (2 heads b t^2 d). The backward recomputes all but the output projection
+    and adds dWo and the merged heads' cotangent (4 n d^2), dO V^T, dv, ds k
+    and dk (8 b t^2 d), ds against the angle table (2 heads b t^2 d), the
+    rel-pos projection's two gradients (4 n d^2), dWq/dWk/dWv and dh
+    (12 n d^2). Every sequence is computed at full T whatever its length: the
+    mask is additive."""
+    n, pbytes = b * t, 4 * (2 * d + 5 * (d * d + d))
+    table = t * d * es + 4 * b
+    sq = float(b) * t * t * d
+    f_ops = 10.0 * n * d * d + sq * (4 + 2 * heads)
+    b_ops = 28.0 * n * d * d + sq * (12 + 4 * heads)
+    return (2 * n * d * es + pbytes + table, f_ops,
+            3 * n * d * es + 2 * pbytes + table, b_ops)
+
+
+def time_att_bwd_kernel(x, g, params, heads, lens, drop, seed):
+    """Time of one fused-attention backward call alone (all its stages),
+    through the library's C entry point with the wrapper's own arguments and
+    preallocated scratch and gradient buffers; this call is outside any
+    count."""
+    from avec_tpu_torch.ops import _cuda, attention_module as am
+    from avec_tpu_torch.ops.ffn import _threshold
+
+    b, t, d = x.shape
+    _, bwd, size = am._lib()
+    thr, inv_keep = _threshold(1.0 - drop)
+    tab = am._interleaved_table(t, d, x.dtype, x.device)
+    scratch = torch.empty(size(b, t, d, heads, 1), dtype=torch.float32,
+                          device=x.device)
+    dx = torch.empty_like(x)
+    grads = [torch.zeros_like(p) for p in params]
+    pp, gp = am._pointers(params), am._pointers(grads)
+    args = (x.data_ptr(), g.data_ptr(), tab.data_ptr(), lens.data_ptr(), pp,
+            dx.data_ptr(), gp, scratch.data_ptr(), b, t, d, heads, 1e-6,
+            1.0 / math.sqrt(d // heads), 0, 1, seed, thr, inv_keep,
+            int(x.dtype == torch.bfloat16), _cuda.stream_ptr(x))
+
+    def launch():
+        _cuda.check(bwd(*args), "fused_att_bwd")
+
+    return cuda_time_ms(launch)
+
+
+def attention_call_shapes(trainer, batch):
+    """One forward in training mode with hooks: how often each fused
+    attention shape (T, d, heads, lengths) occurs in a step."""
+    from avec_tpu_torch.models.conformer import AttentionModule
+
+    shapes, hooks = {}, []
+
+    def on_att(mod, args, kwargs):
+        x, lengths = args[0], kwargs.get("lengths")
+        key = (x.shape[1], x.shape[2], mod.attention.num_heads,
+               tuple(int(v) for v in lengths.tolist()))
+        shapes[key] = shapes.get(key, 0) + 1
+
+    for m in trainer.model.modules():
+        if isinstance(m, AttentionModule) and m.fused_eligible():
+            hooks.append(m.register_forward_pre_hook(on_att,
+                                                     with_kwargs=True))
+    inputs, _ = trainer._to_device(batch)
+    with torch.no_grad():
+        trainer.model.encoder(*inputs)
+    for hk in hooks:
+        hk.remove()
+    return shapes
+
+
+def fused_phases(detail, profile: bool, trainer2, batch):
+    """Phases 8-11: the fused attention module (K2, K2b) and the train-mode
+    stem against their plain versions, the train path that runs them at full
+    width, and its times beside the flash path's (`trainer2`). Returns the
+    two attention kernels' entries and the stem kernel's launch count on this
+    path."""
+    from avec_tpu_torch.models.conformer import AttentionModule
+    from avec_tpu_torch.ops import _cuda
+    from avec_tpu_torch.ops.attention_module import (
+        KERNEL_BWD, KERNEL_FWD, fused_attention_module_3d)
+    from avec_tpu_torch.ops.ffn import dropout_mask
+    from avec_tpu_torch.ops.layers import init_params
+    from avec_tpu_torch.ops.stem import KERNEL as KERNEL_STEM
+    from avec_tpu_torch.ops.stem import (bn_relu_pool, bn_relu_pool_reference,
+                                         fused_stem_train)
+    from avec_tpu_torch.train.losses import CTCLoss
+    from avec_tpu_torch.train.model import Trainer
+
+    dev = torch.device("cuda")
+    errs = {KERNEL_FWD: {}, KERNEL_BWD: {}}
+    abs_errs = {KERNEL_FWD: 0.0, KERNEL_BWD: 0.0}
+
+    # ---- 8. K2 / K2b against the plain version at both shape families
+    for t, d in ((151, 256), (76, 360)):
+        lens = torch.tensor(RAGGED_TRAIN_LENGTHS[t], dtype=torch.int32,
+                            device=dev)
+        for dtype, tol, wtol in ((torch.float32, 1e-4, 5e-4),
+                                 (torch.bfloat16, 2e-2, 3e-2)):
+            x, g, params = att_inputs(16, t, d, dtype, seed=t)
+            for drop, residual in ((0.0, False), (0.0, True), (0.1, False),
+                                   (0.1, True)):
+                y, grads = att_run(x, g, params, 4, lens, drop, residual,
+                                   True)
+                torch.cuda.synchronize()
+                want_y, want = att_run(x, g, params, 4, lens, drop, residual,
+                                       False)
+                key = (f"T{t}_d{d}_{str(dtype)[6:]}_drop{drop}_"
+                       f"res{int(residual)}")
+                gmax = max(float(a.abs().max()) for a in want[1:])
+                e_fwd = rel_err(y, want_y)
+                e_bwd = {nm: rel_err(a, b)
+                         for nm, a, b in zip(ATT_LEAVES, grads, want)
+                         if float(b.float().abs().max()) > 1e-6 * gmax}
+                errs[KERNEL_FWD][key] = e_fwd
+                errs[KERNEL_BWD][key] = e_bwd
+                if dtype == torch.float32:
+                    abs_errs[KERNEL_FWD] = max(abs_errs[KERNEL_FWD],
+                                               max_abs(y, want_y))
+                    abs_errs[KERNEL_BWD] = max(
+                        abs_errs[KERNEL_BWD],
+                        *(max_abs(a, b) for a, b in zip(grads, want)))
+                if drop:
+                    # exactly the hash mask's entries are dropped, on both
+                    # sides: there y is 0, or x with the residual
+                    base = x if residual else torch.zeros_like(x)
+                    dropped = dropout_mask(4321, 16 * t, d, 1, 1.0 - drop, dev,
+                                           tile_rows=t).reshape(16, t, d) == 0
+                    kept_equal = float(((y == base) & ~dropped).float().mean())
+                    if not (bool((y[dropped] == base[dropped]).all())
+                            and bool((want_y[dropped] == base[dropped]).all())
+                            and kept_equal < 5e-3):
+                        raise AssertionError(f"dropout masks differ: {key}")
+                worst_w = max(v for nm, v in e_bwd.items() if nm != "x")
+                log(f"fused_att {key}: y {e_fwd:.2e} (tol {tol}) dx "
+                    f"{e_bwd['x']:.2e} params {worst_w:.2e} (tol {wtol}); "
+                    + " ".join(f"{nm} {v:.1e}" for nm, v in e_bwd.items()
+                               if nm != "x"))
+                x_tol = wtol if dtype == torch.float32 else tol
+                if not (e_fwd <= tol and e_bwd["x"] <= x_tol
+                        and worst_w <= wtol):
+                    raise AssertionError(f"attention kernels disagree: {key} "
+                                         f"{e_fwd} {e_bwd}")
+            del x, g, params
+    detail["att_kernel_errors"] = errs
+
+    # ---- 9. the train-mode stem on the card: kernel route vs plain route
+    gen = torch.Generator().manual_seed(11)
+    video = torch.rand(16, 151, 88, 88, 1, generator=gen).to(dev)
+    cot = torch.randn(16 * 151, 22, 22, 64, generator=gen).to(dev)
+    conv_w = (torch.randn(64, 1, 5, 7, 7, generator=gen) / 245 ** 0.5).to(dev)
+    vecs = [(0.1 * torch.randn(64, generator=gen) + shift).to(dev)
+            for shift in (0.0, 1.0, 0.0)]           # conv bias, BN scale, bias
+    stem_errs = {}
+    for dtype, tol, gtol in ((torch.float32, 1e-5, 1e-4),
+                             (torch.bfloat16, 0.0, 1e-2)):
+        res = []
+        for use_kernel in (True, False):
+            leaves = [a.detach().clone().requires_grad_(True)
+                      for a in [conv_w] + vecs]
+            n0 = _cuda.launches[KERNEL_STEM]
+            pooled, mean, var = fused_stem_train(video.to(dtype), *leaves,
+                                                 1e-5, use_kernel)
+            pooled.backward(cot.to(dtype))
+            torch.cuda.synchronize()
+            if _cuda.launches[KERNEL_STEM] - n0 != int(use_kernel):
+                raise AssertionError("stem route launched the wrong kernel "
+                                     "count")
+            res.append((pooled.detach(), mean, var,
+                        [a.grad for a in leaves]))
+            del pooled, leaves
+        (pk, mk, vk, gk), (pp, mp, vp, gp) = res
+        e = {"pooled": max_abs(pk, pp), "mean": max_abs(mk, mp),
+             "var": max_abs(vk, vp), "conv_w": rel_err(gk[0], gp[0]),
+             "bn_scale": rel_err(gk[2], gp[2]),
+             "bn_bias": rel_err(gk[3], gp[3]),
+             "conv_bias_grad_max": float(gk[1].abs().max())}
+        stem_errs[str(dtype)[6:]] = e
+        log(f"fused_stem_train {str(dtype)[6:]} kernel vs plain route: "
+            + json.dumps(e) + f" (tol {tol} forward, {gtol} gradients)")
+        if not (e["pooled"] <= tol and e["mean"] <= 1e-5 and e["var"] <= 1e-5
+                and max(e["conv_w"], e["bn_scale"], e["bn_bias"]) <= gtol
+                and e["conv_bias_grad_max"] == 0.0
+                and float(gp[1].abs().max()) == 0.0):
+            raise AssertionError(f"train-mode stem routes disagree: {e}")
+        del res, pk, pp, gk, gp
+    del video, cot
+    # the stem kernel at the training shape: 16 x 151 frames, bf16
+    y = torch.randn(16 * 151, 44, 44, 64, generator=gen).to(dev,
+                                                            torch.bfloat16)
+    a5, b5 = vecs[1].contiguous(), vecs[2].contiguous()
+    s_ms = cuda_time_ms(lambda: bn_relu_pool(y, a5, b5))
+    s_plain = cuda_time_ms(lambda: bn_relu_pool_reference(y, a5, b5))
+    s_bytes = y.numel() * 2 + (y.numel() // 4) * 2 + 2 * 64 * 4
+    s_bound = bound(s_bytes, 3.0 * y.numel(), "bf16")[0]
+    log(f"bn_relu_pool N={y.shape[0]} (training shape): {s_ms:.4f} ms, plain "
+        f"{s_plain:.4f}, bound {s_bound:.5f}")
+    detail["stem_train"] = {"ms": s_ms, "plain_ms": s_plain,
+                            "bytes": s_bytes, "bound_ms": s_bound}
+    del y
+    torch.cuda.empty_cache()
+    detail["stem_train_errors"] = stem_errs
+
+    # ---- 10. the fused-attention train path at full width
+    trainer = Trainer(device="cuda", precision="bfloat16", seed=0,
+                      vocab_size=256, use_flash=False, stem_mode="pallas",
+                      fused_att=True, loss=CTCLoss(zero_infinity=True))
+    model = trainer.model
+    per_step = model.kernel_launches_per_step()
+    log(f"train (fused attention, stem pallas, no flash): launches per step "
+        f"derived from the module tree: {per_step}")
+    want_steps = {"fused_att_fwd": 19, "fused_att_bwd": 19,
+                  "fused_ffn_fwd": 48, "fused_ffn_bwd": 48, "bn_relu_pool": 1}
+    if per_step != want_steps:
+        raise AssertionError(f"launches per step {per_step} != {want_steps}")
+    history, launches = counted_train_steps(trainer, batch, per_step)
+    fp32 = compare_fp32_step(model, batch, loss_tol=1e-5)
+    train = {"steps": history, "launches_per_step": per_step, **fp32}
+
+    # ---- 11. timings: this path beside the flash path, interleaved
+    def step_ms(tr):
+        tr.model.set_kernels(True)
+        tr.train_step(batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_time_ms(lambda: tr.train_step(batch), iters=3, warmup=0)
+        return ms, torch.cuda.max_memory_allocated() / 2 ** 30
+
+    runs = [(name, *step_ms(tr)) for name, tr in (
+        ("flash", trainer2), ("fused_att", trainer), ("fused_att", trainer),
+        ("flash", trainer2))]
+    for name in ("fused_att", "flash"):
+        ms = [r[1] for r in runs if r[0] == name]
+        train[f"step_ms_{name}_path_bf16"] = sum(ms) / len(ms)
+        train[f"utterances_per_s_{name}_path"] = 16 / (sum(ms) / len(ms)) * 1e3
+        train[f"peak_gib_{name}_path"] = max(r[2] for r in runs
+                                             if r[0] == name)
+    train["step_ms_runs_in_order"] = [[r[0], r[1]] for r in runs]
+    log("train (fused attention path beside the flash path) "
+        + json.dumps({k: v for k, v in train.items() if k != "steps"}))
+
+    acc = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0,
+               "ops": 0.0} for k in errs}
+    for (t, d, heads, lens), count in sorted(
+            attention_call_shapes(trainer, batch).items()):
+        x, g, params = att_inputs(16, t, d, torch.bfloat16, seed=t + 1)
+        lt = torch.tensor(lens, dtype=torch.int32, device=dev)
+
+        def fwd(use_kernel):
+            with torch.no_grad():
+                fused_attention_module_3d(
+                    x, *params, num_heads=heads, lengths=lt, seed=77,
+                    drop_rate=0.1, deterministic=False, residual=False,
+                    use_kernel=use_kernel)
+
+        def both(use_kernel):
+            att_run(x, g, params, heads, lt, 0.1, False, use_kernel, seed=77)
+
+        # the library yardstick: the port's own unfused module on the same
+        # input (LN, three Linear, factorized scores, softmax, Linear,
+        # dropout through PyTorch's library calls)
+        unfused = init_params(
+            AttentionModule(d, {"class": "RelPos1dMultiHeadAttention",
+                                "params": {"num_heads": heads}}, 0.1,
+                            fused_att=False),
+            torch.Generator().manual_seed(3)).to(dev).train()
+        mask = (torch.arange(t, device=dev)[None, :]
+                < lt[:, None])[:, None, None, :]
+
+        def lib(backward: bool):
+            if backward:
+                unfused(x.detach().requires_grad_(True), mask=mask).backward(g)
+            else:
+                with torch.no_grad():
+                    unfused(x, mask=mask)
+
+        t_f, t_fp = cuda_time_ms(lambda: fwd(True)), cuda_time_ms(
+            lambda: fwd(False))
+        t_b = time_att_bwd_kernel(x, g, params, heads, lt, 0.1, 77)
+        t_bp = cuda_time_ms(lambda: both(False)) - t_fp
+        t_fl = cuda_time_ms(lambda: lib(False))
+        t_bl = cuda_time_ms(lambda: lib(True)) - t_fl
+        fb, fo, bb, bo = att_cost(16, t, d, heads, 2)
+        log(f"fused_att T={t} d={d} H={heads} x{count}: fwd {t_f:.4f} ms "
+            f"(plain {t_fp:.4f}, unfused module {t_fl:.4f}, bound "
+            f"{bound(fb, fo, 'bf16')[0]:.5f}); bwd {t_b:.4f} ms (plain "
+            f"{t_bp:.4f}, unfused module {t_bl:.4f}, bound "
+            f"{bound(bb, bo, 'bf16')[0]:.5f}); bytes {fb} / {bb}, "
+            f"operations {fo:.4g} / {bo:.4g}")
+        detail[f"att_T{t}_d{d}"] = {
+            "count": count, "fwd_ms": t_f, "fwd_plain_ms": t_fp,
+            "fwd_library_ms": t_fl, "bwd_ms": t_b, "bwd_plain_ms": t_bp,
+            "bwd_library_ms": t_bl, "fwd_bytes": fb, "fwd_ops": fo,
+            "bwd_bytes": bb, "bwd_ops": bo, "lengths": list(lens)}
+        for key, ms, pms, lms, nb, no in (
+                (KERNEL_FWD, t_f, t_fp, t_fl, fb, fo),
+                (KERNEL_BWD, t_b, t_bp, t_bl, bb, bo)):
+            acc[key]["ms"] += count * ms
+            acc[key]["plain_ms"] += count * pms
+            acc[key]["library_ms"] += count * lms
+            acc[key]["bytes"] += count * nb
+            acc[key]["ops"] += count * no
+        del x, g, params, unfused
+
+    if profile:
+        detail["profile_train_fused_att"] = profile_train_step(trainer, batch)
+    detail["training_fused_att"] = train
+
+    replaces = {KERNEL_FWD: "avec_tpu/ops/pallas_attention_module.py:316",
+                KERNEL_BWD: "avec_tpu/ops/pallas_attention_module.py:345"}
+    entries = []
+    for key in (KERNEL_FWD, KERNEL_BWD):
+        b_ms, b_by = bound(acc[key]["bytes"], acc[key]["ops"], "bf16")
+        entries.append({
+            "name": key, "route": "cuda",
+            "source": "avec_tpu_torch/csrc/attention_module.cu",
+            "replaces": replaces[key], "launches": launches[key],
+            "max_abs_err": abs_errs[key], "ms": acc[key]["ms"],
+            "plain_ms": acc[key]["plain_ms"], "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": acc[key]["library_ms"]})
+    return entries, launches[KERNEL_STEM]
 
 
 def time_ffn_bwd_kernel(x, g, params, drop, seed, check: bool = False):
@@ -832,7 +1241,14 @@ def time_single_bwd_kernel(q, k, v, dout, lse, delta, lengths, scale):
 
 def _category(name: str) -> str:
     low = name.lower()
-    for cat, keys in (("flash kernel (K4)", ("flash_fwd_kernel",)),
+    att = ("ln_stats_kernel", "qkv_kernel", "relpos_u_kernel", "scores_kernel",
+           "att_v_kernel", "out_proj_kernel", "grad_out_kernel",
+           "grad_wo_kernel", "datt_ds_kernel", "grad_kv_kernel",
+           "grad_relpos_u_kernel", "grad_q_kernel", "grad_pos_kernel",
+           "grad_w_qkv_kernel", "grad_h_kernel", "ln_bwd_kernel",
+           "col_sums_kernel")
+    for cat, keys in (("fused attention module kernels (K2 + K2b)", att),
+                      ("flash kernel (K4)", ("flash_fwd_kernel",)),
                       ("flash backward kernels (K4b)", ("flash_bwd_",)),
                       ("fused FFN forward kernel (K1)", ("ffn_fwd_",)),
                       ("fused FFN backward kernel (K1b)", ("ffn_bwd_",)),

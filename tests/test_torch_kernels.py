@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (fused FFN K1/K1b, flash attention K4 and its
-backward K4b, stem K5) against their plain PyTorch versions.
+"""The port's CUDA kernels (fused FFN K1/K1b, fused attention module K2/K2b,
+flash attention K4 and its backward K4b, stem K5 in eval and in training)
+against their plain PyTorch versions.
 
 This file imports neither JAX nor the JAX package, so it also runs where JAX
 is absent. On a machine with an NVIDIA H100, from the repository root:
@@ -13,7 +14,12 @@ fp32 accumulation in both); stem bf16 exact (a max of identically rounded
 values); whole-model fp32 logits 2e-3. FFN: fp32 1e-4 for y and dx and 3e-4
 of the largest entry for the parameter gradients (atomic sums over all rows);
 bf16 2e-2 / 3e-2 of the largest entry. Flash backward: fp32 1e-4, bf16 3e-2
-of the largest entry.
+of the largest entry. Attention module: fp32 1e-4 for y and 5e-4 for dx and
+the parameter gradients, bf16 2e-2 / 3e-2, all of the largest entry; dropout
+masks identical entry by entry. Train-mode stem, kernel route against plain
+route: fp32 1e-5 (pooled, mean, var) and 1e-4 of the largest entry
+(gradients); bf16 exact forward, gradients 1e-2 (atomic-free library sums in
+another order); conv-bias gradient exactly zero.
 """
 
 import numpy as np
@@ -21,6 +27,8 @@ import pytest
 import torch
 
 from avec_tpu_torch.ops import _cuda
+from avec_tpu_torch.ops.attention_module import (
+    fused_attention_module_3d, fused_attention_module_reference)
 from avec_tpu_torch.ops.ffn import (dropout_mask, fused_ffn,
                                     fused_ffn_reference)
 from avec_tpu_torch.ops.flash_attention import (flash_attention,
@@ -28,7 +36,8 @@ from avec_tpu_torch.ops.flash_attention import (flash_attention,
                                                 flash_attention_bwd_reference,
                                                 flash_attention_fwd,
                                                 flash_attention_reference)
-from avec_tpu_torch.ops.stem import bn_relu_pool, bn_relu_pool_reference
+from avec_tpu_torch.ops.stem import (bn_relu_pool, bn_relu_pool_reference,
+                                     fused_stem_train)
 
 torch.set_num_threads(1)
 
@@ -66,6 +75,23 @@ def _ffn_inputs(device, dtype, n, d, f, seed=0):
     return x, [p.to(device) for p in params]
 
 
+def _att_inputs(device, dtype, b, t, d, seed=0):
+    """x, cotangent and the twelve parameters in the port's layout."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, t, d, generator=gen).to(device, dtype)
+    g = torch.randn(b, t, d, generator=gen).to(device, dtype)
+    vec = lambda: 0.1 * torch.randn(d, generator=gen)
+    mat = lambda: torch.randn(d, d, generator=gen) / d ** 0.5
+    params = [1.0 + vec(), vec()]
+    for _ in range(5):
+        params += [mat(), vec()]
+    return x, g, [p.to(device) for p in params]
+
+
+ATT_NAMES = ("x", "ln_w", "ln_b", "wq", "bq", "wk", "bk", "wv", "bv",
+             "pos_w", "pos_b", "wo", "bo")
+
+
 def _rel(a, b) -> float:
     """Max abs difference relative to the largest entry of b."""
     return _err(a, b) / max(float(b.float().abs().max()), 1e-30)
@@ -87,6 +113,12 @@ def test_cpu_tensors_take_the_plain_versions():
     x, params = _ffn_inputs("cpu", torch.float32, 9, 12, 20)
     assert torch.equal(fused_ffn(x, *params, 5, 1e-6, 0.2, True),
                        fused_ffn_reference(x, *params, 5, 1e-6, 0.2, True))
+    xa, _, pa = _att_inputs("cpu", torch.float32, 2, 9, 8)
+    kw = dict(num_heads=2, lengths=torch.tensor([9, 4]), seed=3,
+              drop_rate=0.2)
+    assert torch.equal(
+        fused_attention_module_3d(xa, *pa, deterministic=False, **kw),
+        fused_attention_module_reference(xa, *pa, train=True, **kw))
     dout = torch.randn_like(v)
     delta = (dout * out).sum(-1).reshape(lse.shape)
     for a, b in zip(flash_attention_bwd(q, k, v, dout, lse, delta, lens, 0.5),
@@ -118,7 +150,8 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("name", ["ffn", "flash_attention_bwd",
-                                  "flash_attention", "stem"])
+                                  "flash_attention", "stem",
+                                  "attention_module"])
 def test_missing_nvcc_raises_for_every_library(monkeypatch, tmp_path, name):
     """Every kernel library is built from source: asking for any of them
     without nvcc raises instead of falling back."""
@@ -330,3 +363,108 @@ def test_train_step_kernel_path_matches_plain_path(cuda_device):
         compared += 1
         assert _rel(gk[name], gp[name]) <= 2e-3, name
     assert compared > 0.8 * len(gp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol,wtol", [(torch.float32, 1e-4, 5e-4),
+                                            (torch.bfloat16, 2e-2, 3e-2)])
+@pytest.mark.parametrize("drop,residual", [(0.0, False), (0.1, False),
+                                           (0.1, True)])
+@pytest.mark.parametrize("b,t,d,heads,lengths", [
+    (16, 151, 256, 4, [151, 140, 133, 120, 111, 99, 90, 88, 77, 64, 50, 33,
+                       17, 2, 1, 0]),        # audio stage 1 / video stage 0
+    (16, 76, 360, 4, [76, 70, 67, 60, 56, 50, 45, 44, 39, 32, 25, 17, 9, 2,
+                      1, 0]),                # the 360-wide stages, d_head 90
+    (3, 37, 20, 2, [37, 0, 5]),              # no multiple of any tile
+    (2, 70, 24, 4, None),                    # no lengths, two query tiles
+])
+def test_attention_module_kernels_match_plain(cuda_device, dtype, tol, wtol,
+                                              drop, residual, b, t, d, heads,
+                                              lengths):
+    x, g, params = _att_inputs(cuda_device, dtype, b, t, d)
+    lens = None if lengths is None else torch.tensor(lengths,
+                                                     device=cuda_device)
+    leaves = [x] + params
+    outs, grads = [], []
+    for use_kernel in (True, False):
+        for a in leaves:
+            a.requires_grad_(True)
+            a.grad = None
+        n0 = dict(_cuda.launches)
+        y = fused_attention_module_3d(
+            x, *params, num_heads=heads, lengths=lens, seed=99,
+            drop_rate=drop, deterministic=False, residual=residual,
+            use_kernel=use_kernel)
+        y.backward(g)
+        torch.cuda.synchronize()
+        for name in ("fused_att_fwd", "fused_att_bwd"):
+            assert _cuda.launches[name] - n0.get(name, 0) == int(use_kernel)
+        outs.append(y.detach())
+        grads.append([a.grad.clone() for a in leaves])
+    assert outs[0].dtype == dtype and grads[0][0].dtype == dtype
+    assert _rel(outs[0], outs[1]) <= tol
+    if drop and not residual:
+        # exactly the hash mask's entries are dropped (in bf16 about one kept
+        # entry in a thousand also cancels to zero against its bias)
+        dropped = dropout_mask(99, b * t, d, 1, 1.0 - drop, cuda_device,
+                               tile_rows=t).reshape(b, t, d) == 0
+        for y in outs:
+            assert bool((y[dropped] == 0).all())
+            assert float((y[~dropped] == 0).float().mean()) < 5e-3
+    gmax = max(float(a.float().abs().max()) for a in grads[1][1:])
+    for name, got, want in zip(ATT_NAMES, *grads):
+        if name != "x":
+            assert got.dtype == torch.float32
+        if float(want.float().abs().max()) <= 1e-6 * gmax:
+            continue          # the key bias: analytically zero, noise only
+        assert _rel(got, want) <= (tol if name == "x" and dtype
+                                   == torch.bfloat16 else wtol), name
+
+
+@pytest.mark.cuda
+def test_attention_module_kernel_rejects_bad_inputs(cuda_device):
+    x, _, params = _att_inputs(cuda_device, torch.float32, 2, 8, 16)
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        fused_attention_module_3d(x.half(), *params, num_heads=2)
+    with pytest.raises(ValueError, match="multiple of num_heads"):
+        fused_attention_module_3d(x, *params, num_heads=3)
+    with pytest.raises(ValueError, match="parameter shapes"):
+        fused_attention_module_3d(x, *params[:2],
+                                  params[2][:, :8].contiguous(), *params[3:],
+                                  num_heads=2)
+    with pytest.raises(ValueError, match="fp32 tensors"):
+        fused_attention_module_3d(x, params[0].double(), *params[1:],
+                                  num_heads=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,b,t", [(torch.float32, 2, 6),
+                                       (torch.bfloat16, 16, 151)])
+def test_train_stem_kernel_route_matches_plain_route(cuda_device, dtype, b, t):
+    gen = torch.Generator().manual_seed(2)
+    x = torch.rand(b, t, 88, 88, 1, generator=gen).to(cuda_device, dtype)
+    w = (torch.randn(64, 1, 5, 7, 7, generator=gen)
+         / 245 ** 0.5).to(cuda_device)
+    bias = (0.1 * torch.randn(64, generator=gen)).to(cuda_device)
+    scale = (1.0 + 0.1 * torch.randn(64, generator=gen)).to(cuda_device)
+    bn_bias = (0.1 * torch.randn(64, generator=gen)).to(cuda_device)
+    cot = torch.randn(b * t, 22, 22, 64, generator=gen).to(cuda_device, dtype)
+    results = []
+    for use_kernel in (True, False):
+        leaves = [a.detach().clone().requires_grad_(True)
+                  for a in (w, bias, scale, bn_bias)]
+        n0 = _cuda.launches["bn_relu_pool"]
+        pooled, mean, var = fused_stem_train(x, *leaves, 1e-5, use_kernel)
+        pooled.backward(cot)
+        torch.cuda.synchronize()
+        assert _cuda.launches["bn_relu_pool"] - n0 == int(use_kernel)
+        results.append((pooled.detach(), mean, var, [a.grad for a in leaves]))
+    (pk, mk, vk, gk), (pp, mp, vp, gp) = results
+    exact = dtype == torch.bfloat16
+    assert pk.shape == (b * t, 22, 22, 64) and pk.dtype == dtype
+    assert _err(pk, pp) <= (0.0 if exact else 1e-5)
+    assert _err(mk, mp) <= 1e-5 and _err(vk, vp) <= 1e-5
+    assert float(gk[1].abs().max()) == 0.0 and float(gp[1].abs().max()) == 0.0
+    for got, want in zip((gk[0], gk[2], gk[3]), (gp[0], gp[2], gp[3])):
+        assert got.dtype == torch.float32
+        assert _rel(got, want) <= (1e-2 if exact else 1e-4)
