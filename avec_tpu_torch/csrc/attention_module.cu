@@ -58,9 +58,9 @@ namespace {
 
 using namespace avec;
 
-constexpr int BT = 64;         // output tile edge
-constexpr int BK = 32;         // reduction chunk
-constexpr int THREADS = 256;   // 16 x 16 threads, 4 x 4 register tile each
+constexpr int BT = GEMM_EDGE;       // output tile edge of `gemm_tile` (tile.cuh)
+constexpr int BK = GEMM_BK;         // its reduction chunk
+constexpr int THREADS = GEMM_THREADS;  // 16 x 16 threads, 4 x 4 register tile each
 constexpr int SPLIT_ROWS = 256;  // token rows per block of a weight-gradient product
 constexpr uint32_t SEED_STRIDE = 1103515245u;
 constexpr uint32_t DRAW = 0x9E3779B9u;
@@ -121,38 +121,6 @@ __device__ __forceinline__ float warp_max(float v) {
 __device__ __forceinline__ int clamp_len(const int* lengths, int b, int t) {
   const int v = lengths[b];
   return v < 0 ? 0 : (v > t ? t : v);
-}
-
-// acc[i][j] += sum over k in [k_begin, k_end) of fa(row, k) * fb(k, col) for
-// this thread's rows ty*4 + i and columns tx*4 + j of a 64 x 64 tile. fa(i, k)
-// and fb(k, j) take tile-local i, j and the global k and return 0 outside
-// their operand. A_KFAST / B_KFAST say whether consecutive k (else
-// consecutive i / j) are neighbours in memory, which picks the
-// thread-to-element map so that the loads of a warp coalesce. `sm` holds
-// 2 x BK x TS floats.
-template <bool A_KFAST, bool B_KFAST, class FA, class FB>
-__device__ __forceinline__ void gemm_tile(float (&acc)[4][4], FA fa, FB fb, int k_begin,
-                                          int k_end, float* sm) {
-  float* as = sm;
-  float* bs = sm + BK * TS;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-#pragma unroll
-    for (int e = tid; e < BT * BK; e += THREADS) {
-      const int i = A_KFAST ? e / BK : e % BT;
-      const int k = A_KFAST ? e % BK : e / BT;
-      as[k * TS + i] = (k0 + k < k_end) ? fa(i, k0 + k) : 0.f;
-    }
-#pragma unroll
-    for (int e = tid; e < BT * BK; e += THREADS) {
-      const int j = B_KFAST ? e / BK : e % BT;
-      const int k = B_KFAST ? e % BK : e / BT;
-      bs[k * TS + j] = (k0 + k < k_end) ? fb(k0 + k, j) : 0.f;
-    }
-    __syncthreads();
-    mma_kk(acc, as + ty * 4, TS, bs + tx * 4, TS, BK);
-    __syncthreads();
-  }
 }
 
 // LayerNorm output h[row][col], rounded as the TPU kernel rounds it.

@@ -114,6 +114,45 @@ __device__ __forceinline__ void tile_dot(float (&acc)[4][4], const T* __restrict
   }
 }
 
+// The 64 x 64 output tile of `gemm_tile`, its reduction chunk and its block
+// size (16 x 16 threads, a 4 x 4 register tile each).
+constexpr int GEMM_EDGE = 64;
+constexpr int GEMM_BK = 32;
+constexpr int GEMM_THREADS = 256;
+
+// acc[i][j] += sum over k in [k_begin, k_end) of fa(row, k) * fb(k, col) for
+// this thread's rows ty*4 + i and columns tx*4 + j of a 64 x 64 tile. fa(i, k)
+// and fb(k, j) take tile-local i, j and the global k and return 0 outside
+// their operand. A_KFAST / B_KFAST say whether consecutive k (else
+// consecutive i / j) are neighbours in memory, which picks the
+// thread-to-element map so that the loads of a warp coalesce. `sm` holds
+// 2 x GEMM_BK x TS floats; blockDim.x must be GEMM_THREADS.
+template <bool A_KFAST, bool B_KFAST, class FA, class FB>
+__device__ __forceinline__ void gemm_tile(float (&acc)[4][4], FA fa, FB fb, int k_begin,
+                                          int k_end, float* sm) {
+  constexpr int BT = GEMM_EDGE, BK = GEMM_BK;
+  float* as = sm;
+  float* bs = sm + BK * TS;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
+#pragma unroll
+    for (int e = tid; e < BT * BK; e += GEMM_THREADS) {
+      const int i = A_KFAST ? e / BK : e % BT;
+      const int k = A_KFAST ? e % BK : e / BT;
+      as[k * TS + i] = (k0 + k < k_end) ? fa(i, k0 + k) : 0.f;
+    }
+#pragma unroll
+    for (int e = tid; e < BT * BK; e += GEMM_THREADS) {
+      const int j = B_KFAST ? e / BK : e % BT;
+      const int k = B_KFAST ? e % BK : e / BT;
+      bs[k * TS + j] = (k0 + k < k_end) ? fb(k0 + k, j) : 0.f;
+    }
+    __syncthreads();
+    mma_kk(acc, as + ty * 4, TS, bs + tx * 4, TS, BK);
+    __syncthreads();
+  }
+}
+
 // ---- bf16 tensor-core path (mma.sync.m16n8k16, fp32 accumulation)
 //
 // A warp owns a 16-row output tile, NT column tiles of 8. Both operands lie in

@@ -7,8 +7,10 @@ self_att_module.{norm,attention}, conv_module.layers.{0,1,3,4,6}, conv_res,
 norm; conformer_blocks.{i} and interctc_modules.{k} in the stack.
 
 Training mode (`nn.Module.train()`): the feed-forward module runs as one
-fused kernel (`ops/ffn.py`), and so does the attention module
-(`ops/attention_module.py`) where `fused_att` is on; dropout follows the
+fused kernel (`ops/ffn.py`), the attention module as one fused kernel per
+direction (`ops/attention_module.py`) where `fused_att` is on, and the
+convolution module as two fused kernels per direction
+(`ops/conv_module.py`) where `fused_conv` is on; dropout follows the
 attention, convolution and feed-forward modules and opens the stack, the
 convolution module's BatchNorm uses batch statistics and the depthwise conv's
 bias is detached.
@@ -24,6 +26,8 @@ from avec_tpu_torch.ops.activations import get_act, glu, swish
 from avec_tpu_torch.ops.attention import (RelPos1dMultiHeadAttention,
                                           make_attention)
 from avec_tpu_torch.ops.attention_module import fused_attention_module_3d
+from avec_tpu_torch.ops.conv_module import (conv_module_params,
+                                            fused_conv_module_3d)
 from avec_tpu_torch.ops.ffn import fused_ffn_3d
 from avec_tpu_torch.ops.layers import (BatchNorm, Conv, Dropout, LayerNorm,
                                        Linear)
@@ -76,6 +80,12 @@ def _fused_att_enabled() -> bool:
     """AVEC_TPU_FUSED_ATT=1 routes eligible attention modules through the
     fused kernels in training (conformer.py:65-72)."""
     return os.environ.get("AVEC_TPU_FUSED_ATT", "") == "1"
+
+
+def _fused_conv_enabled() -> bool:
+    """AVEC_TPU_FUSED_CONV=1 routes eligible convolution modules through the
+    fused kernels in training (conformer.py:56-62)."""
+    return os.environ.get("AVEC_TPU_FUSED_CONV", "") == "1"
 
 
 def _draw_seed(generator) -> int:
@@ -147,11 +157,21 @@ class AttentionModule(nn.Module):
 class ConvolutionModule(nn.Module):
     """LN -> pointwise 2E -> GLU -> depthwise k (stride) -> BN -> swish
     -> pointwise E -> drop; channels-first inside, (B, T, D) at the boundary.
-    The depthwise conv feeds the BN, so its bias is detached in training."""
+    The depthwise conv feeds the BN, so its bias is detached in training.
+
+    With `fused_conv` (None: the environment variable AVEC_TPU_FUSED_CONV)
+    the module runs as the fused kernels of `ops/conv_module.py` where the
+    JAX gate of conformer.py:248-253 lets it: training mode, stride 1,
+    padding "same" or "causal", a 3-d input (BatchNorm and swish are the
+    port module's only choice). The batch statistics the kernels return move
+    the BatchNorm's running statistics; the 31-bit dropout seed comes from
+    `seed_generator`, as in `FeedForwardModule`. Eval always runs the unfused
+    layers. `use_kernel=False` routes the fused path through its plain
+    stages; `regularize=False` turns its dropout off."""
 
     def __init__(self, dim_model: int, dim_expand: int, stride: int = 1,
                  kernel_size: int = 15, padding: str = "same",
-                 drop_rate: float = 0.1):
+                 drop_rate: float = 0.1, fused_conv: Optional[bool] = None):
         super().__init__()
         self.layers = _indexed({
             0: LayerNorm(dim_model, 1e-6),
@@ -162,8 +182,33 @@ class ConvolutionModule(nn.Module):
             4: BatchNorm(dim_expand),
             6: Conv(dim_expand, dim_expand, 1, ndim=1)})
         self.dropout = Dropout(drop_rate)
+        self.drop_rate = drop_rate
+        self.stride = stride
+        self.padding = padding
+        self.fused_conv = (_fused_conv_enabled() if fused_conv is None
+                           else bool(fused_conv))
+        self.use_kernel = True
+        self.regularize = True
+        self.seed_generator = None
+        self.training = False
+
+    def fused_eligible(self, ndim: int = 3) -> bool:
+        """Whether a training-mode call with an input of `ndim` axes takes
+        the fused kernels."""
+        return (self.fused_conv and ndim == 3 and self.stride == 1
+                and self.padding in ("same", "causal"))
 
     def forward(self, x):
+        if self.training and self.fused_eligible(x.ndim):
+            rate = self.drop_rate if self.regularize else 0.0
+            seed = _draw_seed(self.seed_generator) if rate > 0.0 else None
+            ln, bn = self.layers["0"], self.layers["4"]
+            y, mean, var = fused_conv_module_3d(
+                x, *conv_module_params(self), seed=seed, padding=self.padding,
+                ln_eps=ln.eps, bn_eps=bn.eps, drop_rate=rate,
+                deterministic=False, use_kernel=self.use_kernel)
+            bn.update_running(mean, var, x.shape[0] * x.shape[1])
+            return y
         x = self.layers["0"](x).transpose(1, 2)
         x = glu(self.layers["1"](x), dim=1)
         x = swish(self.layers["4"](self.layers["3"](x)))
@@ -207,7 +252,8 @@ class ConformerBlock(nn.Module):
     def __init__(self, dim_model: int, dim_expand: int, ff_ratio: int,
                  att_params: dict, conv_stride: int = 1, kernel_size: int = 15,
                  conv_padding: str = "same", drop_rate: float = 0.1,
-                 fused_att: Optional[bool] = None):
+                 fused_att: Optional[bool] = None,
+                 fused_conv: Optional[bool] = None):
         super().__init__()
         self.stride = conv_stride
         self.ff_module1 = FeedForwardModule(dim_model, dim_model * ff_ratio,
@@ -216,7 +262,7 @@ class ConformerBlock(nn.Module):
                                                drop_rate, fused_att)
         self.conv_module = ConvolutionModule(dim_model, dim_expand, conv_stride,
                                              kernel_size, conv_padding,
-                                             drop_rate)
+                                             drop_rate, fused_conv)
         self.conv_res = (Conv(dim_model, dim_expand, 1, ndim=1,
                               stride=conv_stride)
                          if dim_model != dim_expand else None)
@@ -253,7 +299,8 @@ class ConformerInterCTC(nn.Module):
                  att_params, loss_prefix: str = "ctc", kernel_size: int = 15,
                  ff_ratio: int = 4, conv_stride: int = 2,
                  conv_padding: str = "same", drop_rate: float = 0.1,
-                 fused_att: Optional[bool] = None):
+                 fused_att: Optional[bool] = None,
+                 fused_conv: Optional[bool] = None):
         super().__init__()
         self.dropout = Dropout(drop_rate)
         dims = [dim_model] if isinstance(dim_model, int) else list(dim_model)
@@ -272,7 +319,8 @@ class ConformerInterCTC(nn.Module):
                     dims[stage], dim_out, ff_ratio, att,
                     conv_stride=conv_stride if down else 1,
                     kernel_size=kernel_size, conv_padding=conv_padding,
-                    drop_rate=drop_rate, fused_att=fused_att))
+                    drop_rate=drop_rate, fused_att=fused_att,
+                    fused_conv=fused_conv))
                 if i + 1 in set(interctc_blocks):
                     self.interctc_at.append(i)
                     inter.append(InterCTCResModule(dim_out, vocab_size))

@@ -9,7 +9,8 @@ the AV encoder fuses both at 360-d and runs 5 more conformer blocks.
 Training mode (`nn.Module.train()`, the JAX `training=True`): SpecAugment
 after the fbank, batch statistics in every BatchNorm (audio stem, video stem,
 ResNet, convolution modules), dropout and the fused feed-forward kernels in
-the conformer stacks (and, with `fused_att`, the fused attention kernels).
+the conformer stacks (and, with `fused_att` and `fused_conv`, the fused
+attention and convolution kernels).
 The video stem trains in mode "2d" (plain PyTorch) or "pallas" (the BN + ReLU
 + pool kernel applied with batch statistics).
 """
@@ -108,7 +109,8 @@ class AudioEfficientConformerEncoder(nn.Module):
                  interctc_blocks: Sequence[int] = (3, 6, 10, 13),
                  num_blocks: Sequence[int] = (5, 6, 5),
                  loss_prefix: str = "ctc", use_flash: bool = False,
-                 fused_att: Optional[bool] = None):
+                 fused_att: Optional[bool] = None,
+                 fused_conv: Optional[bool] = None):
         super().__init__()
         n_mels, filters, dims, heads = 80, 180, [180, 256, 360], 4
         self.preprocessing = AudioPreprocessing(
@@ -121,7 +123,8 @@ class AudioEfficientConformerEncoder(nn.Module):
         self.back_end = ConformerInterCTC(
             dims, list(num_blocks), list(interctc_blocks), vocab_size,
             _att_params_audio(att_type, heads, use_flash),
-            loss_prefix=loss_prefix, fused_att=fused_att)
+            loss_prefix=loss_prefix, fused_att=fused_att,
+            fused_conv=fused_conv)
         self.head = Linear(dims[-1], vocab_size) if include_head else None
 
     def forward(self, x, lengths):
@@ -144,7 +147,8 @@ class VisualEfficientConformerEncoder(nn.Module):
                  interctc_blocks: Sequence[int] = (3, 6, 9),
                  num_blocks: Sequence[int] = (6, 6), loss_prefix: str = "ctc",
                  stem_mode: Optional[str] = None,
-                 fused_att: Optional[bool] = None):
+                 fused_att: Optional[bool] = None,
+                 fused_conv: Optional[bool] = None):
         super().__init__()
         dims = [256, 360]
         self.front_end = nn.ModuleDict({
@@ -154,7 +158,8 @@ class VisualEfficientConformerEncoder(nn.Module):
                "params": {"num_heads": 4}}
         self.back_end = ConformerInterCTC(
             dims, list(num_blocks), list(interctc_blocks), vocab_size, att,
-            loss_prefix=loss_prefix, fused_att=fused_att)
+            loss_prefix=loss_prefix, fused_att=fused_att,
+            fused_conv=fused_conv)
         self.head = Linear(dims[-1], vocab_size) if include_head else None
 
     def forward(self, x, lengths):
@@ -179,23 +184,26 @@ class AudioVisualEfficientConformerEncoder(nn.Module):
                  a_num_blocks: Sequence[int] = (5, 6, 1),
                  f_num_blocks: int = 5, use_flash: bool = False,
                  stem_mode: Optional[str] = None,
-                 fused_att: Optional[bool] = None):
+                 fused_att: Optional[bool] = None,
+                 fused_conv: Optional[bool] = None):
         super().__init__()
         dim = 360
         self.video_encoder = VisualEfficientConformerEncoder(
             include_head=False, vocab_size=vocab_size,
             interctc_blocks=v_interctc_blocks, num_blocks=v_num_blocks,
-            loss_prefix="v_ctc", stem_mode=stem_mode, fused_att=fused_att)
+            loss_prefix="v_ctc", stem_mode=stem_mode, fused_att=fused_att,
+            fused_conv=fused_conv)
         self.audio_encoder = AudioEfficientConformerEncoder(
             include_head=False, vocab_size=vocab_size,
             interctc_blocks=a_interctc_blocks, num_blocks=a_num_blocks,
-            loss_prefix="a_ctc", use_flash=use_flash, fused_att=fused_att)
+            loss_prefix="a_ctc", use_flash=use_flash, fused_att=fused_att,
+            fused_conv=fused_conv)
         self.fusion_module = FusionModule(dim, dim, dim)
         att = {"class": "RelPos1dMultiHeadAttention",
                "params": {"num_heads": 4}}
         self.audio_visual_encoder = ConformerInterCTC(
             dim, f_num_blocks, list(f_interctc_blocks), vocab_size, att,
-            loss_prefix="f_ctc", fused_att=fused_att)
+            loss_prefix="f_ctc", fused_att=fused_att, fused_conv=fused_conv)
         self.head = Linear(dim, vocab_size) if include_head else None
 
     def forward(self, video, video_len, audio, audio_len):

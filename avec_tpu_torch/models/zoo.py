@@ -41,7 +41,8 @@ class AudioVisualEfficientConformerInterCTC(nn.Module):
                  v_num_blocks: Sequence[int] = (6, 1),
                  a_num_blocks: Sequence[int] = (5, 6, 1),
                  f_num_blocks: int = 5, stem_mode: Optional[str] = None,
-                 fused_att: Optional[bool] = None, device="cuda",
+                 fused_att: Optional[bool] = None,
+                 fused_conv: Optional[bool] = None, device="cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         device = resolve_device(device)
@@ -50,7 +51,8 @@ class AudioVisualEfficientConformerInterCTC(nn.Module):
             a_interctc_blocks=a_interctc_blocks,
             f_interctc_blocks=f_interctc_blocks, v_num_blocks=v_num_blocks,
             a_num_blocks=a_num_blocks, f_num_blocks=f_num_blocks,
-            use_flash=use_flash, stem_mode=stem_mode, fused_att=fused_att)
+            use_flash=use_flash, stem_mode=stem_mode, fused_att=fused_att,
+            fused_conv=fused_conv)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         init_params(self, generator)
@@ -91,12 +93,15 @@ class AudioVisualEfficientConformerInterCTC(nn.Module):
         and backward once, every flash attention layer the flash forward and
         both flash backward kernels once, every attention module that takes
         the fused route (with the key-padding masks the encoders build) the
-        fused attention forward and backward once, and a "pallas" video stem
+        fused attention forward and backward once, every convolution module
+        that takes the fused route the four conv kernels (statistics,
+        forward, backward-1, backward-2) once each, and a "pallas" video stem
         its BN + ReLU + pool kernel once (its backward launches no kernel)."""
         from avec_tpu_torch.models.conformer import (AttentionModule,
+                                                     ConvolutionModule,
                                                      FeedForwardModule)
         from avec_tpu_torch.models.encoders import FusedVideoStem
-        from avec_tpu_torch.ops import (attention_module, ffn,
+        from avec_tpu_torch.ops import (attention_module, conv_module, ffn,
                                         flash_attention, stem)
 
         mods = list(self.modules())
@@ -104,6 +109,8 @@ class AudioVisualEfficientConformerInterCTC(nn.Module):
         n_flash = sum(bool(getattr(m, "use_flash", False)) for m in mods)
         n_att = sum(isinstance(m, AttentionModule) and m.fused_eligible()
                     for m in mods)
+        n_conv = sum(isinstance(m, ConvolutionModule) and m.fused_eligible()
+                     for m in mods)
         n_stem = sum(isinstance(m, FusedVideoStem) and m.mode == "pallas"
                      for m in mods)
         counts = {ffn.KERNEL_FWD: n_ffn, ffn.KERNEL_BWD: n_ffn,
@@ -112,6 +119,7 @@ class AudioVisualEfficientConformerInterCTC(nn.Module):
                   flash_attention.KERNEL_DKV: n_flash,
                   attention_module.KERNEL_FWD: n_att,
                   attention_module.KERNEL_BWD: n_att,
+                  **{name: n_conv for name in conv_module.KERNELS},
                   stem.KERNEL: n_stem}
         return {k: v for k, v in counts.items() if v}
 

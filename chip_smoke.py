@@ -39,7 +39,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
     fp32 with dropout and SpecAugment off, one forward + backward through
     the kernels against one through their plain versions: total loss and
     gradient norm within 1e-3, every gradient leaf within 2e-3 of its
-    largest entry;
+    largest entry, every BN running statistic within 1e-5;
  7. train-step time, utterances/s and peak memory with the kernels and with
     their plain versions (interleaved), and each training kernel's time at
     the step's shapes beside its bound, plain version and library call.
@@ -57,12 +57,30 @@ Phases, in order; any failure raises and the exit code is non-zero:
     FFN, stem "pallas", use_flash off: the launch counts per step must be 19
     + 19 attention, 48 + 48 FFN, 1 stem and no flash; 1 warm-up + 3 counted
     steps with the checks of phase 6; then fp32 kernels against plain
-    versions (loss 1e-5, gradient norm 1e-3, every leaf 2e-3);
+    versions (loss 1e-5, gradient norm 1e-3, every leaf 2e-3, BN statistics
+    1e-5);
 11. step time, utterances/s and peak memory of that path and of phase 6's
     path, interleaved in this one call, and the attention kernels' times per
     launch and per step beside their bounds, the plain version and the
-    port's own unfused attention module (PyTorch library calls).
-The line before the last is a JSON `kernels` line of eight kernels; the last
+    port's own unfused attention module (PyTorch library calls);
+12. the fused convolution module's kernels (K3-stats, K3-fwd, K3b-1, K3b-2)
+    against the plain stages at (B, T, d = E, k) = (16, 301, 180, 15),
+    (16, 151, 256, 15) and (16, 76, 360, 15), fp32 and bf16, padding "same"
+    and "causal", dropout 0 and 0.1 (exactly the hash mask's entries dropped
+    on both sides): y, mean, var, dx and the ten parameter gradients, max abs
+    over the largest entry; fp32 1e-4 (y, mean, var) and 5e-4 (gradients),
+    bf16 2e-2 and 3e-2; the depthwise-bias gradient exactly zero;
+13. training at full width through all the training kernels: fused
+    convolution module, fused attention, fused FFN, stem "pallas", use_flash
+    off: the launch counts per step must be 21 of each conv kernel, 19 + 19
+    attention, 48 + 48 FFN, 1 stem and no flash; 1 warm-up + 3 counted steps
+    with the checks of phase 6; then fp32 kernels against plain versions
+    (loss 1e-5, gradient norm 1e-3, every leaf 2e-3, BN statistics 1e-5);
+14. K3 / K3b times per launch and per step beside their bounds, the plain
+    stages and the port's own unfused convolution module (PyTorch library
+    calls), and step time, utterances/s and peak memory of phase 13's path
+    and phase 10's path (they differ by `fused_conv` alone), interleaved.
+The line before the last is a JSON `kernels` line of twelve kernels; the last
 line is {"ok": true, "device": {...}}. Details go to
 chiprun_out/chip_smoke.json.
 """
@@ -387,10 +405,15 @@ def main() -> int:
     kernels += entries
 
     # ---- 8-11. the fused attention module and the train-mode stem
-    entries, stem_train_launches = fused_phases(detail, profile, trainer,
-                                                batch)
+    entries, stem_train_launches, trainer_att = fused_phases(
+        detail, profile, trainer, batch)
     kernels += entries
     kernels[1]["launches_train_path"] = stem_train_launches
+    del trainer
+    torch.cuda.empty_cache()
+
+    # ---- 12-14. the fused convolution module
+    kernels += conv_phases(detail, profile, trainer_att, batch)
     detail["kernels"] = kernels
 
     os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
@@ -559,16 +582,24 @@ def compare_fp32_step(model, batch, loss_tol):
     """fp32, dropout and SpecAugment off: one forward + backward through the
     kernels against one through their plain versions (which must launch
     nothing). Total loss within `loss_tol` and gradient norm within 1e-3,
-    relative; every gradient leaf within 2e-3 of its largest entry."""
+    relative; every gradient leaf within 2e-3 of its largest entry; every BN
+    running statistic the two passes leave (each from the same starting
+    point) within 1e-5, absolute."""
     from avec_tpu_torch.ops import _cuda
     from avec_tpu_torch.train.losses import CTCLoss
     from avec_tpu_torch.train.model import Trainer
 
     trainer32 = Trainer(model=model, device="cuda", precision="float32",
                         loss=CTCLoss(zero_infinity=True))
+    stats = {n: b for n, b in model.named_buffers() if "running_" in n}
+    start = {n: b.clone() for n, b in stats.items()}
     model.set_regularization(False)
     model.set_kernels(True)
     loss_k, grads_k = trainer32.loss_and_grads(batch)
+    stats_k = {n: b.clone() for n, b in stats.items()}
+    with torch.no_grad():
+        for n, b in stats.items():
+            b.copy_(start[n])
     model.set_kernels(False)
     _cuda.reset_launches()
     loss_p, grads_p = trainer32.loss_and_grads(batch)
@@ -576,6 +607,7 @@ def compare_fp32_step(model, batch, loss_tol):
         raise AssertionError(f"plain path launched {dict(_cuda.launches)}")
     model.set_kernels(True)
     model.set_regularization(True)
+    stats_err = max(max_abs(stats_k[n], b) for n, b in stats.items())
 
     def gnorm(grads):
         return float(torch.sqrt(sum((g.double() ** 2).sum()
@@ -602,9 +634,13 @@ def compare_fp32_step(model, batch, loss_tol):
             f"(max abs {leaf_max:.3e})")
     out = {"fp32_loss_rel": abs(lk - lp) / abs(lp),
            "fp32_grad_norm_rel": abs(nk - npl) / npl,
-           "fp32_worst_leaf_rel": rows[0][0], "fp32_worst_leaf": rows[0][2]}
+           "fp32_worst_leaf_rel": rows[0][0], "fp32_worst_leaf": rows[0][2],
+           "fp32_bn_stats_max_abs": stats_err}
+    log(f"  BN running statistics, kernels vs plain: max abs "
+        f"{stats_err:.2e} over {len(stats)} buffers (tol 1e-5)")
     if not (abs(lk - lp) <= loss_tol * abs(lp)
-            and abs(nk - npl) <= 1e-3 * npl and rows[0][0] <= 2e-3):
+            and abs(nk - npl) <= 1e-3 * npl and rows[0][0] <= 2e-3
+            and stats_err <= 1e-5):
         raise AssertionError("training kernel path disagrees with the plain "
                              f"path: {out}")
     return out
@@ -1185,7 +1221,334 @@ def fused_phases(detail, profile: bool, trainer2, batch):
             "max_abs_err": abs_errs[key], "ms": acc[key]["ms"],
             "plain_ms": acc[key]["plain_ms"], "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": acc[key]["library_ms"]})
-    return entries, launches[KERNEL_STEM]
+    return entries, launches[KERNEL_STEM], trainer
+
+
+CONV_SHAPES = ((16, 301, 180, 15), (16, 151, 256, 15), (16, 76, 360, 15))
+
+
+def conv_inputs(b, t, d, k, dtype, seed):
+    """x, a cotangent and the convolution module's ten parameters in the
+    port's Conv layout (E = E' = d), seeded."""
+    gen = torch.Generator().manual_seed(seed)
+    dev = torch.device("cuda")
+    x = torch.randn(b, t, d, generator=gen).to(dev, dtype)
+    g = torch.randn(b, t, d, generator=gen).to(dev, dtype)
+    vec = lambda: 0.1 * torch.randn(d, generator=gen)
+    u = lambda shape, fan: ((2 * torch.rand(shape, generator=gen) - 1)
+                            / fan ** 0.5)
+    params = [1.0 + vec(), vec(), u((2 * d, d, 1), d), u((2 * d,), d),
+              u((d, 1, k), k), u((d,), k), 1.0 + vec(), vec(), u((d, d, 1), d),
+              u((d,), d)]
+    return x, g, [p.to(dev) for p in params]
+
+
+def conv_run(x, g, params, padding, drop, use_kernel, seed=4321):
+    """(y, mean, var) and the gradients of x and the ten parameters."""
+    from avec_tpu_torch.ops.conv_module import fused_conv_module_3d
+
+    leaves = [a.detach().requires_grad_(True) for a in [x] + params]
+    y, mean, var = fused_conv_module_3d(
+        leaves[0], *leaves[1:], seed=seed, padding=padding, drop_rate=drop,
+        deterministic=False, use_kernel=use_kernel)
+    y.backward(g)
+    return [y.detach(), mean, var], [a.grad for a in leaves]
+
+
+def conv_cost(b, t, d, e, eo, k, es):
+    """Bytes and operations of each of the four passes, keyed by kernel name.
+    Bytes: each input read once (x, g, the fp32 parameters a pass reads, the
+    (E,) statistics) and each output written once. Operations: what the pass
+    adds to the module's work; the recomputed forward is the kernels' own
+    work, not the bound's. K3-stats: pw1, both halves (4 n d E), and the
+    depthwise taps (2 n E k); K3-fwd: pw2 (2 n E E'); K3b-1: dW2 and
+    ds = g W2 (4 n E E'); K3b-2: dW1 and dh, both halves (8 n d E), and the
+    depthwise data and tap gradients (4 n E k)."""
+    from avec_tpu_torch.ops.conv_module import KERNELS
+
+    n = b * t
+    pre = 4 * (2 * d + 2 * e * d + 2 * e + k * e + e)
+    full = pre + 4 * (2 * e + eo * e + eo)
+    cost = ((n * d * es + pre + 8 * e, 4.0 * n * d * e + 2.0 * n * e * k),
+            (n * d * es + full + 8 * e + n * eo * es, 2.0 * n * e * eo),
+            (n * (d + eo) * es + full + 8 * e + 4 * (eo * e + eo + 2 * e),
+             4.0 * n * e * eo),
+            (n * (2 * d + eo) * es + full + 16 * e
+             + 4 * (2 * d + 2 * e * d + 2 * e + k * e),
+             8.0 * n * d * e + 4.0 * n * e * k))
+    return dict(zip(KERNELS, cost))
+
+
+def time_conv_passes(x, g, params, drop, seed):
+    """ms per launch of each of the four passes alone, through the library's
+    C entry points with the wrapper's own arguments, preallocated outputs and
+    scratch, and this input's batch statistics (the accumulators are not
+    re-zeroed: timing only). Outside any count."""
+    from avec_tpu_torch.ops import _cuda, conv_module as cm
+
+    k = params[4].shape[-1]
+    call = cm._Launch(x, params, seed, cm.pad_lo_for("same", k), 1e-6, drop)
+    b, t, d, e, eo, _ = call.dims
+    n = b * t
+    s1, s2 = call.stats()
+    mean, _, rstd = cm.batch_stats(s1, s2, n, 1e-5)
+    zeros = lambda *shape: torch.zeros(shape, device=x.device)
+    keep = []                     # the buffers behind the pointers below
+
+    def ptr(a):
+        keep.append(a)
+        return a.data_ptr()
+
+    grads = [zeros(d), zeros(d), zeros(2 * e, d), zeros(2 * e), zeros(e, k)]
+    args = (
+        (ptr(x), call.ptrs, ptr(zeros(e)), ptr(zeros(e))),
+        (ptr(x), call.ptrs, ptr(mean), ptr(rstd),
+         ptr(torch.empty(b, t, eo, dtype=x.dtype, device=x.device))),
+        (ptr(x), ptr(g), call.ptrs, ptr(mean), ptr(rstd), ptr(zeros(eo, e)),
+         ptr(zeros(eo)), ptr(zeros(e)), ptr(zeros(e))),
+        (ptr(x), ptr(g), call.ptrs, ptr(mean), ptr(rstd), ptr(zeros(e)),
+         ptr(zeros(e)), ptr(torch.empty_like(x)), cm._pointers(grads)))
+    times = {}
+    for stage, name in enumerate(cm.KERNELS):
+        scratch = torch.empty(call.size(b, t, d, e, eo, stage),
+                              device=x.device)
+        fn, a = call.fns[stage], args[stage] + (ptr(scratch),) + call.tail
+
+        def launch():
+            _cuda.check(fn(*a), name)
+
+        times[name] = cuda_time_ms(launch)
+    return times
+
+
+def conv_call_shapes(trainer, batch):
+    """One forward in training mode with hooks: how often each fused
+    convolution shape (B, T, d, E, k) occurs in a step."""
+    from avec_tpu_torch.models.conformer import ConvolutionModule
+
+    shapes, hooks = {}, []
+
+    def on_conv(mod, args):
+        x = args[0]
+        key = (x.shape[0], x.shape[1], x.shape[2],
+               mod.layers["4"].weight.shape[0],
+               mod.layers["3"].weight.shape[-1])
+        shapes[key] = shapes.get(key, 0) + 1
+
+    for m in trainer.model.modules():
+        if isinstance(m, ConvolutionModule) and m.fused_eligible():
+            hooks.append(m.register_forward_pre_hook(on_conv))
+    inputs, _ = trainer._to_device(batch)
+    with torch.no_grad():
+        trainer.model.encoder(*inputs)
+    for hk in hooks:
+        hk.remove()
+    return shapes
+
+
+def conv_phases(detail, profile: bool, trainer_att, batch):
+    """Phases 12-14: K3 / K3b against the plain stages, the train path that
+    runs every training kernel at full width, and its times beside phase
+    10's path (`trainer_att`). Returns the four conv kernels' entries."""
+    from avec_tpu_torch.models.conformer import ConvolutionModule
+    from avec_tpu_torch.ops import conv_module as cm
+    from avec_tpu_torch.ops.ffn import dropout_mask
+    from avec_tpu_torch.ops.layers import init_params
+    from avec_tpu_torch.train.losses import CTCLoss
+    from avec_tpu_torch.train.model import Trainer
+
+    dev = torch.device("cuda")
+    names = ("x",) + cm.PARAM_NAMES
+    errs, abs_errs = {}, {name: 0.0 for name in cm.KERNELS}
+    # which outputs each pass produces (for the fp32 max abs of the kernels
+    # line): stats the batch statistics, fwd y, bwd1 the pw2 and BN
+    # gradients, bwd2 dx and the rest
+    owner = {"mean": cm.KERNEL_STATS, "var": cm.KERNEL_STATS,
+             "y": cm.KERNEL_FWD, "pw2_w": cm.KERNEL_BWD1,
+             "pw2_b": cm.KERNEL_BWD1, "bn_w": cm.KERNEL_BWD1,
+             "bn_b": cm.KERNEL_BWD1}
+
+    # ---- 12. K3 / K3b against the plain stages at the three families
+    for b, t, d, k in CONV_SHAPES:
+        for dtype, tol, wtol in ((torch.float32, 1e-4, 5e-4),
+                                 (torch.bfloat16, 2e-2, 3e-2)):
+            x, g, params = conv_inputs(b, t, d, k, dtype, seed=d)
+            for padding, drop in (("same", 0.0), ("same", 0.1),
+                                  ("causal", 0.0), ("causal", 0.1)):
+                outs, grads = conv_run(x, g, params, padding, drop, True)
+                torch.cuda.synchronize()
+                want_outs, want = conv_run(x, g, params, padding, drop, False)
+                key = f"T{t}_d{d}_{str(dtype)[6:]}_{padding}_drop{drop}"
+                e = {nm: rel_err(a, w) for nm, a, w in zip(
+                    ("y", "mean", "var"), outs, want_outs)}
+                e.update({nm: rel_err(a, w) for nm, a, w in zip(names, grads,
+                                                                want)
+                          if nm != "dw_b"})
+                e["dw_b_grad_max"] = float(grads[names.index("dw_b")].abs()
+                                           .max())
+                errs[key] = e
+                if dtype == torch.float32:
+                    pairs = list(zip(("y", "mean", "var"), outs, want_outs))
+                    pairs += list(zip(names, grads, want))
+                    for nm, a, w in pairs:
+                        kern = owner.get(nm, cm.KERNEL_BWD2)
+                        abs_errs[kern] = max(abs_errs[kern], max_abs(a, w))
+                if drop:
+                    dropped = dropout_mask(4321, b * t, d, 1, 1.0 - drop, dev,
+                                           tile_rows=t).reshape(b, t, d) == 0
+                    for y in (outs[0], want_outs[0]):
+                        kept_zero = float((y[~dropped] == 0).float().mean())
+                        if not (bool((y[dropped] == 0).all())
+                                and kept_zero < 5e-3):
+                            raise AssertionError(
+                                f"dropout masks differ: {key}")
+                fwd_err = max(e["y"], e["mean"], e["var"])
+                worst_w = max(v for nm, v in e.items()
+                              if nm in cm.PARAM_NAMES)
+                x_tol = wtol if dtype == torch.float32 else tol
+                log(f"fused_conv {key}: y {e['y']:.2e} mean {e['mean']:.2e} "
+                    f"var {e['var']:.2e} (tol {tol}) dx {e['x']:.2e} (tol "
+                    f"{x_tol}) params {worst_w:.2e} (tol {wtol}); "
+                    + " ".join(f"{nm} {v:.1e}" for nm, v in e.items()
+                               if nm in cm.PARAM_NAMES)
+                    + f"; dw_b grad max {e['dw_b_grad_max']}")
+                if not (fwd_err <= tol and e["x"] <= x_tol
+                        and worst_w <= wtol and e["dw_b_grad_max"] == 0.0
+                        and float(want[names.index("dw_b")].abs().max())
+                        == 0.0):
+                    raise AssertionError(f"conv kernels disagree: {key} {e}")
+            del x, g, params
+    detail["conv_kernel_errors"] = errs
+
+    # ---- 13. the path through every training kernel at full width
+    trainer = Trainer(device="cuda", precision="bfloat16", seed=0,
+                      vocab_size=256, use_flash=False, stem_mode="pallas",
+                      fused_att=True, fused_conv=True,
+                      loss=CTCLoss(zero_infinity=True))
+    model = trainer.model
+    per_step = model.kernel_launches_per_step()
+    log(f"train (fused conv, fused attention, stem pallas, no flash): "
+        f"launches per step derived from the module tree: {per_step}")
+    want_steps = {"fused_att_fwd": 19, "fused_att_bwd": 19,
+                  "fused_ffn_fwd": 48, "fused_ffn_bwd": 48, "bn_relu_pool": 1,
+                  **{name: 21 for name in cm.KERNELS}}
+    if per_step != want_steps:
+        raise AssertionError(f"launches per step {per_step} != {want_steps}")
+    history, launches = counted_train_steps(trainer, batch, per_step)
+    fp32 = compare_fp32_step(model, batch, loss_tol=1e-5)
+    train = {"steps": history, "launches_per_step": per_step, **fp32}
+
+    # ---- 14. times: the four passes, then this path beside phase 10's
+    acc = {name: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0,
+                  "ops": 0.0} for name in cm.KERNELS}
+    for (b, t, d, e, k), count in sorted(conv_call_shapes(trainer,
+                                                          batch).items()):
+        x, g, params = conv_inputs(b, t, d, k, torch.bfloat16, seed=t + 2)
+        pad_lo = cm.pad_lo_for("same", k)
+        times = time_conv_passes(x, g, params, 0.1, 77)
+        s1, s2 = cm.conv_stats_reference(x, params, pad_lo)
+        mean, _, rstd = cm.batch_stats(s1, s2, b * t, 1e-5)
+        _, _, r1, r2 = cm.conv_bwd1_reference(x, g, params, mean, rstd, 77,
+                                              pad_lo, drop_rate=0.1)
+        rn1, rn2 = r1 / (b * t), r2 / (b * t)
+        plain = {
+            cm.KERNEL_STATS: lambda: cm.conv_stats_reference(x, params,
+                                                             pad_lo),
+            cm.KERNEL_FWD: lambda: cm.conv_fwd_reference(
+                x, params, mean, rstd, 77, pad_lo, drop_rate=0.1),
+            cm.KERNEL_BWD1: lambda: cm.conv_bwd1_reference(
+                x, g, params, mean, rstd, 77, pad_lo, drop_rate=0.1),
+            cm.KERNEL_BWD2: lambda: cm.conv_bwd2_reference(
+                x, g, params, mean, rstd, rn1, rn2, 77, pad_lo,
+                drop_rate=0.1)}
+        plain_ms = {name: cuda_time_ms(fn, iters=5) for name, fn in
+                    plain.items()}
+        # the library yardstick: the port's own unfused module on the same
+        # input (LN, F.conv1d, GLU, depthwise F.conv1d, BatchNorm, swish,
+        # F.conv1d, dropout through PyTorch's library calls)
+        unfused = init_params(ConvolutionModule(d, e, 1, k, "same", 0.1,
+                                                fused_conv=False),
+                              torch.Generator().manual_seed(3)).to(dev).train()
+
+        def lib(backward: bool):
+            if backward:
+                unfused(x.detach().requires_grad_(True)).backward(g)
+            else:
+                with torch.no_grad():
+                    unfused(x)
+
+        t_fl = cuda_time_ms(lambda: lib(False))
+        t_bl = cuda_time_ms(lambda: lib(True)) - t_fl
+        lib_ms = {cm.KERNEL_FWD: t_fl, cm.KERNEL_BWD2: t_bl}
+        cost = conv_cost(b, t, d, e, e, k, 2)
+        row = {"count": count}
+        for name in cm.KERNELS:
+            nb, no = cost[name]
+            b_ms = bound(nb, no, "bf16")[0]
+            row[name] = {"ms": times[name], "plain_ms": plain_ms[name],
+                         "bound_ms": b_ms, "bytes": nb, "ops": no}
+            acc[name]["ms"] += count * times[name]
+            acc[name]["plain_ms"] += count * plain_ms[name]
+            acc[name]["library_ms"] += count * lib_ms.get(name, 0.0)
+            acc[name]["bytes"] += count * nb
+            acc[name]["ops"] += count * no
+        row["unfused_fwd_ms"], row["unfused_bwd_ms"] = t_fl, t_bl
+        detail[f"conv_T{t}_d{d}"] = row
+        log(f"fused_conv T={t} d={d} k={k} x{count}: "
+            + "; ".join(f"{name[11:]} {times[name]:.4f} ms (plain "
+                        f"{plain_ms[name]:.4f}, bound "
+                        f"{row[name]['bound_ms']:.5f}, bytes {cost[name][0]}, "
+                        f"operations {cost[name][1]:.4g})"
+                        for name in cm.KERNELS)
+            + f"; unfused module fwd {t_fl:.4f} ms, bwd {t_bl:.4f} ms")
+        del x, g, params, unfused
+
+    def step_ms(tr):
+        tr.model.set_kernels(True)
+        tr.train_step(batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_time_ms(lambda: tr.train_step(batch), iters=3, warmup=0)
+        return ms, torch.cuda.max_memory_allocated() / 2 ** 30
+
+    runs = [(name, *step_ms(tr)) for name, tr in (
+        ("fused_att", trainer_att), ("fused_conv", trainer),
+        ("fused_conv", trainer), ("fused_att", trainer_att))]
+    for name in ("fused_conv", "fused_att"):
+        ms = [r[1] for r in runs if r[0] == name]
+        train[f"step_ms_{name}_path_bf16"] = sum(ms) / len(ms)
+        train[f"utterances_per_s_{name}_path"] = 16 / (sum(ms) / len(ms)) * 1e3
+        train[f"peak_gib_{name}_path"] = max(r[2] for r in runs
+                                             if r[0] == name)
+    train["step_ms_runs_in_order"] = [[r[0], r[1]] for r in runs]
+    log("train (fused conv path beside the fused attention path) "
+        + json.dumps({k: v for k, v in train.items() if k != "steps"}))
+    if profile:
+        detail["profile_train_fused_conv"] = profile_train_step(trainer, batch)
+    detail["training_fused_conv"] = train
+
+    replaces = dict(zip(cm.KERNELS, (
+        "avec_tpu/ops/pallas_conv_module.py:342",
+        "avec_tpu/ops/pallas_conv_module.py:358",
+        "avec_tpu/ops/pallas_conv_module.py:393",
+        "avec_tpu/ops/pallas_conv_module.py:421")))
+    entries = []
+    for name in cm.KERNELS:
+        b_ms, b_by = bound(acc[name]["bytes"], acc[name]["ops"], "bf16")
+        log(f"{name} per step: {acc[name]['ms']:.4f} ms, bound {b_ms:.5f} "
+            f"({b_by}), plain {acc[name]['plain_ms']:.4f}")
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "avec_tpu_torch/csrc/conv_module.cu",
+            "replaces": replaces[name], "launches": launches[name],
+            "max_abs_err": abs_errs[name], "ms": acc[name]["ms"],
+            "plain_ms": acc[name]["plain_ms"], "bound_ms": b_ms,
+            "bound_by": b_by,
+            # the unfused module's forward stands beside the forward pair,
+            # its backward beside the backward pair
+            "library_ms": (acc[name]["library_ms"] if name in (
+                cm.KERNEL_FWD, cm.KERNEL_BWD2) else None)})
+    return entries
 
 
 def time_ffn_bwd_kernel(x, g, params, drop, seed, check: bool = False):
@@ -1241,6 +1604,14 @@ def time_single_bwd_kernel(q, k, v, dout, lse, delta, lengths, scale):
 
 def _category(name: str) -> str:
     low = name.lower()
+    conv = ("conv_ln_stats_kernel", "conv_pw1_kernel",
+            "conv_depthwise_kernel", "conv_pw2_kernel", "conv_grad_w2_kernel",
+            "conv_grad_bn_kernel", "conv_depthwise_bwd_kernel",
+            "conv_grad_w1_kernel", "conv_grad_h_kernel", "conv_ln_bwd_kernel")
+    # checked first: K2's "ln_stats_kernel" and "ln_bwd_kernel" end two of
+    # these names
+    if any(k in low for k in conv):
+        return "fused convolution module kernels (K3 + K3b)"
     att = ("ln_stats_kernel", "qkv_kernel", "relpos_u_kernel", "scores_kernel",
            "att_v_kernel", "out_proj_kernel", "grad_out_kernel",
            "grad_wo_kernel", "datt_ds_kernel", "grad_kv_kernel",

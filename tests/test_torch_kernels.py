@@ -1,6 +1,6 @@
 """The port's CUDA kernels (fused FFN K1/K1b, fused attention module K2/K2b,
-flash attention K4 and its backward K4b, stem K5 in eval and in training)
-against their plain PyTorch versions.
+fused convolution module K3/K3b, flash attention K4 and its backward K4b,
+stem K5 in eval and in training) against their plain PyTorch versions.
 
 This file imports neither JAX nor the JAX package, so it also runs where JAX
 is absent. On a machine with an NVIDIA H100, from the repository root:
@@ -19,7 +19,11 @@ the parameter gradients, bf16 2e-2 / 3e-2, all of the largest entry; dropout
 masks identical entry by entry. Train-mode stem, kernel route against plain
 route: fp32 1e-5 (pooled, mean, var) and 1e-4 of the largest entry
 (gradients); bf16 exact forward, gradients 1e-2 (atomic-free library sums in
-another order); conv-bias gradient exactly zero.
+another order); conv-bias gradient exactly zero. Convolution module, kernels
+against the plain stages: fp32 1e-4 of the largest entry for y, mean and var
+and 5e-4 for dx and the parameter gradients (atomic sums over all rows); bf16
+2e-2 and 3e-2; dropout masks identical entry by entry; the depthwise-bias
+gradient exactly zero.
 """
 
 import numpy as np
@@ -29,6 +33,11 @@ import torch
 from avec_tpu_torch.ops import _cuda
 from avec_tpu_torch.ops.attention_module import (
     fused_attention_module_3d, fused_attention_module_reference)
+from avec_tpu_torch.ops.conv_module import (KERNELS as CONV_KERNELS,
+                                            PARAM_NAMES as CONV_PARAMS,
+                                            batch_stats, conv_fwd_reference,
+                                            conv_stats_reference,
+                                            fused_conv_module_3d)
 from avec_tpu_torch.ops.ffn import (dropout_mask, fused_ffn,
                                     fused_ffn_reference)
 from avec_tpu_torch.ops.flash_attention import (flash_attention,
@@ -88,6 +97,32 @@ def _att_inputs(device, dtype, b, t, d, seed=0):
     return x, g, [p.to(device) for p in params]
 
 
+def _conv_inputs(device, dtype, b, t, d, e, k, seed=0):
+    """x, cotangent and the convolution module's ten parameters in the
+    port's Conv layout (E' = E)."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, t, d, generator=gen).to(device, dtype)
+    g = torch.randn(b, t, e, generator=gen).to(device, dtype)
+    vec = lambda n: 0.1 * torch.randn(n, generator=gen)
+    u = lambda shape, fan: ((2 * torch.rand(shape, generator=gen) - 1)
+                            / fan ** 0.5)
+    params = [1.0 + vec(d), vec(d), u((2 * e, d, 1), d), u((2 * e,), d),
+              u((e, 1, k), k), u((e,), k), 1.0 + vec(e), vec(e),
+              u((e, e, 1), e), u((e,), e)]
+    return x, g, [p.to(device) for p in params]
+
+
+def _conv_run(x, g, params, padding, drop, use_kernel, seed=99):
+    """y, batch mean and variance, and the gradients of x and the ten
+    parameters."""
+    leaves = [a.detach().requires_grad_(True) for a in [x] + params]
+    y, mean, var = fused_conv_module_3d(
+        leaves[0], *leaves[1:], seed=seed, padding=padding, drop_rate=drop,
+        deterministic=False, use_kernel=use_kernel)
+    y.backward(g)
+    return [y.detach(), mean, var], [a.grad for a in leaves]
+
+
 ATT_NAMES = ("x", "ln_w", "ln_b", "wq", "bq", "wk", "bk", "wv", "bv",
              "pos_w", "pos_b", "wo", "bo")
 
@@ -128,6 +163,21 @@ def test_cpu_tensors_take_the_plain_versions():
     assert dict(_cuda.launches) == before
 
 
+def test_cpu_conv_module_takes_the_plain_stages():
+    """On the CPU the fused convolution module is its plain stages and the
+    batch-statistics glue, and launches nothing."""
+    before = dict(_cuda.launches)
+    x, _, params = _conv_inputs("cpu", torch.float32, 2, 11, 6, 8, 5)
+    y, mean, var = fused_conv_module_3d(x, *params, seed=7, drop_rate=0.2,
+                                        deterministic=False)
+    s1, s2 = conv_stats_reference(x, params, 2)
+    want_mean, want_var, rstd = batch_stats(s1, s2, 22, 1e-5)
+    assert torch.equal(mean, want_mean) and torch.equal(var, want_var)
+    assert torch.equal(y, conv_fwd_reference(x, params, mean, rstd, 7, 2,
+                                             drop_rate=0.2))
+    assert dict(_cuda.launches) == before
+
+
 def test_dropout_mask_is_a_function_of_the_global_row():
     """The hash masks do not depend on how many rows are asked for, keep
     about `keep` of the entries and scale by 1/keep."""
@@ -151,7 +201,7 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("name", ["ffn", "flash_attention_bwd",
                                   "flash_attention", "stem",
-                                  "attention_module"])
+                                  "attention_module", "conv_module"])
 def test_missing_nvcc_raises_for_every_library(monkeypatch, tmp_path, name):
     """Every kernel library is built from source: asking for any of them
     without nvcc raises instead of falling back."""
@@ -468,3 +518,63 @@ def test_train_stem_kernel_route_matches_plain_route(cuda_device, dtype, b, t):
     for got, want in zip((gk[0], gk[2], gk[3]), (gp[0], gp[2], gp[3])):
         assert got.dtype == torch.float32
         assert _rel(got, want) <= (1e-2 if exact else 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol,wtol", [(torch.float32, 1e-4, 5e-4),
+                                            (torch.bfloat16, 2e-2, 3e-2)])
+@pytest.mark.parametrize("padding,drop", [("same", 0.0), ("same", 0.1),
+                                          ("causal", 0.1)])
+@pytest.mark.parametrize("b,t,d,e,k", [
+    (16, 301, 180, 180, 15),     # audio stage 0
+    (16, 151, 256, 256, 15),     # audio stage 1 / video stage 0
+    (16, 76, 360, 360, 15),      # audio stage 2, video stage 1, fusion
+    (3, 37, 20, 24, 5),          # d != E, no multiple of any tile
+    (2, 70, 48, 96, 8),          # even k, two row tiles per sequence
+])
+def test_conv_module_kernels_match_plain(cuda_device, dtype, tol, wtol,
+                                         padding, drop, b, t, d, e, k):
+    x, g, params = _conv_inputs(cuda_device, dtype, b, t, d, e, k)
+    results = []
+    for use_kernel in (True, False):
+        n0 = dict(_cuda.launches)
+        results.append(_conv_run(x, g, params, padding, drop, use_kernel))
+        torch.cuda.synchronize()
+        for name in CONV_KERNELS:
+            assert _cuda.launches[name] - n0.get(name, 0) == int(use_kernel)
+    (outs, grads), (want_outs, want_grads) = results
+    assert outs[0].dtype == dtype and grads[0].dtype == dtype
+    for name, got, want in zip(("y", "mean", "var"), outs, want_outs):
+        assert _rel(got, want) <= tol, name
+    if drop:
+        dropped = dropout_mask(99, b * t, e, 1, 1.0 - drop, cuda_device,
+                               tile_rows=t).reshape(b, t, e) == 0
+        for y in (outs[0], want_outs[0]):
+            assert bool((y[dropped] == 0).all())
+            assert float((y[~dropped] == 0).float().mean()) < 5e-3
+    for name, got, want in zip(("x",) + CONV_PARAMS, grads, want_grads):
+        if name == "dw_b":
+            assert not got.abs().any() and not want.abs().any()
+            continue
+        if name != "x":
+            assert got.dtype == torch.float32
+        assert _rel(got, want) <= (tol if name == "x" and dtype
+                                   == torch.bfloat16 else wtol), name
+
+
+@pytest.mark.cuda
+def test_conv_module_kernel_rejects_bad_inputs(cuda_device):
+    x, _, params = _conv_inputs(cuda_device, torch.float32, 2, 8, 16, 16, 5)
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        fused_conv_module_3d(x.half(), *params)
+    with pytest.raises(ValueError, match="parameter shapes"):
+        fused_conv_module_3d(x, *params[:2], params[2][:, :8].contiguous(),
+                             *params[3:])
+    with pytest.raises(ValueError, match="fp32 tensors"):
+        fused_conv_module_3d(x, params[0].double(), *params[1:])
+    with pytest.raises(ValueError, match="outside the kernels' range"):
+        xw, _, pw = _conv_inputs(cuda_device, torch.float32, 1, 4, 400, 8, 5)
+        fused_conv_module_3d(xw, *pw)
+    with pytest.raises(ValueError, match="outside the kernels' range"):
+        xk, _, pk = _conv_inputs(cuda_device, torch.float32, 1, 40, 8, 8, 33)
+        fused_conv_module_3d(xk, *pk)
