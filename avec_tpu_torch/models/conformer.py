@@ -20,15 +20,18 @@ import os
 from typing import Dict, List, Optional, Sequence, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
 from avec_tpu_torch.ops.activations import get_act, glu, swish
 from avec_tpu_torch.ops.attention import (RelPos1dMultiHeadAttention,
                                           make_attention)
-from avec_tpu_torch.ops.attention_module import fused_attention_module_3d
+from avec_tpu_torch.ops.attention_module import (
+    fused_attention_module_3d, fused_attention_module_3d_dp)
 from avec_tpu_torch.ops.conv_module import (conv_module_params,
-                                            fused_conv_module_3d)
-from avec_tpu_torch.ops.ffn import fused_ffn_3d
+                                            fused_conv_module_3d,
+                                            fused_conv_module_3d_dp)
+from avec_tpu_torch.ops.ffn import fused_ffn_3d, fused_ffn_3d_dp
 from avec_tpu_torch.ops.layers import (BatchNorm, Conv, Dropout, LayerNorm,
                                        Linear)
 from avec_tpu_torch.ops.masks import downsample_mask, strided_lengths
@@ -46,9 +49,11 @@ class FeedForwardModule(nn.Module):
     In training mode a (B, T, d) input goes through the fused kernel of
     `ops/ffn.py` (the JAX gate of conformer.py:103-107: training, pre-norm,
     3-d input, Swish), with a 31-bit dropout seed drawn from
-    `seed_generator`, a CPU `torch.Generator` set by the owning model. Eval
-    runs the unfused layers. `use_kernel=False` routes the fused path through
-    its plain version; `regularize=False` turns dropout off."""
+    `seed_generator`, a CPU `torch.Generator` set by the owning model; with a
+    `process_group` (data-parallel training) through `fused_ffn_3d_dp`, which
+    offsets that seed per rank. Eval runs the unfused layers.
+    `use_kernel=False` routes the fused path through its plain version;
+    `regularize=False` turns dropout off."""
 
     def __init__(self, dim_model: int, dim_ffn: int, drop_rate: float = 0.1):
         super().__init__()
@@ -60,6 +65,7 @@ class FeedForwardModule(nn.Module):
         self.use_kernel = True
         self.regularize = True
         self.seed_generator = None
+        self.process_group = None
         self.training = False
 
     def forward(self, x):
@@ -67,11 +73,12 @@ class FeedForwardModule(nn.Module):
         if self.training and x.ndim == 3:
             rate = self.drop_rate if self.regularize else 0.0
             seed = _draw_seed(self.seed_generator) if rate > 0.0 else None
-            return fused_ffn_3d(x, norm.weight, norm.bias, lin1.weight,
-                                lin1.bias, lin2.weight, lin2.bias, seed=seed,
-                                epsilon=norm.eps, drop_rate=rate,
-                                deterministic=False,
-                                use_kernel=self.use_kernel)
+            fn, dp = _dp_route(fused_ffn_3d, fused_ffn_3d_dp,
+                               self.process_group)
+            return fn(x, norm.weight, norm.bias, lin1.weight, lin1.bias,
+                      lin2.weight, lin2.bias, seed=seed, epsilon=norm.eps,
+                      drop_rate=rate, deterministic=False,
+                      use_kernel=self.use_kernel, **dp)
         x = self.dropout(swish(lin1(norm(x))))
         return self.dropout(lin2(x))
 
@@ -93,6 +100,12 @@ def _draw_seed(generator) -> int:
     return int(torch.randint(0, 2 ** 31, (), generator=generator))
 
 
+def _dp_route(fn, fn_dp, group):
+    """(the fused entry point, its extra keyword arguments): the
+    data-parallel form with its process group when there is one."""
+    return (fn, {}) if group is None else (fn_dp, {"group": group})
+
+
 class AttentionModule(nn.Module):
     """Pre-norm attention + dropout (no residual inside the conformer
     block).
@@ -103,10 +116,10 @@ class AttentionModule(nn.Module):
     input, `RelPos1dMultiHeadAttention` itself (not the patch subclass) with
     `use_flash` off, and no mask or a key-padding mask (B, 1, 1, T). The
     lengths are the `lengths` argument, else the mask's row sums; the 31-bit
-    dropout seed comes from `seed_generator`, as in `FeedForwardModule`.
-    Eval always runs the unfused layers. `use_kernel=False` routes the fused
-    path through its plain version; `regularize=False` turns its dropout
-    off."""
+    dropout seed comes from `seed_generator` and a `process_group` selects
+    the data-parallel form, as in `FeedForwardModule`. Eval always runs the
+    unfused layers. `use_kernel=False` routes the fused path through its
+    plain version; `regularize=False` turns its dropout off."""
 
     def __init__(self, dim_model: int, att_params: dict,
                  drop_rate: float = 0.1, fused_att: Optional[bool] = None):
@@ -120,6 +133,7 @@ class AttentionModule(nn.Module):
         self.use_kernel = True
         self.regularize = True
         self.seed_generator = None
+        self.process_group = None
         self.training = False
 
     def fused_eligible(self, ndim: int = 3, mask=None) -> bool:
@@ -140,7 +154,10 @@ class AttentionModule(nn.Module):
             seed = _draw_seed(self.seed_generator) if rate > 0.0 else None
             if lengths is None and mask is not None:
                 lengths = mask[:, 0, 0, :].sum(dim=-1).to(torch.int32)
-            return fused_attention_module_3d(
+            fn, dp = _dp_route(fused_attention_module_3d,
+                               fused_attention_module_3d_dp,
+                               self.process_group)
+            return fn(
                 x, self.norm.weight, self.norm.bias,
                 att.query_layer.weight, att.query_layer.bias,
                 att.key_layer.weight, att.key_layer.bias,
@@ -149,7 +166,7 @@ class AttentionModule(nn.Module):
                 att.output_layer.weight, att.output_layer.bias,
                 num_heads=att.num_heads, lengths=lengths, seed=seed,
                 drop_rate=rate, deterministic=False, residual=False,
-                ln_eps=self.norm.eps, use_kernel=self.use_kernel)
+                ln_eps=self.norm.eps, use_kernel=self.use_kernel, **dp)
         return self.dropout(self.attention(self.norm(x), mask=mask,
                                            lengths=lengths))
 
@@ -165,9 +182,12 @@ class ConvolutionModule(nn.Module):
     padding "same" or "causal", a 3-d input (BatchNorm and swish are the
     port module's only choice). The batch statistics the kernels return move
     the BatchNorm's running statistics; the 31-bit dropout seed comes from
-    `seed_generator`, as in `FeedForwardModule`. Eval always runs the unfused
-    layers. `use_kernel=False` routes the fused path through its plain
-    stages; `regularize=False` turns its dropout off."""
+    `seed_generator`, as in `FeedForwardModule`. With a `process_group`
+    (data-parallel training) the fused route is the K3dp path
+    (`fused_conv_module_3d_dp`, statistics over the global batch) and the
+    unfused route's BatchNorm syncs its statistics. Eval always runs the
+    unfused layers. `use_kernel=False` routes the fused path through its
+    plain stages; `regularize=False` turns its dropout off."""
 
     def __init__(self, dim_model: int, dim_expand: int, stride: int = 1,
                  kernel_size: int = 15, padding: str = "same",
@@ -190,6 +210,7 @@ class ConvolutionModule(nn.Module):
         self.use_kernel = True
         self.regularize = True
         self.seed_generator = None
+        self.process_group = None
         self.training = False
 
     def fused_eligible(self, ndim: int = 3) -> bool:
@@ -203,11 +224,15 @@ class ConvolutionModule(nn.Module):
             rate = self.drop_rate if self.regularize else 0.0
             seed = _draw_seed(self.seed_generator) if rate > 0.0 else None
             ln, bn = self.layers["0"], self.layers["4"]
-            y, mean, var = fused_conv_module_3d(
+            group = self.process_group
+            fn, dp = _dp_route(fused_conv_module_3d, fused_conv_module_3d_dp,
+                               group)
+            y, mean, var = fn(
                 x, *conv_module_params(self), seed=seed, padding=self.padding,
                 ln_eps=ln.eps, bn_eps=bn.eps, drop_rate=rate,
-                deterministic=False, use_kernel=self.use_kernel)
-            bn.update_running(mean, var, x.shape[0] * x.shape[1])
+                deterministic=False, use_kernel=self.use_kernel, **dp)
+            world = 1 if group is None else dist.get_world_size(group)
+            bn.update_running(mean, var, x.shape[0] * x.shape[1] * world)
             return y
         x = self.layers["0"](x).transpose(1, 2)
         x = glu(self.layers["1"](x), dim=1)

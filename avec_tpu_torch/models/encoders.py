@@ -12,7 +12,9 @@ ResNet, convolution modules), dropout and the fused feed-forward kernels in
 the conformer stacks (and, with `fused_att` and `fused_conv`, the fused
 attention and convolution kernels).
 The video stem trains in mode "2d" (plain PyTorch) or "pallas" (the BN + ReLU
-+ pool kernel applied with batch statistics).
++ pool kernel applied with batch statistics). In data-parallel training every
+BatchNorm takes the statistics of the global batch (the model's
+`set_data_parallel`).
 """
 
 import os
@@ -48,7 +50,10 @@ class FusedVideoStem(nn.Module):
     `use_kernel` is False: in eval with the running statistics, in training
     with the batch's (`fused_stem_train`), moving the running statistics
     towards the batch mean and the unbiased batch variance
-    (encoders.py:183-191)."""
+    (encoders.py:183-191). In data-parallel training mode "2d" syncs its
+    BatchNorm over the ranks; mode "pallas" has single-device statistics, as
+    the JAX kernel does (pallas_stem.py:38-42), and the model's
+    `set_data_parallel` refuses it for more than one rank."""
 
     def __init__(self, mode: str = "2d"):
         super().__init__()

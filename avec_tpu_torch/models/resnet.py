@@ -1,5 +1,6 @@
 """ResNet trunk (port of avec_tpu/models/resnet.py), NCHW; its BatchNorms
-use batch statistics in training mode.
+use batch statistics in training mode, those of the global batch in
+data-parallel training.
 
 AVEC uses ResNet18 without its stem as the per-frame visual trunk
 (include_stem=False, dim_output=256). Convs are bias-free with "same"

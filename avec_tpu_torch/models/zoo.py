@@ -9,10 +9,16 @@ Entry points default to CUDA and raise when it is absent.
 from typing import Dict, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
-from avec_tpu_torch.models.encoders import AudioVisualEfficientConformerEncoder
+from avec_tpu_torch.models.encoders import (
+    AudioVisualEfficientConformerEncoder, FusedVideoStem)
 from avec_tpu_torch.ops.layers import init_params
+
+
+# offset of each rank's Dropout / SpecAugment generator seed
+_RANK_SEED_STRIDE = 1_000_003
 
 
 def resolve_device(device) -> torch.device:
@@ -58,6 +64,7 @@ class AudioVisualEfficientConformerInterCTC(nn.Module):
         init_params(self, generator)
         self.eval()
         self.to(device)
+        self.process_group, self.dp_rank = None, 0
         self.set_generators(0)
 
     def set_kernels(self, enabled: bool) -> None:
@@ -77,15 +84,43 @@ class AudioVisualEfficientConformerInterCTC(nn.Module):
     def set_generators(self, seed: int) -> None:
         """Seed the training noise: one generator on the model's device for
         the dropout and SpecAugment masks, one on the CPU for the fused
-        kernels' integer seeds (drawn without a device sync)."""
+        kernels' integer seeds (drawn without a device sync). In
+        data-parallel mode the first is offset by the rank, so ranks draw
+        different masks; the second is not, the fused kernels' wrappers
+        offset the seeds they draw per rank as the JAX DP wrappers do."""
+        self.noise_seed = seed
         device = next(self.parameters()).device
-        noise = torch.Generator(device=device).manual_seed(seed)
+        noise = torch.Generator(device=device).manual_seed(
+            seed + _RANK_SEED_STRIDE * self.dp_rank)
         seeds = torch.Generator().manual_seed(seed + 1)
         for m in self.modules():
             if hasattr(m, "generator"):
                 m.generator = noise
             if hasattr(m, "seed_generator"):
                 m.seed_generator = seeds
+
+    def set_data_parallel(self, group=None) -> None:
+        """Data-parallel training over the ranks of `group` (None: the
+        default process group, which must be initialized): every BatchNorm
+        syncs its batch statistics over the group, the feed-forward,
+        attention and convolution modules take their fused kernels' DP forms
+        (the convolution module's is K3dp, with global statistics), and the
+        Dropout and SpecAugment generators are offset by the rank. The
+        "pallas" video stem computes single-device batch statistics
+        (pallas_stem.py:38-42), so with more than one rank it raises
+        ValueError: train with stem "2d"."""
+        group = group if group is not None else dist.group.WORLD
+        if dist.get_world_size(group) > 1 and any(
+                isinstance(m, FusedVideoStem) and m.mode == "pallas"
+                for m in self.modules()):
+            raise ValueError("the 'pallas' video stem has no cross-rank "
+                             "batch statistics; train data-parallel with "
+                             "stem_mode='2d'")
+        for m in self.modules():      # the model itself among them
+            if hasattr(m, "process_group"):
+                m.process_group = group
+        self.dp_rank = dist.get_rank(group)
+        self.set_generators(self.noise_seed)
 
     def kernel_launches_per_step(self) -> Dict[str, int]:
         """Kernel launches of one training forward + backward, derived from
@@ -95,12 +130,13 @@ class AudioVisualEfficientConformerInterCTC(nn.Module):
         the fused route (with the key-padding masks the encoders build) the
         fused attention forward and backward once, every convolution module
         that takes the fused route the four conv kernels (statistics,
-        forward, backward-1, backward-2) once each, and a "pallas" video stem
-        its BN + ReLU + pool kernel once (its backward launches no kernel)."""
+        forward, backward-1, backward-2) once each, under their K3dp names in
+        data-parallel mode, and a "pallas" video stem its BN + ReLU + pool
+        kernel once (its backward launches no kernel). In data-parallel mode
+        these are the launches of each rank."""
         from avec_tpu_torch.models.conformer import (AttentionModule,
                                                      ConvolutionModule,
                                                      FeedForwardModule)
-        from avec_tpu_torch.models.encoders import FusedVideoStem
         from avec_tpu_torch.ops import (attention_module, conv_module, ffn,
                                         flash_attention, stem)
 
@@ -113,13 +149,15 @@ class AudioVisualEfficientConformerInterCTC(nn.Module):
                      for m in mods)
         n_stem = sum(isinstance(m, FusedVideoStem) and m.mode == "pallas"
                      for m in mods)
+        conv_names = (conv_module.KERNELS if self.process_group is None
+                      else conv_module.KERNELS_DP)
         counts = {ffn.KERNEL_FWD: n_ffn, ffn.KERNEL_BWD: n_ffn,
                   flash_attention.KERNEL: n_flash,
                   flash_attention.KERNEL_DQ: n_flash,
                   flash_attention.KERNEL_DKV: n_flash,
                   attention_module.KERNEL_FWD: n_att,
                   attention_module.KERNEL_BWD: n_att,
-                  **{name: n_conv for name in conv_module.KERNELS},
+                  **{name: n_conv for name in conv_names},
                   stem.KERNEL: n_stem}
         return {k: v for k, v in counts.items() if v}
 

@@ -44,9 +44,10 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from avec_tpu_torch.ops import _cuda
-from avec_tpu_torch.ops.ffn import _M32, _threshold, dropout_mask
+from avec_tpu_torch.ops.ffn import _M32, _threshold, dropout_mask, shard_seed
 
 KERNEL_FWD = "fused_att_fwd"
 KERNEL_BWD = "fused_att_bwd"
@@ -288,3 +289,23 @@ def fused_attention_module_3d(
         x.contiguous(), ln_w, ln_b, wq, bq, wk, bk, wv, bv, pos_weight,
         pos_bias, wo, bo, lengths.contiguous(), seed, num_heads, drop_rate,
         not deterministic, residual, ln_eps)
+
+
+def fused_attention_module_3d_dp(
+        x, ln_w, ln_b, wq, bq, wk, bk, wv, bv, pos_weight, pos_bias, wo, bo, *,
+        num_heads: int, group=None, lengths=None, seed: Optional[int] = None,
+        drop_rate: float = 0.0, deterministic: bool = True,
+        residual: bool = True, ln_eps: float = 1e-6, use_kernel: bool = True
+) -> torch.Tensor:
+    """`fused_attention_module_3d` on this rank's shard of a batch (and of
+    its lengths) split over the ranks of `group` (None: the default group),
+    with the rank's dropout seed (pallas_attention_module.py:469-496).
+    Attention has no cross-rank statistics; the parameter gradients are this
+    rank's partial sums."""
+    group = group if group is not None else dist.group.WORLD
+    return fused_attention_module_3d(
+        x, ln_w, ln_b, wq, bq, wk, bk, wv, bv, pos_weight, pos_bias, wo, bo,
+        num_heads=num_heads, lengths=lengths,
+        seed=shard_seed(seed, dist.get_rank(group)), drop_rate=drop_rate,
+        deterministic=deterministic, residual=residual, ln_eps=ln_eps,
+        use_kernel=use_kernel)

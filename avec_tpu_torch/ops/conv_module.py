@@ -17,6 +17,9 @@ pallas_conv_module.py:353-355 and :418-419 between them. Every pass
 recomputes the forward from x: only x, the parameters, the seed and the batch
 statistics cross from forward to backward.
 
+`fused_conv_module_3d_dp` is the data-parallel form (K3dp): the same passes
+on each rank's shard, the (E,)-sized sums all-reduced between them.
+
 `fused_conv_module_3d` runs each pass as the hand-written CUDA kernel of
 `csrc/conv_module.cu` for CUDA tensors and as its plain version
 (`conv_*_reference`) for CPU tensors. The backward is the JAX custom VJP
@@ -43,16 +46,20 @@ import ctypes
 from typing import Optional, Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from avec_tpu_torch.ops import _cuda
-from avec_tpu_torch.ops.ffn import _M32, _threshold, dropout_mask
+from avec_tpu_torch.ops.ffn import _M32, _threshold, dropout_mask, shard_seed
 
 KERNEL_STATS = "fused_conv_stats"
 KERNEL_FWD = "fused_conv_fwd"
 KERNEL_BWD1 = "fused_conv_bwd1"
 KERNEL_BWD2 = "fused_conv_bwd2"
 KERNELS = (KERNEL_STATS, KERNEL_FWD, KERNEL_BWD1, KERNEL_BWD2)
+# the same four passes on the data-parallel path (K3dp), counted apart
+KERNELS_DP = ("fused_conv_dp_stats", "fused_conv_dp_fwd", "fused_conv_dp_bwd1",
+              "fused_conv_dp_bwd2")
 MAX_DIM = 384                      # widest d, E, E' the kernels take
 MAX_K = 31                         # longest depthwise kernel they take
 
@@ -262,27 +269,45 @@ def _check(x, params):
     return b, t, d, e, eo, k
 
 
+def _all_reduce_pair(a, b, group):
+    """(a, b) summed over the ranks of `group` in one collective."""
+    v = torch.cat([a, b])
+    dist.all_reduce(v, group=group)
+    return v[:a.shape[0]], v[a.shape[0]:]
+
+
 class _FusedConvModule(torch.autograd.Function):
     """The two forward passes and the two backward passes, each a kernel for
     CUDA tensors and a plain stage for CPU tensors (or with use_kernel off).
     Only x, the parameters, the seed and the batch mean and rstd are kept for
-    the backward, which recomputes the rest."""
+    the backward, which recomputes the rest.
+
+    With a process `group` (the K3dp path, pallas_conv_module.py:516-730) x
+    is this rank's shard of the batch: s1, s2 are summed over the ranks
+    before the statistics are formed over the global row count, and r1, r2
+    before the second backward pass; every gradient returned is this rank's
+    partial sum, the BN ones the local r2 and r1 (:715-719), so the gradient
+    all-reduce of the train step sums each exactly once."""
 
     @staticmethod
     def forward(ctx, x, ln_w, ln_b, pw1_w, pw1_b, dw_w, dw_b, bn_w, bn_b,
                 pw2_w, pw2_b, seed, pad_lo, ln_eps, bn_eps, drop_rate,
-                use_kernel):
+                use_kernel, group):
         params = tuple(p.detach() for p in (ln_w, ln_b, pw1_w, pw1_b, dw_w,
                                             dw_b, bn_w, bn_b, pw2_w, pw2_b))
         x = x.detach()
         b, t = x.shape[:2]
         n = b * t
         kernel = use_kernel and x.device.type != "cpu"
+        names = KERNELS if group is None else KERNELS_DP
         if kernel:
-            call = _Launch(x, params, seed, pad_lo, ln_eps, drop_rate)
+            call = _Launch(x, params, seed, pad_lo, ln_eps, drop_rate, names)
             s1, s2 = call.stats()
         else:
             s1, s2 = conv_stats_reference(x, params, pad_lo, ln_eps)
+        if group is not None:
+            s1, s2 = _all_reduce_pair(s1, s2, group)
+            n *= dist.get_world_size(group)
         mean, var, rstd = batch_stats(s1, s2, n, bn_eps)
         if kernel:
             y = call.fwd(mean, rstd)
@@ -290,43 +315,52 @@ class _FusedConvModule(torch.autograd.Function):
             y = conv_fwd_reference(x, params, mean, rstd, seed, pad_lo,
                                    ln_eps, drop_rate)
         ctx.save_for_backward(x, mean, rstd, *params)
-        ctx.conf = (seed, pad_lo, ln_eps, drop_rate, kernel)
+        ctx.conf = (seed, pad_lo, ln_eps, drop_rate, kernel, group, n)
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
     @staticmethod
     def backward(ctx, g, _g_mean, _g_var):
         x, mean, rstd, *params = ctx.saved_tensors
-        seed, pad_lo, ln_eps, drop_rate, kernel = ctx.conf
-        n = x.shape[0] * x.shape[1]
+        seed, pad_lo, ln_eps, drop_rate, kernel, group, n = ctx.conf
         g = g.to(x.dtype).contiguous()
         if kernel:
-            call = _Launch(x, params, seed, pad_lo, ln_eps, drop_rate)
+            names = KERNELS if group is None else KERNELS_DP
+            call = _Launch(x, params, seed, pad_lo, ln_eps, drop_rate, names)
             dw2, db2, r1, r2 = call.bwd1(g, mean, rstd)
-            dx, dln_w, dln_b, dw1, db1, ddw = call.bwd2(g, mean, rstd, r1 / n,
-                                                        r2 / n)
         else:
             dw2, db2, r1, r2 = conv_bwd1_reference(
                 x, g, params, mean, rstd, seed, pad_lo, ln_eps, drop_rate)
+        r1g, r2g = (r1, r2) if group is None else _all_reduce_pair(r1, r2,
+                                                                  group)
+        if kernel:
+            dx, dln_w, dln_b, dw1, db1, ddw = call.bwd2(g, mean, rstd, r1g / n,
+                                                        r2g / n)
+        else:
             dx, dln_w, dln_b, dw1, db1, ddw = conv_bwd2_reference(
-                x, g, params, mean, rstd, r1 / n, r2 / n, seed, pad_lo,
+                x, g, params, mean, rstd, r1g / n, r2g / n, seed, pad_lo,
                 ln_eps, drop_rate)
         grads = (dln_w, dln_b, dw1.reshape(params[2].shape), db1,
                  ddw.reshape(params[4].shape), torch.zeros_like(params[5]),
                  r2, r1, dw2.reshape(params[8].shape), db2)
-        return (dx, *grads) + (None,) * 6
+        return (dx, *grads) + (None,) * 7
 
 
 class _Launch:
     """The four C entry points of `csrc/conv_module.cu` for one call's
     input and parameters; each method allocates its outputs (accumulators
     zeroed on the current stream) and an fp32 scratch buffer that lives until
-    it returns, launches, and counts one launch."""
+    it returns, launches, and counts one launch under its name in `names`
+    (KERNELS, or KERNELS_DP on the data-parallel path). No entry point reads
+    the row count for a global quantity: the statistics and r1 / n, r2 / n
+    come in from the caller."""
 
-    def __init__(self, x, params, seed, pad_lo, ln_eps, drop_rate):
+    def __init__(self, x, params, seed, pad_lo, ln_eps, drop_rate,
+                 names=KERNELS):
         b, t, d, e, eo, k = _check(x, params)
         self.x, self.params, self.ptrs = x, params, _pointers(params)
         self.dims = (b, t, d, e, eo, k)
+        self.names = names
         drop = bool(drop_rate > 0.0)
         thr, inv_keep = _threshold(1.0 - drop_rate) if drop else (0, 1.0)
         self.tail = (b, t, d, e, eo, k, pad_lo, float(ln_eps), int(drop),
@@ -334,12 +368,12 @@ class _Launch:
                      int(x.dtype == torch.bfloat16), _cuda.stream_ptr(x))
         self.fns, self.size = _lib()
 
-    def _run(self, stage: int, name: str, *ptrs):
+    def _run(self, stage: int, *ptrs):
         scratch = torch.empty(self.size(*self.dims[:5], stage),
                               dtype=torch.float32, device=self.x.device)
         rc = self.fns[stage](*ptrs, scratch.data_ptr(), *self.tail)
-        _cuda.check(rc, name)
-        _cuda.launches[name] += 1
+        _cuda.check(rc, self.names[stage])
+        _cuda.launches[self.names[stage]] += 1
 
     def _zeros(self, *shape):
         return torch.zeros(shape, dtype=torch.float32, device=self.x.device)
@@ -347,14 +381,14 @@ class _Launch:
     def stats(self):
         e = self.dims[3]
         s1, s2 = self._zeros(e), self._zeros(e)
-        self._run(0, KERNEL_STATS, self.x.data_ptr(), self.ptrs,
+        self._run(0, self.x.data_ptr(), self.ptrs,
                   s1.data_ptr(), s2.data_ptr())
         return s1, s2
 
     def fwd(self, mean, rstd):
         b, t, _, _, eo, _ = self.dims
         y = torch.empty((b, t, eo), dtype=self.x.dtype, device=self.x.device)
-        self._run(1, KERNEL_FWD, self.x.data_ptr(), self.ptrs,
+        self._run(1, self.x.data_ptr(), self.ptrs,
                   mean.data_ptr(), rstd.data_ptr(), y.data_ptr())
         return y
 
@@ -362,7 +396,7 @@ class _Launch:
         e, eo = self.dims[3], self.dims[4]
         dw2, db2 = self._zeros(eo, e), self._zeros(eo)
         r1, r2 = self._zeros(e), self._zeros(e)
-        self._run(2, KERNEL_BWD1, self.x.data_ptr(), g.data_ptr(), self.ptrs,
+        self._run(2, self.x.data_ptr(), g.data_ptr(), self.ptrs,
                   mean.data_ptr(), rstd.data_ptr(), dw2.data_ptr(),
                   db2.data_ptr(), r1.data_ptr(), r2.data_ptr())
         return dw2, db2, r1, r2
@@ -372,7 +406,7 @@ class _Launch:
         dx = torch.empty_like(self.x)
         grads = [self._zeros(d), self._zeros(d), self._zeros(2 * e, d),
                  self._zeros(2 * e), self._zeros(e, k)]
-        self._run(3, KERNEL_BWD2, self.x.data_ptr(), g.data_ptr(), self.ptrs,
+        self._run(3, self.x.data_ptr(), g.data_ptr(), self.ptrs,
                   mean.data_ptr(), rstd.data_ptr(), rn1.data_ptr(),
                   rn2.data_ptr(), dx.data_ptr(), _pointers(grads))
         return (dx, *grads)
@@ -398,7 +432,34 @@ def fused_conv_module_3d(x, ln_w, ln_b, pw1_w, pw1_b, dw_w, dw_b, bn_w, bn_b,
         x.contiguous(), ln_w, ln_b, pw1_w, pw1_b, dw_w, dw_b, bn_w, bn_b,
         pw2_w, pw2_b, 0 if seed is None else int(seed),
         pad_lo_for(padding, k), float(ln_eps), float(bn_eps), rate,
-        bool(use_kernel))
+        bool(use_kernel), None)
+
+
+def fused_conv_module_3d_dp(x, ln_w, ln_b, pw1_w, pw1_b, dw_w, dw_b, bn_w,
+                            bn_b, pw2_w, pw2_b, *, group=None,
+                            seed: Optional[int] = None, padding: str = "same",
+                            ln_eps: float = 1e-6, bn_eps: float = 1e-5,
+                            drop_rate: float = 0.0, deterministic: bool = True,
+                            use_kernel: bool = True):
+    """The K3dp path (pallas_conv_module.py:516): x is this rank's shard
+    (B_r, T, d) of a batch split over the ranks of `group` (None: the
+    default group), the parameters are replicated. The same four passes as
+    `fused_conv_module_3d` on each rank, with the batch sums all-reduced
+    between the statistics and forward passes and the two BN reductions
+    between the backward passes, so the statistics are those of the global
+    B_r T world rows. Returns (y (B_r, T, E'), global batch mean, global
+    biased batch variance); the gradients are this rank's partial sums. The
+    dropout seed is offset per rank as the JAX wrapper does (:543), at
+    world size 1 too. Each rank launches each pass once per forward and
+    backward, counted under KERNELS_DP."""
+    group = group if group is not None else dist.group.WORLD
+    k = dw_w.shape[-1]
+    rate = float(drop_rate) if not deterministic else 0.0
+    return _FusedConvModule.apply(
+        x.contiguous(), ln_w, ln_b, pw1_w, pw1_b, dw_w, dw_b, bn_w, bn_b,
+        pw2_w, pw2_b, shard_seed(seed, dist.get_rank(group)),
+        pad_lo_for(padding, k), float(ln_eps), float(bn_eps), rate,
+        bool(use_kernel), group)
 
 
 def conv_module_params(module) -> Sequence[torch.Tensor]:

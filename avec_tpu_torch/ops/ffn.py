@@ -25,6 +25,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from avec_tpu_torch.ops import _cuda
 
@@ -189,3 +190,29 @@ def fused_ffn_3d(x, ln_w, ln_b, w1, b1, w2, b2, *, seed: Optional[int] = None,
                   b2, 0 if seed is None else int(seed), epsilon, drop_rate,
                   not deterministic, use_kernel)
     return y.reshape(b, t, d)
+
+
+_SHARD_SEED_STRIDE = 0x68E31DA5
+
+
+def shard_seed(seed: Optional[int], rank: int) -> int:
+    """The dropout seed of data-parallel rank `rank`: seed + (rank + 1) *
+    0x68E31DA5 with int32 wraparound, as the JAX DP wrappers offset it
+    (pallas_ffn.py:335-337), held as its uint32 bits; None counts as 0. The
+    offset applies at world size 1 too."""
+    return (int(seed or 0) + (rank + 1) * _SHARD_SEED_STRIDE) & _M32
+
+
+def fused_ffn_3d_dp(x, ln_w, ln_b, w1, b1, w2, b2, *, group=None,
+                    seed: Optional[int] = None, epsilon: float = 1e-6,
+                    drop_rate: float = 0.0, deterministic: bool = True,
+                    use_kernel: bool = True) -> torch.Tensor:
+    """`fused_ffn_3d` on this rank's shard of a batch split over the ranks
+    of `group` (None: the default group), with the rank's dropout seed
+    (pallas_ffn.py:318). The module has no cross-rank statistics; its
+    parameter gradients are this rank's partial sums."""
+    group = group if group is not None else dist.group.WORLD
+    return fused_ffn_3d(x, ln_w, ln_b, w1, b1, w2, b2,
+                        seed=shard_seed(seed, dist.get_rank(group)),
+                        epsilon=epsilon, drop_rate=drop_rate,
+                        deterministic=deterministic, use_kernel=use_kernel)

@@ -25,8 +25,11 @@ import math
 from typing import Sequence, Tuple, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
+
+from avec_tpu_torch.parallel.dist import all_reduce_sum
 
 PaddingLike = Union[str, int, Sequence]
 
@@ -191,6 +194,24 @@ class LayerNorm(nn.Module):
         return y * self.weight.to(x.dtype) + self.bias.to(x.dtype)
 
 
+def sync_moments(mean, ex2, n: int, group):
+    """Global per-channel E[x] and E[x^2] from each rank's over its n
+    positions: one all-reduce of (n E[x], n E[x^2], n) in fp64 over `group`,
+    differentiable (the backward sums the statistics' cotangents over the
+    ranks, which carries the two BatchNorm reductions sum(g) and
+    sum(g xhat)). Returns fp32 (mean, E[x^2]) and the global count, taken as
+    n times the world size: `shard_batch` gives every rank the same number of
+    positions. The products n E[x] are exact in fp64 below 2^29 positions,
+    so one rank gets its own statistics back bit for bit."""
+    c = mean.shape[0]
+    count = torch.full((1,), float(n), dtype=torch.float64, device=mean.device)
+    v = all_reduce_sum(torch.cat([mean.double() * n, ex2.double() * n,
+                                  count]), group)
+    total = v[2 * c:]
+    return ((v[:c] / total).float(), (v[c:2 * c] / total).float(),
+            n * dist.get_world_size(group))
+
+
 class BatchNorm(nn.Module):
     """BatchNorm over channel axis 1 (layers.py:537); the normalise-and-affine
     runs in fp32 and is rounded to x's dtype.
@@ -198,7 +219,11 @@ class BatchNorm(nn.Module):
     Eval uses the running statistics. Training uses the batch's: one pass
     E[x^2] - E[x]^2 in fp32, clamped at 0, differentiated through; the
     running statistics move by `momentum` (0.1, flax 0.9) towards the batch
-    mean and the unbiased batch variance."""
+    mean and the unbiased batch variance. With a `process_group` (set by the
+    model's `set_data_parallel`) the statistics are those of the global
+    batch over the group's ranks (`sync_moments`), as GSPMD computes them
+    for a sharded batch (layers.py:23-26, :712-714); without one the
+    arithmetic is the single-process one."""
 
     def __init__(self, num_features: int, eps: float = 1e-5,
                  momentum: float = 0.1):
@@ -209,6 +234,7 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
+        self.process_group = None
         self.training = False
 
     def init_(self, gen: torch.Generator):
@@ -232,8 +258,12 @@ class BatchNorm(nn.Module):
         if self.training:
             axes = (0,) + tuple(range(2, x.ndim))
             mean = xf.mean(dim=axes)
-            var = torch.clamp((xf * xf).mean(dim=axes) - mean * mean, min=0.0)
-            self.update_running(mean, var, x.numel() // x.shape[1])
+            ex2 = (xf * xf).mean(dim=axes)
+            n = x.numel() // x.shape[1]
+            if self.process_group is not None:
+                mean, ex2, n = sync_moments(mean, ex2, n, self.process_group)
+            var = torch.clamp(ex2 - mean * mean, min=0.0)
+            self.update_running(mean, var, n)
         else:
             mean, var = self.running_mean, self.running_var
         y = (xf - mean.view(shape)) * torch.rsqrt(var + self.eps).view(shape)

@@ -10,6 +10,17 @@ import torch.nn.functional as F
 REDUCTIONS = ("mean", "sum", "default", "none")
 
 
+def rank_weight(reduction: str, world_size: int) -> float:
+    """The weight of one rank's loss, taken on its equal shard of a global
+    batch, in the loss of the global batch: 1 / world_size for the means
+    ("mean", "default"), 1 for "sum". Summing the weighted losses, and the
+    gradients taken from them, over the ranks gives the global-batch loss
+    and its gradient."""
+    if reduction not in ("mean", "sum", "default"):
+        raise ValueError(f"reduction {reduction!r} has no global-batch form")
+    return 1.0 if reduction == "sum" else 1.0 / world_size
+
+
 def ctc_loss(logits, logit_lengths, labels, label_lengths, blank: int = 0,
              reduction: str = "mean", zero_infinity: bool = False):
     """CTC loss over raw logits (B, T, V), computed in fp32 (ctc.py:215-238).

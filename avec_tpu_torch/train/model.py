@@ -9,15 +9,25 @@ CTC losses with their weights, the backward, the global gradient norm
 under the Noam schedule, and the step counter; it returns (losses, infos)
 with `lr` and `grad_norm`. Activations run in `precision` on fp32 parameters.
 EMA, gradient accumulation, the fit loop and checkpoints are not ported yet.
+
+`Trainer(data_parallel=True)` is the data-parallel step (the JAX package's
+step on a batch sharded over the mesh's 'data' axis; the reference's DDP with
+SyncBatchNorm): every rank of an initialized process group passes the same
+global batch, takes its `shard_batch` slice, runs the model with sync-BN and
+the kernels' DP forms (`set_data_parallel`), and sums the rank-weighted
+gradients and losses in one flat all-reduce, so every rank holds the
+gradient and losses of the global batch and takes the same Adam step.
 """
 
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from avec_tpu_torch.models.zoo import (AudioVisualEfficientConformerInterCTC,
                                        resolve_device)
-from avec_tpu_torch.train.losses import CTCLoss
+from avec_tpu_torch.parallel.dist import shard_batch
+from avec_tpu_torch.train.losses import CTCLoss, rank_weight
 from avec_tpu_torch.train.optim import noam_adam
 from avec_tpu_torch.train.schedulers import as_scheduler
 
@@ -34,13 +44,19 @@ class Trainer:
     model_kwargs go to AudioVisualEfficientConformerInterCTC (defaults: the
     reference depth, vocab 256). `loss_weights` maps output names to numbers
     or step schedulers (default: the reference's; an output without an entry
-    weighs 1). It runs on the card unless the caller passes device="cpu"."""
+    weighs 1). It runs on the card unless the caller passes device="cpu".
+
+    data_parallel=True needs the default `torch.distributed` process group
+    (`avec_tpu_torch.parallel.dist.init_distributed`), over whose ranks the
+    step runs. Rank 0's parameters and statistics are broadcast to the others
+    at construction."""
 
     def __init__(self, model: Optional[torch.nn.Module] = None,
                  device="cuda", precision: str = "bfloat16", seed: int = 0,
                  loss: Optional[CTCLoss] = None,
                  loss_weights: Optional[Dict] = None,
-                 grad_max_norm: Optional[float] = None, **model_kwargs):
+                 grad_max_norm: Optional[float] = None,
+                 data_parallel: bool = False, **model_kwargs):
         self.device = resolve_device(device)
         self.dtype = _DTYPES[precision]
         if model is None:
@@ -57,8 +73,51 @@ class Trainer:
         self.optimizer = noam_adam(self.model.parameters())
         self.grad_max_norm = grad_max_norm
         self.step = 0
+        self.group = None
+        if data_parallel:
+            if not (dist.is_available() and dist.is_initialized()):
+                raise RuntimeError("data_parallel=True needs an initialized "
+                                   "process group: call avec_tpu_torch."
+                                   "parallel.dist.init_distributed first")
+            self.group = dist.group.WORLD
+            self.model.set_data_parallel(self.group)
+            self._broadcast_state()
+
+    def _broadcast_state(self) -> None:
+        """Rank 0's parameters and buffers on every rank, in one broadcast."""
+        state = list(self.model.parameters()) + list(self.model.buffers())
+        flat = torch.cat([t.detach().reshape(-1).float() for t in state])
+        dist.broadcast(flat, src=0, group=self.group)
+        with torch.no_grad():
+            for t, v in zip(state, flat.split([t.numel() for t in state])):
+                t.copy_(v.view_as(t))
+
+    def _all_reduce(self, losses: Dict[str, torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
+        """The global batch's gradients (into every .grad) and losses: each
+        rank's weighted by `rank_weight` and summed in one all-reduce."""
+        world = dist.get_world_size(self.group)
+        weight = rank_weight(getattr(self.loss, "reduction", "mean"), world)
+        params = list(self.model.parameters())
+        keys = list(losses)
+        flat = torch.cat([p.grad.reshape(-1) for p in params]
+                         + [torch.stack([losses[k] for k in keys])])
+        flat.mul_(weight)
+        dist.all_reduce(flat, group=self.group)
+        sizes = [p.numel() for p in params] + [len(keys)]
+        *grads, reduced = flat.split(sizes)
+        for p, g in zip(params, grads):
+            p.grad.copy_(g.view_as(p))
+        return dict(zip(keys, reduced.clone()))
 
     def _to_device(self, batch) -> Tuple[list, tuple]:
+        if self.group is not None:
+            world = dist.get_world_size(self.group)
+            size = len(batch["inputs"][0])
+            if size % world:
+                raise ValueError(f"a global batch of {size} does not split "
+                                 f"into {world} equal shards")
+            batch = shard_batch(batch, self.group)
         inputs = []
         for a in batch["inputs"]:
             t = torch.as_tensor(a).to(self.device)
@@ -95,11 +154,13 @@ class Trainer:
         for p in self.model.parameters():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        return {k: v.detach() for k, v in losses.items()}
+        losses = {k: v.detach() for k, v in losses.items()}
+        return losses if self.group is None else self._all_reduce(losses)
 
     def loss_and_grads(self, batch):
         """One forward + backward without an update: (losses, gradients by
-        parameter name). The running BN statistics do move."""
+        parameter name), of the global batch in data-parallel mode. The
+        running BN statistics do move."""
         losses = self._forward_backward(batch)
         grads = {n: p.grad.detach().clone()
                  for n, p in self.model.named_parameters()}

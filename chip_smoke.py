@@ -79,10 +79,36 @@ Phases, in order; any failure raises and the exit code is non-zero:
 14. K3 / K3b times per launch and per step beside their bounds, the plain
     stages and the port's own unfused convolution module (PyTorch library
     calls), and step time, utterances/s and peak memory of phase 13's path
-    and phase 10's path (they differ by `fused_conv` alone), interleaved.
-The line before the last is a JSON `kernels` line of twelve kernels; the last
-line is {"ok": true, "device": {...}}. Details go to
-chiprun_out/chip_smoke.json.
+    and phase 10's path (they differ by `fused_conv` alone), interleaved;
+15. K3dp on two gloo ranks sharing the card (`avec_tpu_torch.parallel.dist
+    .spawn`): each rank runs the four conv passes on its half of phase 12's
+    (16, T, d) inputs with the statistics all-reduced between them, against
+    the plain DP stages on the card (masks of the rank's seed identical at
+    dropout 0.1) and, at dropout 0, y and dx concatenated, mean and var, and
+    the parameter gradients summed over the ranks against one K3/K3b call on
+    the whole batch: fp32 1e-4 (y, mean, var) and 5e-4 (gradients), bf16
+    2e-2 and 3e-2; then, at the step's B=8 shapes, the port's unfused module
+    under sync-BN and the all-reduce of the (2E,) statistics over gloo;
+16. data-parallel training at full width: the same model, `data_parallel`,
+    fused conv (K3dp), fused attention, fused FFN, stem "2d", bf16, the 16
+    utterances of phase 6 split 8 + 8 over two gloo ranks on the card: 1
+    warm-up + 3 counted steps with the checks of phase 6 on each rank, 21 of
+    each K3dp pass, 19 + 19 attention and 48 + 48 FFN launches per step and
+    rank, parameters bit-identical across the ranks after the steps; then an
+    fp32 step with dropout and SpecAugment off against the single-process
+    step on the same utterances (loss 1e-5, gradient norm 1e-3, every leaf
+    2e-3, BN statistics 1e-5); step ms, global utterances/s and peak memory
+    per rank, two ranks time-sliced on one card (not a data-parallel speed);
+17. NCCL at world size 1: the data-parallel trainer against the plain one,
+    fp32, dropout off, the same 16 utterances: through the kernels' plain
+    versions with cuDNN deterministic, losses and every gradient leaf (over
+    its largest entry) within 1e-6; through the kernels, losses within 1e-6
+    and the gradients printed beside the plain trainer's own run-to-run
+    floor (the kernels' atomic sums vary in their last bits);
+then the K3dp passes' times per rank at the B=8 shapes beside their bounds
+and plain stages. The line before the last is a JSON `kernels` line of
+sixteen kernels; the last line is {"ok": true, "device": {...}}. Details go
+to chiprun_out/chip_smoke.json.
 """
 
 import json
@@ -102,6 +128,8 @@ TRAIN_STEPS = 3                    # counted train steps after one warm-up
 
 
 # B=16 lengths for the kernel checks at the training shapes: T, short ones, 0
+# gradient leaves of the video stem and ResNet trunk (see check_agreement)
+FRONT_END = "video_encoder.front_end."
 RAGGED_TRAIN_LENGTHS = {
     151: [151, 140, 133, 120, 111, 99, 90, 88, 77, 64, 50, 33, 17, 2, 1, 0],
     76: [76, 70, 67, 60, 56, 50, 45, 44, 39, 32, 25, 17, 9, 2, 1, 0]}
@@ -413,7 +441,13 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 12-14. the fused convolution module
-    kernels += conv_phases(detail, profile, trainer_att, batch)
+    entries, conv_shapes = conv_phases(detail, profile, trainer_att, batch)
+    kernels += entries
+    del trainer_att
+    torch.cuda.empty_cache()
+
+    # ---- 15-17. data-parallel training (K3dp, sync-BN, NCCL)
+    kernels += dp_phases(detail, conv_shapes)
     detail["kernels"] = kernels
 
     os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
@@ -497,6 +531,16 @@ def make_train_batch(rng, batch: int = 16, samples: int = 96000,
             "targets": (labels, np.full((batch,), label_len, np.int32))}
 
 
+def reorder(batch):
+    """The batch with its two halves of utterances swapped."""
+    def swap(a):
+        h = len(a) // 2
+        return np.concatenate([a[h:], a[:h]])
+
+    return {"inputs": [swap(a) for a in batch["inputs"]],
+            "targets": tuple(swap(a) for a in batch["targets"])}
+
+
 def kernel_call_shapes(trainer, batch):
     """One forward in training mode with hooks: how often each fused-FFN
     shape (N, d, F) and each flash shape (T, D, lengths) occurs in a step."""
@@ -531,13 +575,16 @@ def kernel_call_shapes(trainer, batch):
     return ffn, flash
 
 
-def counted_train_steps(trainer, batch, per_step):
+def counted_train_steps(trainer, batch, per_step, verbose: bool = True):
     """One warm-up step, then TRAIN_STEPS steps with the launch counts set to
     0 just before and read just after: the counts must equal `per_step` per
     step, the losses and the gradient norm must be finite, every parameter
     must have a gradient, and at least 99% of the leaves and every BN running
-    statistic must move. Returns (per-step losses, launch counts)."""
+    statistic must move. Returns (per-step losses, launch counts). `verbose`
+    off prints nothing (the second rank of a data-parallel run)."""
     from avec_tpu_torch.ops import _cuda
+
+    say = log if verbose else (lambda *args: None)
 
     model = trainer.model
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
@@ -554,9 +601,9 @@ def counted_train_steps(trainer, batch, per_step):
                         "grad_norm": float(infos["grad_norm"])})
     torch.cuda.synchronize()
     train_launches = dict(_cuda.launches)
-    log(f"main path launches over {TRAIN_STEPS} train steps: {train_launches}")
+    say(f"main path launches over {TRAIN_STEPS} train steps: {train_launches}")
     for row in history:
-        log("  step " + json.dumps({k: round(v, 6) if k != "lr" else v
+        say("  step " + json.dumps({k: round(v, 6) if k != "lr" else v
                                     for k, v in row.items()}))
     if train_launches != {k: v * TRAIN_STEPS for k, v in per_step.items()}:
         raise AssertionError(f"launches {train_launches} != {TRAIN_STEPS} x "
@@ -569,7 +616,7 @@ def counted_train_steps(trainer, batch, per_step):
                   for n, p in model.named_parameters())
     stuck = [n for n, b in model.named_buffers()
              if n in stats0 and torch.equal(b, stats0[n])]
-    log(f"  parameters without gradient: {len(no_grad)}; leaves changed "
+    say(f"  parameters without gradient: {len(no_grad)}; leaves changed "
         f"{changed}/{len(before)}; BN statistics that did not move: "
         f"{len(stuck)}/{len(stats0)}")
     if no_grad or changed < 0.99 * len(before) or stuck:
@@ -581,10 +628,8 @@ def counted_train_steps(trainer, batch, per_step):
 def compare_fp32_step(model, batch, loss_tol):
     """fp32, dropout and SpecAugment off: one forward + backward through the
     kernels against one through their plain versions (which must launch
-    nothing). Total loss within `loss_tol` and gradient norm within 1e-3,
-    relative; every gradient leaf within 2e-3 of its largest entry; every BN
-    running statistic the two passes leave (each from the same starting
-    point) within 1e-5, absolute."""
+    nothing), held by `check_agreement`; every BN running statistic the two
+    passes leave (each from the same starting point) within 1e-5."""
     from avec_tpu_torch.ops import _cuda
     from avec_tpu_torch.train.losses import CTCLoss
     from avec_tpu_torch.train.model import Trainer
@@ -607,13 +652,27 @@ def compare_fp32_step(model, batch, loss_tol):
         raise AssertionError(f"plain path launched {dict(_cuda.launches)}")
     model.set_kernels(True)
     model.set_regularization(True)
-    stats_err = max(max_abs(stats_k[n], b) for n, b in stats.items())
+    return check_agreement("fp32 kernels vs plain",
+                           (float(loss_k["loss"]), grads_k, stats_k),
+                           (float(loss_p["loss"]), grads_p, stats), loss_tol)
+
+
+def check_agreement(what, got, want, loss_tol, front_end_tol=2e-3):
+    """Two fp32 steps, each (total loss, gradients by name, BN running
+    statistics by name), `want` the reference: total loss within `loss_tol`
+    and gradient norm within 1e-3, relative; every gradient leaf within 2e-3
+    of its largest entry (leaves below 1e-6 of the largest gradient entry,
+    the analytically zero key and positional biases, left out), the video
+    front end's (stem and ResNet trunk) within `front_end_tol`; every BN
+    running statistic within 1e-5, absolute. Logs and returns the errors,
+    raises if one is out of tolerance."""
+    (lk, grads_k, stats_k), (lp, grads_p, stats_p) = got, want
+    stats_err = max(max_abs(stats_k[n], b) for n, b in stats_p.items())
 
     def gnorm(grads):
         return float(torch.sqrt(sum((g.double() ** 2).sum()
                                     for g in grads.values())))
 
-    lk, lp = float(loss_k["loss"]), float(loss_p["loss"])
     nk, npl = gnorm(grads_k), gnorm(grads_p)
     gmax = max(float(g.abs().max()) for g in grads_p.values())
     rows, noise = [], 0
@@ -624,7 +683,9 @@ def compare_fp32_step(model, batch, loss_tol):
             continue
         rows.append((max_abs(grads_k[name], gp) / leaf_max, leaf_max, name))
     rows.sort(reverse=True)
-    log(f"fp32 kernels vs plain: loss {lk:.6f} vs {lp:.6f} "
+    front = [r for r in rows if FRONT_END in r[2]]
+    rest = [r for r in rows if FRONT_END not in r[2]]
+    log(f"{what}: loss {lk:.6f} vs {lp:.6f} "
         f"(rel {abs(lk - lp) / abs(lp):.2e}, tol {loss_tol}); grad norm "
         f"{nk:.6f} vs {npl:.6f} (rel {abs(nk - npl) / npl:.2e}, tol 1e-3); "
         f"{len(rows)} leaves compared, {noise} below 1e-6 of the largest "
@@ -632,17 +693,21 @@ def compare_fp32_step(model, batch, loss_tol):
     for err, leaf_max, name in rows[:5]:
         log(f"  leaf {name}: max abs diff / max abs {err:.2e} "
             f"(max abs {leaf_max:.3e})")
+    log(f"  worst leaf outside the video front end: {rest[0][2]} "
+        f"{rest[0][0]:.2e} (tol 2e-3); inside it: {front[0][2]} "
+        f"{front[0][0]:.2e} (tol {front_end_tol})")
     out = {"fp32_loss_rel": abs(lk - lp) / abs(lp),
            "fp32_grad_norm_rel": abs(nk - npl) / npl,
            "fp32_worst_leaf_rel": rows[0][0], "fp32_worst_leaf": rows[0][2],
+           "fp32_worst_leaf_outside_front_end_rel": rest[0][0],
+           "fp32_worst_front_end_leaf_rel": front[0][0],
            "fp32_bn_stats_max_abs": stats_err}
-    log(f"  BN running statistics, kernels vs plain: max abs "
-        f"{stats_err:.2e} over {len(stats)} buffers (tol 1e-5)")
+    log(f"  BN running statistics: max abs {stats_err:.2e} over "
+        f"{len(stats_p)} buffers (tol 1e-5)")
     if not (abs(lk - lp) <= loss_tol * abs(lp)
-            and abs(nk - npl) <= 1e-3 * npl and rows[0][0] <= 2e-3
-            and stats_err <= 1e-5):
-        raise AssertionError("training kernel path disagrees with the plain "
-                             f"path: {out}")
+            and abs(nk - npl) <= 1e-3 * npl and rest[0][0] <= 2e-3
+            and front[0][0] <= front_end_tol and stats_err <= 1e-5):
+        raise AssertionError(f"{what} disagree: {out}")
     return out
 
 
@@ -1243,12 +1308,15 @@ def conv_inputs(b, t, d, k, dtype, seed):
     return x, g, [p.to(dev) for p in params]
 
 
-def conv_run(x, g, params, padding, drop, use_kernel, seed=4321):
-    """(y, mean, var) and the gradients of x and the ten parameters."""
-    from avec_tpu_torch.ops.conv_module import fused_conv_module_3d
+def conv_run(x, g, params, padding, drop, use_kernel, seed=4321, dp=False):
+    """(y, mean, var) and the gradients of x and the ten parameters; with
+    `dp`, through the K3dp form on this rank's shard x (global statistics,
+    partial parameter gradients)."""
+    from avec_tpu_torch.ops import conv_module as cm
 
+    fn = cm.fused_conv_module_3d_dp if dp else cm.fused_conv_module_3d
     leaves = [a.detach().requires_grad_(True) for a in [x] + params]
-    y, mean, var = fused_conv_module_3d(
+    y, mean, var = fn(
         leaves[0], *leaves[1:], seed=seed, padding=padding, drop_rate=drop,
         deterministic=False, use_kernel=use_kernel)
     y.backward(g)
@@ -1349,7 +1417,8 @@ def conv_call_shapes(trainer, batch):
 def conv_phases(detail, profile: bool, trainer_att, batch):
     """Phases 12-14: K3 / K3b against the plain stages, the train path that
     runs every training kernel at full width, and its times beside phase
-    10's path (`trainer_att`). Returns the four conv kernels' entries."""
+    10's path (`trainer_att`). Returns the four conv kernels' entries and
+    the step's fused convolution shapes {(B, T, d, E, k): count}."""
     from avec_tpu_torch.models.conformer import ConvolutionModule
     from avec_tpu_torch.ops import conv_module as cm
     from avec_tpu_torch.ops.ffn import dropout_mask
@@ -1441,8 +1510,8 @@ def conv_phases(detail, profile: bool, trainer_att, batch):
     # ---- 14. times: the four passes, then this path beside phase 10's
     acc = {name: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0,
                   "ops": 0.0} for name in cm.KERNELS}
-    for (b, t, d, e, k), count in sorted(conv_call_shapes(trainer,
-                                                          batch).items()):
+    shapes = conv_call_shapes(trainer, batch)
+    for (b, t, d, e, k), count in sorted(shapes.items()):
         x, g, params = conv_inputs(b, t, d, k, torch.bfloat16, seed=t + 2)
         pad_lo = cm.pad_lo_for("same", k)
         times = time_conv_passes(x, g, params, 0.1, 77)
@@ -1548,6 +1617,438 @@ def conv_phases(detail, profile: bool, trainer_att, batch):
             # its backward beside the backward pair
             "library_ms": (acc[name]["library_ms"] if name in (
                 cm.KERNEL_FWD, cm.KERNEL_BWD2) else None)})
+    return entries, shapes
+
+
+DP_RANKS = 2                       # gloo ranks sharing the one card
+DP_ROUTE = dict(use_flash=False, stem_mode="2d", fused_att=True,
+                fused_conv=True)
+DP_WANT_STEPS = {"fused_att_fwd": 19, "fused_att_bwd": 19,
+                 "fused_ffn_fwd": 48, "fused_ffn_bwd": 48,
+                 "fused_conv_dp_stats": 21, "fused_conv_dp_fwd": 21,
+                 "fused_conv_dp_bwd1": 21, "fused_conv_dp_bwd2": 21}
+
+
+def _dp_rank_setup():
+    """(rank, world) of a spawned rank, with the fp32 products of the checks
+    in full fp32."""
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return dist.get_rank(), dist.get_world_size()
+
+
+def k3dp_rank(device, lib_shapes):
+    """Phase 15 on one of the gloo ranks sharing the card: each rank takes its
+    half of phase 12's (16, T, d) inputs and runs K3dp (the four passes with
+    the statistics all-reduced between them) against the plain DP stages on
+    the card, with the masks of its own seed identical at dropout 0.1; keeps
+    the dropout-0 results for the parent's single-process comparison. Then
+    the library yardstick at the step's B=8 shapes: the port's unfused
+    module with its BatchNorm synced over the ranks, and the all-reduce of
+    one (2E,) vector over gloo; both ranks run them in step, rank 0's times
+    are kept."""
+    import torch.distributed as dist
+
+    from avec_tpu_torch.models.conformer import ConvolutionModule
+    from avec_tpu_torch.ops import conv_module as cm
+    from avec_tpu_torch.ops.ffn import dropout_mask, shard_seed
+    from avec_tpu_torch.ops.layers import init_params
+
+    rank, world = _dp_rank_setup()
+    say = log if rank == 0 else (lambda *args: None)
+    dev = torch.device("cuda")
+    names = ("x",) + cm.PARAM_NAMES
+    stats, fwd, bwd1, bwd2 = cm.KERNELS_DP
+    owner = {"mean": stats, "var": stats, "y": fwd, "pw2_w": bwd1,
+             "pw2_b": bwd1, "bn_w": bwd1, "bn_b": bwd1}
+    errs, abs_errs, kept = {}, {n: 0.0 for n in cm.KERNELS_DP}, {}
+    for b, t, d, k in CONV_SHAPES:
+        for dtype, tol, wtol in ((torch.float32, 1e-4, 5e-4),
+                                 (torch.bfloat16, 2e-2, 3e-2)):
+            x, g, params = conv_inputs(b, t, d, k, dtype, seed=d)
+            half = b // world
+            x, g = (a[rank * half:(rank + 1) * half].contiguous()
+                    for a in (x, g))
+            for padding, drop in (("same", 0.0), ("same", 0.1),
+                                  ("causal", 0.0), ("causal", 0.1)):
+                outs, grads = conv_run(x, g, params, padding, drop, True,
+                                       dp=True)
+                torch.cuda.synchronize()
+                want_outs, want = conv_run(x, g, params, padding, drop, False,
+                                           dp=True)
+                key = f"T{t}_d{d}_{str(dtype)[6:]}_{padding}_drop{drop}"
+                e = {nm: rel_err(a, w) for nm, a, w in zip(
+                    ("y", "mean", "var"), outs, want_outs)}
+                e.update({nm: rel_err(a, w) for nm, a, w in zip(names, grads,
+                                                                want)
+                          if nm != "dw_b"})
+                errs[key] = e
+                if dtype == torch.float32:
+                    pairs = list(zip(("y", "mean", "var"), outs, want_outs))
+                    for nm, a, w in pairs + list(zip(names, grads, want)):
+                        kern = owner.get(nm, bwd2)
+                        abs_errs[kern] = max(abs_errs[kern], max_abs(a, w))
+                if drop:
+                    dropped = dropout_mask(
+                        shard_seed(4321, rank), half * t, d, 1, 1.0 - drop,
+                        dev, tile_rows=t).reshape(half, t, d) == 0
+                    for y in (outs[0], want_outs[0]):
+                        kept_zero = float((y[~dropped] == 0).float().mean())
+                        if not (bool((y[dropped] == 0).all())
+                                and kept_zero < 5e-3):
+                            raise AssertionError(
+                                f"rank {rank} dropout masks differ: {key}")
+                worst_w = max(v for nm, v in e.items()
+                              if nm in cm.PARAM_NAMES)
+                x_tol = wtol if dtype == torch.float32 else tol
+                say(f"K3dp rank {rank} vs plain DP stages {key}: y "
+                    f"{e['y']:.2e} mean {e['mean']:.2e} var {e['var']:.2e} "
+                    f"(tol {tol}) dx {e['x']:.2e} (tol {x_tol}) params "
+                    f"{worst_w:.2e} (tol {wtol})")
+                if not (max(e["y"], e["mean"], e["var"]) <= tol
+                        and e["x"] <= x_tol and worst_w <= wtol
+                        and not grads[names.index("dw_b")].abs().any()):
+                    raise AssertionError(f"rank {rank}: K3dp disagrees with "
+                                         f"the plain DP stages: {key} {e}")
+                if drop == 0.0:
+                    kept[(b, t, d, k, str(dtype)[6:], padding)] = (
+                        [a.float().cpu() for a in outs],
+                        [a.float().cpu() for a in grads])
+            del x, g, params
+    lib = {}
+    for t, d, e, k, count in lib_shapes:
+        x, g, _ = conv_inputs(8, t, d, k, torch.bfloat16, seed=t + 2)
+        unfused = init_params(ConvolutionModule(d, e, 1, k, "same", 0.1,
+                                                fused_conv=False),
+                              torch.Generator().manual_seed(3)).to(dev).train()
+        unfused.layers["4"].process_group = dist.group.WORLD
+
+        def run(backward: bool):
+            if backward:
+                unfused(x.detach().requires_grad_(True)).backward(g)
+            else:
+                with torch.no_grad():
+                    unfused(x)
+
+        v = torch.zeros(2 * e, device=dev)
+        t_f = cuda_time_ms(lambda: run(False))
+        t_b = cuda_time_ms(lambda: run(True)) - t_f
+        t_ar = cuda_time_ms(lambda: dist.all_reduce(v))
+        lib[(t, d)] = {"count": count, "fwd_ms": t_f, "bwd_ms": t_b,
+                       "all_reduce_ms": t_ar}
+        del x, g, unfused
+    return {"rank": rank, "errs": errs, "abs_errs": abs_errs, "kept": kept,
+            "lib": lib}
+
+
+def _digest(tensors) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for a in tensors:
+        h.update(a.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_train_rank(device):
+    """Phase 16 on one of the gloo ranks sharing the card: the
+    data-parallel trainer at full width on its 8 of the 16 utterances, 1
+    warm-up + 3 counted steps, a digest of the parameters, the step time and
+    the peak memory of this rank; then one fp32 step with dropout and
+    SpecAugment off (rank 0 keeps the global gradients and BN statistics)."""
+    import torch.distributed as dist
+
+    from avec_tpu_torch.train.losses import CTCLoss
+    from avec_tpu_torch.train.model import Trainer
+
+    rank, world = _dp_rank_setup()
+    batch = make_train_batch(np.random.RandomState(0))
+    trainer = Trainer(device="cuda", precision="bfloat16", seed=0,
+                      vocab_size=256, loss=CTCLoss(zero_infinity=True),
+                      data_parallel=True, **DP_ROUTE)
+    per_step = trainer.model.kernel_launches_per_step()
+    if per_step != DP_WANT_STEPS:
+        raise AssertionError(f"launches per step {per_step} != "
+                             f"{DP_WANT_STEPS}")
+    history, launches = counted_train_steps(trainer, batch, per_step,
+                                            verbose=rank == 0)
+    digest = _digest(trainer.model.parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_time_ms(lambda: trainer.train_step(batch), iters=3, warmup=0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # the step's one flat all-reduce of the gradients and losses, alone
+    flat = torch.zeros(sum(p.numel() for p in trainer.model.parameters())
+                       + 7, device=device)
+    grad_ar_ms = cuda_time_ms(lambda: dist.all_reduce(flat), iters=3,
+                              warmup=1)
+    del trainer, flat
+    torch.cuda.empty_cache()
+    trainer = Trainer(device="cuda", precision="float32", seed=0,
+                      vocab_size=256, loss=CTCLoss(zero_infinity=True),
+                      data_parallel=True, **DP_ROUTE)
+    trainer.model.set_regularization(False)
+    losses, grads = trainer.loss_and_grads(batch)
+    fp32 = {"loss": float(losses["loss"]), "grads_digest": _digest(
+        grads.values())}
+    if rank == 0:
+        fp32["grads"] = {n: a.cpu() for n, a in grads.items()}
+        fp32["stats"] = {n: b.detach().cpu() for n, b in
+                         trainer.model.named_buffers() if "running_" in n}
+    return {"rank": rank, "world": world, "history": history,
+            "launches": launches, "params_digest": digest, "step_ms": ms,
+            "grad_all_reduce_ms": grad_ar_ms, "peak_gib": peak, "fp32": fp32}
+
+
+def _step_diffs(a, b):
+    """Differences of two fp32 steps, each (losses, gradients by name): the
+    largest relative loss difference, the worst leaf (max abs difference
+    over the leaf's largest entry; leaves below 1e-6 of the largest gradient
+    entry left out), the largest difference over the largest gradient entry,
+    and the gradient norm's relative difference."""
+    (la, ga), (lb, gb) = a, b
+    gmax = max(float(g.abs().max()) for g in gb.values())
+    norm = lambda gs: float(torch.sqrt(sum((g.double() ** 2).sum()
+                                           for g in gs.values())))
+    worst = max((max_abs(ga[n], g) / float(g.abs().max()), n)
+                for n, g in gb.items() if float(g.abs().max()) > 1e-6 * gmax)
+    return {"loss_rel": max(abs(la[k] - v) / abs(v) for k, v in lb.items()),
+            "worst_leaf_rel": worst[0], "worst_leaf": worst[1],
+            "grads_rel_to_largest": max(max_abs(ga[n], g)
+                                        for n, g in gb.items()) / gmax,
+            "grad_norm_rel": abs(norm(ga) - norm(gb)) / norm(gb),
+            "keys_equal": set(la) == set(lb) and set(ga) == set(gb)}
+
+
+def nccl_world1_rank(device):
+    """Phase 17 on one NCCL rank: fp32, dropout and SpecAugment off, the
+    same 16 utterances; the data-parallel trainer against the plain trainer
+    and the plain trainer against itself (the run-to-run floor), first
+    through the kernels' plain versions with cuDNN deterministic, then
+    through the kernels (whose atomic sums vary from run to run)."""
+    import torch.distributed as dist
+
+    from avec_tpu_torch.train.losses import CTCLoss
+    from avec_tpu_torch.train.model import Trainer
+
+    _dp_rank_setup()
+    batch = make_train_batch(np.random.RandomState(0))
+    out = {"backend": dist.get_backend(), "world": dist.get_world_size()}
+    for route, kernels in (("plain_versions", False), ("kernels", True)):
+        torch.backends.cudnn.deterministic = not kernels
+        runs = []
+        for dp in (True, False, False):
+            trainer = Trainer(device="cuda", precision="float32", seed=0,
+                              vocab_size=256, loss=CTCLoss(zero_infinity=True),
+                              data_parallel=dp, **DP_ROUTE)
+            trainer.model.set_regularization(False)
+            trainer.model.set_kernels(kernels)
+            losses, grads = trainer.loss_and_grads(batch)
+            runs.append(({k: float(v) for k, v in losses.items()}, grads))
+            del trainer
+            torch.cuda.empty_cache()
+        out[route] = {"dp_vs_plain": _step_diffs(runs[0], runs[1]),
+                      "plain_vs_plain": _step_diffs(runs[2], runs[1])}
+        del runs
+    torch.backends.cudnn.deterministic = False
+    return out
+
+
+def dp_phases(detail, conv_shapes):
+    """Phases 15-17: K3dp on two gloo ranks against the single-process
+    K3/K3b call and the plain DP stages, the data-parallel train path at full
+    width on two gloo ranks, and the NCCL path at world size 1. Returns the
+    four K3dp entries of the kernels line."""
+    from avec_tpu_torch.ops import _cuda
+    from avec_tpu_torch.ops import conv_module as cm
+    from avec_tpu_torch.parallel.dist import spawn
+    from avec_tpu_torch.train.losses import CTCLoss
+    from avec_tpu_torch.train.model import Trainer
+
+    _cuda.build()                  # the ranks load what the parent built
+    names = ("x",) + cm.PARAM_NAMES
+    lib_shapes = sorted((t, d, e, k, count)
+                        for (_, t, d, e, k), count in conv_shapes.items())
+
+    # ---- 15. K3dp on two ranks
+    ranks = spawn(k3dp_rank, DP_RANKS, "gloo", "cuda:0", lib_shapes,
+                  timeout=600)
+    dp_errs = {}
+    for key in ranks[0]["kept"]:
+        b, t, d, k, dname, padding = key
+        dtype = getattr(torch, dname)
+        tol, wtol = (1e-4, 5e-4) if dname == "float32" else (2e-2, 3e-2)
+        x, g, params = conv_inputs(b, t, d, k, dtype, seed=d)
+        want_outs, want = conv_run(x, g, params, padding, 0.0, True)
+        kept = [r["kept"][key] for r in ranks]
+        outs = [torch.cat([o[0][0] for o in kept])] + kept[0][0][1:]
+        grads = [torch.cat([o[1][0] for o in kept])]
+        grads += [sum(o[1][i] for o in kept) for i in range(1, len(names))]
+        e = {nm: rel_err(a, w.cpu()) for nm, a, w in zip(
+            ("y", "mean", "var"), outs, want_outs)}
+        e.update({nm: rel_err(a, w.cpu()) for nm, a, w in zip(names, grads,
+                                                              want)
+                  if nm != "dw_b"})
+        label = f"T{t}_d{d}_{dname}_{padding}"
+        dp_errs[label] = e
+        x_tol = wtol if dname == "float32" else tol
+        worst_w = max(v for nm, v in e.items() if nm in cm.PARAM_NAMES)
+        log(f"K3dp on {DP_RANKS} ranks vs one K3/K3b call {label}: y "
+            f"{e['y']:.2e} mean {e['mean']:.2e} var {e['var']:.2e} (tol "
+            f"{tol}) dx {e['x']:.2e} (tol {x_tol}) params {worst_w:.2e} "
+            f"(tol {wtol})")
+        if not (max(e["y"], e["mean"], e["var"]) <= tol and e["x"] <= x_tol
+                and worst_w <= wtol):
+            raise AssertionError(f"K3dp disagrees with one K3/K3b call: "
+                                 f"{label} {e}")
+        del x, g, params, want_outs, want
+    abs_errs = {n: max(r["abs_errs"][n] for r in ranks)
+                for n in cm.KERNELS_DP}
+    detail["k3dp_vs_one_call"] = dp_errs
+    detail["k3dp_vs_plain_dp"] = {r["rank"]: r["errs"] for r in ranks}
+    lib = ranks[0]["lib"]
+    del ranks
+    torch.cuda.empty_cache()
+
+    # ---- 16. the data-parallel train path at full width, two ranks
+    batch = make_train_batch(np.random.RandomState(0))
+    ref = Trainer(device="cuda", precision="float32", seed=0, vocab_size=256,
+                  loss=CTCLoss(zero_infinity=True), **DP_ROUTE)
+    ref.model.set_regularization(False)
+    losses, grads = ref.loss_and_grads(batch)
+    want = (float(losses["loss"]), {n: a.cpu() for n, a in grads.items()},
+            {n: b.detach().cpu() for n, b in ref.model.named_buffers()
+             if "running_" in n})
+    # the fp32 noise floor of this gradient: the same step, the same
+    # parameters, the 16 utterances in another order (equal in exact
+    # arithmetic; sums are taken in another order, as across ranks)
+    _, grads = ref.loss_and_grads(reorder(batch))
+    floor = max((max_abs(a.cpu(), want[1][n])
+                 / max(float(want[1][n].abs().max()), 1e-30), n)
+                for n, a in grads.items() if FRONT_END in n)
+    floor_rest = max((max_abs(a.cpu(), want[1][n])
+                      / max(float(want[1][n].abs().max()), 1e-30), n)
+                     for n, a in grads.items() if FRONT_END not in n
+                     and float(want[1][n].abs().max()) > 1e-6 * max(
+                         float(w.abs().max()) for w in want[1].values()))
+    log(f"fp32 one process, the same utterances reordered: worst video "
+        f"front-end leaf {floor[1]} {floor[0]:.2e}, worst other leaf "
+        f"{floor_rest[1]} {floor_rest[0]:.2e} (the trunk's fp32 noise floor)")
+    detail["fp32_reorder_floor"] = {"front_end": floor, "other": floor_rest}
+    del ref, losses, grads
+    torch.cuda.empty_cache()
+    ranks = spawn(dp_train_rank, DP_RANKS, "gloo", "cuda:0", timeout=900)
+    digests = {r["params_digest"] for r in ranks}
+    log(f"data-parallel train path, {DP_RANKS} gloo ranks on one card: "
+        f"launches per rank over {TRAIN_STEPS} steps "
+        + json.dumps([r["launches"] for r in ranks])
+        + f"; parameters after the steps bit-identical across ranks: "
+        f"{len(digests) == 1}")
+    if len(digests) != 1:
+        raise AssertionError("ranks hold different parameters")
+    if len({r["fp32"]["grads_digest"] for r in ranks}) != 1 or len(
+            {r["fp32"]["loss"] for r in ranks}) != 1:
+        raise AssertionError("ranks hold different global gradients")
+    fp32 = ranks[0]["fp32"]
+    agree = check_agreement(
+        f"fp32 data-parallel step ({DP_RANKS} ranks) vs one process",
+        (fp32["loss"], fp32["grads"], fp32["stats"]), want, loss_tol=1e-5,
+        front_end_tol=0.15)
+    step_ms = max(r["step_ms"] for r in ranks)
+    train = {"ranks": DP_RANKS, "backend": "gloo", "shared_card": True,
+             "global_batch": 16, "steps": ranks[0]["history"],
+             "launches_per_rank": [r["launches"] for r in ranks],
+             "step_ms_per_rank": [r["step_ms"] for r in ranks],
+             "grad_all_reduce_ms_per_rank": [r["grad_all_reduce_ms"]
+                                             for r in ranks],
+             "global_utterances_per_s": 16 / step_ms * 1e3,
+             "peak_gib_per_rank": [r["peak_gib"] for r in ranks], **agree}
+    log("train, data-parallel (two ranks time-sliced on one card over gloo; "
+        "not a data-parallel speed) " + json.dumps(
+            {k: v for k, v in train.items() if k != "steps"}))
+    detail["training_dp"] = train
+    launches = ranks[0]["launches"]
+    del ranks, fp32, want
+    torch.cuda.empty_cache()
+
+    # ---- 17. NCCL at world size 1
+    nccl, = spawn(nccl_world1_rank, 1, "nccl", "cuda:0", timeout=600)
+    for route in ("plain_versions", "kernels"):
+        log(f"NCCL world size 1, {route}, fp32, dropout off: data-parallel "
+            f"vs plain trainer " + json.dumps(nccl[route]["dp_vs_plain"])
+            + "; plain vs plain (run-to-run floor) "
+            + json.dumps(nccl[route]["plain_vs_plain"]))
+    det, ker = nccl["plain_versions"]["dp_vs_plain"], nccl["kernels"]
+    if not (nccl["backend"] == "nccl" and det["keys_equal"]
+            and det["loss_rel"] <= 1e-6 and det["worst_leaf_rel"] <= 1e-6
+            and ker["dp_vs_plain"]["keys_equal"]
+            and ker["dp_vs_plain"]["loss_rel"] <= 1e-6):
+        raise AssertionError(f"NCCL data-parallel step disagrees: {nccl}")
+    detail["nccl_world1"] = nccl
+
+    # ---- K3dp times per rank at the B=8 shapes (this process, alone on
+    # the card), bounds, plain stages, the library yardstick of phase 15
+    acc = {n: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0,
+               "ops": 0.0} for n in cm.KERNELS_DP}
+    for t, d, e, k, count in lib_shapes:
+        x, g, params = conv_inputs(8, t, d, k, torch.bfloat16, seed=t + 2)
+        pad_lo = cm.pad_lo_for("same", k)
+        times = time_conv_passes(x, g, params, 0.1, 77)
+        s1, s2 = cm.conv_stats_reference(x, params, pad_lo)
+        mean, _, rstd = cm.batch_stats(s1, s2, 8 * t, 1e-5)
+        _, _, r1, r2 = cm.conv_bwd1_reference(x, g, params, mean, rstd, 77,
+                                              pad_lo, drop_rate=0.1)
+        rn1, rn2 = r1 / (8 * t), r2 / (8 * t)
+        plain = (lambda: cm.conv_stats_reference(x, params, pad_lo),
+                 lambda: cm.conv_fwd_reference(x, params, mean, rstd, 77,
+                                               pad_lo, drop_rate=0.1),
+                 lambda: cm.conv_bwd1_reference(x, g, params, mean, rstd, 77,
+                                                pad_lo, drop_rate=0.1),
+                 lambda: cm.conv_bwd2_reference(x, g, params, mean, rstd,
+                                                rn1, rn2, 77, pad_lo,
+                                                drop_rate=0.1))
+        cost = conv_cost(8, t, d, e, e, k, 2)
+        row = lib[(t, d)]
+        lib_ms = {cm.KERNELS_DP[1]: row["fwd_ms"],
+                  cm.KERNELS_DP[3]: row["bwd_ms"]}
+        for name, dp_name, fn in zip(cm.KERNELS, cm.KERNELS_DP, plain):
+            nb, no = cost[name]
+            acc[dp_name]["ms"] += count * times[name]
+            acc[dp_name]["plain_ms"] += count * cuda_time_ms(fn, iters=5)
+            acc[dp_name]["library_ms"] += count * lib_ms.get(dp_name, 0.0)
+            acc[dp_name]["bytes"] += count * nb
+            acc[dp_name]["ops"] += count * no
+        row.update({n: times[n] for n in cm.KERNELS})
+        log(f"K3dp per rank at B=8 T={t} d={d} x{count}: "
+            + "; ".join(f"{n[11:]} {times[n]:.4f} ms (bound "
+                        f"{bound(*cost[n], 'bf16')[0]:.5f})"
+                        for n in cm.KERNELS)
+            + f"; unfused module under sync-BN (two ranks time-sliced) fwd "
+            f"{row['fwd_ms']:.4f} ms, bwd {row['bwd_ms']:.4f} ms; all-reduce "
+            f"of the (2E,) statistics over gloo {row['all_reduce_ms']:.4f} ms")
+        del x, g, params
+    detail["k3dp_b8"] = {f"T{t}_d{d}": row for (t, d), row in lib.items()}
+    replaces = dict(zip(cm.KERNELS_DP, (
+        "avec_tpu/ops/pallas_conv_module.py:582",
+        "avec_tpu/ops/pallas_conv_module.py:612",
+        "avec_tpu/ops/pallas_conv_module.py:648",
+        "avec_tpu/ops/pallas_conv_module.py:679")))
+    entries = []
+    for name in cm.KERNELS_DP:
+        b_ms, b_by = bound(acc[name]["bytes"], acc[name]["ops"], "bf16")
+        log(f"{name} per rank per step (B=8): {acc[name]['ms']:.4f} ms, bound "
+            f"{b_ms:.5f} ({b_by}), plain {acc[name]['plain_ms']:.4f}")
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "avec_tpu_torch/csrc/conv_module.cu",
+            "replaces": replaces[name], "launches": launches[name],
+            "max_abs_err": abs_errs[name], "ms": acc[name]["ms"],
+            "plain_ms": acc[name]["plain_ms"], "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": (acc[name]["library_ms"] if name in (
+                cm.KERNELS_DP[1], cm.KERNELS_DP[3]) else None)})
     return entries
 
 

@@ -1,6 +1,7 @@
 """The port's CUDA kernels (fused FFN K1/K1b, fused attention module K2/K2b,
-fused convolution module K3/K3b, flash attention K4 and its backward K4b,
-stem K5 in eval and in training) against their plain PyTorch versions.
+fused convolution module K3/K3b and its data-parallel form K3dp, flash
+attention K4 and its backward K4b, stem K5 in eval and in training) against
+their plain PyTorch versions.
 
 This file imports neither JAX nor the JAX package, so it also runs where JAX
 is absent. On a machine with an NVIDIA H100, from the repository root:
@@ -23,7 +24,8 @@ another order); conv-bias gradient exactly zero. Convolution module, kernels
 against the plain stages: fp32 1e-4 of the largest entry for y, mean and var
 and 5e-4 for dx and the parameter gradients (atomic sums over all rows); bf16
 2e-2 and 3e-2; dropout masks identical entry by entry; the depthwise-bias
-gradient exactly zero.
+gradient exactly zero. K3dp on two gloo ranks sharing the card against one
+K3/K3b call on the whole batch: the convolution module's tolerances.
 """
 
 import numpy as np
@@ -578,3 +580,46 @@ def test_conv_module_kernel_rejects_bad_inputs(cuda_device):
     with pytest.raises(ValueError, match="outside the kernels' range"):
         xk, _, pk = _conv_inputs(cuda_device, torch.float32, 1, 40, 8, 8, 33)
         fused_conv_module_3d(xk, *pk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol,wtol", [(torch.float32, 1e-4, 5e-4),
+                                            (torch.bfloat16, 2e-2, 3e-2)])
+@pytest.mark.parametrize("b,t,d,e,k,padding", [
+    (16, 151, 256, 256, 15, "same"),     # audio stage 1 / video stage 0
+    (4, 37, 20, 24, 5, "causal"),        # d != E, no multiple of any tile
+])
+def test_conv_module_dp_kernels_on_two_ranks_match_one_call(
+        cuda_device, dtype, tol, wtol, b, t, d, e, k, padding):
+    """K3dp: two gloo ranks on one card, each running the four passes on half
+    of the batch with the statistics all-reduced between them, against the
+    single-process K3/K3b call on the whole batch (dropout 0): y and dx
+    concatenated, mean and var, the parameter gradients summed over the
+    ranks; each rank launches each pass once, under the K3dp names."""
+    from avec_tpu_torch.parallel.dist import spawn
+    from test_torch_parallel import module_dp_rank
+
+    _cuda.build()                     # once, before the ranks load it
+    x, g, params = _conv_inputs("cpu", torch.float32, b, t, d, e, k)
+    x, g = x.to(dtype).float(), g.to(dtype).float()   # exact in dtype
+    ranks = spawn(module_dp_rank, 2, "gloo", "cuda:0", "conv", x.numpy(),
+                  g.numpy(), [p.numpy() for p in params],
+                  {"padding": padding, "drop_rate": 0.0},
+                  str(dtype).split(".")[1])
+    outs, grads = _conv_run(x.to(cuda_device, dtype), g.to(cuda_device, dtype),
+                            [p.to(cuda_device) for p in params], padding, 0.0,
+                            True)
+    for r in ranks:
+        assert r[2] == {f"fused_conv_dp_{p}": 1
+                        for p in ("stats", "fwd", "bwd1", "bwd2")}
+    got_outs = [np.concatenate([r[0][0] for r in ranks])] + ranks[0][0][1:]
+    got_grads = [np.concatenate([r[1][0] for r in ranks])]
+    got_grads += [sum(r[1][i] for r in ranks) for i in range(1, 11)]
+    for name, got, want in zip(("y", "mean", "var"), got_outs, outs):
+        assert _rel(torch.from_numpy(got), want.cpu()) <= tol, name
+    for name, got, want in zip(("x",) + CONV_PARAMS, got_grads, grads):
+        if name == "dw_b":
+            assert not np.abs(got).any()
+            continue
+        lim = tol if name == "x" and dtype == torch.bfloat16 else wtol
+        assert _rel(torch.from_numpy(got), want.cpu()) <= lim, name

@@ -91,7 +91,8 @@ def test_port_imports_no_jax():
     code = ("import sys, avec_tpu_torch, avec_tpu_torch.serve, "
             "avec_tpu_torch.convert, avec_tpu_torch.ops.ffn, "
             "avec_tpu_torch.train.model, avec_tpu_torch.train.losses, "
-            "avec_tpu_torch.train.optim, avec_tpu_torch.train.schedulers\n"
+            "avec_tpu_torch.train.optim, avec_tpu_torch.train.schedulers, "
+            "avec_tpu_torch.parallel.dist\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'avec_tpu')]\n"
             "assert not bad, bad\nprint('ok')\n")
@@ -136,4 +137,6 @@ def test_import_scan_covers_the_training_modules():
     names = {p.relative_to(REPO).as_posix() for p in _port_files()}
     assert {"avec_tpu_torch/ops/ffn.py", "avec_tpu_torch/train/model.py",
             "avec_tpu_torch/train/losses.py", "avec_tpu_torch/train/optim.py",
-            "avec_tpu_torch/train/schedulers.py", "chip_smoke.py"} <= names
+            "avec_tpu_torch/train/schedulers.py",
+            "avec_tpu_torch/parallel/__init__.py",
+            "avec_tpu_torch/parallel/dist.py", "chip_smoke.py"} <= names
