@@ -28,29 +28,45 @@
 // What bounds it on the H100: operations. One forward at B=16, T=151, d=256,
 // H=4 is about 2.7 GFLOP (the rel-pos score term, contracted over d, is the
 // largest single product) on about 4 MB of inputs and outputs: 3 us at the
-// bf16 tensor-core peak. This first version runs every product as fp32 FMAs on
-// values rounded where the TPU kernel rounds them, for fp32 and bf16 inputs
-// alike, and is bound by the fp32 rate and by its tile staging.
+// bf16 tensor-core peak; the backward (`att_cost` in chip_smoke.py) is about
+// 7 GFLOP, 7 us at the peak.
 //
-// Design. The TPU kernel keeps one whole sequence in VMEM; a Hopper block
-// cannot (q, k, v alone pass 227 KB at T=151, d=256). Each direction is one C
-// entry point that enqueues a chain of stages on the caller's stream; the
-// stages hand q, k, v, the rotated rel-pos projections, the (B, H, T, T)
-// softmax and the merged heads to each other through an fp32 scratch buffer
-// that the wrapper allocates (about 50 MB in the backward at the shapes
-// above, within the L2's reach), and nothing of it outlives the call. Heads
-// are sliced, not lane-masked: head h reads rows h*dh.. of P, and the sin/cos
-// tables arrive interleaved as (T, d) so that the rel-pos term is one product
-// over d against P as it is stored, and dP comes out in P's own layout. Every
-// product goes through one 64 x 64 register-tiled routine (`gemm_tile`) whose
+// The TPU kernel keeps one whole sequence in VMEM; a Hopper block cannot (q,
+// k, v alone pass 227 KB at T=151, d=256). Each direction is one C entry
+// point that enqueues a chain of stages on the caller's stream, handing
+// values to each other through scratch that the wrapper allocates; nothing
+// of it outlives the call. Heads are sliced, not lane-masked: head h reads
+// rows h*dh.. of P, and the sin/cos tables arrive interleaved as (T, d) so
+// that the rel-pos term is one product over d against P as it is stored, and
+// dP comes out in P's own layout.
+//
+// fp32 inputs (the verification path) run the first version: every product
+// through one 64 x 64 fp32-FMA tile routine (`gemm_tile`, tile.cuh) whose
 // operands are fetched by small functors, so LayerNorm, rounding, head
-// offsets and dropout fuse into the operand loads, and bias, rotation,
-// masking, softmax and the residual into the epilogues. Scores and softmax
-// share a block (it owns 64 full rows), as do dO V^T and the softmax backward.
-// dq, dk, dv, dh and dx have one owner per element and are deterministic;
-// the parameter gradients are summed across row splits with atomicAdd into
-// fp32 buffers that the caller zeroed, so their last bits vary run to run.
-// Forward: 6 stages; backward: 16 (5 of them the recomputed forward).
+// offsets and dropout fuse into the operand loads; the stages hand q, k, v,
+// the (B, H, T, T) softmax and its gradient to each other in fp32 scratch,
+// and the parameter gradients are summed across row splits with atomicAdd
+// into buffers the entry point zeroes, so their last bits vary run to run
+// there. Forward: 6 stages; backward: 16 (5 of them the recomputed forward).
+// bf16 inputs longer than 736 frames, whose (64, T) fp32 score tile does not
+// fit in shared memory, or with heads wider than 128, take the same stages
+// (the AV step's T is at most 151, its heads 45 to 90 wide).
+//
+// bf16 inputs (the training path) were redesigned for the tensor cores
+// against what held that version back (no tensor cores, 6.8 TFLOP/s; 50 MB
+// of fp32 scratch between 16 stages; atomics for the weight gradients): every
+// product runs on mma.sync with fp32 accumulation from bf16 operands staged in
+// 16-byte pieces (tile.cuh `mma_tile`); the weights are cast to bf16 once per
+// call and every value the TPU kernel rounds to x's type lives in bf16
+// scratch laid out so that rows start 16-byte aligned, while the values its
+// backward multiplies unrounded (dO, the softmax, ds, du) stay fp32 and enter
+// their products as three bf16 parts that sum to them exactly (tile.cuh
+// `mma_tile_f32`), so those products are fp32's; scores, softmax, att v,
+// dO V^T, the softmax backward, the rel-pos backward and dq share one stage
+// per (sequence, head, 64 query rows), holding the (64, T) fp32 score tile in
+// shared memory; and every parameter gradient has one owner per element (row
+// splits summed in a fixed order), so the gradients are the same bits on
+// every run. Forward: 6 stages; backward: 9 (the bf16 section below).
 
 #include "tile.cuh"
 
@@ -64,6 +80,8 @@ constexpr int THREADS = GEMM_THREADS;  // 16 x 16 threads, 4 x 4 register tile e
 constexpr int SPLIT_ROWS = 256;  // token rows per block of a weight-gradient product
 constexpr uint32_t SEED_STRIDE = 1103515245u;
 constexpr uint32_t DRAW = 0x9E3779B9u;
+
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 struct Drop {
   uint32_t seed, thr;
@@ -742,9 +760,638 @@ col_sums_kernel(const T* __restrict__ x, const T* __restrict__ g, Grads gr, Scra
   }
 }
 
-// ---- host side
+// ---- bf16 stages on the tensor cores
+//
+// Every product runs on `mma_tile` and its fp32 forms (tile.cuh: mma.sync with
+// fp32 accumulation on bf16 operands staged in 16-byte pieces). A first stage
+// casts the five weights and the angle table to bf16 once per call, and the
+// stages hand bf16 values to each other in layouts whose rows start at
+// multiples of 8 elements: (n, d) activations with rows padded to ldd, q, k, v
+// and the merged heads' cotangent per head (b, H, t, ldh), the softmax and ds
+// as (b, H, t, ldt). Values the TPU kernel rounds to x's type are held in
+// bf16. The values its backward keeps in fp32 (dO = g Wo, the softmax where
+// it is not rounded, ds and the rel-pos cotangent du) stay fp32, in the
+// scratch and in shared memory, and every product that takes one of them
+// takes it at fp32 precision (`mma_tile_f32`, `mma_tile_saf<3>`); dq, dk and
+// dv are fp32 and rounded where the TPU kernel rounds them. One stage per
+// (sequence, head, 64 query rows) computes the scores, the fp32 softmax and
+// att v, and in the backward dO V^T, the softmax backward, the rel-pos
+// backward and dq, holding its (64, t) fp32 score tile in shared memory.
+// Every parameter gradient has one owner per element and every sum a fixed
+// order: no atomics, the same bits on every run. Forward: 6 stages;
+// backward: 9.
 
-constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+constexpr int QT = 64;          // query rows per block of the attention stage
+constexpr int LDU = BT + 8;     // row stride (floats) of the attention stage's du tile
+constexpr int MAX_SMEM = 232448;  // dynamic shared memory of one block (227 KB)
+constexpr int NSUMS = 7;        // column sums of the backward (see ln_bwd16_kernel)
+constexpr int SUM_ROWS = 16;    // token rows per block of ln_bwd16_kernel
+constexpr int NW = 5;           // weights in bf16 scratch and split partials, in this order:
+constexpr int W_Q = 0, W_K = 1, W_V = 2, W_P = 3, W_O = 4;
+
+__host__ __device__ constexpr int round8(int v) { return (v + 7) / 8 * 8; }
+
+struct Scratch16 {
+  int ldd, ldh, ldt;            // d, d / H and t rounded up to a multiple of 8
+  float *mean, *rstd;           // (n,)
+  bf16 *w, *tab;                // (5, d, ldd) weights (out, in); (t, ldd) angle table
+  bf16 *h, *merged;             // (n, ldd)
+  bf16 *q, *k, *v;              // (b, H, t, ldh)
+  bf16* a12;                    // (b, H, t, ldd)
+  bf16* gm;                     // (n, ldd) round(g * mask)
+  float* dacc;                  // (b, H, t, ldh) dO = round(g * mask) Wo, per head
+  float *att, *ds, *du;         // (b, H, t, ldt) x 2; (b, H, t, ldd)
+  float* rs;                    // (b, H, t) row sums of ds
+  float *dq, *dk, *dv;          // (n, ldd)
+  float *dh, *part, *part_w;    // (n, d); (n / 16, 7, d); (splits, 5, d, d)
+  int splits;                   // row splits of the weight gradients
+};
+
+// Shared-memory layout of `att16_kernel`, in bytes: the fp32 (64, t) tile S
+// (scores, the softmax, then dO V^T and ds; rows 8 mod 32 floats apart), in
+// the backward the fp32 (64, 64) tile U of du, the staging buffer and two
+// (64,) vectors.
+struct AttSmem {
+  int lds;  // row stride (floats) of S: t rounded up to MMA_BK, + 8
+  size_t off_u, off_stage, off_small, total;
+};
+
+__host__ __device__ inline AttSmem att_smem(int t, bool bwd) {
+  AttSmem L;
+  L.lds = (t + MMA_BK - 1) / MMA_BK * MMA_BK + 8;
+  size_t at = (size_t)QT * L.lds * 4;
+  L.off_u = at;
+  if (bwd) at += (size_t)QT * LDU * 4;
+  L.off_stage = at;
+  at += (size_t)(bwd ? MMA_STAGE_F32 : MMA_STAGE) * 2;
+  L.off_small = at;
+  at += 2 * QT * 4;  // q . b_pos and the rows' sums of ds
+  L.total = at;
+  return L;
+}
+
+// The accumulator elements of this thread in `mma_tile` order.
+#define AVEC_FOR_ACC(nt, e) \
+  _Pragma("unroll") for (int nt = 0; nt < 4; ++nt) _Pragma("unroll") for (int e = 0; e < 4; ++e)
+
+__device__ __forceinline__ const bf16* weight16(const Scratch16& sc, int which, int row, int d) {
+  return sc.w + ((size_t)which * d + row) * sc.ldd;
+}
+
+// Row (b, h, t) of a per-head (b, H, t, ld) array, for token row r = b t + t'.
+__device__ __forceinline__ size_t head_row(int r, int h, const Shape& sh) {
+  return ((size_t)(r / sh.t) * sh.heads + h) * sh.t + r % sh.t;
+}
+
+// blockIdx.x < 5 d: row blockIdx.x % d of weight blockIdx.x / d (Wq, Wk, Wv,
+// P, Wo) to bf16; then the angle table's rows.
+__global__ void __launch_bounds__(THREADS)
+cast16_kernel(Params p, const bf16* __restrict__ tab, Scratch16 sc, Shape sh) {
+  const int d = sh.d, row = blockIdx.x;
+  if (row < NW * d) {
+    const float* ws[NW] = {p.wq, p.wk, p.wv, p.pos_w, p.wo};
+    const float* src = ws[row / d] + (size_t)(row % d) * d;
+    bf16* dst = sc.w + (size_t)row * sc.ldd;
+    for (int c = threadIdx.x; c < d; c += THREADS) dst[c] = from_f<bf16>(src[c]);
+  } else {
+    const int u = row - NW * d;
+    for (int c = threadIdx.x; c < d; c += THREADS)
+      sc.tab[(size_t)u * sc.ldd + c] = tab[(size_t)u * d + c];
+  }
+}
+
+// One warp per token row: mean and 1 / sqrt(var + eps) in fp32, h rounded as
+// the TPU kernel rounds it, and in the backward round(g * mask).
+__global__ void __launch_bounds__(THREADS)
+ln_h16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g, Params p, Scratch16 sc,
+              Shape sh, float eps, Drop dr) {
+  const int row = blockIdx.x * (THREADS / 32) + threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int d = sh.d;
+  if (row >= sh.n) return;  // uniform over the warp
+  const bf16* xr = x + (size_t)row * d;
+  float sum = 0.f;
+  for (int c = lane; c < d; c += 32) sum += to_f(xr[c]);
+  const float m = warp_sum(sum) / d;
+  float sq = 0.f;
+  for (int c = lane; c < d; c += 32) {
+    const float dv = to_f(xr[c]) - m;
+    sq += dv * dv;
+  }
+  const float rstd = rsqrtf(warp_sum(sq) / d + eps);
+  if (lane == 0) {
+    sc.mean[row] = m;
+    sc.rstd[row] = rstd;
+  }
+  for (int c = lane; c < d; c += 32) {
+    const float xhat = rnd<bf16>((to_f(xr[c]) - m) * rstd);
+    sc.h[(size_t)row * sc.ldd + c] =
+        from_f<bf16>(rnd<bf16>(xhat * rnd<bf16>(p.ln_w[c])) + rnd<bf16>(p.ln_b[c]));
+    if (g != nullptr)
+      sc.gm[(size_t)row * sc.ldd + c] = from_f<bf16>(masked_g<bf16>(g, dr, row, c, sh.t, d));
+  }
+}
+
+// blockIdx.z 0..2: q, k, v = round(round(h W^T) + round(b)), per head;
+// 3 (backward): dacc = round(g * mask) Wo, the merged heads' cotangent, per
+// head, in fp32 as the TPU kernel keeps it.
+__global__ void __launch_bounds__(THREADS)
+qkv16_kernel(Params p, Scratch16 sc, Shape sh) {
+  __shared__ __align__(16) bf16 sm[MMA_STAGE];
+  const int row0 = blockIdx.x * BT, col0 = blockIdx.y * BT, z = blockIdx.z, n = sh.n, d = sh.d;
+  float acc[4][4] = {};
+  const bf16* a_base = z == 3 ? sc.gm : sc.h;
+  auto a = rows_of<bf16>([&](int r) {
+    const int row = row0 + r;
+    return row < n ? a_base + (size_t)row * sc.ldd : nullptr;
+  });
+  if (z == 3) {
+    auto b = cols_of<bf16>([&](int k) { return weight16(sc, W_O, k, d) + col0; }, d - col0);
+    mma_tile(acc, a, b, 0, d, sm);
+  } else {
+    auto b = rows_of<bf16>([&](int j) {
+      const int col = col0 + j;
+      return col < d ? weight16(sc, z, col, d) : nullptr;
+    });
+    mma_tile(acc, a, b, 0, d, sm);
+  }
+  const float* bias = z == 0 ? p.bq : (z == 1 ? p.bk : p.bv);
+  bf16* out = z == 0 ? sc.q : (z == 1 ? sc.k : sc.v);
+  AVEC_FOR_ACC(nt, e) {
+    int i, j;
+    mma_tile_at(nt, e, i, j);
+    const int row = row0 + i, col = col0 + j;
+    if (row < n && col < d) {
+      const size_t at = head_row(row, col / sh.dh, sh) * sc.ldh + col % sh.dh;
+      if (z == 3)
+        sc.dacc[at] = acc[nt][e];
+      else
+        out[at] = from_f<bf16>(rnd<bf16>(acc[nt][e]) + rnd<bf16>(bias[col]));
+    }
+  }
+}
+
+// a12 = the rotated rel-pos projections of q (see relpos_u_kernel).
+__global__ void __launch_bounds__(THREADS)
+relpos16_kernel(Scratch16 sc, Shape sh) {
+  __shared__ __align__(16) bf16 sm[MMA_STAGE];
+  const int t0 = blockIdx.x * BT, c0 = blockIdx.y * BT, bh = blockIdx.z;
+  const int h = bh % sh.heads, t = sh.t, d = sh.d, dh = sh.dh;
+  const bf16* q = sc.q + (size_t)bh * t * sc.ldh;
+  float acc[4][4] = {};
+  auto a = rows_of<bf16>([&](int r) {
+    const int tt = t0 + r;
+    return tt < t ? q + (size_t)tt * sc.ldh : nullptr;
+  });
+  auto b = cols_of<bf16>([&](int k) { return weight16(sc, W_P, h * dh + k, d) + c0; }, d - c0);
+  mma_tile(acc, a, b, 0, dh, sm);
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; e += 2) {
+      int i, j;
+      mma_tile_at(nt, e, i, j);  // j even: (us, uc) sit in e, e + 1
+      const int tt = t0 + i, c = c0 + j;
+      if (tt >= t || c >= d) continue;  // d is even, so c + 1 < d
+      const float us = rnd<bf16>(acc[nt][e]), uc = rnd<bf16>(acc[nt][e + 1]);
+      const bf16* tr = sc.tab + (size_t)tt * sc.ldd + c;
+      const float sn = to_f(tr[0]), cs = to_f(tr[1]);
+      bf16* out = sc.a12 + ((size_t)bh * t + tt) * sc.ldd + c;
+      out[0] = from_f<bf16>(rnd<bf16>(uc * sn) - rnd<bf16>(us * cs));
+      out[1] = from_f<bf16>(rnd<bf16>(us * sn) + rnd<bf16>(uc * cs));
+    }
+}
+
+// The columns c0 .. c0 + 63 of an (n, ld) array as the source of a product
+// over the token rows.
+template <typename T>
+__device__ __forceinline__ auto token_cols(const T* base, int ld, int c0, int d) {
+  return cols_of<T>([=](int r) { return base + (size_t)r * ld + c0; }, d - c0);
+}
+
+// Rows r0 .. r0 + 63 of an array with row stride ld, zero from row lim on.
+template <typename T>
+__device__ __forceinline__ auto tile_rows(const T* base, int ld, int r0, int lim) {
+  return rows_of<T>([=](int r) {
+    const int rr = r0 + r;
+    return rr < lim ? base + (size_t)rr * ld : nullptr;
+  });
+}
+
+// One (sequence, head, 64 query rows) per block. Forward: scores, the fp32
+// softmax and merged = round(round(att) v). Backward, in addition: the
+// softmax to the scratch (for dv), dO V^T, ds = att (dO V^T - rowsum) /
+// sqrt(dh) and its row sums, du = the rotated ds . tab, 64 columns at a
+// time, and dq = ds k + du round(P_h) + rowsum(ds) round(b_pos_h); ds and du
+// to the scratch too. The products that take dO, ds and du take them at
+// fp32 precision (tile.cuh, three bf16 parts), as the TPU kernel does.
+template <bool BWD>
+__global__ void __launch_bounds__(THREADS)
+att16_kernel(const int* __restrict__ lengths, Params p, Scratch16 sc, Shape sh, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int t = sh.t, d = sh.d, dh = sh.dh;
+  const AttSmem L = att_smem(t, BWD);
+  float* S = reinterpret_cast<float*>(smem_raw);  // [QT][lds] scores, softmax, dO V^T, ds
+  float* U = reinterpret_cast<float*>(smem_raw + L.off_u);        // [QT][LDU] du columns
+  bf16* stage = reinterpret_cast<bf16*>(smem_raw + L.off_stage);
+  float* qb = reinterpret_cast<float*>(smem_raw + L.off_small);  // [QT]
+  float* rsum = qb + QT;                                          // [QT]
+  const int t0 = blockIdx.x * QT, bh = blockIdx.z, tid = threadIdx.x;
+  const int b = bh / sh.heads, h = bh % sh.heads, ldh = sc.ldh, ldd = sc.ldd, lds = L.lds;
+  const int len = clamp_len(lengths, b, t);
+  const bf16* q = sc.q + (size_t)bh * t * ldh;
+  const bf16* kk = sc.k + (size_t)bh * t * ldh;
+  const bf16* v = sc.v + (size_t)bh * t * ldh;
+  const bf16* a12 = sc.a12 + (size_t)bh * t * ldd;
+  const float neg = rnd<bf16>(-1e9f);
+  const int warp = tid / 32, lane = tid % 32;
+  const int kpad = lds - 8;  // t rounded up to MMA_BK
+
+  if (tid < QT) {
+    const int tt = t0 + tid;
+    float a = 0.f;
+    if (tt < t)
+      for (int c = 0; c < dh; ++c)
+        a = fmaf(to_f(q[(size_t)tt * ldh + c]), rnd<bf16>(p.pos_b[h * dh + c]), a);
+    qb[tid] = rnd<bf16>(a);
+  }
+  __syncthreads();
+
+  // scores
+  for (int u0 = 0; u0 < t; u0 += BT) {
+    float ak[4][4] = {}, ae[4][4] = {};
+    mma_tile(ak, tile_rows(q, ldh, t0, t), tile_rows(kk, ldh, u0, t), 0, dh, stage);
+    mma_tile(ae, tile_rows(a12, ldd, t0, t), tile_rows(sc.tab, ldd, u0, t), 0, d, stage);
+    AVEC_FOR_ACC(nt, e) {
+      int i, j;
+      mma_tile_at(nt, e, i, j);
+      const int u = u0 + j;
+      if (u < t) {
+        float s = rnd<bf16>(rnd<bf16>(rnd<bf16>(ak[nt][e]) + rnd<bf16>(ae[nt][e])) + qb[i]);
+        s = rnd<bf16>(s * scale);
+        if (u >= len) s = rnd<bf16>(s + neg);
+        S[i * lds + u] = s;
+      }
+    }
+  }
+  __syncthreads();
+
+  // fp32 softmax in place, zero from t to kpad; in the backward also to the
+  // scratch
+  for (int r = warp; r < QT; r += THREADS / 32) {
+    float* row = S + r * lds;
+    float m = -INFINITY;
+    for (int u = lane; u < t; u += 32) m = fmaxf(m, row[u]);
+    m = warp_max(m);
+    float sum = 0.f;
+    for (int u = lane; u < t; u += 32) {
+      const float e = expf(row[u] - m);
+      row[u] = e;
+      sum += e;
+    }
+    sum = warp_sum(sum);
+    const int tt = t0 + r;
+    float* att_out = BWD && tt < t ? sc.att + ((size_t)bh * t + tt) * sc.ldt : nullptr;
+    for (int u = lane; u < kpad; u += 32) {
+      float a = 0.f;
+      if (u < t) {
+        a = row[u] / sum;
+        if (att_out != nullptr) att_out[u] = a;
+      }
+      row[u] = a;
+    }
+  }
+  __syncthreads();
+
+  // merged = round(round(att) v_h)
+  for (int c0 = 0; c0 < dh; c0 += BT) {
+    float acc[4][4] = {};
+    auto bv = cols_of<bf16>([&](int u) { return v + (size_t)u * ldh + c0; }, dh - c0);
+    mma_tile_saf<1>(acc, S, lds, bv, 0, t, stage);
+    AVEC_FOR_ACC(nt, e) {
+      int i, j;
+      mma_tile_at(nt, e, i, j);
+      const int tt = t0 + i, c = c0 + j;
+      if (tt < t && c < dh)
+        sc.merged[((size_t)b * t + tt) * ldd + h * dh + c] = from_f<bf16>(acc[nt][e]);
+    }
+  }
+  if (!BWD) return;
+
+  // S = dO V^T (the softmax is in the scratch now)
+  const float* dacc = sc.dacc + (size_t)bh * t * ldh;
+  for (int u0 = 0; u0 < t; u0 += BT) {
+    float acc[4][4] = {};
+    mma_tile_f32(acc, tile_rows(dacc, ldh, t0, t), tile_rows(v, ldh, u0, t), 0, dh, stage);
+    AVEC_FOR_ACC(nt, e) {
+      int i, j;
+      mma_tile_at(nt, e, i, j);
+      const int u = u0 + j;
+      if (u < t) S[i * lds + u] = acc[nt][e];
+    }
+  }
+  __syncthreads();
+
+  // S = ds = att (S - rowsum(S att)) scale, zero past t and on query rows
+  // past t, and to the scratch; its row sums
+  for (int r = warp; r < QT; r += THREADS / 32) {
+    const int tt = t0 + r;
+    const bool real = tt < t;
+    float* row = S + r * lds;
+    const size_t at = ((size_t)bh * t + (real ? tt : 0)) * sc.ldt;
+    const float* arow = sc.att + at;
+    float dot = 0.f;
+    if (real)
+      for (int u = lane; u < t; u += 32) dot += row[u] * arow[u];
+    dot = warp_sum(dot);
+    float rsv = 0.f;
+    for (int u = lane; u < kpad; u += 32) {
+      float val = 0.f;
+      if (real && u < t) {
+        val = arow[u] * (row[u] - dot) * scale;
+        sc.ds[at + u] = val;
+      }
+      rsv += val;
+      row[u] = val;
+    }
+    rsv = warp_sum(rsv);
+    if (lane == 0) {
+      rsum[r] = rsv;
+      if (real) sc.rs[(size_t)bh * t + tt] = rsv;
+    }
+  }
+  __syncthreads();
+
+  // dq = ds k_h, then per 64 columns m0 of du = rotate(ds . tab): into U and
+  // the scratch, and dq += du round(P_h)
+  const int hc = cdiv(dh, BT);  // at most 2 (use_mma)
+  float dq[2][4][4] = {};
+#pragma unroll
+  for (int ci = 0; ci < 2; ++ci)
+    if (ci < hc) {
+      auto bk = cols_of<bf16>([&](int u) { return kk + (size_t)u * ldh + ci * BT; },
+                              dh - ci * BT);
+      mma_tile_saf<3>(dq[ci], S, lds, bk, 0, t, stage);
+    }
+  for (int m0 = 0; m0 < d; m0 += BT) {
+    float acc[4][4] = {};
+    auto btab = cols_of<bf16>([&](int u) { return sc.tab + (size_t)u * ldd + m0; }, d - m0);
+    mma_tile_saf<3>(acc, S, lds, btab, 0, t, stage);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; e += 2) {
+        int i, j;
+        mma_tile_at(nt, e, i, j);  // j even: (da2, da1) sit in e, e + 1
+        const int tt = t0 + i, c = m0 + j;
+        float us = 0.f, uc = 0.f;
+        if (c < d && tt < t) {  // d is even, so c + 1 < d
+          const float da2 = acc[nt][e], da1 = acc[nt][e + 1];
+          const float sn = to_f(sc.tab[(size_t)tt * ldd + c]);
+          const float cs = to_f(sc.tab[(size_t)tt * ldd + c + 1]);
+          us = da1 * sn - da2 * cs;
+          uc = da1 * cs + da2 * sn;
+          float* out = sc.du + ((size_t)bh * t + tt) * ldd + c;
+          out[0] = us;
+          out[1] = uc;
+        }
+        U[i * LDU + j] = us;
+        U[i * LDU + j + 1] = uc;
+      }
+    __syncthreads();
+    const int kn = min(BT, d - m0);
+#pragma unroll
+    for (int ci = 0; ci < 2; ++ci)
+      if (ci < hc) {
+        auto bp = rows_of<bf16>([&](int j) {
+          const int c = ci * BT + j;
+          return c < dh ? weight16(sc, W_P, h * dh + c, d) + m0 : nullptr;
+        });
+        mma_tile_saf<3>(dq[ci], U, LDU, bp, 0, kn, stage);
+      }
+  }
+#pragma unroll
+  for (int ci = 0; ci < 2; ++ci)
+    if (ci < hc) {
+      AVEC_FOR_ACC(nt, e) {
+        int i, j;
+        mma_tile_at(nt, e, i, j);
+        const int tt = t0 + i, c = ci * BT + j;
+        if (tt < t && c < dh)
+          sc.dq[((size_t)b * t + tt) * ldd + h * dh + c] =
+              dq[ci][nt][e] + rsum[i] * rnd<bf16>(p.pos_b[h * dh + c]);
+      }
+    }
+}
+
+// y = round(round(round(merged Wo^T) + bo) * mask) [+ x].
+__global__ void __launch_bounds__(THREADS)
+out_proj16_kernel(const bf16* __restrict__ x, bf16* __restrict__ y, Params p, Scratch16 sc,
+                  Shape sh, int residual, Drop dr) {
+  __shared__ __align__(16) bf16 sm[MMA_STAGE];
+  const int row0 = blockIdx.x * BT, col0 = blockIdx.y * BT, n = sh.n, d = sh.d;
+  float acc[4][4] = {};
+  auto a = rows_of<bf16>([&](int r) {
+    const int row = row0 + r;
+    return row < n ? sc.merged + (size_t)row * sc.ldd : nullptr;
+  });
+  auto b = rows_of<bf16>([&](int j) {
+    const int col = col0 + j;
+    return col < d ? weight16(sc, W_O, col, d) : nullptr;
+  });
+  mma_tile(acc, a, b, 0, d, sm);
+  AVEC_FOR_ACC(nt, e) {
+    int i, j;
+    mma_tile_at(nt, e, i, j);
+    const int row = row0 + i, col = col0 + j;
+    if (row < n && col < d) {
+      float val = rnd<bf16>(rnd<bf16>(acc[nt][e]) + rnd<bf16>(p.bo[col]));
+      val = rnd<bf16>(val * drop_mult(dr, row / sh.t, row % sh.t, col, d));
+      if (residual) val = rnd<bf16>(val + to_f(x[(size_t)row * d + col]));
+      y[(size_t)row * d + col] = from_f<bf16>(val);
+    }
+  }
+}
+
+// dv_h = att^T dO_h (blockIdx.z even) and dk_h = ds^T q_h (odd), fp32, att,
+// dO and ds at fp32 precision; each key tile has one owner.
+__global__ void __launch_bounds__(THREADS)
+kv16_kernel(Scratch16 sc, Shape sh) {
+  __shared__ __align__(16) bf16 sm[MMA_STAGE_F32];
+  const int u0 = blockIdx.x * BT, c0 = blockIdx.y * BT, which = blockIdx.z & 1,
+            bh = blockIdx.z >> 1;
+  const int b = bh / sh.heads, h = bh % sh.heads, t = sh.t, dh = sh.dh;
+  const float* pm = (which ? sc.ds : sc.att) + (size_t)bh * t * sc.ldt;
+  const size_t head = (size_t)bh * t * sc.ldh;
+  float* out = (which ? sc.dk : sc.dv) + (size_t)b * t * sc.ldd + h * dh;
+  float acc[4][4] = {};
+  auto a = token_cols(pm, sc.ldt, u0, t);
+  if (which)
+    mma_tile_f32(acc, a, token_cols(sc.q + head, sc.ldh, c0, dh), 0, t, sm);
+  else
+    mma_tile_f32<true>(acc, a, token_cols(sc.dacc + head, sc.ldh, c0, dh), 0, t, sm);
+  AVEC_FOR_ACC(nt, e) {
+    int i, j;
+    mma_tile_at(nt, e, i, j);
+    const int u = u0 + i, c = c0 + j;
+    if (u < t && c < dh) out[(size_t)u * sc.ldd + c] = acc[nt][e];
+  }
+}
+
+// Every product with a parameter's or dh's tile as its output, one owner per
+// 64 x 64 tile, blockIdx.x over the jobs in this order: dWo (d, d), dP per
+// head (dh, d), dWq, dWk, dWv (d, d), dh (n, d). The weight gradients reduce
+// over the token rows of split blockIdx.y, into the gradient itself when
+// there is one split and into sc.part_w otherwise; dh is split 0's.
+__global__ void __launch_bounds__(THREADS)
+weights16_kernel(Grads gr, Scratch16 sc, Shape sh) {
+  __shared__ __align__(16) bf16 sm[MMA_STAGE_F32];
+  const int n = sh.n, d = sh.d, dh = sh.dh, heads = sh.heads, ldd = sc.ldd;
+  const int dt = cdiv(d, BT), ht = cdiv(dh, BT), sq = dt * dt;
+  const int split = blockIdx.y, per = cdiv(n, sc.splits);
+  const int r_begin = split * per, r_end = min(n, r_begin + per);
+  int blk = blockIdx.x;
+  float acc[4][4] = {};
+  auto store = [&](float* out, int r0, int rows, int c0, int cols, int ld) {
+    AVEC_FOR_ACC(nt, e) {
+      int i, j;
+      mma_tile_at(nt, e, i, j);
+      const int r = r0 + i, c = c0 + j;
+      if (r < rows && c < cols) out[(size_t)r * ld + c] = acc[nt][e];
+    }
+  };
+  // weight `which`'s d x d gradient, or this split's partial of it
+  auto weight_out = [&](int which, float* grad) {
+    return sc.splits == 1 ? grad : sc.part_w + ((size_t)split * NW + which) * d * d;
+  };
+  if (blk < sq) {  // dWo[j][i] = sum_r round(g mask)[r][j] merged[r][i]
+    const int j0 = (blk / dt) * BT, i0 = (blk % dt) * BT;
+    mma_tile(acc, token_cols(sc.gm, ldd, j0, d), token_cols(sc.merged, ldd, i0, d), r_begin,
+             r_end, sm);
+    store(weight_out(W_O, gr.wo), j0, d, i0, d, d);
+    return;
+  }
+  blk -= sq;
+  if (blk < heads * ht * dt) {  // dP[h dh + c][m] = sum_r q[r][h dh + c] du[b, h, t][m]
+    const int h = blk / (ht * dt), c0 = ((blk / dt) % ht) * BT, m0 = (blk % dt) * BT;
+    // the tile transposed, du (fp32) as its A: acc[i][j] = dP[c0 + j][m0 + i]
+    auto a = cols_of<float>([&](int r) { return sc.du + head_row(r, h, sh) * ldd + m0; },
+                            d - m0);
+    auto b = cols_of<bf16>([&](int r) { return sc.q + head_row(r, h, sh) * sc.ldh + c0; },
+                           dh - c0);
+    mma_tile_f32(acc, a, b, r_begin, r_end, sm);
+    float* out = weight_out(W_P, gr.pos_w) + (size_t)h * dh * d;
+    AVEC_FOR_ACC(nt, e) {
+      int i, j;
+      mma_tile_at(nt, e, i, j);
+      if (c0 + j < dh && m0 + i < d) out[(size_t)(c0 + j) * d + m0 + i] = acc[nt][e];
+    }
+    return;
+  }
+  blk -= heads * ht * dt;
+  if (blk < 3 * sq) {  // dW[j][i] = sum_r round(dz[r][j]) h[r][i]
+    const int z = blk / sq, j0 = ((blk % sq) / dt) * BT, i0 = (blk % dt) * BT;
+    const float* dz = z == 0 ? sc.dq : (z == 1 ? sc.dk : sc.dv);
+    mma_tile(acc, token_cols(dz, ldd, j0, d), token_cols(sc.h, ldd, i0, d), r_begin, r_end, sm);
+    store(weight_out(z, z == 0 ? gr.wq : (z == 1 ? gr.wk : gr.wv)), j0, d, i0, d, d);
+    return;
+  }
+  blk -= 3 * sq;
+  if (split > 0) return;  // uniform over the block
+  // dh = round(dq) round(Wq) + round(dk) round(Wk) + round(dv) round(Wv)
+  const int row0 = (blk / dt) * BT, col0 = (blk % dt) * BT;
+  for (int z = 0; z < 3; ++z) {
+    const float* dz = z == 0 ? sc.dq : (z == 1 ? sc.dk : sc.dv);
+    auto a = rows_of<float>([&](int r) {
+      const int row = row0 + r;
+      return row < n ? dz + (size_t)row * ldd : nullptr;
+    });
+    auto b = cols_of<bf16>([&](int k) { return weight16(sc, z, k, d) + col0; }, d - col0);
+    mma_tile(acc, a, b, 0, d, sm);
+  }
+  store(sc.dh, row0, n, col0, d, d);
+}
+
+// SUM_ROWS token rows per block: the LayerNorm backward into dx (the
+// residual's cotangent g added unmasked), and the rows' partial sums of the
+// seven column sums: dbo (g * mask), dbq, dbk, dbv, dLN bias (dh), dLN weight
+// (dh * xhat) and the positional bias (q * rowsum(ds) of the column's head).
+__global__ void __launch_bounds__(THREADS)
+ln_bwd16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g, bf16* __restrict__ dx,
+                Params p, Scratch16 sc, Shape sh, int residual, Drop dr) {
+  const int row0 = blockIdx.x * SUM_ROWS, tid = threadIdx.x, d = sh.d, t = sh.t;
+  const int rows = min(SUM_ROWS, sh.n - row0);
+  for (int col = tid; col < d; col += THREADS) {
+    const int h = col / sh.dh, c = col % sh.dh;
+    float s[NSUMS] = {};
+    for (int r = row0; r < row0 + rows; ++r) {
+      const size_t at = (size_t)r * d + col, atp = (size_t)r * sc.ldd + col;
+      const size_t hr = head_row(r, h, sh);
+      const float dhv = sc.dh[at];
+      const float xhat = (to_f(x[at]) - sc.mean[r]) * sc.rstd[r];
+      s[0] += masked_g<bf16>(g, dr, r, col, t, d);
+      s[1] += sc.dq[atp];
+      s[2] += sc.dk[atp];
+      s[3] += sc.dv[atp];
+      s[4] += dhv;
+      s[5] += dhv * xhat;
+      s[6] += to_f(sc.q[hr * sc.ldh + c]) * sc.rs[hr];
+    }
+#pragma unroll
+    for (int k = 0; k < NSUMS; ++k) sc.part[((size_t)blockIdx.x * NSUMS + k) * d + col] = s[k];
+  }
+  const int warp = tid / 32, lane = tid % 32;
+  for (int r = warp; r < rows; r += THREADS / 32) {
+    const int row = row0 + r;
+    const float mean = sc.mean[row], rstd = sc.rstd[row];
+    const bf16* xr = x + (size_t)row * d;
+    const float* dhr = sc.dh + (size_t)row * d;
+    float s1 = 0.f, s2 = 0.f;
+    for (int c = lane; c < d; c += 32) {
+      const float dxh = dhr[c] * p.ln_w[c];
+      const float xhat = (to_f(xr[c]) - mean) * rstd;
+      s1 += dxh;
+      s2 += dxh * xhat;
+    }
+    const float m1 = warp_sum(s1) / d, m2 = warp_sum(s2) / d;
+    for (int c = lane; c < d; c += 32) {
+      const float dxh = dhr[c] * p.ln_w[c];
+      const float xhat = (to_f(xr[c]) - mean) * rstd;
+      float val = rstd * (dxh - m1 - xhat * m2);
+      if (residual) val += to_f(g[(size_t)row * d + c]);
+      dx[(size_t)row * d + c] = from_f<bf16>(val);
+    }
+  }
+}
+
+// The partial sums added in a fixed order: one warp per column sum over the
+// row blocks (blockIdx.x < sum_blocks, lanes striding, then a fixed shuffle
+// tree), and where the weight gradients were split, one thread per element
+// over the splits.
+__global__ void __launch_bounds__(THREADS)
+reduce16_kernel(Grads gr, Scratch16 sc, Shape sh, int sum_blocks) {
+  const int d = sh.d, lane = threadIdx.x % 32;
+  if ((int)blockIdx.x < sum_blocks) {
+    const int e = blockIdx.x * (THREADS / 32) + threadIdx.x / 32;
+    if (e >= NSUMS * d) return;  // uniform over the warp
+    const int k = e / d, col = e % d, blocks = cdiv(sh.n, SUM_ROWS);
+    float v = 0.f;
+    for (int b = lane; b < blocks; b += 32) v += sc.part[((size_t)b * NSUMS + k) * d + col];
+    v = warp_sum(v);
+    float* outs[NSUMS] = {gr.bo, gr.bq, gr.bk, gr.bv, gr.ln_b, gr.ln_w, gr.pos_b};
+    if (lane == 0) outs[k][col] = v;
+    return;
+  }
+  const size_t dd = (size_t)d * d;
+  const size_t e = (size_t)(blockIdx.x - sum_blocks) * THREADS + threadIdx.x;
+  if (e >= NW * dd) return;
+  const int which = (int)(e / dd);
+  float v = 0.f;
+  for (int s = 0; s < sc.splits; ++s) v += sc.part_w[(size_t)s * NW * dd + e];
+  float* outs[NW] = {gr.wq, gr.wk, gr.wv, gr.pos_w, gr.wo};
+  outs[which][e % dd] = v;
+}
+
+// ---- host side
 
 long long scratch_floats(const Shape& sh, bool backward) {
   const long long nd = (long long)sh.n * sh.d, ntt = (long long)sh.b * sh.heads * sh.t * sh.t;
@@ -847,6 +1494,128 @@ cudaError_t run_bwd(const void* x, const void* g, const void* tab, const int* le
   return cudaSuccess;
 }
 
+// Row splits of the weight-gradient products: enough blocks for about four
+// per SM, at least 8 reduction chunks per split.
+int weight_splits16(const Shape& sh) {
+  const int dt = cdiv(sh.d, BT), tiles = 4 * dt * dt + sh.heads * cdiv(sh.dh, BT) * dt;
+  const int by_card = cdiv(528, tiles), by_depth = sh.n / (8 * MMA_BK);
+  const int s = by_card < by_depth ? by_card : by_depth;
+  return s < 1 ? 1 : s;
+}
+
+// Carves `base` (nullptr: only sizes) into the bf16 path's scratch; returns
+// its size in bytes.
+size_t carve16(char* base, const Shape& sh, bool backward, Scratch16* sc) {
+  *sc = Scratch16{};
+  sc->ldd = round8(sh.d);
+  sc->ldh = round8(sh.dh);
+  sc->ldt = round8(sh.t);
+  const size_t n = sh.n, d = sh.d, bht = (size_t)sh.b * sh.heads * sh.t;
+  const size_t ldd = sc->ldd, ldh = sc->ldh, ldt = sc->ldt;
+  size_t at = 0;
+  auto take = [&](size_t bytes) {
+    char* p = base == nullptr ? nullptr : base + at;
+    at += (bytes + 255) / 256 * 256;
+    return p;
+  };
+  auto tb = [&](size_t elems) { return reinterpret_cast<bf16*>(take(elems * 2)); };
+  auto tf = [&](size_t elems) { return reinterpret_cast<float*>(take(elems * 4)); };
+  sc->mean = tf(n);
+  sc->rstd = tf(n);
+  sc->w = tb(NW * d * ldd);
+  sc->tab = tb((size_t)sh.t * ldd);
+  sc->h = tb(n * ldd);
+  sc->merged = tb(n * ldd);
+  sc->q = tb(bht * ldh);
+  sc->k = tb(bht * ldh);
+  sc->v = tb(bht * ldh);
+  sc->a12 = tb(bht * ldd);
+  if (backward) {
+    sc->gm = tb(n * ldd);
+    sc->dacc = tf(bht * ldh);
+    sc->att = tf(bht * ldt);
+    sc->ds = tf(bht * ldt);
+    sc->du = tf(bht * ldd);
+    sc->rs = tf(bht);
+    sc->dq = tf(n * ldd);
+    sc->dk = tf(n * ldd);
+    sc->dv = tf(n * ldd);
+    sc->dh = tf(n * d);
+    sc->part = tf((size_t)cdiv(sh.n, SUM_ROWS) * NSUMS * d);
+    sc->splits = weight_splits16(sh);
+    if (sc->splits > 1) sc->part_w = tf((size_t)sc->splits * NW * d * d);
+  }
+  return at;
+}
+
+// The tensor-core stages take bf16 inputs whose (64, t) score tile fits in
+// one block's shared memory (t <= 736) and whose heads are at most 128 wide;
+// the rest run the FMA stages.
+bool use_mma(const Shape& sh, int is_bf16) {
+  return is_bf16 && sh.dh <= 2 * BT && att_smem(sh.t, true).total <= MAX_SMEM;
+}
+
+cudaError_t launch_att16(bool bwd, const int* lengths, const Params& p, const Scratch16& sc,
+                         const Shape& sh, float scale, cudaStream_t st) {
+  const AttSmem L = att_smem(sh.t, bwd);
+  auto kern = bwd ? att16_kernel<true> : att16_kernel<false>;
+  cudaError_t rc =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
+  if (rc != cudaSuccess) return rc;
+  kern<<<dim3(cdiv(sh.t, QT), 1, sh.b * sh.heads), THREADS, L.total, st>>>(lengths, p, sc, sh,
+                                                                           scale);
+  return cudaGetLastError();
+}
+
+// The stages both directions share: the casts, LayerNorm (and round(g mask)),
+// the projections (and dacc), the rel-pos projections, the attention stage.
+cudaError_t run_core16(const bf16* x, const bf16* g, const bf16* tab, const int* lengths,
+                       const Params& p, const Scratch16& sc, const Shape& sh, float eps,
+                       float scale, Drop dr, cudaStream_t st) {
+  const int nt = cdiv(sh.n, BT), dt = cdiv(sh.d, BT), bwd = g != nullptr;
+  AVEC_LAUNCH(cast16_kernel, dim3(NW * sh.d + sh.t), p, tab, sc, sh);
+  AVEC_LAUNCH(ln_h16_kernel, dim3(cdiv(sh.n, THREADS / 32)), x, g, p, sc, sh, eps, dr);
+  AVEC_LAUNCH(qkv16_kernel, dim3(nt, dt, bwd ? 4 : 3), p, sc, sh);
+  AVEC_LAUNCH(relpos16_kernel, dim3(cdiv(sh.t, BT), dt, sh.b * sh.heads), sc, sh);
+  return launch_att16(bwd, lengths, p, sc, sh, scale, st);
+}
+
+cudaError_t run_fwd16(const void* x, const void* tab, const int* lengths, const Params& p,
+                      void* y, void* scratch, const Shape& sh, float eps, float scale,
+                      int residual, Drop dr, cudaStream_t st) {
+  Scratch16 sc;
+  carve16(static_cast<char*>(scratch), sh, false, &sc);
+  const bf16* xt = static_cast<const bf16*>(x);
+  const cudaError_t rc = run_core16(xt, nullptr, static_cast<const bf16*>(tab), lengths, p, sc,
+                                    sh, eps, scale, dr, st);
+  if (rc != cudaSuccess) return rc;
+  AVEC_LAUNCH(out_proj16_kernel, dim3(cdiv(sh.n, BT), cdiv(sh.d, BT)), xt, static_cast<bf16*>(y),
+              p, sc, sh, residual, dr);
+  return cudaSuccess;
+}
+
+cudaError_t run_bwd16(const void* x, const void* g, const void* tab, const int* lengths,
+                      const Params& p, void* dx, const Grads& gr, void* scratch, const Shape& sh,
+                      float eps, float scale, int residual, Drop dr, cudaStream_t st) {
+  Scratch16 sc;
+  carve16(static_cast<char*>(scratch), sh, true, &sc);
+  const bf16* xt = static_cast<const bf16*>(x);
+  const bf16* gt = static_cast<const bf16*>(g);
+  const cudaError_t rc = run_core16(xt, gt, static_cast<const bf16*>(tab), lengths, p, sc, sh,
+                                    eps, scale, dr, st);
+  if (rc != cudaSuccess) return rc;
+  const int nt = cdiv(sh.n, BT), dt = cdiv(sh.d, BT), ht = cdiv(sh.dh, BT), sq = dt * dt;
+  AVEC_LAUNCH(kv16_kernel, dim3(cdiv(sh.t, BT), ht, sh.b * sh.heads * 2), sc, sh);
+  AVEC_LAUNCH(weights16_kernel, dim3(4 * sq + sh.heads * ht * dt + nt * dt, sc.splits), gr, sc,
+              sh);
+  AVEC_LAUNCH(ln_bwd16_kernel, dim3(cdiv(sh.n, SUM_ROWS)), xt, gt, static_cast<bf16*>(dx), p, sc,
+              sh, residual, dr);
+  const int sum_blocks = cdiv(NSUMS * sh.d, THREADS / 32);
+  const int w_blocks = sc.splits > 1 ? cdiv(NW * sh.d * sh.d, THREADS) : 0;
+  AVEC_LAUNCH(reduce16_kernel, dim3(sum_blocks + w_blocks), gr, sc, sh, sum_blocks);
+  return cudaSuccess;
+}
+
 bool make_shape(Shape& sh, int b, int t, int d, int heads) {
   if (b <= 0 || t <= 0 || d <= 0 || heads <= 0 || d % heads != 0 || d % 2 != 0) return false;
   if ((long long)b * heads * 2 > 65535 || (long long)b * t > 4000000 ||
@@ -860,9 +1629,14 @@ bool make_shape(Shape& sh, int b, int t, int d, int heads) {
 
 // Number of fp32 scratch elements one call needs (0 for shapes the kernels do
 // not take).
-extern "C" long long avec_att_scratch_floats(int b, int t, int d, int heads, int backward) {
+extern "C" long long avec_att_scratch_floats(int b, int t, int d, int heads, int backward,
+                                             int is_bf16) {
   Shape sh;
   if (!make_shape(sh, b, t, d, heads)) return 0;
+  if (use_mma(sh, is_bf16)) {
+    Scratch16 sc;
+    return (long long)((carve16(nullptr, sh, backward != 0, &sc) + 3) / 4);
+  }
   return scratch_floats(sh, backward != 0);
 }
 
@@ -885,13 +1659,16 @@ extern "C" int avec_att_fwd(const void* x, const void* tab, const void* lengths,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* len = static_cast<const int*>(lengths);
   float* sc = static_cast<float*>(scratch);
+  if (use_mma(sh, is_bf16))
+    return run_fwd16(x, tab, len, p, y, sc, sh, eps, scale, residual, dr, st);
   if (is_bf16) return run_fwd<bf16>(x, tab, len, p, y, sc, sh, eps, scale, residual, dr, st);
   return run_fwd<float>(x, tab, len, p, y, sc, sh, eps, scale, residual, dr, st);
 }
 
 // g, dx: (b, t, d) in x's dtype; grads: twelve fp32 buffers in the order of
-// `Params` that the caller zeroed on the same stream (the kernels add into
-// them).
+// `Params` that the call writes whole: the tensor-core stages write each
+// element once; for the FMA stages, which add into them with atomics, the
+// call first zeroes them on the stream.
 extern "C" int avec_att_bwd(const void* x, const void* g, const void* tab, const void* lengths,
                             const void* const* params, void* dx, void* const* grads,
                             void* scratch, int b, int t, int d, int heads, float eps,
@@ -907,6 +1684,13 @@ extern "C" int avec_att_bwd(const void* x, const void* g, const void* tab, const
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* len = static_cast<const int*>(lengths);
   float* sc = static_cast<float*>(scratch);
+  if (use_mma(sh, is_bf16))
+    return run_bwd16(x, g, tab, len, p, dx, gr, sc, sh, eps, scale, residual, dr, st);
+  for (int i = 0; i < 12; ++i) {  // the weights sit at the even places from 2 on
+    const size_t count = i >= 2 && i % 2 == 0 ? (size_t)d * d : (size_t)d;
+    const cudaError_t rc = cudaMemsetAsync(grads[i], 0, count * sizeof(float), st);
+    if (rc != cudaSuccess) return rc;
+  }
   if (is_bf16)
     return run_bwd<bf16>(x, g, tab, len, p, dx, gr, sc, sh, eps, scale, residual, dr, st);
   return run_bwd<float>(x, g, tab, len, p, dx, gr, sc, sh, eps, scale, residual, dr, st);

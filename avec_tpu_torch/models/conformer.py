@@ -7,10 +7,12 @@ self_att_module.{norm,attention}, conv_module.layers.{0,1,3,4,6}, conv_res,
 norm; conformer_blocks.{i} and interctc_modules.{k} in the stack.
 
 Training mode (`nn.Module.train()`): the feed-forward module runs as one
-fused kernel (`ops/ffn.py`), the attention module as one fused kernel per
-direction (`ops/attention_module.py`) where `fused_att` is on, and the
-convolution module as two fused kernels per direction
-(`ops/conv_module.py`) where `fused_conv` is on; dropout follows the
+fused kernel per direction (`ops/ffn.py`) where `fused_ffn` is on, the
+attention module as one fused kernel per direction
+(`ops/attention_module.py`) where `fused_att` is on, and the convolution
+module as two fused kernels per direction (`ops/conv_module.py`) where
+`fused_conv` is on; the switches default to the JAX package's environment
+variables, so by default training runs the unfused layers; dropout follows the
 attention, convolution and feed-forward modules and opens the stack, the
 convolution module's BatchNorm uses batch statistics and the depthwise conv's
 bias is detached.
@@ -46,31 +48,42 @@ class FeedForwardModule(nn.Module):
     """Pre-norm FFN: LN(1e-6) -> Linear(d_ffn) -> swish -> drop -> Linear(d)
     -> drop (conformer.py:86).
 
-    In training mode a (B, T, d) input goes through the fused kernel of
+    With `fused_ffn` (None: the environment variable AVEC_TPU_FUSED_FFN) a
+    (B, T, d) input in training mode goes through the fused kernel of
     `ops/ffn.py` (the JAX gate of conformer.py:103-107: training, pre-norm,
     3-d input, Swish), with a 31-bit dropout seed drawn from
     `seed_generator`, a CPU `torch.Generator` set by the owning model; with a
     `process_group` (data-parallel training) through `fused_ffn_3d_dp`, which
-    offsets that seed per rank. Eval runs the unfused layers.
-    `use_kernel=False` routes the fused path through its plain version;
-    `regularize=False` turns dropout off."""
+    offsets that seed per rank. Otherwise, as the JAX package's default
+    training step does (conformer.py:130-139), and always in eval, it runs
+    the unfused layers with the generator's Dropout on the inner and outer
+    activations. `use_kernel=False` routes the fused path through its plain
+    version; `regularize=False` turns dropout off."""
 
-    def __init__(self, dim_model: int, dim_ffn: int, drop_rate: float = 0.1):
+    def __init__(self, dim_model: int, dim_ffn: int, drop_rate: float = 0.1,
+                 fused_ffn: Optional[bool] = None):
         super().__init__()
         self.layers = _indexed({0: LayerNorm(dim_model, 1e-6),
                                 1: Linear(dim_model, dim_ffn),
                                 4: Linear(dim_ffn, dim_model)})
         self.dropout = Dropout(drop_rate)
         self.drop_rate = drop_rate
+        self.fused_ffn = (_fused_ffn_enabled() if fused_ffn is None
+                          else bool(fused_ffn))
         self.use_kernel = True
         self.regularize = True
         self.seed_generator = None
         self.process_group = None
         self.training = False
 
+    def fused_eligible(self, ndim: int = 3) -> bool:
+        """Whether a training-mode call with an input of `ndim` axes takes
+        the fused kernels."""
+        return self.fused_ffn and ndim == 3
+
     def forward(self, x):
         norm, lin1, lin2 = (self.layers[k] for k in ("0", "1", "4"))
-        if self.training and x.ndim == 3:
+        if self.training and self.fused_eligible(x.ndim):
             rate = self.drop_rate if self.regularize else 0.0
             seed = _draw_seed(self.seed_generator) if rate > 0.0 else None
             fn, dp = _dp_route(fused_ffn_3d, fused_ffn_3d_dp,
@@ -81,6 +94,12 @@ class FeedForwardModule(nn.Module):
                       use_kernel=self.use_kernel, **dp)
         x = self.dropout(swish(lin1(norm(x))))
         return self.dropout(lin2(x))
+
+
+def _fused_ffn_enabled() -> bool:
+    """AVEC_TPU_FUSED_FFN=1 routes the feed-forward modules through the fused
+    kernels in training (conformer.py:75-83)."""
+    return os.environ.get("AVEC_TPU_FUSED_FFN", "") == "1"
 
 
 def _fused_att_enabled() -> bool:
@@ -278,11 +297,12 @@ class ConformerBlock(nn.Module):
                  att_params: dict, conv_stride: int = 1, kernel_size: int = 15,
                  conv_padding: str = "same", drop_rate: float = 0.1,
                  fused_att: Optional[bool] = None,
-                 fused_conv: Optional[bool] = None):
+                 fused_conv: Optional[bool] = None,
+                 fused_ffn: Optional[bool] = None):
         super().__init__()
         self.stride = conv_stride
         self.ff_module1 = FeedForwardModule(dim_model, dim_model * ff_ratio,
-                                            drop_rate)
+                                            drop_rate, fused_ffn)
         self.self_att_module = AttentionModule(dim_model, att_params,
                                                drop_rate, fused_att)
         self.conv_module = ConvolutionModule(dim_model, dim_expand, conv_stride,
@@ -292,7 +312,7 @@ class ConformerBlock(nn.Module):
                               stride=conv_stride)
                          if dim_model != dim_expand else None)
         self.ff_module2 = FeedForwardModule(dim_expand, dim_expand * ff_ratio,
-                                            drop_rate)
+                                            drop_rate, fused_ffn)
         self.norm = LayerNorm(dim_expand, 1e-6)
 
     def forward(self, x, mask=None, lengths=None):
@@ -325,7 +345,8 @@ class ConformerInterCTC(nn.Module):
                  ff_ratio: int = 4, conv_stride: int = 2,
                  conv_padding: str = "same", drop_rate: float = 0.1,
                  fused_att: Optional[bool] = None,
-                 fused_conv: Optional[bool] = None):
+                 fused_conv: Optional[bool] = None,
+                 fused_ffn: Optional[bool] = None):
         super().__init__()
         self.dropout = Dropout(drop_rate)
         dims = [dim_model] if isinstance(dim_model, int) else list(dim_model)
@@ -345,7 +366,7 @@ class ConformerInterCTC(nn.Module):
                     conv_stride=conv_stride if down else 1,
                     kernel_size=kernel_size, conv_padding=conv_padding,
                     drop_rate=drop_rate, fused_att=fused_att,
-                    fused_conv=fused_conv))
+                    fused_conv=fused_conv, fused_ffn=fused_ffn))
                 if i + 1 in set(interctc_blocks):
                     self.interctc_at.append(i)
                     inter.append(InterCTCResModule(dim_out, vocab_size))

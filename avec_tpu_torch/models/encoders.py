@@ -8,9 +8,9 @@ the AV encoder fuses both at 360-d and runs 5 more conformer blocks.
 
 Training mode (`nn.Module.train()`, the JAX `training=True`): SpecAugment
 after the fbank, batch statistics in every BatchNorm (audio stem, video stem,
-ResNet, convolution modules), dropout and the fused feed-forward kernels in
-the conformer stacks (and, with `fused_att` and `fused_conv`, the fused
-attention and convolution kernels).
+ResNet, convolution modules), dropout in the conformer stacks, and with
+`fused_ffn`, `fused_att` and `fused_conv` the fused feed-forward, attention
+and convolution kernels.
 The video stem trains in mode "2d" (plain PyTorch) or "pallas" (the BN + ReLU
 + pool kernel applied with batch statistics). In data-parallel training every
 BatchNorm takes the statistics of the global batch (the model's
@@ -115,7 +115,8 @@ class AudioEfficientConformerEncoder(nn.Module):
                  num_blocks: Sequence[int] = (5, 6, 5),
                  loss_prefix: str = "ctc", use_flash: bool = False,
                  fused_att: Optional[bool] = None,
-                 fused_conv: Optional[bool] = None):
+                 fused_conv: Optional[bool] = None,
+                 fused_ffn: Optional[bool] = None):
         super().__init__()
         n_mels, filters, dims, heads = 80, 180, [180, 256, 360], 4
         self.preprocessing = AudioPreprocessing(
@@ -129,7 +130,7 @@ class AudioEfficientConformerEncoder(nn.Module):
             dims, list(num_blocks), list(interctc_blocks), vocab_size,
             _att_params_audio(att_type, heads, use_flash),
             loss_prefix=loss_prefix, fused_att=fused_att,
-            fused_conv=fused_conv)
+            fused_conv=fused_conv, fused_ffn=fused_ffn)
         self.head = Linear(dims[-1], vocab_size) if include_head else None
 
     def forward(self, x, lengths):
@@ -153,7 +154,8 @@ class VisualEfficientConformerEncoder(nn.Module):
                  num_blocks: Sequence[int] = (6, 6), loss_prefix: str = "ctc",
                  stem_mode: Optional[str] = None,
                  fused_att: Optional[bool] = None,
-                 fused_conv: Optional[bool] = None):
+                 fused_conv: Optional[bool] = None,
+                 fused_ffn: Optional[bool] = None):
         super().__init__()
         dims = [256, 360]
         self.front_end = nn.ModuleDict({
@@ -164,7 +166,7 @@ class VisualEfficientConformerEncoder(nn.Module):
         self.back_end = ConformerInterCTC(
             dims, list(num_blocks), list(interctc_blocks), vocab_size, att,
             loss_prefix=loss_prefix, fused_att=fused_att,
-            fused_conv=fused_conv)
+            fused_conv=fused_conv, fused_ffn=fused_ffn)
         self.head = Linear(dims[-1], vocab_size) if include_head else None
 
     def forward(self, x, lengths):
@@ -190,25 +192,27 @@ class AudioVisualEfficientConformerEncoder(nn.Module):
                  f_num_blocks: int = 5, use_flash: bool = False,
                  stem_mode: Optional[str] = None,
                  fused_att: Optional[bool] = None,
-                 fused_conv: Optional[bool] = None):
+                 fused_conv: Optional[bool] = None,
+                 fused_ffn: Optional[bool] = None):
         super().__init__()
         dim = 360
         self.video_encoder = VisualEfficientConformerEncoder(
             include_head=False, vocab_size=vocab_size,
             interctc_blocks=v_interctc_blocks, num_blocks=v_num_blocks,
             loss_prefix="v_ctc", stem_mode=stem_mode, fused_att=fused_att,
-            fused_conv=fused_conv)
+            fused_conv=fused_conv, fused_ffn=fused_ffn)
         self.audio_encoder = AudioEfficientConformerEncoder(
             include_head=False, vocab_size=vocab_size,
             interctc_blocks=a_interctc_blocks, num_blocks=a_num_blocks,
             loss_prefix="a_ctc", use_flash=use_flash, fused_att=fused_att,
-            fused_conv=fused_conv)
+            fused_conv=fused_conv, fused_ffn=fused_ffn)
         self.fusion_module = FusionModule(dim, dim, dim)
         att = {"class": "RelPos1dMultiHeadAttention",
                "params": {"num_heads": 4}}
         self.audio_visual_encoder = ConformerInterCTC(
             dim, f_num_blocks, list(f_interctc_blocks), vocab_size, att,
-            loss_prefix="f_ctc", fused_att=fused_att, fused_conv=fused_conv)
+            loss_prefix="f_ctc", fused_att=fused_att, fused_conv=fused_conv,
+            fused_ffn=fused_ffn)
         self.head = Linear(dim, vocab_size) if include_head else None
 
     def forward(self, video, video_len, audio, audio_len):

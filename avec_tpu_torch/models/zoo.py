@@ -48,7 +48,8 @@ class AudioVisualEfficientConformerInterCTC(nn.Module):
                  a_num_blocks: Sequence[int] = (5, 6, 1),
                  f_num_blocks: int = 5, stem_mode: Optional[str] = None,
                  fused_att: Optional[bool] = None,
-                 fused_conv: Optional[bool] = None, device="cuda",
+                 fused_conv: Optional[bool] = None,
+                 fused_ffn: Optional[bool] = None, device="cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         device = resolve_device(device)
@@ -58,7 +59,7 @@ class AudioVisualEfficientConformerInterCTC(nn.Module):
             f_interctc_blocks=f_interctc_blocks, v_num_blocks=v_num_blocks,
             a_num_blocks=a_num_blocks, f_num_blocks=f_num_blocks,
             use_flash=use_flash, stem_mode=stem_mode, fused_att=fused_att,
-            fused_conv=fused_conv)
+            fused_conv=fused_conv, fused_ffn=fused_ffn)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         init_params(self, generator)
@@ -83,21 +84,28 @@ class AudioVisualEfficientConformerInterCTC(nn.Module):
 
     def set_generators(self, seed: int) -> None:
         """Seed the training noise: one generator on the model's device for
-        the dropout and SpecAugment masks, one on the CPU for the fused
-        kernels' integer seeds (drawn without a device sync). In
+        the dropout masks and SpecAugment's time masks, one on the CPU for
+        the fused kernels' integer seeds (drawn without a device sync), and
+        one on the model's device for SpecAugment's frequency bands. In
         data-parallel mode the first is offset by the rank, so ranks draw
-        different masks; the second is not, the fused kernels' wrappers
-        offset the seeds they draw per rank as the JAX DP wrappers do."""
+        different dropout and time masks; the other two are not: the fused
+        kernels' wrappers offset the seeds they draw per rank as the JAX DP
+        wrappers do, and every rank draws the same frequency bands for the
+        global batch, as the JAX step draws them once from one key
+        (audio.py:217-224)."""
         self.noise_seed = seed
         device = next(self.parameters()).device
         noise = torch.Generator(device=device).manual_seed(
             seed + _RANK_SEED_STRIDE * self.dp_rank)
         seeds = torch.Generator().manual_seed(seed + 1)
+        bands = torch.Generator(device=device).manual_seed(seed + 2)
         for m in self.modules():
             if hasattr(m, "generator"):
                 m.generator = noise
             if hasattr(m, "seed_generator"):
                 m.seed_generator = seeds
+            if hasattr(m, "band_generator"):
+                m.band_generator = bands
 
     def set_data_parallel(self, group=None) -> None:
         """Data-parallel training over the ranks of `group` (None: the
@@ -105,7 +113,7 @@ class AudioVisualEfficientConformerInterCTC(nn.Module):
         syncs its batch statistics over the group, the feed-forward,
         attention and convolution modules take their fused kernels' DP forms
         (the convolution module's is K3dp, with global statistics), and the
-        Dropout and SpecAugment generators are offset by the rank. The
+        Dropout and SpecAugment time-mask generator is offset by the rank. The
         "pallas" video stem computes single-device batch statistics
         (pallas_stem.py:38-42), so with more than one rank it raises
         ValueError: train with stem "2d"."""
@@ -124,9 +132,10 @@ class AudioVisualEfficientConformerInterCTC(nn.Module):
 
     def kernel_launches_per_step(self) -> Dict[str, int]:
         """Kernel launches of one training forward + backward, derived from
-        the module tree: every feed-forward module launches the fused forward
-        and backward once, every flash attention layer the flash forward and
-        both flash backward kernels once, every attention module that takes
+        the module tree: every feed-forward module that takes the fused
+        route launches the fused forward and backward once, every flash
+        attention layer the flash forward and both flash backward kernels
+        once, every attention module that takes
         the fused route (with the key-padding masks the encoders build) the
         fused attention forward and backward once, every convolution module
         that takes the fused route the four conv kernels (statistics,
@@ -141,7 +150,8 @@ class AudioVisualEfficientConformerInterCTC(nn.Module):
                                         flash_attention, stem)
 
         mods = list(self.modules())
-        n_ffn = sum(isinstance(m, FeedForwardModule) for m in mods)
+        n_ffn = sum(isinstance(m, FeedForwardModule) and m.fused_eligible()
+                    for m in mods)
         n_flash = sum(bool(getattr(m, "use_flash", False)) for m in mods)
         n_att = sum(isinstance(m, AttentionModule) and m.fused_eligible()
                     for m in mods)

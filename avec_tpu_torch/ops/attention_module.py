@@ -33,9 +33,15 @@ and a sequence of length 0 softmaxes uniformly over all T keys: the mask is
 an additive -1e9 on key columns only. The dropout mask is the counter hash of
 `ops/ffn.py:dropout_mask` with one tile per sequence
 (pallas_conv_module.py:72-87), the same in the forward, the backward, the
-plain version and the JAX kernel in interpret mode. The backward kernels add
-the parameter gradients into zeroed fp32 buffers with atomicAdd, so their
-last bits vary from run to run; dx is deterministic.
+plain version and the JAX kernel in interpret mode. For bf16 inputs of up to
+736 frames with heads of at most 128 (every training shape) the kernels run
+their products on the tensor cores, the backward's fp32 operands (dO, the
+softmax, ds and the rel-pos cotangent) at fp32 precision as three bf16
+parts, and write every parameter gradient with one owner per element, so
+the backward gives the same bits on every run. fp32 inputs, and other bf16
+ones, take the first version's fp32 FMA stages, which add the parameter
+gradients into zeroed fp32 buffers with atomicAdd, so their last bits vary
+from run to run; the two bf16 routes agree to fp32 summation order.
 """
 
 import ctypes
@@ -172,7 +178,7 @@ def _lib():
         fwd.argtypes = [vp] * 6 + tail
         bwd.argtypes = [vp] * 8 + tail
         fwd.restype = bwd.restype = ci
-        size.argtypes = [ci] * 5
+        size.argtypes = [ci] * 6
         size.restype = ctypes.c_longlong
     return fwd, bwd, size
 
@@ -218,15 +224,15 @@ class _FusedAttentionModule(torch.autograd.Function):
         x = x.detach()
         b, t, d = _check(x, params, lengths, num_heads)
         fwd, _, size = _lib()
-        count = size(b, t, d, num_heads, 0)
+        is_bf16 = int(x.dtype == torch.bfloat16)
+        count = size(b, t, d, num_heads, 0, is_bf16)
         _cuda.require(count > 0, f"shape {tuple(x.shape)} with {num_heads} "
                       "heads is outside the kernels' range")
         drop = bool(train and drop_rate > 0.0)
         thr, inv_keep = _threshold(1.0 - drop_rate) if drop else (0, 1.0)
         tail = (b, t, d, num_heads, float(ln_eps),
                 1.0 / math.sqrt(d // num_heads), int(bool(residual)),
-                int(drop), int(seed) & _M32, thr, inv_keep,
-                int(x.dtype == torch.bfloat16))
+                int(drop), int(seed) & _M32, thr, inv_keep, is_bf16)
         tab = _interleaved_table(t, d, x.dtype, x.device)
         scratch = torch.empty(count, dtype=torch.float32, device=x.device)
         y = torch.empty_like(x)
@@ -246,10 +252,10 @@ class _FusedAttentionModule(torch.autograd.Function):
         _, bwd, size = _lib()
         g = g.to(x.dtype).contiguous()
         tab = _interleaved_table(t, d, x.dtype, x.device)
-        scratch = torch.empty(size(b, t, d, num_heads, 1),
+        scratch = torch.empty(size(b, t, d, num_heads, 1, ctx.tail[-1]),
                               dtype=torch.float32, device=x.device)
         dx = torch.empty_like(x)
-        grads = [torch.zeros_like(p) for p in params]
+        grads = [torch.empty_like(p) for p in params]  # the call writes them
         rc = bwd(x.data_ptr(), g.data_ptr(), tab.data_ptr(),
                  lengths.data_ptr(), _pointers(params), dx.data_ptr(),
                  _pointers(grads), scratch.data_ptr(), *ctx.tail,

@@ -100,9 +100,13 @@ class SpecAugment(nn.Module):
     log-mels: mF frequency masks of width 0..F shared by the batch, and for
     each sample mT time masks of width 0..floor(pS * length) placed inside
     its valid frames; masked entries become 0. Active in training mode only
-    (and only while `regularize`). Draws come from `generator`, a
-    `torch.Generator` on x's device set by the owning model; its stream is
-    not JAX's, so only the masks' statistics match the JAX package."""
+    (and only while `regularize`). The frequency bands are drawn from
+    `band_generator` (None: `generator`) and the time masks from
+    `generator`, `torch.Generator`s on x's device set by the owning model:
+    in data-parallel training the first is the same on every rank, so the
+    global batch gets one set of bands as in the JAX step, and the second is
+    offset by the rank. Their streams are not JAX's, so only the masks'
+    statistics match the JAX package."""
 
     def __init__(self, mF: int = 2, F: int = 27, mT: int = 5,
                  pS: float = 0.05):
@@ -110,21 +114,24 @@ class SpecAugment(nn.Module):
         self.mF, self.F, self.mT, self.pS = mF, F, mT, pS
         self.regularize = True
         self.generator = None
+        self.band_generator = None
         self.training = False
 
     def keep_mask(self, b: int, n_mels: int, t: int, lengths) -> torch.Tensor:
         """(B, n_mels, T) boolean mask of the entries that stay."""
         dev = lengths.device
+        bands = (self.band_generator if self.band_generator is not None
+                 else self.generator)
 
-        def uniform(*shape):
-            return torch.rand(shape, generator=self.generator, device=dev)
+        def uniform(*shape, generator=self.generator):
+            return torch.rand(shape, generator=generator, device=dev)
 
         keep = torch.ones((b, n_mels, t), dtype=torch.bool, device=dev)
         freq = torch.arange(n_mels, device=dev)
         for _ in range(self.mF):
-            width = (uniform() * (self.F + 1)).long()
+            width = (uniform(generator=bands) * (self.F + 1)).long()
             room = torch.clamp(n_mels - width, min=0)
-            start = (uniform() * (room + 1).float()).long()
+            start = (uniform(generator=bands) * (room + 1).float()).long()
             keep &= ~((freq >= start) & (freq < start + width))[None, :, None]
         time = torch.arange(t, device=dev)[None, :]
         lens = lengths.long()

@@ -15,9 +15,11 @@ hands its parameters over without a transposed copy (the JAX function takes
 The dropout masks are a pure function of (seed, row, column, draw): the
 counter hash of pallas_ffn.py:76-108 (murmur3 finaliser), written per global
 row. The kernels and the plain version regenerate the same masks, which are
-also those of the JAX kernel in interpret mode. The backward kernel adds its
-weight and bias gradients into zeroed fp32 buffers with atomicAdd, so their
-last bits vary from run to run; dx is deterministic.
+also those of the JAX kernel in interpret mode. The bf16 backward writes
+every gradient with one owner per element and sums in a fixed order, so it
+gives the same bits on every run; it needs a scratch buffer (`bwd_scratch`).
+The fp32 backward adds its weight and bias gradients into zeroed fp32
+buffers with atomicAdd, so their last bits vary from run to run there.
 """
 
 import ctypes
@@ -96,14 +98,26 @@ def fused_ffn_reference(x, ln_w, ln_b, w1, b1, w2, b2, seed: int = 0,
 def _lib():
     lib = _cuda.library("ffn")
     fwd, bwd = lib.avec_ffn_fwd, lib.avec_ffn_bwd
+    size = lib.avec_ffn_bwd_scratch_bytes
     if fwd.argtypes is None:
         vp, ci, cu, cf = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                           ctypes.c_float)
         tail = [ci, ci, ci, cf, ci, cu, cu, cf, ci, vp]
         fwd.argtypes = [vp] * 8 + tail
-        bwd.argtypes = [vp] * 14 + tail
+        bwd.argtypes = [vp] * 15 + tail
         fwd.restype = bwd.restype = ci
-    return fwd, bwd
+        size.argtypes = [ci] * 4
+        size.restype = ctypes.c_longlong
+    return fwd, bwd, size
+
+
+def bwd_scratch(x: torch.Tensor, f: int) -> torch.Tensor:
+    """The backward kernel's scratch for (N, d) tokens `x` and hidden width
+    `f`: a byte buffer on x's device (empty for fp32, whose kernel needs
+    none)."""
+    n, d = x.shape
+    size = _lib()[2](n, d, f, int(x.dtype == torch.bfloat16))
+    return torch.empty(size, dtype=torch.uint8, device=x.device)
 
 
 def _check(x, params):
@@ -154,12 +168,14 @@ class _FusedFFN(torch.autograd.Function):
         x, ln_w, ln_b, w1, b1, w2, b2 = ctx.saved_tensors
         g = g.to(x.dtype).contiguous()
         dx = torch.empty_like(x)
-        grads = [torch.zeros_like(p) for p in (ln_w, ln_b, w1, b1, w2, b2)]
+        grads = [torch.empty_like(p)  # the call writes them
+                 for p in (ln_w, ln_b, w1, b1, w2, b2)]
+        scratch = bwd_scratch(x, w1.shape[0])
         rc = _lib()[1](x.data_ptr(), g.data_ptr(), ln_w.data_ptr(),
                        ln_b.data_ptr(), w1.data_ptr(), b1.data_ptr(),
                        w2.data_ptr(), dx.data_ptr(),
-                       *(t.data_ptr() for t in grads), *ctx.tail,
-                       _cuda.stream_ptr(x))
+                       *(t.data_ptr() for t in grads), scratch.data_ptr(),
+                       *ctx.tail, _cuda.stream_ptr(x))
         _cuda.check(rc, KERNEL_BWD)
         _cuda.launches[KERNEL_BWD] += 1
         return (dx, *grads, None, None, None, None)

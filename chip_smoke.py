@@ -9,7 +9,8 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phases, in order; any failure raises and the exit code is non-zero:
  1. device and build: require CUDA, print the card's name and power limit,
-    build the CUDA kernels from `avec_tpu_torch/csrc` (nvcc, sm_90a);
+    build the CUDA kernels from `avec_tpu_torch/csrc` (nvcc, sm_90a) and
+    print each kernel's registers and spill bytes as ptxas reports them;
  2. each kernel against its plain PyTorch version at the serving shapes, in
     fp32 (max abs <= 1e-4) and bf16 (flash <= 2e-2, stem exact);
  3. serving at full width: the reference-depth AV model (61.7M params,
@@ -30,7 +31,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
     parameter gradients, atomic sums over thousands of rows); bf16 2e-2 and
     3e-2;
  6. training at full width: the same 61.7M-parameter model, use_flash, fused
-    FFN, stem "2d", bf16 compute on fp32 parameters, B=16 utterances of
+    FFN (`fused_ffn=True`), stem "2d", bf16 compute on fp32 parameters, B=16 utterances of
     3-6 s in 6 s of padding (151 frames of 88x88, 32 labels), dropout 0.1 and
     SpecAugment on: 1 warm-up + 3 counted steps. Losses and gradient norm
     must be finite, every parameter must have a gradient, at least 99% of
@@ -42,7 +43,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
     largest entry, every BN running statistic within 1e-5;
  7. train-step time, utterances/s and peak memory with the kernels and with
     their plain versions (interleaved), and each training kernel's time at
-    the step's shapes beside its bound, plain version and library call.
+    the step's shapes beside its bound, plain version and library call (for
+    K1 / K1b the port's own unfused feed-forward module, the `fused_ffn=False`
+    route, forward and backward).
  8. the fused attention module's kernels (K2 forward, K2b backward) against
     the plain version at (B, T, d, H) = (16, 151, 256, 4) and (16, 76, 360,
     4), fp32 and bf16, lengths from T down to 1 and one 0, dropout 0 and 0.1
@@ -54,11 +57,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
     var, the gradients of the conv weight, BN scale and BN bias, and a
     conv-bias gradient of exactly zero;
 10. training at full width through those kernels: fused attention, fused
-    FFN, stem "pallas", use_flash off: the launch counts per step must be 19
-    + 19 attention, 48 + 48 FFN, 1 stem and no flash; 1 warm-up + 3 counted
-    steps with the checks of phase 6; then fp32 kernels against plain
-    versions (loss 1e-5, gradient norm 1e-3, every leaf 2e-3, BN statistics
-    1e-5);
+    FFN (both switched on explicitly), stem "pallas", use_flash off: the
+    launch counts per step must be 19 + 19 attention, 48 + 48 FFN, 1 stem
+    and no flash; 1 warm-up + 3 counted steps with the checks of phase 6;
+    then fp32 kernels against plain versions (loss 1e-5, gradient norm
+    1e-3, every leaf 2e-3, BN statistics 1e-5);
 11. step time, utterances/s and peak memory of that path and of phase 6's
     path, interleaved in this one call, and the attention kernels' times per
     launch and per step beside their bounds, the plain version and the
@@ -71,11 +74,12 @@ Phases, in order; any failure raises and the exit code is non-zero:
     over the largest entry; fp32 1e-4 (y, mean, var) and 5e-4 (gradients),
     bf16 2e-2 and 3e-2; the depthwise-bias gradient exactly zero;
 13. training at full width through all the training kernels: fused
-    convolution module, fused attention, fused FFN, stem "pallas", use_flash
-    off: the launch counts per step must be 21 of each conv kernel, 19 + 19
-    attention, 48 + 48 FFN, 1 stem and no flash; 1 warm-up + 3 counted steps
-    with the checks of phase 6; then fp32 kernels against plain versions
-    (loss 1e-5, gradient norm 1e-3, every leaf 2e-3, BN statistics 1e-5);
+    convolution module, fused attention, fused FFN (all three switched on
+    explicitly), stem "pallas", use_flash off: the launch counts per step
+    must be 21 of each conv kernel, 19 + 19 attention, 48 + 48 FFN, 1 stem
+    and no flash; 1 warm-up + 3 counted steps with the checks of phase 6;
+    then fp32 kernels against plain versions (loss 1e-5, gradient norm
+    1e-3, every leaf 2e-3, BN statistics 1e-5);
 14. K3 / K3b times per launch and per step beside their bounds, the plain
     stages and the port's own unfused convolution module (PyTorch library
     calls), and step time, utterances/s and peak memory of phase 13's path
@@ -114,6 +118,7 @@ to chiprun_out/chip_smoke.json.
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -146,6 +151,47 @@ def gpu_line() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout
     return out.strip().splitlines()[0]
+
+
+def kernel_name(mangled: str) -> str:
+    """The kernel's own name in an Itanium-mangled symbol (its last
+    length-prefixed name component), with its template arguments, still
+    mangled, in brackets."""
+    i = 3 if mangled.startswith("_ZN") else 0
+    names = []
+    while True:
+        m = re.match(r"\d+", mangled[i:])
+        if not m:
+            break
+        i += len(m.group())
+        names.append(mangled[i:i + int(m.group())])
+        i += int(m.group())
+    name = names[-1] if names else mangled
+    if mangled[i:i + 1] == "I":
+        name += "<" + mangled[i + 1:].split("EE")[0] + ">"
+    return name
+
+
+def ptxas_summary(build_log) -> dict:
+    """{source: {kernel: (registers, spill store bytes, spill load bytes)}}
+    from nvcc's -Xptxas -v output."""
+    out = {}
+    for src, text in build_log.items():
+        kern, stores, loads = None, 0, 0
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                kern = kernel_name(m.group(1))
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m:
+                stores, loads = int(m.group(1)), int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and kern is not None:
+                out.setdefault(src, {})[kern] = (int(m.group(1)), stores, loads)
+                kern, stores, loads = None, 0, 0
+    return out
 
 
 def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -254,10 +300,11 @@ def main() -> int:
     _cuda.build()
     build_s = time.perf_counter() - t0
     log(f"build: {build_s:.2f} s")
-    for src, out in _cuda.build_log.items():
-        for line in out.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {src}: {line.strip()}")
+    detail["ptxas"] = ptxas_summary(_cuda.build_log)
+    for src, kernels_ in detail["ptxas"].items():
+        for name, (regs, spill_st, spill_ld) in kernels_.items():
+            log(f"  ptxas {src} {name}: {regs} registers, {spill_st} bytes "
+                f"spill stores, {spill_ld} bytes spill loads")
     detail["build_s"] = build_s
     detail["build_log"] = dict(_cuda.build_log)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -715,10 +762,12 @@ def training_phases(detail, profile: bool):
     """Phases 5-7; returns the four training kernels' entries."""
     import torch.nn.functional as F
 
+    from avec_tpu_torch.models.conformer import FeedForwardModule
     from avec_tpu_torch.ops.ffn import KERNEL_BWD, KERNEL_FWD, fused_ffn
     from avec_tpu_torch.ops.flash_attention import (
         KERNEL_DKV, KERNEL_DQ, flash_attention_bwd,
         flash_attention_bwd_reference, flash_attention_fwd)
+    from avec_tpu_torch.ops.layers import init_params
     from avec_tpu_torch.train.losses import CTCLoss
     from avec_tpu_torch.train.model import Trainer
 
@@ -794,7 +843,7 @@ def training_phases(detail, profile: bool):
     # ---- 6. training at full width
     trainer = Trainer(device="cuda", precision="bfloat16", seed=0,
                       vocab_size=256, use_flash=True, stem_mode="2d",
-                      loss=CTCLoss(zero_infinity=True))
+                      fused_ffn=True, loss=CTCLoss(zero_infinity=True))
     model = trainer.model
     n_params = sum(p.numel() for p in model.parameters())
     batch = make_train_batch(np.random.RandomState(0))
@@ -847,25 +896,46 @@ def training_phases(detail, profile: bool):
             raise AssertionError("direct backward launch disagrees with the "
                                  "wrapper's")
 
+        # the library yardstick: the port's own unfused module on the same
+        # input (the `fused_ffn=False` route: LN, Linear, swish, dropout,
+        # Linear, dropout through PyTorch's library calls)
+        unfused = init_params(FeedForwardModule(d, f, 0.1, fused_ffn=False),
+                              torch.Generator().manual_seed(3)).to(dev).train()
+
+        def lib(backward: bool):
+            if backward:
+                xl = x[None].detach().requires_grad_(True)
+                unfused(xl).backward(g[None])
+            else:
+                with torch.no_grad():
+                    unfused(x[None])
+
         t_f, t_fp = cuda_time_ms(lambda: fwd(True)), cuda_time_ms(
             lambda: fwd(False))
         t_b = time_ffn_bwd_kernel(x, g, params, 0.1, 77)
         t_bp = cuda_time_ms(lambda: both(False)) - t_fp
+        t_fl = cuda_time_ms(lambda: lib(False))
+        t_bl = cuda_time_ms(lambda: lib(True)) - t_fl
         fb, fo, bb, bo = ffn_cost(n, d, f, 2)
         log(f"fused_ffn N={n} d={d} F={f} x{count}: fwd {t_f:.4f} ms (plain "
-            f"{t_fp:.4f}, bound {bound(fb, fo, 'bf16')[0]:.5f}); bwd "
-            f"{t_b:.4f} ms (plain {t_bp:.4f}, bound "
+            f"{t_fp:.4f}, unfused module {t_fl:.4f}, bound "
+            f"{bound(fb, fo, 'bf16')[0]:.5f}); bwd {t_b:.4f} ms (plain "
+            f"{t_bp:.4f}, unfused module {t_bl:.4f}, bound "
             f"{bound(bb, bo, 'bf16')[0]:.5f})")
         detail[f"ffn_N{n}_d{d}"] = {"count": count, "fwd_ms": t_f,
-                                    "fwd_plain_ms": t_fp, "bwd_ms": t_b,
-                                    "bwd_plain_ms": t_bp}
-        for key, ms, pms, nb, no in ((KERNEL_FWD, t_f, t_fp, fb, fo),
-                                     (KERNEL_BWD, t_b, t_bp, bb, bo)):
+                                    "fwd_plain_ms": t_fp,
+                                    "fwd_library_ms": t_fl, "bwd_ms": t_b,
+                                    "bwd_plain_ms": t_bp,
+                                    "bwd_library_ms": t_bl}
+        for key, ms, pms, lms, nb, no in (
+                (KERNEL_FWD, t_f, t_fp, t_fl, fb, fo),
+                (KERNEL_BWD, t_b, t_bp, t_bl, bb, bo)):
             acc[key]["ms"] += count * ms
             acc[key]["plain_ms"] += count * pms
+            acc[key]["library_ms"] += count * lms
             acc[key]["bytes"] += count * nb
             acc[key]["ops"] += count * no
-        del x, g, params
+        del x, g, params, unfused
     for (t, d_model, lens), count in sorted(flash_shapes.items()):
         q, k, v, lt, scale = flash_inputs(16, t, d_model, lens,
                                           torch.bfloat16, seed=9)
@@ -923,13 +993,12 @@ def training_phases(detail, profile: bool):
     entries = []
     for key, (src, replaces) in sources.items():
         b_ms, b_by = bound(acc[key]["bytes"], acc[key]["ops"], "bf16")
-        flash = key in (KERNEL_DQ, KERNEL_DKV)
         entries.append({
             "name": key, "route": "cuda", "source": src, "replaces": replaces,
             "launches": train_launches[key], "max_abs_err": abs_errs[key],
             "ms": acc[key]["ms"], "plain_ms": acc[key]["plain_ms"],
             "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": acc[key]["library_ms"] if flash else None})
+            "library_ms": acc[key]["library_ms"]})
     return entries, trainer, batch
 
 
@@ -996,8 +1065,9 @@ def time_att_bwd_kernel(x, g, params, heads, lens, drop, seed):
     _, bwd, size = am._lib()
     thr, inv_keep = _threshold(1.0 - drop)
     tab = am._interleaved_table(t, d, x.dtype, x.device)
-    scratch = torch.empty(size(b, t, d, heads, 1), dtype=torch.float32,
-                          device=x.device)
+    scratch = torch.empty(size(b, t, d, heads, 1,
+                               int(x.dtype == torch.bfloat16)),
+                          dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
     grads = [torch.zeros_like(p) for p in params]
     pp, gp = am._pointers(params), am._pointers(grads)
@@ -1172,7 +1242,8 @@ def fused_phases(detail, profile: bool, trainer2, batch):
     # ---- 10. the fused-attention train path at full width
     trainer = Trainer(device="cuda", precision="bfloat16", seed=0,
                       vocab_size=256, use_flash=False, stem_mode="pallas",
-                      fused_att=True, loss=CTCLoss(zero_infinity=True))
+                      fused_att=True, fused_ffn=True,
+                      loss=CTCLoss(zero_infinity=True))
     model = trainer.model
     per_step = model.kernel_launches_per_step()
     log(f"train (fused attention, stem pallas, no flash): launches per step "
@@ -1492,7 +1563,7 @@ def conv_phases(detail, profile: bool, trainer_att, batch):
     # ---- 13. the path through every training kernel at full width
     trainer = Trainer(device="cuda", precision="bfloat16", seed=0,
                       vocab_size=256, use_flash=False, stem_mode="pallas",
-                      fused_att=True, fused_conv=True,
+                      fused_att=True, fused_conv=True, fused_ffn=True,
                       loss=CTCLoss(zero_infinity=True))
     model = trainer.model
     per_step = model.kernel_launches_per_step()
@@ -1622,7 +1693,7 @@ def conv_phases(detail, profile: bool, trainer_att, batch):
 
 DP_RANKS = 2                       # gloo ranks sharing the one card
 DP_ROUTE = dict(use_flash=False, stem_mode="2d", fused_att=True,
-                fused_conv=True)
+                fused_conv=True, fused_ffn=True)
 DP_WANT_STEPS = {"fused_att_fwd": 19, "fused_att_bwd": 19,
                  "fused_ffn_fwd": 48, "fused_ffn_bwd": 48,
                  "fused_conv_dp_stats": 21, "fused_conv_dp_fwd": 21,
@@ -2066,10 +2137,11 @@ def time_ffn_bwd_kernel(x, g, params, drop, seed, check: bool = False):
     thr, inv_keep = ffn._threshold(1.0 - drop)
     dx = torch.empty_like(x)
     grads = [torch.zeros_like(p) for p in params]
+    scratch = ffn.bwd_scratch(x, f)
     args = (x.data_ptr(), g.data_ptr(), *(p.data_ptr() for p in params[:5]),
-            dx.data_ptr(), *(t.data_ptr() for t in grads), n, d, f, 1e-6, 1,
-            seed, thr, inv_keep, int(x.dtype == torch.bfloat16),
-            _cuda.stream_ptr(x))
+            dx.data_ptr(), *(t.data_ptr() for t in grads), scratch.data_ptr(),
+            n, d, f, 1e-6, 1, seed, thr, inv_keep,
+            int(x.dtype == torch.bfloat16), _cuda.stream_ptr(x))
     bwd = ffn._lib()[1]
 
     def launch():
@@ -2118,7 +2190,10 @@ def _category(name: str) -> str:
            "grad_wo_kernel", "datt_ds_kernel", "grad_kv_kernel",
            "grad_relpos_u_kernel", "grad_q_kernel", "grad_pos_kernel",
            "grad_w_qkv_kernel", "grad_h_kernel", "ln_bwd_kernel",
-           "col_sums_kernel")
+           "col_sums_kernel", "cast16_kernel", "ln_h16_kernel",
+           "qkv16_kernel", "relpos16_kernel", "att16_kernel",
+           "out_proj16_kernel", "kv16_kernel", "weights16_kernel",
+           "ln_bwd16_kernel", "reduce16_kernel")
     for cat, keys in (("fused attention module kernels (K2 + K2b)", att),
                       ("flash kernel (K4)", ("flash_fwd_kernel",)),
                       ("flash backward kernels (K4b)", ("flash_bwd_",)),

@@ -16,8 +16,9 @@ values); whole-model fp32 logits 2e-3. FFN: fp32 1e-4 for y and dx and 3e-4
 of the largest entry for the parameter gradients (atomic sums over all rows);
 bf16 2e-2 / 3e-2 of the largest entry. Flash backward: fp32 1e-4, bf16 3e-2
 of the largest entry. Attention module: fp32 1e-4 for y and 5e-4 for dx and
-the parameter gradients, bf16 2e-2 / 3e-2, all of the largest entry; dropout
-masks identical entry by entry. Train-mode stem, kernel route against plain
+the parameter gradients, bf16 2e-2 / 3e-2, all of the largest entry, and
+the bf16 parameter gradients within 2e-3 as well (the backward's fp32
+operands kept at fp32 precision); dropout masks identical entry by entry. Train-mode stem, kernel route against plain
 route: fp32 1e-5 (pooled, mean, var) and 1e-4 of the largest entry
 (gradients); bf16 exact forward, gradients 1e-2 (atomic-free library sums in
 another order); conv-bias gradient exactly zero. Convolution module, kernels
@@ -299,7 +300,12 @@ def test_model_kernel_path_matches_plain_path(cuda_device):
     (16 * 301, 180, 720),    # audio stage 0 of a 6 s batch
     (16 * 151, 256, 1024),   # audio stage 1 and video stage 0
     (16 * 76, 360, 1440),    # the 360-wide stages
+    (16 * 301 - 5, 180, 720),   # N no multiple of the backward's 64-row tile
+    (16 * 151 - 5, 256, 1024),
+    (16 * 76 - 5, 360, 1440),
+    (40, 256, 1024),         # N below one row tile
     (77, 20, 70),            # no multiple of any tile
+    (90, 17, 24),            # odd d: rows not 4-byte aligned
 ])
 def test_ffn_kernels_match_plain(cuda_device, dtype, tol, wtol, drop, n, d, f):
     x, params = _ffn_inputs(cuda_device, dtype, n, d, f)
@@ -324,11 +330,32 @@ def test_ffn_kernels_match_plain(cuda_device, dtype, tol, wtol, drop, n, d, f):
         outs.append(y.detach())
         store.extend(t.grad.clone() for t in leaves)
     assert outs[0].dtype == dtype
+    if drop:
+        assert torch.equal(outs[0] == 0, outs[1] == 0)   # the same hash masks
     assert _rel(outs[0], outs[1]) <= tol
     assert _rel(got_grads[0], want_grads[0]) <= tol
     for got, want in zip(got_grads[1:], want_grads[1:]):
         assert got.dtype == torch.float32
         assert _rel(got, want) <= wtol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,f", [(16 * 301, 180, 720),
+                                   (16 * 76 - 5, 360, 1440)])
+def test_ffn_bf16_backward_is_deterministic(cuda_device, n, d, f):
+    """The bf16 backward sums every gradient in a fixed order (no atomics):
+    two calls give the same bits."""
+    x, params = _ffn_inputs(cuda_device, torch.bfloat16, n, d, f)
+    g = torch.randn(n, d, generator=torch.Generator().manual_seed(3)).to(
+        cuda_device, torch.bfloat16)
+    runs = []
+    for _ in range(2):
+        leaves = [t.detach().requires_grad_(True) for t in [x] + params]
+        fused_ffn(leaves[0], *leaves[1:], 1234, 1e-6, 0.1, True).backward(g)
+        runs.append([t.grad.clone() for t in leaves])
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -388,7 +415,7 @@ def test_train_step_kernel_path_matches_plain_path(cuda_device):
                       vocab_size=32, v_num_blocks=(2, 1),
                       a_num_blocks=(2, 2, 1), f_num_blocks=2,
                       v_interctc_blocks=(2,), a_interctc_blocks=(2, 4),
-                      f_interctc_blocks=(1,), use_flash=True)
+                      f_interctc_blocks=(1,), use_flash=True, fused_ffn=True)
     rng = np.random.RandomState(0)
     alen = np.array([27200, 16000], np.int32)
     batch = {"inputs": [rng.rand(2, 43, 88, 88, 1).astype(np.float32),
@@ -429,6 +456,10 @@ def test_train_step_kernel_path_matches_plain_path(cuda_device):
                       1, 0]),                # the 360-wide stages, d_head 90
     (3, 37, 20, 2, [37, 0, 5]),              # no multiple of any tile
     (2, 70, 24, 4, None),                    # no lengths, two query tiles
+    (4, 200, 256, 4, [200, 130, 1, 0]),      # 4 query tiles, the last ragged
+    (4, 99, 180, 4, [99, 50, 1, 0]),         # d_head 45 (the 180-wide stage)
+    (2, 330, 32, 2, [330, 3]),               # six key tiles
+    (1, 740, 32, 2, [740]),                  # past the tensor-core stages' 736
 ])
 def test_attention_module_kernels_match_plain(cuda_device, dtype, tol, wtol,
                                               drop, residual, b, t, d, heads,
@@ -471,6 +502,59 @@ def test_attention_module_kernels_match_plain(cuda_device, dtype, tol, wtol,
             continue          # the key bias: analytically zero, noise only
         assert _rel(got, want) <= (tol if name == "x" and dtype
                                    == torch.bfloat16 else wtol), name
+
+
+@pytest.mark.cuda
+def test_attention_module_bf16_backward_is_deterministic(cuda_device):
+    """The bf16 backward has one owner per gradient element and sums in a
+    fixed order (no atomics): two calls give the same bits."""
+    x, g, params = _att_inputs(cuda_device, torch.bfloat16, 16, 151, 256)
+    lens = torch.tensor([151, 120, 77, 1] * 4, device=cuda_device)
+    runs = []
+    for _ in range(2):
+        leaves = [a.detach().requires_grad_(True) for a in [x] + params]
+        fused_attention_module_3d(
+            leaves[0], *leaves[1:], num_heads=4, lengths=lens, seed=99,
+            drop_rate=0.1, deterministic=False).backward(g)
+        runs.append([a.grad.clone() for a in leaves])
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,d,heads,lengths", [
+    (16, 151, 256, 4, [151, 140, 133, 120, 111, 99, 90, 88, 77, 64, 50, 33,
+                       17, 2, 1, 0]),
+    (16, 76, 360, 4, [76, 70, 67, 60, 56, 50, 45, 44, 39, 32, 25, 17, 9, 2,
+                      1, 0]),
+    (4, 200, 256, 4, [200, 130, 1, 0]),
+    (2, 330, 32, 2, [330, 3]),
+    (1, 740, 32, 2, [740]),                  # the FMA stages
+])
+def test_attention_module_bf16_backward_keeps_fp32_operands(
+        cuda_device, b, t, d, heads, lengths):
+    """The TPU kernel's backward multiplies dO = g Wo, the softmax, ds and
+    the rel-pos cotangent unrounded; the bf16 backward keeps them at fp32's
+    precision too, so its parameter gradients stay within 2e-3 of the plain
+    version's largest entry (rounding those operands to bf16 passes that
+    bound at the step's shapes)."""
+    x, g, params = _att_inputs(cuda_device, torch.bfloat16, b, t, d)
+    lens = torch.tensor(lengths, device=cuda_device)
+    grads = []
+    for use_kernel in (True, False):
+        leaves = [a.detach().requires_grad_(True) for a in [x] + params]
+        fused_attention_module_3d(
+            leaves[0], *leaves[1:], num_heads=heads, lengths=lens, seed=99,
+            drop_rate=0.1, deterministic=False, residual=False,
+            use_kernel=use_kernel).backward(g)
+        grads.append([a.grad for a in leaves[1:]])
+    torch.cuda.synchronize()
+    gmax = max(float(a.abs().max()) for a in grads[1])
+    errs = {name: _rel(got, want)
+            for name, got, want in zip(ATT_NAMES[1:], *grads)
+            if float(want.abs().max()) > 1e-6 * gmax}
+    assert max(errs.values()) <= 2e-3, errs
 
 
 @pytest.mark.cuda

@@ -200,6 +200,22 @@ def pallas_stem_dp_rank(device, model_kwargs):
     return "constructed"
 
 
+def specaugment_rank(device, model_kwargs, draws):
+    """The SpecAugment of a data-parallel AV model on this rank, training
+    mode: the entries its keep masks drop in `draws` calls on one set of
+    lengths, (draws, 3, 80, 120) booleans."""
+    torch.set_num_threads(1)
+    from avec_tpu_torch.models.zoo import AudioVisualEfficientConformerInterCTC
+
+    model = AudioVisualEfficientConformerInterCTC(device="cpu", **model_kwargs)
+    model.set_data_parallel()
+    model.set_generators(7)
+    aug = model.encoder.audio_encoder.spec_augment.train()
+    lengths = torch.tensor([120, 90, 60])
+    return np.stack([(~aug.keep_mask(3, 80, 120, lengths)).numpy()
+                     for _ in range(draws)])
+
+
 # ---- tests of the process-group layer
 
 def _host_batch():
@@ -278,3 +294,19 @@ def test_backend_is_named_explicitly():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="nccl"):
             pdist.init_distributed("nccl", 1, 0, "file:///nonexistent")
+
+
+def test_specaugment_bands_agree_across_ranks():
+    """Data-parallel training draws one set of frequency bands for the
+    global batch (the JAX step draws them once from one key): every rank
+    masks the same bands in every draw, while each rank draws its own time
+    masks."""
+    small = dict(vocab_size=32, v_num_blocks=[1, 1], a_num_blocks=[1, 1, 1],
+                 f_num_blocks=1, v_interctc_blocks=[1], a_interctc_blocks=[1],
+                 f_interctc_blocks=[1])
+    masks = pdist.spawn(specaugment_rank, 2, "gloo", "cpu", small, 6)
+    bands = [m.all(axis=3) for m in masks]     # rows dropped at every frame
+    assert bands[0].any() and np.array_equal(bands[0], bands[1])
+    assert np.array_equal(bands[0], bands[0][:, :1].repeat(3, axis=1))
+    assert len({b.tobytes() for b in bands[0]}) > 1    # new bands each draw
+    assert not np.array_equal(masks[0], masks[1])      # time masks per rank

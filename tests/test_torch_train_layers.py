@@ -160,6 +160,70 @@ def test_specaugment_mask_counts_and_widths():
     assert torch.equal(aug.eval()(x, lengths), x)
 
 
+def test_specaugment_band_statistics_match_jax():
+    """Frequency bands come from `band_generator` alone, time masks from
+    `generator`: two time-mask streams give the same bands. Over 400 draws
+    the count of masked mel rows per draw keeps the JAX package's range
+    (0 .. mF F) and mean (within 4 standard errors of the difference)."""
+    from avec_tpu.ops.audio import SpecAugment as JaxSpecAugment
+
+    b, n_mels, tt, draws = 2, 80, 50, 400
+    lengths = torch.tensor([50, 30])
+
+    def port_masks(time_seed):
+        aug = SpecAugment(mF=2, F=27, mT=5, pS=0.05).train()
+        aug.band_generator = torch.Generator().manual_seed(11)
+        aug.generator = torch.Generator().manual_seed(time_seed)
+        return torch.stack([~aug.keep_mask(b, n_mels, tt, lengths)
+                            for _ in range(draws)])
+
+    m1, m2 = port_masks(1), port_masks(2)
+    assert torch.equal(m1.all(dim=3), m2.all(dim=3))
+    assert not torch.equal(m1, m2)
+    port = m1[:, 0].all(dim=2).sum(dim=1).double().numpy()
+    jaug = JaxSpecAugment(mF=2, F=27, mT=5, pS=0.05)
+    x = jnp.ones((b, n_mels, tt), jnp.float32)
+    keys = jax.random.split(jax.random.PRNGKey(0), draws)
+    y = jax.vmap(lambda k: jaug(x, jnp.asarray(lengths.numpy()), k))(keys)
+    ref = np.asarray((y[:, 0] == 0).all(axis=2).sum(axis=1), np.float64)
+    for counts in (port, ref):
+        assert counts.min() >= 0 and counts.max() <= 2 * 27
+    se = np.sqrt(port.var() / draws + ref.var() / draws)
+    assert abs(port.mean() - ref.mean()) <= 4 * se, (port.mean(), ref.mean())
+
+
+@pytest.mark.parametrize("fused_ffn", [False, None])
+def test_unfused_ffn_training_drops_inner_and_outer(fused_ffn, monkeypatch):
+    """With the fused route off (explicitly, or by AVEC_TPU_FUSED_FFN unset)
+    a training-mode FeedForwardModule runs the unfused layers with its
+    Dropout on the inner activation and on the output, as the JAX module
+    does (conformer.py:130-139), drawing from the generator the model sets:
+    the same seed gives the same output; with dropout off it is the eval
+    output."""
+    from avec_tpu_torch.models.conformer import FeedForwardModule
+    from avec_tpu_torch.ops.layers import init_params
+
+    monkeypatch.delenv("AVEC_TPU_FUSED_FFN", raising=False)
+    ffn = init_params(FeedForwardModule(16, 64, 0.5, fused_ffn=fused_ffn),
+                      torch.Generator().manual_seed(0)).train()
+    assert not ffn.fused_eligible()
+    calls = []
+    ffn.dropout.register_forward_hook(lambda m, i, o: calls.append((i[0], o)))
+    x = torch.randn(3, 7, 16, generator=torch.Generator().manual_seed(1))
+    ffn.dropout.generator = torch.Generator().manual_seed(5)
+    y = ffn(x)
+    assert [o.shape[-1] for _, o in calls] == [64, 16]
+    for i, o in calls:
+        kept = o != 0
+        assert torch.allclose(o[kept], 2.0 * i[kept])     # scaled by 1 / keep
+        assert 0.3 < float(kept.float().mean()) < 0.7
+    ffn.dropout.generator = torch.Generator().manual_seed(5)
+    assert torch.equal(ffn(x), y)
+    ffn.dropout.regularize = False
+    y_off = ffn(x)
+    assert torch.equal(y_off, ffn.eval()(x))
+
+
 def _ctc_case(seed=0, b=4, tt=30, v=12, u=7):
     rng = np.random.RandomState(seed)
     logits = rng.randn(b, tt, v).astype(np.float32)

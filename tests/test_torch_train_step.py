@@ -9,7 +9,9 @@ random streams. On the JAX side that is done here, by replacing
 of a test; nothing in `avec_tpu/` changes. The JAX model runs with
 use_flash=False, stem "2d" and the fused-FFN flag unset (the same function;
 its Pallas paths run on the CPU only in interpret mode). The port runs
-use_flash=True and the fused FFN through their plain versions.
+use_flash=True and the fused FFN through their plain versions, and, in
+`test_unfused_ffn_train_step_matches_the_jax_default_step`, the unfused FFN
+that is its own default too.
 
 The flash path gives queries past an utterance's length a zero gradient
 (the JAX flash VJP does the same), the unfused JAX path does not, and padded
@@ -106,9 +108,11 @@ def av():
     return jmodel, params, stats
 
 
-def _port_trainer(params, stats):
+def _port_trainer(params, stats, fused_ffn=True):
     model = AudioVisualEfficientConformerInterCTC(use_flash=True,
-                                                  device="cpu", **AV_TONE)
+                                                  device="cpu",
+                                                  fused_ffn=fused_ffn,
+                                                  **AV_TONE)
     model.load_state_dict(params_from_jax(params, stats), strict=True)
     trainer = Trainer(model=model, device="cpu", precision="float32",
                       loss=CTCLoss(zero_infinity=True), loss_weights=WEIGHTS)
@@ -139,16 +143,15 @@ def _leaves(tree, prefix=""):
             yield prefix + k, np.asarray(v)
 
 
-def test_train_step_losses_and_gradients_match_jax(av, no_jax_noise):
-    jmodel, params, stats = av
-    batch = _batch([16000, 16000])
-    want_losses, want_grads, want_bs = _jax_step(jmodel, params, stats, batch)
-    trainer = _port_trainer(params, stats)
-    losses, grads = trainer.loss_and_grads(batch)
+def _check_step(trainer, losses, grads, want, params, stats):
+    """The port's losses, gradients and BN statistics after one forward +
+    backward against the JAX step's `want` (losses, gradients, statistics)
+    at the tolerances of the module docstring."""
+    want_losses, want_grads, want_bs = want
     assert set(losses) == set(want_losses) == {"loss"} | {
         "loss_" + k for k in OUTPUTS}
-    for k, want in want_losses.items():
-        assert float(losses[k]) == pytest.approx(float(want), rel=1e-4), k
+    for k, wl in want_losses.items():
+        assert float(losses[k]) == pytest.approx(float(wl), rel=1e-4), k
     got_grads = dict(_leaves(grads_to_jax_layout(grads, params)))
     want = dict(_leaves(want_grads))
     assert got_grads.keys() == want.keys()
@@ -166,6 +169,37 @@ def test_train_step_losses_and_gradients_match_jax(av, no_jax_noise):
     for (k, got), (k2, w) in zip(_leaves(got_bs), _leaves(want_bs)):
         assert k == k2
         np.testing.assert_allclose(got, w, rtol=0, atol=1e-5, err_msg=k)
+
+
+def test_train_step_losses_and_gradients_match_jax(av, no_jax_noise):
+    """The port's fused feed-forward route (`fused_ffn=True`, its plain
+    version on the CPU) against the JAX package's default step."""
+    jmodel, params, stats = av
+    batch = _batch([16000, 16000])
+    want = _jax_step(jmodel, params, stats, batch)
+    trainer = _port_trainer(params, stats)
+    assert trainer.model.kernel_launches_per_step()["fused_ffn_fwd"] == 20
+    _check_step(trainer, *trainer.loss_and_grads(batch), want, params, stats)
+
+
+def test_unfused_ffn_train_step_matches_the_jax_default_step(
+        av, no_jax_noise, monkeypatch):
+    """With AVEC_TPU_FUSED_FFN unset neither package fuses the feed-forward
+    modules: the port's default (`fused_ffn=None`) runs LN -> Linear ->
+    swish -> Dropout -> Linear -> Dropout (dropout off here), the JAX
+    module's own default (conformer.py:130-139)."""
+    from avec_tpu_torch.models.conformer import FeedForwardModule
+
+    monkeypatch.delenv("AVEC_TPU_FUSED_FFN", raising=False)
+    jmodel, params, stats = av
+    batch = _batch([16000, 16000])
+    want = _jax_step(jmodel, params, stats, batch)
+    trainer = _port_trainer(params, stats, fused_ffn=None)
+    ffns = [m for m in trainer.model.modules()
+            if isinstance(m, FeedForwardModule)]
+    assert len(ffns) == 20 and not any(m.fused_eligible() for m in ffns)
+    assert "fused_ffn_fwd" not in trainer.model.kernel_launches_per_step()
+    _check_step(trainer, *trainer.loss_and_grads(batch), want, params, stats)
 
 
 def test_resnet_block_train_gradients_match_jax():

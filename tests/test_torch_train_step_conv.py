@@ -59,7 +59,8 @@ def test_conv_train_step_matches_jax_on_a_ragged_batch(av, no_jax_noise,
     batch = _batch([27200, 16000])
     want_losses, want_grads, want_bs = _jax_step(jmodel, params, stats, batch)
     trainer = _port_trainer(params, stats, fused_conv=True, fused_att=True,
-                            stem_mode="pallas", use_flash=False)
+                            fused_ffn=True, stem_mode="pallas",
+                            use_flash=False)
     assert trainer.model.kernel_launches_per_step() == {
         "fused_ffn_fwd": 20, "fused_ffn_bwd": 20, "fused_att_fwd": 8,
         "fused_att_bwd": 8, "bn_relu_pool": 1,
@@ -93,8 +94,8 @@ def test_conv_gate_and_launch_counts_at_reference_depth():
     stage 0, audio stages 0 and 1) do not: 21 launches of each of the four
     conv kernels per step, counted from the module tree of a CPU model."""
     model = AudioVisualEfficientConformerInterCTC(
-        device="cpu", fused_conv=True, fused_att=True, stem_mode="pallas",
-        use_flash=False)
+        device="cpu", fused_conv=True, fused_att=True, fused_ffn=True,
+        stem_mode="pallas", use_flash=False)
     assert model.kernel_launches_per_step() == {
         "fused_ffn_fwd": 48, "fused_ffn_bwd": 48, "fused_att_fwd": 19,
         "fused_att_bwd": 19, "bn_relu_pool": 1,

@@ -43,7 +43,7 @@ torch.set_num_threads(1)
 
 REDUCTIONS = ("mean", "sum", "default")
 ROUTE = dict(use_flash=False, fused_att=True, fused_conv=True,
-             stem_mode="2d", **AV_TONE)
+             fused_ffn=True, stem_mode="2d", **AV_TONE)
 
 
 def _global_batch(seed=3):

@@ -72,8 +72,8 @@ def test_fused_train_step_matches_jax_on_a_ragged_batch(av, no_jax_noise,
     jmodel, params, stats = av
     batch = _batch([27200, 16000])
     want_losses, want_grads, want_bs = _jax_step(jmodel, params, stats, batch)
-    trainer = _port_trainer(params, stats, fused_att=True, stem_mode="pallas",
-                            use_flash=False)
+    trainer = _port_trainer(params, stats, fused_att=True, fused_ffn=True,
+                            stem_mode="pallas", use_flash=False)
     assert trainer.model.kernel_launches_per_step() == {
         "fused_ffn_fwd": 20, "fused_ffn_bwd": 20, "fused_att_fwd": 8,
         "fused_att_bwd": 8, "bn_relu_pool": 1}
@@ -112,7 +112,8 @@ def test_gate_and_launch_counts_at_reference_depth(use_flash, want):
     the fused module (conformer.py:172). Counted from the module tree of a
     CPU model."""
     model = AudioVisualEfficientConformerInterCTC(
-        device="cpu", fused_att=True, stem_mode="pallas", use_flash=use_flash)
+        device="cpu", fused_att=True, fused_ffn=True, stem_mode="pallas",
+        use_flash=use_flash)
     counts = model.kernel_launches_per_step()
     assert counts == {"fused_ffn_fwd": 48, "fused_ffn_bwd": 48,
                       "bn_relu_pool": 1, **want}
@@ -124,11 +125,13 @@ def test_gate_and_launch_counts_at_reference_depth(use_flash, want):
 
 def test_trainer_passes_the_switches_through():
     trainer = Trainer(device="cpu", precision="float32", fused_att=True,
-                      stem_mode="pallas", **AV_TONE)
+                      fused_ffn=True, stem_mode="pallas", **AV_TONE)
     model = trainer.model
     assert model.encoder.video_encoder.front_end["0"].mode == "pallas"
     blocks = model.encoder.audio_visual_encoder.conformer_blocks
     assert all(b.self_att_module.fused_att for b in blocks)
+    assert all(b.ff_module1.fused_ffn and b.ff_module2.fused_ffn
+               for b in blocks)
     losses, infos = trainer.train_step(_batch([27200, 16000]))
     assert np.isfinite(float(losses["loss"]))
     assert np.isfinite(float(infos["grad_norm"]))
