@@ -26,12 +26,34 @@
 // peak; its bytes (x, g, dx and the fp32 parameters and gradients) take about
 // 3 us. The forward does two of the products.
 //
-// Forward design: one block of 128 threads per 32 token rows. The (rows, F)
-// hidden activation never exists: F is walked in chunks of 64 columns, each
-// chunk's u is built in registers, turned into s in shared memory and folded
-// into the output before the next chunk. d = 180 and an N that is no
-// multiple of 32 are handled by zero-filled staging and masked stores, with no
-// padded copy in device memory.
+// Forward design, bf16 (the training path), for Hopper's tensor cores. Its
+// first version (one block per 32 rows, 38 blocks at d = 360; every block
+// re-reading and re-casting all of W1 and W2 from fp32; 16-row mma.sync tiles
+// with a barrier between staging and compute) ran at 78x its bound. Now a
+// first stage casts the weights to bf16 once per call into K-major scratch
+// (rows padded to 8 elements, so that TMA addresses d = 180) and computes
+// h = LN(x) once per row; a block of the main stage owns 64 token rows and a
+// range of the hidden dimension, chosen so that the grid fills the 132 SMs at
+// every width ((1216, 360, 1440): 19 x 12 = 228 blocks). It loads its h tiles
+// by TMA into 128-byte-swizzled shared memory, the layout `wgmma` reads; two
+// consumer warpgroups take one 64-column hidden chunk each for u = h W1^T,
+// apply bias, swish and the inner dropout hash in the accumulator's fragment
+// layout and write s back to swizzled shared memory (so both warpgroups read
+// both chunks of s as the A operand of the second product; s from registers
+// would give each warpgroup only its own chunk), then each adds s W2^T into
+// the output tiles of its half of d: at most 3 x 32 accumulator registers a
+// thread at d = 360. Weight tiles come by TMA through an 8-stage ring, and
+// each phase waits for its products once. The partial outputs of the hidden
+// ranges go to fp32 scratch (L2-resident at the step's shapes), which a last
+// stage sums in a fixed order before b2, the outer mask and the cast: y has
+// one owner per element and the same bits on every run. A cluster along F
+// reducing through distributed shared memory would save that round trip but
+// needs the (64, d) fp32 partial of every block in shared memory beside the
+// ring. The (rows, F) hidden activation never reaches device memory. What
+// bounds it now is latency, not the tensor cores: one block of 256 threads
+// fits on an SM (197 KB of shared memory, up to 212 registers), and its
+// swish epilogue and the store of its fp32 partial take about as long as its
+// two products; the partials (7-21 MB) cross L2 twice.
 //
 // Backward, bf16 (the training path), redesigned for Hopper's tensor cores
 // against the four things that held the first version back (a grid of N / 32
@@ -50,9 +72,9 @@
 // 4 x 4 register tile per thread (`ffn_fwd_kernel`, `ffn_bwd_kernel`) with the
 // forward's row-block design; that backward accumulates the weight gradients
 // across row blocks with atomicAdd into zeroed fp32 buffers, so their last
-// bits vary from run to run there. bf16 forwards run on `mma.sync.m16n8k16`
-// (`ffn_fwd_mma_kernel`). Operands are rounded to bf16 exactly where the TPU
-// kernel casts them.
+// bits vary from run to run there; its forward walks F in chunks of 64
+// columns per block of 32 rows. Operands are rounded to bf16 exactly where
+// the TPU kernel casts them.
 
 #include "hopper.cuh"
 #include "tile.cuh"
@@ -63,7 +85,7 @@ using namespace avec;
 
 constexpr int BM = 32;        // token rows per block
 constexpr int FC = 64;        // hidden columns per chunk
-constexpr int THREADS = 128;  // FMA path: 8 x 16 threads; tensor-core path: 4 warps
+constexpr int THREADS = 128;  // FMA path: 8 x 16 threads
 constexpr uint32_t SEED_STRIDE = 1103515245u;
 constexpr uint32_t DRAW_INNER = 0x9E3779B9u;  // draw 1: mask on swish(u)
 constexpr uint32_t DRAW_OUTER = 0x3C6EF372u;  // draw 2: 2 * 0x9E3779B9 mod 2^32
@@ -91,6 +113,15 @@ __device__ __forceinline__ float drop_mult(const Drop& dr, int row, int col, int
   const uint32_t flat = (uint32_t)(row & 255) * (uint32_t)ncols + (uint32_t)col;
   const uint32_t bits = mix32(flat ^ mix32(base + draw));
   return bits < dr.thr ? dr.inv_keep : 0.f;
+}
+
+// drop_mult with the row's tile key mix32(seed + (row >> 8) SEED_STRIDE +
+// draw) already computed.
+__device__ __forceinline__ float drop_bits(const Drop& dr, uint32_t key, int row, int col,
+                                           int ncols) {
+  if (!dr.on) return 1.f;
+  const uint32_t flat = (uint32_t)(row & 255) * (uint32_t)ncols + (uint32_t)col;
+  return mix32(flat ^ key) < dr.thr ? dr.inv_keep : 0.f;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -392,127 +423,6 @@ ffn_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g, const float* __
 }
 
 // ---------------------------------------------------------------------------
-// bf16 forward on the tensor cores (mma.sync.m16n8k16, fp32 accumulation).
-// One block of 128 threads (4 warps) per 32 token rows. Warp w owns rows
-// (w % 2) * 16 .. +15; of a 64-column chunk tile it owns columns
-// (w / 2) * 32 .. +31, of a d-wide tile the half (w / 2) * DP / 2. DP is d
-// padded to a multiple of 16 (zero-filled), so every reduction runs in whole
-// k-steps.
-
-constexpr int LDC = FC + 8;   // row stride of a 64-wide bf16 tile
-
-template <int DP> constexpr int wb_elems() {
-  return 64 * (DP + 8) > DP * LDC ? 64 * (DP + 8) : DP * LDC;
-}
-
-// 16-byte loads of weight rows need d and F to be multiples of 4 and aligned
-// bases; anything else is staged element by element.
-__device__ __forceinline__ bool weights_vectorizable(const float* w1, const float* w2, int d,
-                                                     int f) {
-  return d % 4 == 0 && f % 4 == 0 &&
-         ((reinterpret_cast<uintptr_t>(w1) | reinterpret_cast<uintptr_t>(w2)) & 15) == 0;
-}
-
-// LayerNorm of the block's rows into hs [BM][DP + 8] as bf16; columns
-// d .. DP-1 are zero.
-template <int DP>
-__device__ __forceinline__ void ln_rows_bf16(const bf16* __restrict__ x,
-                                             const float* __restrict__ ln_w,
-                                             const float* __restrict__ ln_b, bf16* hs, int row0,
-                                             int n, int d, float eps) {
-  constexpr int ldh = DP + 8;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < BM; r += THREADS / 32) {
-    const int row = row0 + r;
-    const bf16* xr = x + (size_t)row * d;
-    float sum = 0.f;
-    if (row < n)
-      for (int c = lane; c < d; c += 32) sum += to_f(xr[c]);
-    const float mean = warp_sum(sum) / d;
-    float sq = 0.f;
-    if (row < n)
-      for (int c = lane; c < d; c += 32) {
-        const float dv = to_f(xr[c]) - mean;
-        sq += dv * dv;
-      }
-    const float rstd = rsqrtf(warp_sum(sq) / d + eps);
-    for (int c = lane; c < DP; c += 32) {
-      float h = 0.f;
-      if (c < d) {
-        const float xv = row < n ? to_f(xr[c]) : 0.f;
-        const float xhat = rnd<bf16>((xv - mean) * rstd);
-        h = rnd<bf16>(xhat * rnd<bf16>(ln_w[c])) + rnd<bf16>(ln_b[c]);
-      }
-      hs[r * ldh + c] = __float2bfloat16(h);
-    }
-  }
-}
-
-template <int DP>
-__global__ void __launch_bounds__(THREADS)
-ffn_fwd_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_w,
-                   const float* __restrict__ ln_b, const float* __restrict__ w1,
-                   const float* __restrict__ b1, const float* __restrict__ w2,
-                   const float* __restrict__ b2, bf16* __restrict__ y, int n, int d, int f,
-                   float eps, Drop dr) {
-  constexpr int ldh = DP + 8, NTW = DP / 16;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* hs = reinterpret_cast<bf16*>(smem_raw);  // [BM][ldh] normalised input
-  bf16* ss = hs + BM * ldh;                      // [BM][LDC] swish chunk
-  bf16* wb = ss + BM * LDC;                      // staged weight tile
-  const int row0 = blockIdx.x * BM;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
-  const int rowb = (warp & 1) * 16, half = warp >> 1;
-  const bool vec = weights_vectorizable(w1, w2, d, f);
-
-  ln_rows_bf16<DP>(x, ln_w, ln_b, hs, row0, n, d, eps);
-  __syncthreads();
-
-  float acc[NTW][4];
-#pragma unroll
-  for (int nt = 0; nt < NTW; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-
-  for (int c0 = 0; c0 < f; c0 += FC) {
-    stage_bf16<FC, DP, false>(wb, ldh, w1, d, c0, f, 0, d, vec);  // W1[chunk][k]
-    __syncthreads();
-    float u[4][4] = {};
-    warp_mma<4>(u, hs + rowb * ldh, ldh, wb + half * 32 * ldh, ldh, DP);
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int rl = rowb + g + (e >> 1) * 8, cl = half * 32 + nt * 8 + 2 * t + (e & 1);
-        const int col = c0 + cl;
-        float s = 0.f;
-        if (col < f) {
-          const float uu = u[nt][e] + b1[col];
-          s = uu / (1.f + expf(-uu)) * drop_mult(dr, row0 + rl, col, f, DRAW_INNER);
-        }
-        ss[rl * LDC + cl] = __float2bfloat16(s);
-      }
-    __syncthreads();
-    stage_bf16<DP, FC, false>(wb, LDC, w2, f, 0, d, c0, f, vec);  // W2[j][chunk]
-    __syncthreads();
-    warp_mma<NTW>(acc, ss + rowb * LDC, LDC, wb + half * (DP / 2) * LDC, LDC, FC);
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int nt = 0; nt < NTW; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = row0 + rowb + g + (e >> 1) * 8;
-      const int col = half * (DP / 2) + nt * 8 + 2 * t + (e & 1);
-      if (row < n && col < d) {
-        const float v = (acc[nt][e] + b2[col]) * drop_mult(dr, row, col, d, DRAW_OUTER);
-        y[(size_t)row * d + col] = __float2bfloat16(v);
-      }
-    }
-}
-
-// ---------------------------------------------------------------------------
 // bf16 backward on Hopper: TMA-fed `wgmma` products (hopper.cuh) in six
 // stages on the caller's stream, handing bf16 operands to each other through
 // scratch that the wrapper allocates (`avec_ffn_bwd_scratch_bytes`):
@@ -538,11 +448,8 @@ ffn_fwd_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_w,
 // order, so the gradients are the same bits from run to run.
 
 constexpr int WT = 64;                 // edge of a wgmma output tile and of a TMA box
-constexpr int WTILE = WT * WT;         // elements of one 64 x 64 bf16 tile
-constexpr int WTILE_BYTES = WTILE * 2;
 constexpr int WG = 128;                // one warpgroup
 constexpr int RING_H = 2;              // stages of the hidden product's ring (4 tiles each)
-constexpr int RING_P = 4;              // stages of the weight-gradient ring (2 tiles each)
 constexpr int LDE = WT + 8;            // row stride of an epilogue tile
 constexpr int LN_ROWS = 16;            // token rows per block of stage 5
 constexpr int PREP_THREADS = 256;
@@ -748,13 +655,6 @@ struct HiddenMaps {
   CUtensorMap h, g, w1, w2t;  // (N, d), (N, d), (F, d), (F, d): boxes of 64 x 64
 };
 
-// The 1024-byte-aligned start of the dynamic shared memory.
-__device__ __forceinline__ unsigned char* smem_base_1k() {
-  extern __shared__ __align__(1024) unsigned char smem_dyn[];
-  return reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_dyn) + 1023) & ~static_cast<uintptr_t>(1023));
-}
-
 // Stage 3: one warpgroup per (64 rows, 64 hidden columns); blockIdx.x is the
 // row tile, blockIdx.y the column tile.
 __global__ void __launch_bounds__(WG)
@@ -763,7 +663,7 @@ ffn_bwd_hidden_kernel(const __grid_constant__ HiddenMaps maps, const float* __re
   using namespace hopper;
   unsigned char* base = smem_base_1k();
   bf16* ring = reinterpret_cast<bf16*>(base);  // RING_H x {h, g, W1b, W2t} tiles
-  uint64_t* bars = reinterpret_cast<uint64_t*>(base + RING_H * 4 * WTILE_BYTES);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + RING_H * 4 * TILE_BYTES);
   float* red = reinterpret_cast<float*>(bars + RING_H);  // [4][64] column sums of du
   const int tid = threadIdx.x, row0 = blockIdx.x * WT, f0 = blockIdx.y * WT;
   const int kt_n = cdiv(d, WT);
@@ -775,12 +675,12 @@ ffn_bwd_hidden_kernel(const __grid_constant__ HiddenMaps maps, const float* __re
   __syncthreads();
   auto load_stage = [&](int kt) {
     const int st = kt % RING_H;
-    bf16* t = ring + st * 4 * WTILE;
-    mbar_expect_tx(&bars[st], 4 * WTILE_BYTES);
+    bf16* t = ring + st * 4 * TILE_ELEMS;
+    mbar_expect_tx(&bars[st], 4 * TILE_BYTES);
     tma_load_2d(t, &maps.h, &bars[st], kt * WT, row0);
-    tma_load_2d(t + WTILE, &maps.g, &bars[st], kt * WT, row0);
-    tma_load_2d(t + 2 * WTILE, &maps.w1, &bars[st], kt * WT, f0);
-    tma_load_2d(t + 3 * WTILE, &maps.w2t, &bars[st], kt * WT, f0);
+    tma_load_2d(t + TILE_ELEMS, &maps.g, &bars[st], kt * WT, row0);
+    tma_load_2d(t + 2 * TILE_ELEMS, &maps.w1, &bars[st], kt * WT, f0);
+    tma_load_2d(t + 3 * TILE_ELEMS, &maps.w2t, &bars[st], kt * WT, f0);
   };
   if (tid == 0)
     for (int kt = 0; kt < RING_H && kt < kt_n; ++kt) load_stage(kt);
@@ -791,12 +691,12 @@ ffn_bwd_hidden_kernel(const __grid_constant__ HiddenMaps maps, const float* __re
   for (int kt = 0; kt < kt_n; ++kt) {
     const int st = kt % RING_H;
     mbar_wait(&bars[st], (kt / RING_H) & 1);
-    const bf16* t = ring + st * 4 * WTILE;
+    const bf16* t = ring + st * 4 * TILE_ELEMS;
     acc_fence(u);
     acc_fence(ds);
     wgmma_fence();
-    wgmma_tile_k64(u, t, t + 2 * WTILE);           // h . W1b^T
-    wgmma_tile_k64(ds, t + WTILE, t + 3 * WTILE);  // (g m_outer) . W2t^T
+    wgmma_tile_k64(u, t, t + 2 * TILE_ELEMS);                 // h . W1b^T
+    wgmma_tile_k64(ds, t + TILE_ELEMS, t + 3 * TILE_ELEMS);  // (g m_outer) . W2t^T
     wgmma_commit();
     wgmma_wait_all();
     acc_fence(u);
@@ -862,85 +762,6 @@ ffn_bwd_hidden_kernel(const __grid_constant__ HiddenMaps maps, const float* __re
           *reinterpret_cast<const uint4*>(v);
     }
   }
-}
-
-// One product of stage 4: out[split][i][j] (fp32, row stride ldo) =
-// sum over the split's k of A[i][k] B[j][k], A (m, k) and B (nn, k) read
-// through tensor maps.
-struct ProductJob {
-  int m, nn, k, splits, tiles_n, block0;
-  float* out;
-  int ldo;
-};
-
-struct ProductMaps {
-  CUtensorMap a[3], b[3];
-};
-
-struct ProductJobs {
-  ProductJob job[3];
-};
-
-// Stage 4: one warpgroup per 64 x 64 output tile (and row split).
-__global__ void __launch_bounds__(WG)
-ffn_bwd_products_kernel(const __grid_constant__ ProductMaps maps, ProductJobs jobs) {
-  using namespace hopper;
-  unsigned char* base = smem_base_1k();
-  bf16* ring = reinterpret_cast<bf16*>(base);  // RING_P x {A, B} tiles
-  uint64_t* bars = reinterpret_cast<uint64_t*>(base + RING_P * 2 * WTILE_BYTES);
-  const int tid = threadIdx.x;
-  int j = 0;
-  while (j < 2 && (int)blockIdx.x >= jobs.job[j + 1].block0) ++j;
-  const ProductJob& jb = jobs.job[j];
-  const int local = blockIdx.x - jb.block0;
-  const int split = local % jb.splits, tile = local / jb.splits;
-  const int m0 = (tile / jb.tiles_n) * WT, n0 = (tile % jb.tiles_n) * WT;
-  const int kt_all = cdiv(jb.k, WT), per = cdiv(kt_all, jb.splits);
-  const int kt0 = split * per, kt1 = min(kt_all, kt0 + per);
-  const CUtensorMap* ma = &maps.a[j];
-  const CUtensorMap* mb = &maps.b[j];
-
-  if (tid == 0) {
-    for (int i = 0; i < RING_P; ++i) mbar_init(&bars[i], 1);
-    mbar_init_fence();
-  }
-  __syncthreads();
-  auto load_stage = [&](int kt) {
-    const int st = (kt - kt0) % RING_P;
-    bf16* t = ring + st * 2 * WTILE;
-    mbar_expect_tx(&bars[st], 2 * WTILE_BYTES);
-    tma_load_2d(t, ma, &bars[st], kt * WT, m0);
-    tma_load_2d(t + WTILE, mb, &bars[st], kt * WT, n0);
-  };
-  if (tid == 0)
-    for (int kt = kt0; kt < kt1 && kt < kt0 + RING_P; ++kt) load_stage(kt);
-
-  float acc[32];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
-  for (int kt = kt0; kt < kt1; ++kt) {
-    const int st = (kt - kt0) % RING_P;
-    mbar_wait(&bars[st], ((kt - kt0) / RING_P) & 1);
-    const bf16* t = ring + st * 2 * WTILE;
-    acc_fence(acc);
-    wgmma_fence();
-    wgmma_tile_k64(acc, t, t + WTILE);
-    wgmma_commit();
-    wgmma_wait_all();
-    acc_fence(acc);
-    __syncthreads();
-    if (tid == 0 && kt + RING_P < kt1) load_stage(kt + RING_P);
-  }
-
-  float* out = jb.out + (size_t)split * jb.m * jb.ldo;
-  const int w = tid / 32, lane = tid % 32, g = lane >> 2, q = lane & 3;
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = m0 + w * 16 + g + (e >> 1) * 8, c = n0 + i * 8 + 2 * q + (e & 1);
-      if (r < jb.m && c < jb.nn) out[(size_t)r * jb.ldo + c] = acc[4 * i + e];
-    }
 }
 
 // Stage 5: LN_ROWS token rows per block.
@@ -1033,8 +854,332 @@ ffn_bwd_reduce_kernel(BwdScratch s, float* __restrict__ db1, float* __restrict__
   (first ? dw1 : dw2)[at] = v;
 }
 
-template <int DP> constexpr size_t fwd_mma_smem() {
-  return sizeof(bf16) * (size_t)(BM * (DP + 8) + BM * LDC + wb_elems<DP>());
+// ---------------------------------------------------------------------------
+// bf16 forward on Hopper, three stages on the caller's stream over scratch
+// that the wrapper allocates (`avec_ffn_fwd_scratch_bytes`):
+//   1 prep    W1 -> W1b (F, ldd) and W2 -> W2b (d, ldf), bf16, once per call,
+//             both K-major for the products that read them; and h = LN(x)
+//             (N, ldd) in bf16, once per row (one warp per row);
+//   2 main    per (64 token rows, a range of 64-column hidden chunks): the
+//             block's h tiles by TMA into swizzled shared memory, then per
+//             pair of chunks u = h W1b^T (one chunk per consumer warpgroup,
+//             `wgmma`),
+//             s = bf16(swish(u + b1) m_inner) back into shared memory, and
+//             y_part += s W2b^T, each warpgroup owning half of d's 64-column
+//             tiles; the weight tiles come by TMA through a ring of stages.
+//             The fp32 partial (rows, d) of the block's hidden range goes to
+//             scratch;
+//   3 reduce  y = bf16((sum of the partials in split order + b2) m_outer).
+// The hidden dimension is split over the grid so that every width fills the
+// card; no atomics, so y is the same bits on every run.
+
+constexpr int FWD_THREADS = 256;        // two consumer warpgroups
+constexpr int FWD_TARGET_BLOCKS = 132;  // one block on each SM
+
+// Ring stages of two weight tiles each: one round's W2 slots (2 NDH <= 6)
+// and a W1 phase (NDT <= 6) fit, so a phase never waits on its own refills.
+constexpr int FWD_RING = 8;
+
+struct FwdScratch {
+  bf16 *w1b, *w2b, *h;  // (F, ldd), (d, ldf), (N, ldd)
+  float* part;          // (splits, N, d)
+  int ldd, ldf, splits, chunks;
+};
+
+// Splits of the hidden chunk pairs over the grid. A block costs about one
+// fixed part (its first loads, the store of its partial) plus one part per
+// pair of chunks, FWD_FIXED : FWD_PAIR (thousands of cycles, clock64()
+// inside one block on the H100); with one block on each SM a launch takes
+// its waves times the slowest block. Among the splits whose grid fills the
+// SMs (where the rows allow it) the cheapest is taken.
+constexpr int FWD_FIXED = 6, FWD_PAIR = 11;
+constexpr int FWD_LN_ROWS = 8;  // token rows per block of the LayerNorm in stage 1
+
+int fwd_splits(int n, int f) {
+  const int rt = cdiv(n, 64), pairs = cdiv(cdiv(f, 64), 2);
+  const bool can_fill = (long long)rt * pairs >= FWD_TARGET_BLOCKS;
+  int best = 1;
+  long long best_cost = -1;
+  for (int sp = 1; sp <= pairs; ++sp) {
+    const long long blocks = (long long)rt * sp;
+    if (can_fill && blocks < FWD_TARGET_BLOCKS) continue;
+    const long long cost = cdiv((int)blocks, FWD_TARGET_BLOCKS) *
+                           (long long)(FWD_FIXED + cdiv(pairs, sp) * FWD_PAIR);
+    if (best_cost < 0 || cost < best_cost) {
+      best = sp;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+size_t carve_fwd(char* base, int n, int d, int f, FwdScratch* s) {
+  s->ldd = round8(d);
+  s->ldf = round8(f);
+  s->chunks = cdiv(f, 64);
+  s->splits = fwd_splits(n, f);
+  size_t at = 0;
+  auto take = [&](size_t bytes) {
+    char* p = base == nullptr ? nullptr : base + at;
+    at += (bytes + 1023) / 1024 * 1024;
+    return p;
+  };
+  s->w1b = reinterpret_cast<bf16*>(take((size_t)f * s->ldd * 2));
+  s->w2b = reinterpret_cast<bf16*>(take((size_t)d * s->ldf * 2));
+  s->h = reinterpret_cast<bf16*>(take((size_t)n * s->ldd * 2));
+  s->part = reinterpret_cast<float*>(take((size_t)s->splits * n * d * 4));
+  return at;
+}
+
+// Stage 1. Blocks below cast_blocks: W1b, then W2b, element by element
+// (rows padded to ld, the padding never read: the tensor maps carry the true
+// widths). The rest: LayerNorm of FWD_LN_ROWS token rows, one warp per row,
+// rounded as the TPU kernel rounds it (pallas_ffn.py:62-73): lane l sums the
+// columns l + 32 k in order, then a fixed shuffle tree.
+template <int NDT>
+__global__ void __launch_bounds__(256)
+ffn_fwd_prep_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_w,
+                    const float* __restrict__ ln_b, const float* __restrict__ w1,
+                    const float* __restrict__ w2, FwdScratch s, int n, int d, int f, float eps,
+                    int cast_blocks) {
+  if ((int)blockIdx.x < cast_blocks) {
+    const int fd = f * d;
+    for (int i = blockIdx.x * 256 + threadIdx.x; i < 2 * fd; i += cast_blocks * 256) {
+      if (i < fd)
+        s.w1b[(i / d) * s.ldd + i % d] = __float2bfloat16(w1[i]);
+      else
+        s.w2b[((i - fd) / f) * s.ldf + (i - fd) % f] = __float2bfloat16(w2[i - fd]);
+    }
+    return;
+  }
+  constexpr int KC = 2 * NDT;
+  const int lane = threadIdx.x % 32;
+  const int row = (blockIdx.x - cast_blocks) * FWD_LN_ROWS + threadIdx.x / 32;
+  if (row >= n) return;  // uniform over the warp
+  const bf16* xr = x + (size_t)row * d;
+  float xv[KC];
+#pragma unroll
+  for (int k = 0; k < KC; ++k) {
+    const int c = lane + 32 * k;
+    xv[k] = c < d ? to_f(xr[c]) : 0.f;
+  }
+  float sum = 0.f;
+#pragma unroll
+  for (int k = 0; k < KC; ++k) sum += xv[k];
+  const float mean = warp_sum(sum) / d;
+  float sq = 0.f;
+#pragma unroll
+  for (int k = 0; k < KC; ++k)
+    if (lane + 32 * k < d) sq += (xv[k] - mean) * (xv[k] - mean);
+  const float rstd = rsqrtf(warp_sum(sq) / d + eps);
+#pragma unroll
+  for (int k = 0; k < KC; ++k) {
+    const int c = lane + 32 * k;
+    if (c < d)
+      s.h[(size_t)row * s.ldd + c] = __float2bfloat16(
+          rnd<bf16>(rnd<bf16>((xv[k] - mean) * rstd) * rnd<bf16>(ln_w[c])) + rnd<bf16>(ln_b[c]));
+  }
+}
+
+struct FwdMaps {
+  CUtensorMap w1, w2, h;  // W1b (F, d), W2b (d, F), h (N, d): boxes of 64 x 64
+};
+
+template <int NDT> constexpr size_t fwd_wgmma_smem() {
+  return 1024 + (size_t)(NDT + 2 + 2 * FWD_RING) * hopper::TILE_BYTES + (FWD_RING + 1) * 8;
+}
+
+// Stage 2. blockIdx.x: 64-row tile; blockIdx.y: split of the hidden chunks.
+// NDT = cdiv(d, 64), NDH = cdiv(NDT, 2). Slots of the ring, two tiles each,
+// per pair of chunks (ca, cb): NDT slots {W1b(ca, kt), W1b(cb, kt)}, then
+// NDH slots {W2b(2j, ca), W2b(2j + 1, ca)} and, when cb exists, NDH slots
+// {W2b(2j, cb), W2b(2j + 1, cb)}; warpgroup w reads tile w of each (its
+// chunk, its d tile 2j + w). Only the block's last pair may lack cb.
+template <int NDT>
+__global__ void __launch_bounds__(FWD_THREADS, 1)
+ffn_fwd_wgmma_kernel(const __grid_constant__ FwdMaps maps, const float* __restrict__ b1,
+                     FwdScratch s, int n, int d, int f, Drop dr) {
+  using namespace hopper;
+  constexpr int NDH = (NDT + 1) / 2, PER = NDT + 2 * NDH, RING = FWD_RING;
+  unsigned char* base = smem_base_1k();
+  bf16* hs = reinterpret_cast<bf16*>(base);  // NDT tiles: h, swizzled
+  bf16* ss = hs + NDT * TILE_ELEMS;           // 2 tiles: s of chunks ca, cb
+  bf16* ring = ss + 2 * TILE_ELEMS;           // RING x 2 tiles
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ring + RING * 2 * TILE_ELEMS);
+  uint64_t* hbar = bars + RING;               // the h tiles
+  const int tid = threadIdx.x, wg = tid / WG, wt = tid % WG;
+  const int row0 = blockIdx.x * 64, split = blockIdx.y, rows = min(64, n - row0);
+  const int pairs = cdiv(s.chunks, 2);
+  const int c_begin = 2 * (split * pairs / s.splits);
+  const int c_end = min(s.chunks, 2 * ((split + 1) * pairs / s.splits));
+  const int rounds = cdiv(c_end - c_begin, 2);
+  const int slots = rounds * PER - ((c_end - c_begin) % 2) * NDH;
+  // 64 | 256: the block's rows share one hash tile, so one key (drop_mult)
+  const uint32_t key = mix32(dr.seed + (uint32_t)(row0 >> 8) * SEED_STRIDE + DRAW_INNER);
+
+  // Slot q's loads (thread 0 only).
+  auto issue = [&](int q) {
+    const int st = q % RING, sub = q % PER, ca = c_begin + 2 * (q / PER);
+    bf16* t = ring + st * 2 * TILE_ELEMS;
+    if (sub < NDT) {
+      const bool has_b = ca + 1 < c_end;
+      mbar_expect_tx(&bars[st], (has_b ? 2 : 1) * TILE_BYTES);
+      tma_load_2d(t, &maps.w1, &bars[st], sub * 64, ca * 64);
+      if (has_b) tma_load_2d(t + TILE_ELEMS, &maps.w1, &bars[st], sub * 64, (ca + 1) * 64);
+    } else {
+      const int chunk = ca + (sub - NDT) / NDH, j = (sub - NDT) % NDH;
+      const bool has_hi = 2 * j + 1 < NDT;
+      mbar_expect_tx(&bars[st], (has_hi ? 2 : 1) * TILE_BYTES);
+      tma_load_2d(t, &maps.w2, &bars[st], chunk * 64, 2 * j * 64);
+      if (has_hi) tma_load_2d(t + TILE_ELEMS, &maps.w2, &bars[st], chunk * 64, (2 * j + 1) * 64);
+    }
+  };
+
+  if (tid == 0) {
+    for (int i = 0; i <= RING; ++i) mbar_init(&bars[i], 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(hbar, NDT * TILE_BYTES);
+    for (int kt = 0; kt < NDT; ++kt)
+      tma_load_2d(hs + kt * TILE_ELEMS, &maps.h, hbar, kt * 64, row0);
+    for (int q = 0; q < RING && q < slots; ++q) issue(q);
+  }
+  __syncthreads();
+  mbar_wait(hbar, 0);
+
+  float y[NDH][32];
+#pragma unroll
+  for (int j = 0; j < NDH; ++j)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) y[j][i] = 0.f;
+  const int w4 = wt / 32, g = (wt % 32) >> 2, qd = wt & 3;
+
+  // Each phase (the NDT W1 slots of a round, then its W2 slots) issues all
+  // its products as their tiles arrive and waits for them once; its slots
+  // are refilled together after the block's barrier.
+  for (int rd = 0; rd < rounds; ++rd) {
+    const int ca = c_begin + 2 * rd, chunk = ca + wg;
+    const bool has_b = ca + 1 < c_end, mine = wg == 0 || has_b;
+    float u[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) u[i] = 0.f;
+    const int q1 = rd * PER;
+    acc_fence(u);
+    for (int kt = 0; kt < NDT; ++kt) {
+      const int q = q1 + kt, st = q % RING;
+      mbar_wait(&bars[st], (q / RING) & 1);
+      if (mine) {
+        wgmma_fence();
+        wgmma_tile_k64(u, hs + kt * TILE_ELEMS, ring + (st * 2 + wg) * TILE_ELEMS);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    acc_fence(u);
+    __syncthreads();
+    if (tid == 0)
+      for (int q = q1; q < q1 + NDT; ++q)
+        if (q + RING < slots) issue(q + RING);
+    // s = bf16(swish(u + b1) m_inner) (pallas_ffn.py:130-135) into tile wg;
+    // b1 and the hash key of the block's 256-row tile are read first.
+    if (mine) {
+      bf16* st_tile = ss + wg * TILE_ELEMS;
+      float bias[16];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          const int col = chunk * 64 + i * 8 + 2 * qd + p;
+          bias[2 * i + p] = col < f ? b1[col] : 0.f;
+        }
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int rl = w4 * 16 + g + hf * 8, cl = i * 8 + 2 * qd;
+          float sv[2];
+#pragma unroll
+          for (int p = 0; p < 2; ++p) {
+            const int col = chunk * 64 + cl + p;
+            const float uu = u[4 * i + 2 * hf + p] + bias[2 * i + p];
+            const float sw = uu / (1.f + expf(-uu));  // swish
+            sv[p] = col < f ? sw * drop_bits(dr, key, row0 + rl, col, f) : 0.f;
+          }
+          *reinterpret_cast<__nv_bfloat162*>(st_tile + sw128_at(rl, cl)) =
+              __floats2bfloat162_rn(sv[0], sv[1]);
+        }
+    }
+    fence_proxy_async();
+    __syncthreads();
+    const int q2 = q1 + NDT, n2 = (1 + has_b) * NDH;
+#pragma unroll
+    for (int j = 0; j < NDH; ++j) acc_fence(y[j]);
+    for (int half = 0; half < 1 + has_b; ++half)
+#pragma unroll
+      for (int j = 0; j < NDH; ++j) {
+        const int q = q2 + half * NDH + j, st = q % RING;
+        mbar_wait(&bars[st], (q / RING) & 1);
+        if (2 * j + wg < NDT) {
+          wgmma_fence();
+          wgmma_tile_k64(y[j], ss + half * TILE_ELEMS, ring + (st * 2 + wg) * TILE_ELEMS);
+        }
+      }
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int j = 0; j < NDH; ++j) acc_fence(y[j]);
+    __syncthreads();
+    if (tid == 0)
+      for (int q = q2; q < q2 + n2; ++q)
+        if (q + RING < slots) issue(q + RING);
+  }
+
+  // The fp32 partial goes through the (now idle) ring, so that its stores
+  // to scratch are whole rows.
+  constexpr int LDY = NDT * 64 + 4;
+  float* ys = reinterpret_cast<float*>(ring);  // [64][LDY]
+#pragma unroll
+  for (int j = 0; j < NDH; ++j) {
+    const int dt = 2 * j + wg;
+    if (dt >= NDT) continue;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        *reinterpret_cast<float2*>(ys + (w4 * 16 + g + hf * 8) * LDY + dt * 64 + i * 8 + 2 * qd) =
+            make_float2(y[j][4 * i + 2 * hf], y[j][4 * i + 2 * hf + 1]);
+  }
+  __syncthreads();
+  float* part = s.part + ((size_t)split * n + row0) * d;
+  if (d % 4 == 0) {
+    const int d4 = d / 4;
+    for (int i = tid; i < rows * d4; i += FWD_THREADS) {
+      const int r = i / d4, c = 4 * (i - r * d4);
+      *reinterpret_cast<float4*>(part + (size_t)r * d + c) =
+          *reinterpret_cast<const float4*>(ys + r * LDY + c);
+    }
+  } else {
+    for (int i = tid; i < rows * d; i += FWD_THREADS) {
+      const int r = i / d, c = i - r * d;
+      part[i] = ys[r * LDY + c];
+    }
+  }
+}
+
+// Stage 3: one thread per element of y, the splits summed in order.
+__global__ void __launch_bounds__(256)
+ffn_fwd_reduce_kernel(FwdScratch s, const float* __restrict__ b2, bf16* __restrict__ y, int n,
+                      int d, Drop dr) {
+  const size_t total = (size_t)n * d, stride = total;
+  for (size_t i = (size_t)blockIdx.x * 256 + threadIdx.x; i < total;
+       i += (size_t)gridDim.x * 256) {
+    float v = 0.f;
+    for (int k = 0; k < s.splits; ++k) v += s.part[k * stride + i];
+    const int row = (int)(i / d), col = (int)(i % d);
+    y[i] = __float2bfloat16((v + b2[col]) * drop_mult(dr, row, col, d, DRAW_OUTER));
+  }
 }
 
 constexpr size_t fwd_smem(int ncb) {
@@ -1044,9 +1189,8 @@ constexpr size_t bwd_smem(int ncb) {
   return sizeof(float) * (size_t)(2 * BM * (ncb * 64 + 4) + 2 * BM * TS + 64 * TS + 2 * BM + FC);
 }
 constexpr size_t hidden_smem() {
-  return 1024 + RING_H * 4 * WTILE_BYTES + RING_H * 8 + 4 * WT * 4;
+  return 1024 + RING_H * 4 * hopper::TILE_BYTES + RING_H * 8 + 4 * WT * 4;
 }
-constexpr size_t products_smem() { return 1024 + RING_P * 2 * WTILE_BYTES + RING_P * 8; }
 
 struct FwdArgs {
   const void *x, *ln_w, *ln_b, *w1, *b1, *w2, *b2;
@@ -1087,25 +1231,55 @@ cudaError_t launch_bwd(const BwdArgs& a, int n, int d, int f, float eps, Drop dr
   return cudaGetLastError();
 }
 
-template <int DP>
-cudaError_t launch_fwd_mma(const FwdArgs& a, int n, int d, int f, float eps, Drop dr,
-                           cudaStream_t stream) {
-  auto kern = ffn_fwd_mma_kernel<DP>;
-  cudaError_t rc = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                        (int)fwd_mma_smem<DP>());
-  if (rc != cudaSuccess) return rc;
-  auto fp = [](const void* p) { return static_cast<const float*>(p); };
-  kern<<<(n + BM - 1) / BM, THREADS, fwd_mma_smem<DP>(), stream>>>(
-      static_cast<const bf16*>(a.x), fp(a.ln_w), fp(a.ln_b), fp(a.w1), fp(a.b1), fp(a.w2),
-      fp(a.b2), static_cast<bf16*>(a.y), n, d, f, eps, dr);
-  return cudaGetLastError();
-}
-
 #define AVEC_CHECK(call)                        \
   do {                                          \
     const cudaError_t rc_ = (call);             \
     if (rc_ != cudaSuccess) return rc_;         \
   } while (0)
+
+template <int NDT>
+cudaError_t launch_fwd(const FwdMaps& maps, const FwdArgs& a, const FwdScratch& s, int n, int d,
+                       int f, float eps, Drop dr, cudaStream_t st) {
+  const int cast_blocks = cdiv(2 * f * d, 256 * 8);
+  ffn_fwd_prep_kernel<NDT><<<cast_blocks + cdiv(n, FWD_LN_ROWS), 256, 0, st>>>(
+      static_cast<const bf16*>(a.x), static_cast<const float*>(a.ln_w),
+      static_cast<const float*>(a.ln_b), static_cast<const float*>(a.w1),
+      static_cast<const float*>(a.w2), s, n, d, f, eps, cast_blocks);
+  AVEC_CHECK(cudaGetLastError());
+  auto kern = ffn_fwd_wgmma_kernel<NDT>;
+  AVEC_CHECK(cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)fwd_wgmma_smem<NDT>()));
+  kern<<<dim3(cdiv(n, WT), s.splits), FWD_THREADS, fwd_wgmma_smem<NDT>(), st>>>(
+      maps, static_cast<const float*>(a.b1), s, n, d, f, dr);
+  AVEC_CHECK(cudaGetLastError());
+  return cudaSuccess;
+}
+
+// The three stages of the bf16 forward.
+cudaError_t launch_fwd_wgmma(const FwdArgs& a, int n, int d, int f, float eps, Drop dr,
+                             void* scratch, cudaStream_t st) {
+  FwdScratch s;
+  carve_fwd(static_cast<char*>(scratch), n, d, f, &s);
+  FwdMaps maps;
+  if (!hopper::tensor_map_2d(&maps.w1, s.w1b, f, d, s.ldd, WT) ||
+      !hopper::tensor_map_2d(&maps.w2, s.w2b, d, f, s.ldf, WT) ||
+      !hopper::tensor_map_2d(&maps.h, s.h, n, d, s.ldd, WT))
+    return cudaErrorInvalidValue;
+  cudaError_t rc = cudaErrorInvalidValue;
+  switch (cdiv(d, WT)) {
+    case 1: rc = launch_fwd<1>(maps, a, s, n, d, f, eps, dr, st); break;
+    case 2: rc = launch_fwd<2>(maps, a, s, n, d, f, eps, dr, st); break;
+    case 3: rc = launch_fwd<3>(maps, a, s, n, d, f, eps, dr, st); break;
+    case 4: rc = launch_fwd<4>(maps, a, s, n, d, f, eps, dr, st); break;
+    case 5: rc = launch_fwd<5>(maps, a, s, n, d, f, eps, dr, st); break;
+    case 6: rc = launch_fwd<6>(maps, a, s, n, d, f, eps, dr, st); break;
+  }
+  AVEC_CHECK(rc);
+  const int blocks = (int)((((size_t)n * d + 255) / 256 + 3) / 4);
+  ffn_fwd_reduce_kernel<<<blocks, 256, 0, st>>>(s, static_cast<const float*>(a.b2),
+                                               static_cast<bf16*>(a.y), n, d, dr);
+  return cudaGetLastError();
+}
 
 // The six stages of the bf16 backward.
 cudaError_t launch_bwd_wgmma(const BwdArgs& a, int n, int d, int f, float eps, Drop dr,
@@ -1118,7 +1292,7 @@ cudaError_t launch_bwd_wgmma(const BwdArgs& a, int n, int d, int f, float eps, D
   auto fm = [](void* p) { return static_cast<float*>(p); };
 
   HiddenMaps hm;
-  ProductMaps pm;
+  hopper::ProductMaps<3> pm;
   const bool maps_ok =
       tensor_map_2d(&hm.h, s.hb, n, d, s.ldd, WT) && tensor_map_2d(&hm.g, s.gb, n, d, s.ldd, WT) &&
       tensor_map_2d(&hm.w1, s.w1b, f, d, s.ldd, WT) &&
@@ -1132,16 +1306,12 @@ cudaError_t launch_bwd_wgmma(const BwdArgs& a, int n, int d, int f, float eps, D
   if (!maps_ok) return cudaErrorInvalidValue;
 
   const long long fd = (long long)f * d;
-  ProductJobs jobs;
+  hopper::ProductJobs<3> jobs;
   const int sp = s.splits;
   jobs.job[0] = {f, d, n, sp, cdiv(d, WT), 0, sp > 1 ? s.part_w : fm(a.dw1), d};
   jobs.job[1] = {d, f, n, sp, cdiv(f, WT), 0, sp > 1 ? s.part_w + sp * fd : fm(a.dw2), f};
   jobs.job[2] = {n, d, f, 1, cdiv(d, WT), 0, s.dh, d};
-  int blocks = 0;
-  for (int j = 0; j < 3; ++j) {
-    jobs.job[j].block0 = blocks;
-    blocks += cdiv(jobs.job[j].m, WT) * jobs.job[j].tiles_n * jobs.job[j].splits;
-  }
+  const int blocks = hopper::product_blocks(&jobs);
 
   const int tiles32 = cdiv(d > f ? d : f, 32);
   ffn_bwd_cast_kernel<<<dim3(tiles32, tiles32, 3), 256, 0, st>>>(fp(a.w1), fp(a.w2), s, d, f);
@@ -1161,10 +1331,10 @@ cudaError_t launch_bwd_wgmma(const BwdArgs& a, int n, int d, int f, float eps, D
       hm, fp(a.b1), s, n, d, f, dr);
   AVEC_CHECK(cudaGetLastError());
 
-  AVEC_CHECK(cudaFuncSetAttribute(ffn_bwd_products_kernel,
+  AVEC_CHECK(cudaFuncSetAttribute(hopper::wgmma_products_kernel<3>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)products_smem()));
-  ffn_bwd_products_kernel<<<blocks, WG, products_smem(), st>>>(pm, jobs);
+                                  (int)hopper::PRODUCT_SMEM));
+  hopper::wgmma_products_kernel<3><<<blocks, WG, hopper::PRODUCT_SMEM, st>>>(pm, jobs);
   AVEC_CHECK(cudaGetLastError());
 
   ffn_bwd_ln_kernel<<<s.rt_ln, PREP_THREADS, 0, st>>>(x, fp(a.ln_w), static_cast<bf16*>(a.dx),
@@ -1200,20 +1370,28 @@ cudaError_t dispatch_bwd(const BwdArgs& a, int n, int d, int f, float eps, Drop 
 
 // x, y: (n, d) of one dtype (fp32 or bf16); parameters fp32, W1 (f, d),
 // W2 (d, f). Dropout is on when use_drop != 0: keep iff hash bits < thr,
-// multiplier inv_keep. Returns the launch's cudaError_t.
+// multiplier inv_keep. bf16 uses `scratch`, a device buffer of
+// avec_ffn_fwd_scratch_bytes (256-byte aligned); fp32 needs none. Returns
+// the launches' cudaError_t.
 extern "C" int avec_ffn_fwd(const void* x, const void* ln_w, const void* ln_b, const void* w1,
-                            const void* b1, const void* w2, const void* b2, void* y, int n,
-                            int d, int f, float eps, int use_drop, unsigned seed, unsigned thr,
-                            float inv_keep, int is_bf16, void* stream) {
+                            const void* b1, const void* w2, const void* b2, void* y,
+                            void* scratch, int n, int d, int f, float eps, int use_drop,
+                            unsigned seed, unsigned thr, float inv_keep, int is_bf16,
+                            void* stream) {
   if (n <= 0 || d <= 0 || f <= 0) return cudaErrorInvalidValue;
   const FwdArgs a{x, ln_w, ln_b, w1, b1, w2, b2, y};
   const Drop dr{seed, thr, inv_keep, use_drop};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!is_bf16) return dispatch_fwd<float>(a, n, d, f, eps, dr, s);
-  if (d <= 192) return launch_fwd_mma<192>(a, n, d, f, eps, dr, s);
-  if (d <= 256) return launch_fwd_mma<256>(a, n, d, f, eps, dr, s);
-  if (d <= 384) return launch_fwd_mma<384>(a, n, d, f, eps, dr, s);
-  return cudaErrorInvalidValue;
+  if (d > 384 || scratch == nullptr) return cudaErrorInvalidValue;
+  return launch_fwd_wgmma(a, n, d, f, eps, dr, scratch, s);
+}
+
+// Bytes of scratch one forward call needs (0: none, the fp32 path).
+extern "C" long long avec_ffn_fwd_scratch_bytes(int n, int d, int f, int is_bf16) {
+  if (!is_bf16 || n <= 0 || d <= 0 || f <= 0) return 0;
+  FwdScratch s;
+  return (long long)carve_fwd(nullptr, n, d, f, &s);
 }
 
 // Bytes of scratch one backward call needs (0: none, the fp32 path).

@@ -1,6 +1,8 @@
-// Hopper (sm_90a) building blocks of the bf16 fused-FFN backward (`ffn.cu`):
-// 2-d TMA tile loads that complete on an `mbarrier`, and warpgroup matrix
-// multiplies (`wgmma`) on 128-byte-swizzled, K-major shared-memory tiles.
+// Hopper (sm_90a) building blocks of the bf16 tensor-core stages of `ffn.cu`
+// and `conv_module.cu`: 2-d TMA tile loads that complete on an `mbarrier`,
+// warpgroup matrix multiplies (`wgmma`) on 128-byte-swizzled, K-major
+// shared-memory tiles, a one-warpgroup TMA/`wgmma` main loop, and a launch of
+// independent 64 x 64 fp32 output tiles (`wgmma_products_kernel`).
 //
 // Tile convention: a tile is ROWS x 64 bf16 values, one 128-byte row per
 // matrix row (the reduction index k along the row), written by one TMA load
@@ -47,11 +49,14 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
                : "memory");
 }
 
-// Spins until the barrier's phase of the given parity has completed.
+// Spins until the barrier's phase of the given parity has completed. A phase
+// that never completes (a load that was never issued, or a byte count that
+// does not match) stops the kernel with an error instead of hanging the card.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
+  uint32_t done = 0, tries = 0;
   do {
+    if (++tries == (1u << 28)) __trap();
     asm volatile(
         "{\n"
         ".reg .pred p;\n"
@@ -62,6 +67,12 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(addr), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// Orders this thread's generic-proxy writes to shared memory before later
+// reads by the async proxy (`wgmma` operands written by the threads).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ---- TMA
@@ -94,6 +105,10 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Waits until at most one committed group is still running.
+__device__ __forceinline__ void wgmma_wait_one() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
 }
 
 // Keeps the compiler from moving accumulator reads or writes across the
@@ -130,6 +145,144 @@ __device__ __forceinline__ void wgmma_tile_k64(float (&d)[32], const __nv_bfloat
                                                const __nv_bfloat16* b) {
 #pragma unroll
   for (int ks = 0; ks < 4; ++ks) wgmma_64x64(d, sw128_desc(a + ks * 16), sw128_desc(b + ks * 16));
+}
+
+// Element offset of (row r, column c) in a 64-column bf16 tile with the
+// 128-byte swizzle (the layout TMA writes and `wgmma` reads): the 16-byte
+// chunk c / 8 of row r moves to chunk (c / 8) ^ (r % 8).
+__device__ __forceinline__ int sw128_at(int r, int c) {
+  return r * 64 + ((((c >> 3) ^ r) & 7) << 3) + (c & 7);
+}
+
+constexpr int TILE_ELEMS = 64 * 64;           // one 64 x 64 bf16 tile
+constexpr int TILE_BYTES = TILE_ELEMS * 2;
+
+// The 1024-byte-aligned start of the dynamic shared memory.
+__device__ __forceinline__ unsigned char* smem_base_1k() {
+  extern __shared__ __align__(1024) unsigned char smem_dyn[];
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_dyn) + 1023) & ~static_cast<uintptr_t>(1023));
+}
+
+// One warpgroup (blockDim.x == 128) computes acc[j] = A . B_j^T over the k
+// tiles kt0 .. kt1-1: A is the 64-row box of `ma` at row a_row, B_j the
+// 64-row box of mb[j] at row b_row[j]. Thread 0 keeps the tiles coming by
+// TMA through RING stages of 1 + NB tiles at `ring` (1024-byte aligned) that
+// complete on `bars` (RING barriers, initialised here). The products of one
+// stage run while the next stage's tiles are awaited: a stage is refilled
+// once the products that read it have retired in every warp.
+template <int NB, int RING>
+__device__ __forceinline__ void wg_mainloop(float (&acc)[NB][32], __nv_bfloat16* ring,
+                                            uint64_t* bars, const CUtensorMap* ma, int a_row,
+                                            const CUtensorMap* const (&mb)[NB],
+                                            const int (&b_row)[NB], int kt0, int kt1) {
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int i = 0; i < RING; ++i) mbar_init(&bars[i], 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  auto load = [&](int kt) {
+    const int st = (kt - kt0) % RING;
+    __nv_bfloat16* t = ring + st * (1 + NB) * TILE_ELEMS;
+    mbar_expect_tx(&bars[st], (1 + NB) * TILE_BYTES);
+    tma_load_2d(t, ma, &bars[st], kt * 64, a_row);
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+      tma_load_2d(t + (1 + j) * TILE_ELEMS, mb[j], &bars[st], kt * 64, b_row[j]);
+  };
+  if (tid == 0)
+    for (int kt = kt0; kt < kt1 && kt < kt0 + RING; ++kt) load(kt);
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[j][i] = 0.f;
+  for (int kt = kt0; kt < kt1; ++kt) {
+    const int st = (kt - kt0) % RING;
+    mbar_wait(&bars[st], ((kt - kt0) / RING) & 1);
+    const __nv_bfloat16* t = ring + st * (1 + NB) * TILE_ELEMS;
+#pragma unroll
+    for (int j = 0; j < NB; ++j) acc_fence(acc[j]);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < NB; ++j) wgmma_tile_k64(acc[j], t, t + (1 + j) * TILE_ELEMS);
+    wgmma_commit();
+    wgmma_wait_one();  // the previous stage's products have retired
+#pragma unroll
+    for (int j = 0; j < NB; ++j) acc_fence(acc[j]);
+    __syncthreads();
+    if (tid == 0 && kt > kt0 && kt - 1 + RING < kt1) load(kt - 1 + RING);
+  }
+  wgmma_wait_all();
+#pragma unroll
+  for (int j = 0; j < NB; ++j) acc_fence(acc[j]);
+  __syncthreads();  // the ring is free for the caller's epilogue
+}
+
+// One product of `wgmma_products_kernel`: out[split][i][j] (fp32, row stride
+// ldo) = sum over the split's share of k of A[i][k] B[j][k], for A (m, k)
+// and B (nn, k) read through the job's tensor maps; the job's tiles start at
+// block `block0` of the launch.
+struct ProductJob {
+  int m, nn, k, splits, tiles_n, block0;
+  float* out;
+  int ldo;
+};
+
+template <int J>
+struct ProductMaps {
+  CUtensorMap a[J], b[J];
+};
+
+template <int J>
+struct ProductJobs {
+  ProductJob job[J];
+};
+
+constexpr int PRODUCT_RING = 4;
+constexpr size_t PRODUCT_SMEM = 1024 + PRODUCT_RING * 2 * TILE_BYTES + PRODUCT_RING * 8;
+
+// J independent products in one launch: one warpgroup per 64 x 64 output
+// tile (and split of k), each element of `out` with one owner.
+template <int J>
+__global__ void __launch_bounds__(128)
+wgmma_products_kernel(const __grid_constant__ ProductMaps<J> maps, ProductJobs<J> jobs) {
+  unsigned char* base = smem_base_1k();
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(base);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + PRODUCT_RING * 2 * TILE_BYTES);
+  int j = 0;
+  while (j < J - 1 && (int)blockIdx.x >= jobs.job[j + 1].block0) ++j;
+  const ProductJob& jb = jobs.job[j];
+  const int local = blockIdx.x - jb.block0;
+  const int split = local % jb.splits, tile = local / jb.splits;
+  const int m0 = (tile / jb.tiles_n) * 64, n0 = (tile % jb.tiles_n) * 64;
+  const int kt_all = (jb.k + 63) / 64, per = (kt_all + jb.splits - 1) / jb.splits;
+  const int kt0 = split * per, kt1 = min(kt_all, kt0 + per);
+  const CUtensorMap* const mb[1] = {&maps.b[j]};
+  const int b_row[1] = {n0};
+  float acc[1][32];
+  wg_mainloop<1, PRODUCT_RING>(acc, ring, bars, &maps.a[j], m0, mb, b_row, kt0, kt1);
+
+  float* out = jb.out + (size_t)split * jb.m * jb.ldo;
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = m0 + w * 16 + g + (e >> 1) * 8, c = n0 + i * 8 + 2 * q + (e & 1);
+      if (r < jb.m && c < jb.nn) out[(size_t)r * jb.ldo + c] = acc[0][4 * i + e];
+    }
+}
+
+// Fills in block0 of every job; returns the launch's block count.
+template <int J>
+inline int product_blocks(ProductJobs<J>* jobs) {
+  int blocks = 0;
+  for (int j = 0; j < J; ++j) {
+    jobs->job[j].block0 = blocks;
+    blocks += (jobs->job[j].m + 63) / 64 * jobs->job[j].tiles_n * jobs->job[j].splits;
+  }
+  return blocks;
 }
 
 // ---- host: tensor maps

@@ -198,57 +198,6 @@ __device__ __forceinline__ void warp_mma(float (&acc)[NT][4], const bf16* a, int
   }
 }
 
-// Stage a ROWS x COLS tile of a row-major fp32 matrix into shared memory as
-// bf16: dst[r * ldd + c] (or dst[c * ldd + r] when TRANSPOSE) =
-// bf16(src[(row0 + r) * ld + col0 + c]); zero where the source row >= row_lim
-// or column >= col_lim. With `vec` (ld, col0, col_lim multiples of 4 and src
-// 16-byte aligned) a thread starts 8 independent 16-byte loads before it
-// converts and stores, which hides the L2 latency that a one-element loop
-// pays on every iteration; without it the tile is staged element by element.
-template <int ROWS, int COLS, bool TRANSPOSE>
-__device__ __forceinline__ void stage_bf16(bf16* dst, int ldd, const float* __restrict__ src,
-                                           size_t ld, int row0, int row_lim, int col0,
-                                           int col_lim, bool vec) {
-  if (vec) {
-    constexpr int CV = COLS / 4, V = ROWS * CV, UNROLL = 8;
-    for (int e0 = threadIdx.x; e0 < V; e0 += blockDim.x * UNROLL) {
-      float4 v[UNROLL];
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        const int e = e0 + u * blockDim.x;
-        const int row = row0 + e / CV, col = col0 + (e % CV) * 4;
-        v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (e < V && row < row_lim && col < col_lim)
-          v[u] = *reinterpret_cast<const float4*>(src + (size_t)row * ld + col);
-      }
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        const int e = e0 + u * blockDim.x;
-        if (e >= V) break;
-        const int r = e / CV, c = (e % CV) * 4;
-        if (TRANSPOSE) {
-          dst[c * ldd + r] = __float2bfloat16(v[u].x);
-          dst[(c + 1) * ldd + r] = __float2bfloat16(v[u].y);
-          dst[(c + 2) * ldd + r] = __float2bfloat16(v[u].z);
-          dst[(c + 3) * ldd + r] = __float2bfloat16(v[u].w);
-        } else {
-          __nv_bfloat162* d2 = reinterpret_cast<__nv_bfloat162*>(dst + r * ldd + c);
-          d2[0] = __floats2bfloat162_rn(v[u].x, v[u].y);
-          d2[1] = __floats2bfloat162_rn(v[u].z, v[u].w);
-        }
-      }
-    }
-    return;
-  }
-  for (int e = threadIdx.x; e < ROWS * COLS; e += blockDim.x) {
-    const int r = e / COLS, c = e % COLS;
-    const int row = row0 + r, col = col0 + c;
-    float v = 0.f;
-    if (row < row_lim && col < col_lim) v = src[(size_t)row * ld + col];
-    dst[TRANSPOSE ? c * ldd + r : r * ldd + c] = __float2bfloat16(v);
-  }
-}
-
 // ---- block-level tensor-core tiles (mma.sync, fp32 accumulation)
 //
 // `mma_tile` computes the same 64 x 64 output tile as `gemm_tile` with 256

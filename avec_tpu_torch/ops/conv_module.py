@@ -22,7 +22,10 @@ on each rank's shard, the (E,)-sized sums all-reduced between them.
 
 `fused_conv_module_3d` runs each pass as the hand-written CUDA kernel of
 `csrc/conv_module.cu` for CUDA tensors and as its plain version
-(`conv_*_reference`) for CPU tensors. The backward is the JAX custom VJP
+(`conv_*_reference`) for CPU tensors. In bf16 the second backward pass sums
+every gradient in a fixed order (no atomics), so from the same inputs it
+gives the same bits; the other passes' per-channel sums and weight
+gradients, and every sum of the fp32 kernels, are added with atomics. The backward is the JAX custom VJP
 written out, not autograd of the forward: it ignores the cotangents of the
 batch mean and variance, returns a zero depthwise-bias gradient (train-mode
 BN subtracts the batch mean) and the BN gradients as sums (d bn_w = r2,
@@ -222,7 +225,7 @@ def _lib():
     lib = _cuda.library("conv_module")
     fns = (lib.avec_conv_stats, lib.avec_conv_fwd, lib.avec_conv_bwd1,
            lib.avec_conv_bwd2)
-    size = lib.avec_conv_scratch_floats
+    size = lib.avec_conv_scratch_bytes
     if size.argtypes is None:
         vp, ci, cu, cf = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                           ctypes.c_float)
@@ -234,7 +237,7 @@ def _lib():
         for fn, n_ptr in zip(fns, (5, 6, 10, 10)):
             fn.argtypes = [vp] * n_ptr + tail
             fn.restype = ci
-        size.argtypes = [ci] * 6
+        size.argtypes = [ci] * 8
         size.restype = ctypes.c_longlong
     return fns, size
 
@@ -349,8 +352,8 @@ class _FusedConvModule(torch.autograd.Function):
 class _Launch:
     """The four C entry points of `csrc/conv_module.cu` for one call's
     input and parameters; each method allocates its outputs (accumulators
-    zeroed on the current stream) and an fp32 scratch buffer that lives until
-    it returns, launches, and counts one launch under its name in `names`
+    zeroed on the current stream) and a scratch buffer that lives until it
+    returns, launches, and counts one launch under its name in `names`
     (KERNELS, or KERNELS_DP on the data-parallel path). No entry point reads
     the row count for a global quantity: the statistics and r1 / n, r2 / n
     come in from the caller."""
@@ -368,9 +371,14 @@ class _Launch:
                      int(x.dtype == torch.bfloat16), _cuda.stream_ptr(x))
         self.fns, self.size = _lib()
 
+    def scratch(self, stage: int) -> torch.Tensor:
+        """The byte buffer pass `stage` (0 stats .. 3 bwd2) needs."""
+        size = self.size(*self.dims, stage,
+                         int(self.x.dtype == torch.bfloat16))
+        return torch.empty(size, dtype=torch.uint8, device=self.x.device)
+
     def _run(self, stage: int, *ptrs):
-        scratch = torch.empty(self.size(*self.dims[:5], stage),
-                              dtype=torch.float32, device=self.x.device)
+        scratch = self.scratch(stage)
         rc = self.fns[stage](*ptrs, scratch.data_ptr(), *self.tail)
         _cuda.check(rc, self.names[stage])
         _cuda.launches[self.names[stage]] += 1

@@ -15,9 +15,10 @@ hands its parameters over without a transposed copy (the JAX function takes
 The dropout masks are a pure function of (seed, row, column, draw): the
 counter hash of pallas_ffn.py:76-108 (murmur3 finaliser), written per global
 row. The kernels and the plain version regenerate the same masks, which are
-also those of the JAX kernel in interpret mode. The bf16 backward writes
-every gradient with one owner per element and sums in a fixed order, so it
-gives the same bits on every run; it needs a scratch buffer (`bwd_scratch`).
+also those of the JAX kernel in interpret mode. The bf16 forward and
+backward write every output with one owner per element and sum in a fixed
+order, so they give the same bits on every run; each needs a scratch buffer
+(`fwd_scratch`, `bwd_scratch`).
 The fp32 backward adds its weight and bias gradients into zeroed fp32
 buffers with atomicAdd, so their last bits vary from run to run there.
 """
@@ -98,26 +99,36 @@ def fused_ffn_reference(x, ln_w, ln_b, w1, b1, w2, b2, seed: int = 0,
 def _lib():
     lib = _cuda.library("ffn")
     fwd, bwd = lib.avec_ffn_fwd, lib.avec_ffn_bwd
-    size = lib.avec_ffn_bwd_scratch_bytes
+    sizes = lib.avec_ffn_fwd_scratch_bytes, lib.avec_ffn_bwd_scratch_bytes
     if fwd.argtypes is None:
         vp, ci, cu, cf = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                           ctypes.c_float)
         tail = [ci, ci, ci, cf, ci, cu, cu, cf, ci, vp]
-        fwd.argtypes = [vp] * 8 + tail
+        fwd.argtypes = [vp] * 9 + tail
         bwd.argtypes = [vp] * 15 + tail
         fwd.restype = bwd.restype = ci
-        size.argtypes = [ci] * 4
-        size.restype = ctypes.c_longlong
-    return fwd, bwd, size
+        for size in sizes:
+            size.argtypes = [ci] * 4
+            size.restype = ctypes.c_longlong
+    return fwd, bwd, sizes
+
+
+def _scratch(x: torch.Tensor, f: int, backward: bool) -> torch.Tensor:
+    n, d = x.shape
+    size = _lib()[2][int(backward)](n, d, f, int(x.dtype == torch.bfloat16))
+    return torch.empty(size, dtype=torch.uint8, device=x.device)
+
+
+def fwd_scratch(x: torch.Tensor, f: int) -> torch.Tensor:
+    """The forward kernel's scratch for (N, d) tokens `x` and hidden width
+    `f`: a byte buffer on x's device (empty for fp32, whose kernel needs
+    none)."""
+    return _scratch(x, f, False)
 
 
 def bwd_scratch(x: torch.Tensor, f: int) -> torch.Tensor:
-    """The backward kernel's scratch for (N, d) tokens `x` and hidden width
-    `f`: a byte buffer on x's device (empty for fp32, whose kernel needs
-    none)."""
-    n, d = x.shape
-    size = _lib()[2](n, d, f, int(x.dtype == torch.bfloat16))
-    return torch.empty(size, dtype=torch.uint8, device=x.device)
+    """The backward kernel's scratch, as `fwd_scratch`."""
+    return _scratch(x, f, True)
 
 
 def _check(x, params):
@@ -155,8 +166,10 @@ class _FusedFFN(torch.autograd.Function):
         tail = (n, d, f, float(epsilon), int(drop), int(seed) & _M32, thr,
                 inv_keep, int(x.dtype == torch.bfloat16))
         y = torch.empty_like(x)
+        scratch = fwd_scratch(x, f)
         rc = _lib()[0](x.data_ptr(), *(p.data_ptr() for p in params),
-                       y.data_ptr(), *tail, _cuda.stream_ptr(x))
+                       y.data_ptr(), scratch.data_ptr(), *tail,
+                       _cuda.stream_ptr(x))
         _cuda.check(rc, KERNEL_FWD)
         _cuda.launches[KERNEL_FWD] += 1
         ctx.save_for_backward(x, *params)

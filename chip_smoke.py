@@ -29,7 +29,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
     1 and one 0. Every error is the max abs difference over the largest entry
     of the plain result: fp32 1e-4 (y, dx, dq', dk', dv) and 3e-4 (FFN
     parameter gradients, atomic sums over thousands of rows); bf16 2e-2 and
-    3e-2;
+    3e-2; the bf16 FFN forward bit-identical over two calls;
  6. training at full width: the same 61.7M-parameter model, use_flash, fused
     FFN (`fused_ffn=True`), stem "2d", bf16 compute on fp32 parameters, B=16 utterances of
     3-6 s in 6 s of padding (151 frames of 88x88, 32 labels), dropout 0.1 and
@@ -45,7 +45,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
     their plain versions (interleaved), and each training kernel's time at
     the step's shapes beside its bound, plain version and library call (for
     K1 / K1b the port's own unfused feed-forward module, the `fused_ffn=False`
-    route, forward and backward).
+    route, forward and backward); K1's device time by kernel (its three
+    stages) and the host's time to issue it, beside its time through the
+    wrapper.
  8. the fused attention module's kernels (K2 forward, K2b backward) against
     the plain version at (B, T, d, H) = (16, 151, 256, 4) and (16, 76, 360,
     4), fp32 and bf16, lengths from T down to 1 and one 0, dropout 0 and 0.1
@@ -72,7 +74,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
     and "causal", dropout 0 and 0.1 (exactly the hash mask's entries dropped
     on both sides): y, mean, var, dx and the ten parameter gradients, max abs
     over the largest entry; fp32 1e-4 (y, mean, var) and 5e-4 (gradients),
-    bf16 2e-2 and 3e-2; the depthwise-bias gradient exactly zero;
+    bf16 2e-2 and 3e-2; the depthwise-bias gradient exactly zero; in bf16,
+    K3b-2's dx and five gradients bit-identical over two calls on the same
+    inputs;
 13. training at full width through all the training kernels: fused
     convolution module, fused attention, fused FFN (all three switched on
     explicitly), stem "pallas", use_flash off: the launch counts per step
@@ -80,9 +84,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
     and no flash; 1 warm-up + 3 counted steps with the checks of phase 6;
     then fp32 kernels against plain versions (loss 1e-5, gradient norm
     1e-3, every leaf 2e-3, BN statistics 1e-5);
-14. K3 / K3b times per launch and per step beside their bounds, the plain
-    stages and the port's own unfused convolution module (PyTorch library
-    calls), and step time, utterances/s and peak memory of phase 13's path
+14. K3 / K3b times per launch and per step beside their device times,
+    bounds, the plain stages and the port's own unfused convolution module
+    (PyTorch library calls), K3b-2's device time by kernel (its nine
+    stages) and the host's time to issue each pass, and step time,
+    utterances/s and peak memory of phase 13's path
     and phase 10's path (they differ by `fused_conv` alone), interleaved;
 15. K3dp on two gloo ranks sharing the card (`avec_tpu_torch.parallel.dist
     .spawn`): each rank runs the four conv passes on its half of phase 12's
@@ -109,9 +115,13 @@ Phases, in order; any failure raises and the exit code is non-zero:
     its largest entry) within 1e-6; through the kernels, losses within 1e-6
     and the gradients printed beside the plain trainer's own run-to-run
     floor (the kernels' atomic sums vary in their last bits);
-then the K3dp passes' times per rank at the B=8 shapes beside their bounds
-and plain stages. The line before the last is a JSON `kernels` line of
-sixteen kernels; the last line is {"ok": true, "device": {...}}. Details go
+then the K3dp passes' times per rank at the B=8 shapes beside their
+bounds and plain stages. The line before the last is a JSON `kernels` line of
+sixteen kernels; the last line is {"ok": true, "device": {...}}. Every time
+there ("ms", "plain_ms", "library_ms") is one of direct calls between CUDA
+events (`cuda_time_ms`), the host's cost of each call included; "device_ms"
+is the same call's device time from torch.profiler (`device_time_ms`), the
+time of every kernel it runs. Details go
 to chiprun_out/chip_smoke.json.
 """
 
@@ -206,6 +216,78 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_time_ms(fn, iters: int = 10):
+    """Device time of one `fn()`: the kernels (and device memsets and copies)
+    that it runs, traced by torch.profiler over `iters` calls after a
+    warm-up call, in ms per call, as (total, {kernel name: ms}). Unlike
+    `cuda_time_ms` it leaves out the host's cost of each call and the gaps
+    between kernels."""
+    fn()
+    torch.cuda.synchronize()
+    per = {}
+    for us, _, key in traced_device_rows(fn, iters):
+        name = short_kernel(key)
+        per[name] = per.get(name, 0.0) + us / 1e3 / iters
+    return sum(per.values()), per
+
+
+def traced_device_rows(fn, iters: int = 1):
+    """(device us, count, name) of each kernel, device memset or copy that
+    `iters` calls of `fn` run, traced by torch.profiler; the CPU-side
+    operator rows are left out so nothing counts twice."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in p.key_averages():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        us = (getattr(e, "self_device_time_total", None)
+              or getattr(e, "self_cuda_time_total", 0))
+        if us > 0:
+            rows.append((us, e.count, e.key))
+    return rows
+
+
+def host_ms(fn, iters: int = 20) -> float:
+    """Host time to issue one `fn()`: `iters` calls timed on the host's
+    clock with no synchronisation between them (few enough launches that
+    the launch queue never fills and makes the host wait)."""
+    fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    ms = (time.perf_counter() - start) * 1e3 / iters
+    torch.cuda.synchronize()
+    return ms
+
+
+def short_kernel(name: str) -> str:
+    """A profiler's demangled kernel signature cut to the kernel's own name
+    and template arguments: `void avec::(anonymous namespace)::k<3>(...)`
+    -> `k<3>`."""
+    name = name.replace("(anonymous namespace)::", "")
+    if name.startswith("void "):
+        name = name[5:]
+    depth, cut = 0, len(name)
+    for i, c in enumerate(name):
+        depth += (c == "<") - (c == ">")
+        if c == "(" and depth == 0:
+            cut = i
+            break
+    name, depth, start = name[:cut], 0, 0
+    for i, c in enumerate(name):
+        depth += (c == "<") - (c == ">")
+        if depth == 0 and name.startswith("::", i):
+            start = i + 2
+    return name[start:].strip()
 
 
 def max_abs(a, b) -> float:
@@ -416,26 +498,31 @@ def main() -> int:
     # ---- 4. kernel timings at the main path's shapes and data (bf16)
     alens = inputs[3]
     len1, len2 = stage_lengths(alens)
-    flash = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0,
-             "ops": 0.0}
+    flash = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+             "bytes": 0, "ops": 0.0}
     for t, d_model, lens, count in ((201, 256, len1, 6), (101, 360, len2, 1)):
         q, k, v, lt, scale = flash_inputs(8, t, d_model, lens,
                                           torch.bfloat16, seed=7)
         keymask = (torch.arange(t, device=dev)[None, :]
                    < lt[:, None])[:, None, None, :]
         ms = cuda_time_ms(lambda: flash_attention_fwd(q, k, v, lt, scale))
+        dev_ms = device_time_ms(lambda: flash_attention_fwd(q, k, v, lt,
+                                                            scale))[0]
         plain = cuda_time_ms(lambda: flash_attention_reference(q, k, v, lt,
                                                                scale))
         lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=keymask, scale=scale))
         nbytes, ops = flash_cost(8, 4, t, q.shape[-1], v.shape[-1], lens, 2)
-        detail[f"flash_T{t}"] = {"ms": ms, "plain_ms": plain,
+        detail[f"flash_T{t}"] = {"ms": ms, "device_ms": dev_ms,
+                                 "plain_ms": plain,
                                  "library_ms": lib, "bytes": nbytes,
                                  "ops": ops, "lengths": [int(x) for x in lens],
                                  "bound_ms": bound(nbytes, ops, "bf16")[0]}
-        log(f"flash T={t} D={d_model}: {ms:.4f} ms/launch, plain {plain:.4f}, "
+        log(f"flash T={t} D={d_model}: {ms:.4f} ms/launch (device "
+            f"{dev_ms:.4f}), plain {plain:.4f}, "
             f"sdpa {lib:.4f}, bound {bound(nbytes, ops, 'bf16')[0]:.5f}")
         flash["ms"] += count * ms
+        flash["device_ms"] += count * dev_ms
         flash["plain_ms"] += count * plain
         flash["library_ms"] += count * lib
         flash["bytes"] += count * nbytes
@@ -444,13 +531,14 @@ def main() -> int:
 
     y = torch.randn(n_frames, 44, 44, 64, generator=gen).to(dev, torch.bfloat16)
     s_ms = cuda_time_ms(lambda: bn_relu_pool(y, a5, b5))
+    s_dev = device_time_ms(lambda: bn_relu_pool(y, a5, b5))[0]
     s_plain = cuda_time_ms(lambda: bn_relu_pool_reference(y, a5, b5))
     s_bytes = y.numel() * 2 + (y.numel() // 4) * 2 + 2 * 64 * 4
     s_bound, s_by = bound(s_bytes, 3.0 * y.numel(), "bf16")
-    detail["stem"] = {"ms": s_ms, "plain_ms": s_plain, "bytes": s_bytes,
-                      "bound_ms": s_bound}
-    log(f"bn_relu_pool N={n_frames}: {s_ms:.4f} ms, plain {s_plain:.4f}, "
-        f"bound {s_bound:.5f}")
+    detail["stem"] = {"ms": s_ms, "device_ms": s_dev, "plain_ms": s_plain,
+                      "bytes": s_bytes, "bound_ms": s_bound}
+    log(f"bn_relu_pool N={n_frames}: {s_ms:.4f} ms (device {s_dev:.4f}), "
+        f"plain {s_plain:.4f}, bound {s_bound:.5f}")
 
     kernels = [
         {"name": "flash_attention_fwd", "route": "cuda",
@@ -458,16 +546,16 @@ def main() -> int:
          "replaces": "avec_tpu/ops/pallas_attention.py:134",
          "launches": launches["flash_attention_fwd"],
          "max_abs_err": max(errs["flash_attention_fwd"].values()),
-         "ms": flash["ms"], "plain_ms": flash["plain_ms"],
-         "bound_ms": f_bound, "bound_by": f_by,
+         "ms": flash["ms"], "device_ms": flash["device_ms"],
+         "plain_ms": flash["plain_ms"], "bound_ms": f_bound, "bound_by": f_by,
          "library_ms": flash["library_ms"]},
         {"name": "bn_relu_pool", "route": "cuda",
          "source": "avec_tpu_torch/csrc/stem.cu",
          "replaces": "avec_tpu/ops/pallas_stem.py:149",
          "launches": launches["bn_relu_pool"],
          "max_abs_err": max(errs["bn_relu_pool"].values()),
-         "ms": s_ms, "plain_ms": s_plain, "bound_ms": s_bound,
-         "bound_by": s_by, "library_ms": None},
+         "ms": s_ms, "device_ms": s_dev, "plain_ms": s_plain,
+         "bound_ms": s_bound, "bound_by": s_by, "library_ms": None},
     ]
     if "--profile" in sys.argv[1:]:
         detail["profile"] = profile_forward(srv, inputs)
@@ -807,6 +895,16 @@ def training_phases(detail, profile: bool):
                         and worst_w <= wtol):
                     raise AssertionError(f"FFN kernels disagree: {key} "
                                          f"{e_fwd} {e_bwd}")
+            if dtype == torch.bfloat16:
+                # K1 sums its hidden-range partials in a fixed order
+                with torch.no_grad():
+                    ys = [fused_ffn(x, *params, 1234, 1e-6, 0.1, True)
+                          for _ in range(2)]
+                same = torch.equal(*ys)
+                log(f"fused_ffn N{n}_d{d}_F{f}_bfloat16_drop0.1: forward "
+                    f"bit-identical over two calls: {same}")
+                if not same:
+                    raise AssertionError(f"bf16 K1 reruns differ: N{n} d{d}")
             del x, g, params
     bwd_lengths = RAGGED_TRAIN_LENGTHS
     for t, d_model in ((151, 256), (76, 360)):
@@ -878,8 +976,8 @@ def training_phases(detail, profile: bool):
                                if k != "steps"}))
 
     ffn_shapes, flash_shapes = kernel_call_shapes(trainer, batch)
-    acc = {k: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0.0,
-               "library_ms": 0.0} for k in errs}
+    acc = {k: {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "bytes": 0,
+               "ops": 0.0, "library_ms": 0.0} for k in errs}
     for (n, d, f), count in sorted(ffn_shapes.items()):
         x, g, params = ffn_inputs(n, d, f, torch.bfloat16, seed=n)
 
@@ -912,25 +1010,37 @@ def training_phases(detail, profile: bool):
 
         t_f, t_fp = cuda_time_ms(lambda: fwd(True)), cuda_time_ms(
             lambda: fwd(False))
-        t_b = time_ffn_bwd_kernel(x, g, params, 0.1, 77)
+        d_f, stages = device_time_ms(lambda: fwd(True))
+        h_f = host_ms(lambda: fwd(True))
+        t_b, d_b = time_ffn_bwd_kernel(x, g, params, 0.1, 77)
         t_bp = cuda_time_ms(lambda: both(False)) - t_fp
         t_fl = cuda_time_ms(lambda: lib(False))
         t_bl = cuda_time_ms(lambda: lib(True)) - t_fl
         fb, fo, bb, bo = ffn_cost(n, d, f, 2)
-        log(f"fused_ffn N={n} d={d} F={f} x{count}: fwd {t_f:.4f} ms (plain "
-            f"{t_fp:.4f}, unfused module {t_fl:.4f}, bound "
-            f"{bound(fb, fo, 'bf16')[0]:.5f}); bwd {t_b:.4f} ms (plain "
-            f"{t_bp:.4f}, unfused module {t_bl:.4f}, bound "
-            f"{bound(bb, bo, 'bf16')[0]:.5f})")
+        log(f"fused_ffn N={n} d={d} F={f} x{count}: fwd {t_f:.4f} ms "
+            f"(device {d_f:.4f}, plain {t_fp:.4f}, unfused module "
+            f"{t_fl:.4f}, bound {bound(fb, fo, 'bf16')[0]:.5f}); bwd "
+            f"{t_b:.4f} ms (device {d_b:.4f}, plain {t_bp:.4f}, unfused "
+            f"module {t_bl:.4f}, bound {bound(bb, bo, 'bf16')[0]:.5f})")
+        log(f"fused_ffn_fwd N={n} d={d} device time of each stage in one "
+            f"launch (torch.profiler): "
+            + ", ".join(f"{nm} {ms:.4f} ms" for nm, ms in stages.items())
+            + f"; whole {d_f:.4f} ms on the device, {t_f:.4f} ms per call "
+            f"through the wrapper, {h_f:.4f} ms of host time to issue it")
         detail[f"ffn_N{n}_d{d}"] = {"count": count, "fwd_ms": t_f,
+                                    "fwd_device_ms": d_f,
+                                    "fwd_host_ms": h_f,
+                                    "fwd_kernels_ms": stages,
                                     "fwd_plain_ms": t_fp,
                                     "fwd_library_ms": t_fl, "bwd_ms": t_b,
+                                    "bwd_device_ms": d_b,
                                     "bwd_plain_ms": t_bp,
                                     "bwd_library_ms": t_bl}
-        for key, ms, pms, lms, nb, no in (
-                (KERNEL_FWD, t_f, t_fp, t_fl, fb, fo),
-                (KERNEL_BWD, t_b, t_bp, t_bl, bb, bo)):
+        for key, ms, dms, pms, lms, nb, no in (
+                (KERNEL_FWD, t_f, d_f, t_fp, t_fl, fb, fo),
+                (KERNEL_BWD, t_b, d_b, t_bp, t_bl, bb, bo)):
             acc[key]["ms"] += count * ms
+            acc[key]["device_ms"] += count * dms
             acc[key]["plain_ms"] += count * pms
             acc[key]["library_ms"] += count * lms
             acc[key]["bytes"] += count * nb
@@ -946,7 +1056,10 @@ def training_phases(detail, profile: bool):
             q, k, v, dout, lse, delta, lt, scale))
         t_plain = cuda_time_ms(lambda: flash_attention_bwd_reference(
             q, k, v, dout, lse, delta, lt, scale))
-        t_dq = time_single_bwd_kernel(q, k, v, dout, lse, delta, lt, scale)
+        d_both = device_time_ms(lambda: flash_attention_bwd(
+            q, k, v, dout, lse, delta, lt, scale))[0]
+        t_dq, d_dq = time_single_bwd_kernel(q, k, v, dout, lse, delta, lt,
+                                            scale)
         keymask = (torch.arange(t, device=dev)[None, :]
                    < lt[:, None])[:, None, None, :]
         leaves = [a.detach().requires_grad_(True) for a in (q, k, v)]
@@ -962,17 +1075,22 @@ def training_phases(detail, profile: bool):
         (dq_b, dq_o), (dkv_b, dkv_o) = flash_bwd_cost(
             4, t, q.shape[-1], v.shape[-1], lens, 2)
         log(f"flash_attention_bwd T={t} D={d_model} x{count}: dq "
-            f"{t_dq:.4f} ms, dkv {t_both - t_dq:.4f} ms, plain (both) "
+            f"{t_dq:.4f} ms (device {d_dq:.4f}), dkv {t_both - t_dq:.4f} ms "
+            f"(device {d_both - d_dq:.4f}), plain (both) "
             f"{t_plain:.4f}, sdpa backward {t_lib:.4f}; bounds "
             f"{bound(dq_b, dq_o, 'bf16')[0]:.5f} / "
             f"{bound(dkv_b, dkv_o, 'bf16')[0]:.5f}")
         detail[f"flash_bwd_T{t}"] = {"count": count, "dq_ms": t_dq,
                                      "dkv_ms": t_both - t_dq,
+                                     "dq_device_ms": d_dq,
+                                     "dkv_device_ms": d_both - d_dq,
                                      "plain_ms": t_plain, "library_ms": t_lib,
                                      "lengths": list(lens)}
-        for key, ms, nb, no in ((KERNEL_DQ, t_dq, dq_b, dq_o),
-                                (KERNEL_DKV, t_both - t_dq, dkv_b, dkv_o)):
+        for key, ms, dms, nb, no in (
+                (KERNEL_DQ, t_dq, d_dq, dq_b, dq_o),
+                (KERNEL_DKV, t_both - t_dq, d_both - d_dq, dkv_b, dkv_o)):
             acc[key]["ms"] += count * ms
+            acc[key]["device_ms"] += count * dms
             acc[key]["plain_ms"] += count * t_plain
             acc[key]["library_ms"] += count * t_lib
             acc[key]["bytes"] += count * nb
@@ -996,7 +1114,8 @@ def training_phases(detail, profile: bool):
         entries.append({
             "name": key, "route": "cuda", "source": src, "replaces": replaces,
             "launches": train_launches[key], "max_abs_err": abs_errs[key],
-            "ms": acc[key]["ms"], "plain_ms": acc[key]["plain_ms"],
+            "ms": acc[key]["ms"], "device_ms": acc[key]["device_ms"],
+            "plain_ms": acc[key]["plain_ms"],
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": acc[key]["library_ms"]})
     return entries, trainer, batch
@@ -1054,7 +1173,7 @@ def att_cost(b, t, d, heads, es):
 
 
 def time_att_bwd_kernel(x, g, params, heads, lens, drop, seed):
-    """Time of one fused-attention backward call alone (all its stages),
+    """Time and device time of one fused-attention backward call alone (all its stages),
     through the library's C entry point with the wrapper's own arguments and
     preallocated scratch and gradient buffers; this call is outside any
     count."""
@@ -1079,7 +1198,7 @@ def time_att_bwd_kernel(x, g, params, heads, lens, drop, seed):
     def launch():
         _cuda.check(bwd(*args), "fused_att_bwd")
 
-    return cuda_time_ms(launch)
+    return cuda_time_ms(launch), device_time_ms(launch)[0]
 
 
 def attention_call_shapes(trainer, batch):
@@ -1228,12 +1347,14 @@ def fused_phases(detail, profile: bool, trainer2, batch):
                                                             torch.bfloat16)
     a5, b5 = vecs[1].contiguous(), vecs[2].contiguous()
     s_ms = cuda_time_ms(lambda: bn_relu_pool(y, a5, b5))
+    s_dev = device_time_ms(lambda: bn_relu_pool(y, a5, b5))[0]
     s_plain = cuda_time_ms(lambda: bn_relu_pool_reference(y, a5, b5))
     s_bytes = y.numel() * 2 + (y.numel() // 4) * 2 + 2 * 64 * 4
     s_bound = bound(s_bytes, 3.0 * y.numel(), "bf16")[0]
-    log(f"bn_relu_pool N={y.shape[0]} (training shape): {s_ms:.4f} ms, plain "
-        f"{s_plain:.4f}, bound {s_bound:.5f}")
-    detail["stem_train"] = {"ms": s_ms, "plain_ms": s_plain,
+    log(f"bn_relu_pool N={y.shape[0]} (training shape): {s_ms:.4f} ms "
+        f"(device {s_dev:.4f}), plain {s_plain:.4f}, bound {s_bound:.5f}")
+    detail["stem_train"] = {"ms": s_ms, "device_ms": s_dev,
+                            "plain_ms": s_plain,
                             "bytes": s_bytes, "bound_ms": s_bound}
     del y
     torch.cuda.empty_cache()
@@ -1278,8 +1399,8 @@ def fused_phases(detail, profile: bool, trainer2, batch):
     log("train (fused attention path beside the flash path) "
         + json.dumps({k: v for k, v in train.items() if k != "steps"}))
 
-    acc = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0,
-               "ops": 0.0} for k in errs}
+    acc = {k: {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
+               "library_ms": 0.0, "bytes": 0, "ops": 0.0} for k in errs}
     for (t, d, heads, lens), count in sorted(
             attention_call_shapes(trainer, batch).items()):
         x, g, params = att_inputs(16, t, d, torch.bfloat16, seed=t + 1)
@@ -1315,26 +1436,30 @@ def fused_phases(detail, profile: bool, trainer2, batch):
 
         t_f, t_fp = cuda_time_ms(lambda: fwd(True)), cuda_time_ms(
             lambda: fwd(False))
-        t_b = time_att_bwd_kernel(x, g, params, heads, lt, 0.1, 77)
+        d_f = device_time_ms(lambda: fwd(True))[0]
+        t_b, d_b = time_att_bwd_kernel(x, g, params, heads, lt, 0.1, 77)
         t_bp = cuda_time_ms(lambda: both(False)) - t_fp
         t_fl = cuda_time_ms(lambda: lib(False))
         t_bl = cuda_time_ms(lambda: lib(True)) - t_fl
         fb, fo, bb, bo = att_cost(16, t, d, heads, 2)
         log(f"fused_att T={t} d={d} H={heads} x{count}: fwd {t_f:.4f} ms "
-            f"(plain {t_fp:.4f}, unfused module {t_fl:.4f}, bound "
-            f"{bound(fb, fo, 'bf16')[0]:.5f}); bwd {t_b:.4f} ms (plain "
+            f"(device {d_f:.4f}, plain {t_fp:.4f}, unfused module "
+            f"{t_fl:.4f}, bound {bound(fb, fo, 'bf16')[0]:.5f}); bwd "
+            f"{t_b:.4f} ms (device {d_b:.4f}, plain "
             f"{t_bp:.4f}, unfused module {t_bl:.4f}, bound "
             f"{bound(bb, bo, 'bf16')[0]:.5f}); bytes {fb} / {bb}, "
             f"operations {fo:.4g} / {bo:.4g}")
         detail[f"att_T{t}_d{d}"] = {
-            "count": count, "fwd_ms": t_f, "fwd_plain_ms": t_fp,
-            "fwd_library_ms": t_fl, "bwd_ms": t_b, "bwd_plain_ms": t_bp,
+            "count": count, "fwd_ms": t_f, "fwd_device_ms": d_f,
+            "fwd_plain_ms": t_fp, "fwd_library_ms": t_fl, "bwd_ms": t_b,
+            "bwd_device_ms": d_b, "bwd_plain_ms": t_bp,
             "bwd_library_ms": t_bl, "fwd_bytes": fb, "fwd_ops": fo,
             "bwd_bytes": bb, "bwd_ops": bo, "lengths": list(lens)}
-        for key, ms, pms, lms, nb, no in (
-                (KERNEL_FWD, t_f, t_fp, t_fl, fb, fo),
-                (KERNEL_BWD, t_b, t_bp, t_bl, bb, bo)):
+        for key, ms, dms, pms, lms, nb, no in (
+                (KERNEL_FWD, t_f, d_f, t_fp, t_fl, fb, fo),
+                (KERNEL_BWD, t_b, d_b, t_bp, t_bl, bb, bo)):
             acc[key]["ms"] += count * ms
+            acc[key]["device_ms"] += count * dms
             acc[key]["plain_ms"] += count * pms
             acc[key]["library_ms"] += count * lms
             acc[key]["bytes"] += count * nb
@@ -1355,12 +1480,17 @@ def fused_phases(detail, profile: bool, trainer2, batch):
             "source": "avec_tpu_torch/csrc/attention_module.cu",
             "replaces": replaces[key], "launches": launches[key],
             "max_abs_err": abs_errs[key], "ms": acc[key]["ms"],
+            "device_ms": acc[key]["device_ms"],
             "plain_ms": acc[key]["plain_ms"], "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": acc[key]["library_ms"]})
     return entries, launches[KERNEL_STEM], trainer
 
 
 CONV_SHAPES = ((16, 301, 180, 15), (16, 151, 256, 15), (16, 76, 360, 15))
+
+
+# what K3b-2 writes: dx and the gradients of LN, pw1 and the depthwise taps
+BWD2_LEAVES = ("x", "ln_w", "ln_b", "pw1_w", "pw1_b", "dw_w")
 
 
 def conv_inputs(b, t, d, k, dtype, seed):
@@ -1422,7 +1552,10 @@ def time_conv_passes(x, g, params, drop, seed):
     """ms per launch of each of the four passes alone, through the library's
     C entry points with the wrapper's own arguments, preallocated outputs and
     scratch, and this input's batch statistics (the accumulators are not
-    re-zeroed: timing only). Outside any count."""
+    re-zeroed: timing only). Outside any count. Beside each pass's time
+    (`cuda_time_ms`): under "<name>_device" and "<name>_kernels" its device
+    time, whole and by kernel (`device_time_ms`), and under "<name>_host"
+    the host's time to issue it (`host_ms`)."""
     from avec_tpu_torch.ops import _cuda, conv_module as cm
 
     k = params[4].shape[-1]
@@ -1449,14 +1582,16 @@ def time_conv_passes(x, g, params, drop, seed):
          ptr(zeros(e)), ptr(torch.empty_like(x)), cm._pointers(grads)))
     times = {}
     for stage, name in enumerate(cm.KERNELS):
-        scratch = torch.empty(call.size(b, t, d, e, eo, stage),
-                              device=x.device)
-        fn, a = call.fns[stage], args[stage] + (ptr(scratch),) + call.tail
+        fn, a = (call.fns[stage],
+                 args[stage] + (ptr(call.scratch(stage)),) + call.tail[:-1])
 
         def launch():
-            _cuda.check(fn(*a), name)
+            _cuda.check(fn(*a, _cuda.stream_ptr(x)), name)
 
         times[name] = cuda_time_ms(launch)
+        times[name + "_device"], times[name + "_kernels"] = device_time_ms(
+            launch)
+        times[name + "_host"] = host_ms(launch)
     return times
 
 
@@ -1557,6 +1692,21 @@ def conv_phases(detail, profile: bool, trainer_att, batch):
                         and float(want[names.index("dw_b")].abs().max())
                         == 0.0):
                     raise AssertionError(f"conv kernels disagree: {key} {e}")
+            if dtype == torch.bfloat16:
+                # K3b-2 sums without atomics: from the same inputs (K3b-1's
+                # r1, r2 keep their atomics), dx and its five gradients
+                call = cm._Launch(x, params, 4321, cm.pad_lo_for("same", k),
+                                  1e-6, 0.1)
+                mean, _, rstd = cm.batch_stats(*call.stats(), b * t, 1e-5)
+                _, _, r1, r2 = call.bwd1(g, mean, rstd)
+                reruns = [call.bwd2(g, mean, rstd, r1 / (b * t), r2 / (b * t))
+                          for _ in range(2)]
+                same = all(torch.equal(u, v) for u, v in zip(*reruns))
+                log(f"fused_conv T{t}_d{d}_bfloat16_same_drop0.1: K3b-2's dx "
+                    f"and the gradients of {', '.join(BWD2_LEAVES[1:])} "
+                    f"bit-identical over two calls: {same}")
+                if not same:
+                    raise AssertionError(f"bf16 K3b-2 reruns differ: T{t}")
             del x, g, params
     detail["conv_kernel_errors"] = errs
 
@@ -1579,8 +1729,9 @@ def conv_phases(detail, profile: bool, trainer_att, batch):
     train = {"steps": history, "launches_per_step": per_step, **fp32}
 
     # ---- 14. times: the four passes, then this path beside phase 10's
-    acc = {name: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0,
-                  "ops": 0.0} for name in cm.KERNELS}
+    acc = {name: {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
+                  "library_ms": 0.0, "bytes": 0, "ops": 0.0}
+           for name in cm.KERNELS}
     shapes = conv_call_shapes(trainer, batch)
     for (b, t, d, e, k), count in sorted(shapes.items()):
         x, g, params = conv_inputs(b, t, d, k, torch.bfloat16, seed=t + 2)
@@ -1625,17 +1776,32 @@ def conv_phases(detail, profile: bool, trainer_att, batch):
         for name in cm.KERNELS:
             nb, no = cost[name]
             b_ms = bound(nb, no, "bf16")[0]
-            row[name] = {"ms": times[name], "plain_ms": plain_ms[name],
-                         "bound_ms": b_ms, "bytes": nb, "ops": no}
+            row[name] = {"ms": times[name],
+                         "device_ms": times[name + "_device"],
+                         "host_ms": times[name + "_host"],
+                         "kernels_ms": times[name + "_kernels"],
+                         "plain_ms": plain_ms[name], "bound_ms": b_ms,
+                         "bytes": nb, "ops": no}
             acc[name]["ms"] += count * times[name]
+            acc[name]["device_ms"] += count * times[name + "_device"]
             acc[name]["plain_ms"] += count * plain_ms[name]
             acc[name]["library_ms"] += count * lib_ms.get(name, 0.0)
             acc[name]["bytes"] += count * nb
             acc[name]["ops"] += count * no
         row["unfused_fwd_ms"], row["unfused_bwd_ms"] = t_fl, t_bl
         detail[f"conv_T{t}_d{d}"] = row
+        log(f"fused_conv_bwd2 T={t} d={d} device time of each stage in one "
+            f"launch (torch.profiler): "
+            + ", ".join(f"{nm} {ms:.4f} ms" for nm, ms in
+                        times[cm.KERNEL_BWD2 + "_kernels"].items())
+            + f"; whole pass {times[cm.KERNEL_BWD2 + '_device']:.4f} ms on "
+            f"the device, {times[cm.KERNEL_BWD2]:.4f} ms per direct launch, "
+            f"{times[cm.KERNEL_BWD2 + '_host']:.4f} ms of host time to issue "
+            f"it")
         log(f"fused_conv T={t} d={d} k={k} x{count}: "
-            + "; ".join(f"{name[11:]} {times[name]:.4f} ms (plain "
+            + "; ".join(f"{name[11:]} {times[name]:.4f} ms (device "
+                        f"{times[name + '_device']:.4f}, host issue "
+                        f"{times[name + '_host']:.4f}, plain "
                         f"{plain_ms[name]:.4f}, bound "
                         f"{row[name]['bound_ms']:.5f}, bytes {cost[name][0]}, "
                         f"operations {cost[name][1]:.4g})"
@@ -1675,13 +1841,15 @@ def conv_phases(detail, profile: bool, trainer_att, batch):
     entries = []
     for name in cm.KERNELS:
         b_ms, b_by = bound(acc[name]["bytes"], acc[name]["ops"], "bf16")
-        log(f"{name} per step: {acc[name]['ms']:.4f} ms, bound {b_ms:.5f} "
-            f"({b_by}), plain {acc[name]['plain_ms']:.4f}")
+        log(f"{name} per step: {acc[name]['ms']:.4f} ms (device "
+            f"{acc[name]['device_ms']:.4f}), bound {b_ms:.5f} ({b_by}), "
+            f"plain {acc[name]['plain_ms']:.4f}")
         entries.append({
             "name": name, "route": "cuda",
             "source": "avec_tpu_torch/csrc/conv_module.cu",
             "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": abs_errs[name], "ms": acc[name]["ms"],
+            "device_ms": acc[name]["device_ms"],
             "plain_ms": acc[name]["plain_ms"], "bound_ms": b_ms,
             "bound_by": b_by,
             # the unfused module's forward stands beside the forward pair,
@@ -2061,8 +2229,9 @@ def dp_phases(detail, conv_shapes):
 
     # ---- K3dp times per rank at the B=8 shapes (this process, alone on
     # the card), bounds, plain stages, the library yardstick of phase 15
-    acc = {n: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0,
-               "ops": 0.0} for n in cm.KERNELS_DP}
+    acc = {n: {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
+               "library_ms": 0.0, "bytes": 0, "ops": 0.0}
+           for n in cm.KERNELS_DP}
     for t, d, e, k, count in lib_shapes:
         x, g, params = conv_inputs(8, t, d, k, torch.bfloat16, seed=t + 2)
         pad_lo = cm.pad_lo_for("same", k)
@@ -2087,13 +2256,16 @@ def dp_phases(detail, conv_shapes):
         for name, dp_name, fn in zip(cm.KERNELS, cm.KERNELS_DP, plain):
             nb, no = cost[name]
             acc[dp_name]["ms"] += count * times[name]
+            acc[dp_name]["device_ms"] += count * times[name + "_device"]
             acc[dp_name]["plain_ms"] += count * cuda_time_ms(fn, iters=5)
             acc[dp_name]["library_ms"] += count * lib_ms.get(dp_name, 0.0)
             acc[dp_name]["bytes"] += count * nb
             acc[dp_name]["ops"] += count * no
         row.update({n: times[n] for n in cm.KERNELS})
+        row.update({n + "_device": times[n + "_device"] for n in cm.KERNELS})
         log(f"K3dp per rank at B=8 T={t} d={d} x{count}: "
-            + "; ".join(f"{n[11:]} {times[n]:.4f} ms (bound "
+            + "; ".join(f"{n[11:]} {times[n]:.4f} ms (device "
+                        f"{times[n + '_device']:.4f}, bound "
                         f"{bound(*cost[n], 'bf16')[0]:.5f})"
                         for n in cm.KERNELS)
             + f"; unfused module under sync-BN (two ranks time-sliced) fwd "
@@ -2109,13 +2281,15 @@ def dp_phases(detail, conv_shapes):
     entries = []
     for name in cm.KERNELS_DP:
         b_ms, b_by = bound(acc[name]["bytes"], acc[name]["ops"], "bf16")
-        log(f"{name} per rank per step (B=8): {acc[name]['ms']:.4f} ms, bound "
-            f"{b_ms:.5f} ({b_by}), plain {acc[name]['plain_ms']:.4f}")
+        log(f"{name} per rank per step (B=8): {acc[name]['ms']:.4f} ms "
+            f"(device {acc[name]['device_ms']:.4f}), bound {b_ms:.5f} "
+            f"({b_by}), plain {acc[name]['plain_ms']:.4f}")
         entries.append({
             "name": name, "route": "cuda",
             "source": "avec_tpu_torch/csrc/conv_module.cu",
             "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": abs_errs[name], "ms": acc[name]["ms"],
+            "device_ms": acc[name]["device_ms"],
             "plain_ms": acc[name]["plain_ms"], "bound_ms": b_ms,
             "bound_by": b_by,
             "library_ms": (acc[name]["library_ms"] if name in (
@@ -2124,7 +2298,7 @@ def dp_phases(detail, conv_shapes):
 
 
 def time_ffn_bwd_kernel(x, g, params, drop, seed, check: bool = False):
-    """Time of the fused-FFN backward kernel alone, through the library's C
+    """Time and device time of the fused-FFN backward kernel alone, through the library's C
     entry point with the wrapper's own arguments and preallocated gradient
     buffers (the wrapper's autograd bookkeeping and its six zero-fills are
     host work that a slow host would add to the time; this call is outside
@@ -2151,11 +2325,11 @@ def time_ffn_bwd_kernel(x, g, params, drop, seed, check: bool = False):
         launch()
         torch.cuda.synchronize()
         return [dx] + grads
-    return cuda_time_ms(launch)
+    return cuda_time_ms(launch), device_time_ms(launch)[0]
 
 
 def time_single_bwd_kernel(q, k, v, dout, lse, delta, lengths, scale):
-    """Time of the dq kernel alone, through the library's C entry point with
+    """Time and device time of the dq kernel alone, through the library's C entry point with
     the wrapper's own arguments (the wrapper launches dq and dk/dv together
     and counts both; this call is outside any count)."""
     from avec_tpu_torch.ops import _cuda
@@ -2172,7 +2346,7 @@ def time_single_bwd_kernel(q, k, v, dout, lse, delta, lengths, scale):
     def launch():
         _cuda.check(fn_dq(*args), "flash_attention_bwd_dq")
 
-    return cuda_time_ms(launch)
+    return cuda_time_ms(launch), device_time_ms(launch)[0]
 
 
 def _category(name: str) -> str:
@@ -2180,7 +2354,12 @@ def _category(name: str) -> str:
     conv = ("conv_ln_stats_kernel", "conv_pw1_kernel",
             "conv_depthwise_kernel", "conv_pw2_kernel", "conv_grad_w2_kernel",
             "conv_grad_bn_kernel", "conv_depthwise_bwd_kernel",
-            "conv_grad_w1_kernel", "conv_grad_h_kernel", "conv_ln_bwd_kernel")
+            "conv_grad_w1_kernel", "conv_grad_h_kernel", "conv_ln_bwd_kernel",
+            "conv_cast_kernel", "conv_prep_kernel", "conv_pw1_wgmma_kernel",
+            "conv_grad_bn_wgmma_kernel", "conv_depthwise_bwd_bf16_kernel",
+            "conv_ln_bwd_rows_kernel", "conv_bwd2_reduce_kernel",
+            # hopper.cuh's product launch: K3b-2 runs two jobs, K1b three
+            "wgmma_products_kernel<2>")
     # checked first: K2's "ln_stats_kernel" and "ln_bwd_kernel" end two of
     # these names
     if any(k in low for k in conv):
@@ -2198,7 +2377,8 @@ def _category(name: str) -> str:
                       ("flash kernel (K4)", ("flash_fwd_kernel",)),
                       ("flash backward kernels (K4b)", ("flash_bwd_",)),
                       ("fused FFN forward kernel (K1)", ("ffn_fwd_",)),
-                      ("fused FFN backward kernel (K1b)", ("ffn_bwd_",)),
+                      ("fused FFN backward kernel (K1b)",
+                       ("ffn_bwd_", "wgmma_products_kernel<3>")),
                       ("stem kernel (K5)", ("bn_relu_pool_kernel",)),
                       ("CTC loss", ("ctc_loss",)),
                       ("optimizer (Adam, foreach)", ("multi_tensor",)),
@@ -2224,26 +2404,13 @@ def profile_train_step(trainer, batch):
 
 
 def profile_call(what: str, fn):
-    """Device time of one call of `fn`: kernels only (the CPU-side operator
-    rows are left out so nothing counts twice), by category and by kernel
-    name, beside the call's CUDA-event time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    """Device time of one call of `fn` (`traced_device_rows`), by category
+    and by kernel name, beside the call's CUDA-event time."""
     fwd_ms = cuda_time_ms(fn, iters=3, warmup=1)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
-        fn()
-        torch.cuda.synchronize()
-    rows, cats = [], {}
-    for e in p.key_averages():
-        if getattr(e, "device_type", None) != DeviceType.CUDA:
-            continue
-        us = (getattr(e, "self_device_time_total", None)
-              or getattr(e, "self_cuda_time_total", 0))
-        if us > 0:
-            rows.append((us, e.count, e.key))
-            cat = _category(e.key)
-            cats[cat] = cats.get(cat, 0.0) + us / 1e3
+    rows, cats = traced_device_rows(fn), {}
+    for us, _, key in rows:
+        cat = _category(key)
+        cats[cat] = cats.get(cat, 0.0) + us / 1e3
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) / 1e3
     log(f"profile: {what} {fwd_ms:.3f} ms (CUDA events), device busy "

@@ -147,13 +147,22 @@ def test_dropout_masks_and_gradients_match_pallas(padding):
     assert 0.3 < dropped.mean() < 0.5
 
 
-@pytest.mark.parametrize("drop,seed", [(0.0, 0), (0.4, 77)],
-                         ids=["nodrop", "drop0.4"])
-def test_plain_stages_match_pallas_bf16(drop, seed):
-    d, e, k, b, tt = 64, 64, 15, 2, 33
+@pytest.mark.parametrize(
+    "drop,seed,padding,shape",
+    [(0.0, 0, "same", (64, 64, 15, 2, 33)),
+     (0.4, 77, "same", (64, 64, 15, 2, 33)),
+     # d != E, causal, 111 rows: no multiple of the kernels' 64-row tiles,
+     # which straddle the sequences of the flat (B T) layout
+     (0.0, 0, "causal", (20, 24, 5, 3, 37)),
+     (0.4, 77, "causal", (20, 24, 5, 3, 37))],
+    ids=["nodrop", "drop0.4", "nodrop_causal_d20_e24", "drop0.4_causal_d20_e24"])
+def test_plain_stages_match_pallas_bf16(drop, seed, padding, shape):
+    """The plain stages, which the bf16 kernels are held against on the
+    card, against the Pallas kernels in interpret mode (d, E, k, B, T)."""
+    d, e, k, b, tt = shape
     x, g, p = _inputs(3, d, e, k, b, tt)
-    want_out, want_g = _jax_side(x, g, p, "same", seed, drop, jnp.bfloat16)
-    got_out, got_g = _port_side(x, g, p, "same", seed, drop, torch.bfloat16)
+    want_out, want_g = _jax_side(x, g, p, padding, seed, drop, jnp.bfloat16)
+    got_out, got_g = _port_side(x, g, p, padding, seed, drop, torch.bfloat16)
     names = ("y", "mean", "var", "x") + NAMES
     for name, got, want in zip(names, got_out + got_g, want_out + want_g):
         assert np.abs(got - want).max() <= 5e-2 * np.abs(want).max(), name

@@ -88,10 +88,17 @@ def test_plain_ffn_matches_pallas_fp32(b, tt, d, f, drop, seed):
         assert 0.2 < float((got_y == 0.0).mean()) < 0.4
 
 
-@pytest.mark.parametrize("drop,seed", [(0.0, 0), (0.3, 7)],
-                         ids=["nodrop", "drop0.3"])
-def test_plain_ffn_matches_pallas_bf16(drop, seed):
-    x, g, p = _inputs(2, 2, 150, 52, 208)
+@pytest.mark.parametrize(
+    "drop,seed,shape",
+    [(0.0, 0, (2, 150, 52, 208)), (0.3, 7, (2, 150, 52, 208)),
+     # 3 x 37 = 111 rows: one full and one ragged 64-row tile, d = 20 under
+     # one 64-column tile, F = 70 past one 64-column hidden chunk
+     (0.0, 0, (3, 37, 20, 70)), (0.3, 7, (3, 37, 20, 70))],
+    ids=["nodrop", "drop0.3", "nodrop_rows111_d20", "drop0.3_rows111_d20"])
+def test_plain_ffn_matches_pallas_bf16(drop, seed, shape):
+    """The plain version, which the bf16 kernels are held against on the
+    card, against the Pallas kernel in interpret mode at (B, T, d, F)."""
+    x, g, p = _inputs(2, *shape)
     want_y, want_g = _jax_side(x, g, p, seed, drop, jnp.bfloat16)
     got_y, got_g = _port_side(x, g, p, seed, drop, torch.bfloat16)
     for name, got, want in zip(("y", "x") + NAMES, [got_y] + got_g,

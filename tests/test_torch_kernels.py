@@ -14,7 +14,8 @@ plain version. Tolerances: fp32 max abs 1e-4; flash bf16 2e-2 (bf16 inputs,
 fp32 accumulation in both); stem bf16 exact (a max of identically rounded
 values); whole-model fp32 logits 2e-3. FFN: fp32 1e-4 for y and dx and 3e-4
 of the largest entry for the parameter gradients (atomic sums over all rows);
-bf16 2e-2 / 3e-2 of the largest entry. Flash backward: fp32 1e-4, bf16 3e-2
+bf16 2e-2 / 3e-2 of the largest entry; the bf16 forward and backward give
+the same bits over two calls. Flash backward: fp32 1e-4, bf16 3e-2
 of the largest entry. Attention module: fp32 1e-4 for y and 5e-4 for dx and
 the parameter gradients, bf16 2e-2 / 3e-2, all of the largest entry, and
 the bf16 parameter gradients within 2e-3 as well (the backward's fp32
@@ -25,7 +26,8 @@ another order); conv-bias gradient exactly zero. Convolution module, kernels
 against the plain stages: fp32 1e-4 of the largest entry for y, mean and var
 and 5e-4 for dx and the parameter gradients (atomic sums over all rows); bf16
 2e-2 and 3e-2; dropout masks identical entry by entry; the depthwise-bias
-gradient exactly zero. K3dp on two gloo ranks sharing the card against one
+gradient exactly zero; the bf16 second backward pass gives the same bits
+over two calls. K3dp on two gloo ranks sharing the card against one
 K3/K3b call on the whole batch: the convolution module's tolerances.
 """
 
@@ -33,7 +35,7 @@ import numpy as np
 import pytest
 import torch
 
-from avec_tpu_torch.ops import _cuda
+from avec_tpu_torch.ops import _cuda, conv_module
 from avec_tpu_torch.ops.attention_module import (
     fused_attention_module_3d, fused_attention_module_reference)
 from avec_tpu_torch.ops.conv_module import (KERNELS as CONV_KERNELS,
@@ -359,6 +361,24 @@ def test_ffn_bf16_backward_is_deterministic(cuda_device, n, d, f):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,d,f", [(16 * 76, 360, 1440),   # 19 row tiles
+                                   (40, 256, 1024)])       # below one tile
+def test_ffn_bf16_forward_is_deterministic(cuda_device, n, d, f):
+    """The bf16 forward sums the partial outputs of its hidden ranges in a
+    fixed order (no atomics): two calls give the same bits, one launch
+    each."""
+    x, params = _ffn_inputs(cuda_device, torch.bfloat16, n, d, f)
+    ys = []
+    for _ in range(2):
+        n0 = _cuda.launches["fused_ffn_fwd"]
+        with torch.no_grad():
+            ys.append(fused_ffn(x, *params, 1234, 1e-6, 0.1, True))
+        assert _cuda.launches["fused_ffn_fwd"] == n0 + 1
+    torch.cuda.synchronize()
+    assert torch.equal(ys[0], ys[1])
+
+
+@pytest.mark.cuda
 def test_ffn_kernel_rejects_bad_inputs(cuda_device):
     x, params = _ffn_inputs(cuda_device, torch.float32, 8, 16, 32)
     with pytest.raises(ValueError, match="W1 must be"):
@@ -646,6 +666,27 @@ def test_conv_module_kernels_match_plain(cuda_device, dtype, tol, wtol,
             assert got.dtype == torch.float32
         assert _rel(got, want) <= (tol if name == "x" and dtype
                                    == torch.bfloat16 else wtol), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,d,e,k", [(16, 301, 180, 180, 15),
+                                       (3, 37, 20, 24, 5)])
+def test_conv_module_bf16_bwd2_is_deterministic(cuda_device, b, t, d, e, k):
+    """The bf16 second backward pass sums without atomics: from the same
+    inputs (the batch statistics and r1 / n, r2 / n of one first backward
+    pass, whose own sums keep their atomics) two calls give the same bits
+    for dx and the five gradients they write, with dropout."""
+    x, g, params = _conv_inputs(cuda_device, torch.bfloat16, b, t, d, e, k)
+    call = conv_module._Launch(x, params, 99, conv_module.pad_lo_for("same", k),
+                               1e-6, 0.1)
+    mean, _, rstd = batch_stats(*call.stats(), b * t, 1e-5)
+    _, _, r1, r2 = call.bwd1(g, mean, rstd)
+    runs = [call.bwd2(g, mean, rstd, r1 / (b * t), r2 / (b * t))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for name, first, second in zip(
+            ("x", "ln_w", "ln_b", "pw1_w", "pw1_b", "dw_w"), *runs):
+        assert torch.equal(first, second), name
 
 
 @pytest.mark.cuda
