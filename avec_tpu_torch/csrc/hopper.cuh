@@ -1,8 +1,9 @@
-// Hopper (sm_90a) building blocks of the bf16 tensor-core stages of `ffn.cu`
-// and `conv_module.cu`: 2-d TMA tile loads that complete on an `mbarrier`,
-// warpgroup matrix multiplies (`wgmma`) on 128-byte-swizzled, K-major
-// shared-memory tiles, a one-warpgroup TMA/`wgmma` main loop, and a launch of
-// independent 64 x 64 fp32 output tiles (`wgmma_products_kernel`).
+// Hopper (sm_90a) building blocks of the bf16 tensor-core stages of `ffn.cu`,
+// `conv_module.cu` and `flash_attention_bwd.cu`: 2-d TMA tile loads that
+// complete on an `mbarrier`, warpgroup matrix multiplies (`wgmma`) on
+// 128-byte-swizzled, K-major shared-memory tiles (and, with A in registers,
+// on MN-major B tiles), a one-warpgroup TMA/`wgmma` main loop, and a launch
+// of independent 64 x 64 fp32 output tiles (`wgmma_products_kernel`).
 //
 // Tile convention: a tile is ROWS x 64 bf16 values, one 128-byte row per
 // matrix row (the reduction index k along the row), written by one TMA load
@@ -88,6 +89,11 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// Fetches the descriptor `map` into the cache ahead of its first load.
+__device__ __forceinline__ void tma_prefetch_desc(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
 // ---- wgmma
 
 // Descriptor of a K-major, 128-byte-swizzled tile slice starting at `p`.
@@ -145,6 +151,43 @@ __device__ __forceinline__ void wgmma_tile_k64(float (&d)[32], const __nv_bfloat
                                                const __nv_bfloat16* b) {
 #pragma unroll
   for (int ks = 0; ks < 4; ++ks) wgmma_64x64(d, sw128_desc(a + ks * 16), sw128_desc(b + ks * 16));
+}
+
+// d (64 x 64, fp32) += A (64 x 16, bf16 pairs in registers) . B (16 x 64)
+// with B MN-major: element (k, n) at row k, column n of a 64-column tile in
+// the convention above (the same TMA tile that `wgmma_64x64` reads K-major as
+// its B^T). The descriptor's fields are the K-major ones: 128-byte swizzle,
+// 8-row groups of the reduction index 1024 bytes apart; the transpose bit of
+// the instruction selects the MN-major reading. A is the fragment of the
+// accumulator layout of `wgmma_64x64` for columns 16 ks .. 16 ks + 15:
+// a[0] = (d[8 ks], d[8 ks + 1]), a[1] = (d[8 ks + 2], d[8 ks + 3]), a[2] =
+// (d[8 ks + 4], d[8 ks + 5]), a[3] = (d[8 ks + 6], d[8 ks + 7]), each pair
+// packed low element first. `b` points at row 16 ks of the tile.
+__device__ __forceinline__ void wgmma_64x64_rs_mn(float (&d)[32], const uint32_t (&a)[4],
+                                                  const __nv_bfloat16* b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(sw128_desc(b)), "r"(1));
+}
+
+// Keeps the compiler from reusing registers that an asynchronous product
+// still reads (A fragments in registers) before the wait that retires it.
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
 // Element offset of (row r, column c) in a 64-column bf16 tile with the

@@ -5,7 +5,8 @@ by `nvcc` for `sm_90a` into its own shared library under
 `build/avec_tpu_torch/<hash of the sources>/`, loaded with `ctypes`. All
 sources are compiled in parallel, one `nvcc` each. A missing `nvcc` or a
 failed build raises: no wrapper falls back to the plain version for a CUDA
-tensor.
+tensor. `control_library` builds one source with a define into a library
+of its own, for measurements that hold a kernel against a variant of it.
 
 `launches` counts kernel launches by wrapper name; each wrapper adds one where
 it launches its kernel and nowhere else.
@@ -30,8 +31,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 launches = collections.Counter()
-build_log = {}  # source -> nvcc output (ptxas register/shared-memory report)
+build_log = {}  # source [defines] -> nvcc output (ptxas registers, shared memory)
 _libs = {}
+_controls = {}  # control builds by source and define
 _lock = threading.Lock()
 
 
@@ -58,6 +60,31 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _compile(jobs) -> None:
+    """Wait for the nvcc `jobs` (log key, library, temporary file, process)
+    and move each library into place; raise if any build failed."""
+    failed = []
+    for key, so, tmp, proc in jobs:
+        out, _ = proc.communicate()
+        build_log[key] = out
+        if proc.returncode:
+            failed.append(f"{key}:\n{out}")
+        else:
+            os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+
+
+def _start(src: str, so: Path, defines=()):
+    """Start nvcc on `src` with `defines`; the job for `_compile`, its log
+    keyed by the source and its defines."""
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    flags = [f"-D{d}" for d in defines]
+    cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-o", str(tmp), str(CSRC / src)]
+    return " ".join([src, *flags]), so, tmp, subprocess.Popen(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
 def build() -> dict:
     """Compile (once, in parallel) and load every kernel library."""
     with _lock:
@@ -65,30 +92,29 @@ def build() -> dict:
             return _libs
         out_dir = BUILD_ROOT / _digest()
         out_dir.mkdir(parents=True, exist_ok=True)
-        jobs = []
-        for src in SOURCES:
-            so = out_dir / (Path(src).stem + ".so")
-            if so.is_file():
-                continue
-            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
-            jobs.append((src, so, tmp, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)))
-        failed = []
-        for src, so, tmp, proc in jobs:
-            out, _ = proc.communicate()
-            build_log[src] = out
-            if proc.returncode:
-                failed.append(f"{src}:\n{out}")
-            else:
-                os.replace(tmp, so)
-        if failed:
-            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        _compile([_start(src, out_dir / (Path(src).stem + ".so"))
+                  for src in SOURCES
+                  if not (out_dir / (Path(src).stem + ".so")).is_file()])
         for src in SOURCES:
             _libs[Path(src).stem] = ctypes.CDLL(
                 str(out_dir / (Path(src).stem + ".so")))
         return _libs
+
+
+def control_library(name: str, define: str) -> ctypes.CDLL:
+    """The source `name` built with `-D<define>` into a library of its own
+    (once): a control build that measurements hold the kernel against. No
+    wrapper loads it."""
+    with _lock:
+        key = f"{name}-{define}"
+        if key not in _controls:
+            out_dir = BUILD_ROOT / _digest()
+            out_dir.mkdir(parents=True, exist_ok=True)
+            so = out_dir / (key.replace("=", "_") + ".so")
+            if not so.is_file():
+                _compile([_start(name + ".cu", so, (define,))])
+            _controls[key] = ctypes.CDLL(str(so))
+        return _controls[key]
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -11,9 +11,11 @@ device memory. `flash_attention_fwd` launches the hand-written CUDA kernel
 (`csrc/flash_attention.cu`) for CUDA tensors and computes the plain version
 for CPU tensors; `flash_attention_reference` is that plain version.
 
-`flash_attention` is differentiable: its backward launches the two kernels of
-`csrc/flash_attention_bwd.cu` (`flash_attention_bwd`), or computes their plain
-version `flash_attention_bwd_reference`. Both follow the rule of the JAX
+`flash_attention` is differentiable: its backward launches the kernels of
+`csrc/flash_attention_bwd.cu` (`flash_attention_bwd`: for bf16 a prep stage
+writing aligned copies into a scratch buffer, then dq and dk'/dV on the
+tensor cores), or computes their plain version
+`flash_attention_bwd_reference`. Both follow the rule of the JAX
 custom VJP (pallas_attention.py:220, :260): p = exp(s - lse) is zero where the
 key OR the query lies at or past the true length, so padded queries get a zero
 gradient and a sequence of length 0 gets all-zero gradients.
@@ -32,6 +34,13 @@ NEG_INF = -1e30
 KERNEL = "flash_attention_fwd"
 KERNEL_DQ = "flash_attention_bwd_dq"
 KERNEL_DKV = "flash_attention_bwd_dkv"
+# `avec_flash_attention_bwd`'s `which`: bit 0 dq, bit 1 dk/dV (bf16 writes
+# its aligned copies first in every call)
+BWD_DQ, BWD_DKV = 1, 2
+BWD_ALL = BWD_DQ | BWD_DKV
+# the define of the control build whose bf16 kernels round p and dS to bf16
+# (`_cuda.control_library`), to measure what their three bf16 parts buy
+ROUNDED_OPERANDS = "AVEC_FLASH_BWD_PARTS=1"
 
 
 def flash_attention_reference(q_aug, k_aug, v, lengths=None, scale=1.0
@@ -127,22 +136,36 @@ def flash_attention_bwd_reference(q_aug, k_aug, v, dout, lse, delta,
     return dq.to(q_aug.dtype), dk.to(k_aug.dtype), dv.to(v.dtype)
 
 
-def _lib_bwd():
-    lib = _cuda.library("flash_attention_bwd")
-    dq, dkv = lib.avec_flash_attention_bwd_dq, lib.avec_flash_attention_bwd_dkv
-    if dq.argtypes is None:
+def _lib_bwd(lib=None):
+    """The backward's C entry and its scratch size of `lib` (the kernel
+    library by default; a control build for measurements)."""
+    lib = lib or _cuda.library("flash_attention_bwd")
+    fn = lib.avec_flash_attention_bwd
+    size = lib.avec_flash_attention_bwd_scratch_bytes
+    if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        tail = [ci, ci, ci, ci, ci, ctypes.c_float, ci, vp]
-        dq.argtypes = [vp] * 8 + tail
-        dkv.argtypes = [vp] * 9 + tail
-        dq.restype = dkv.restype = ci
-    return dq, dkv
+        fn.argtypes = [vp] * 11 + [ci] * 5 + [ctypes.c_float] + [ci] * 2 + [vp]
+        fn.restype = ci
+        size.argtypes = [ci] * 5
+        size.restype = ctypes.c_longlong
+    return fn, size
+
+
+def bwd_scratch(q_aug: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The backward kernels' scratch for (B, H, T, d_a) `q_aug` and
+    (B, H, T, d_v) `v`: a byte buffer on their device (empty for fp32, whose
+    kernels need none)."""
+    b, h, t, da = q_aug.shape
+    size = _lib_bwd()[1](b * h, t, da, v.shape[-1],
+                         int(q_aug.dtype == torch.bfloat16))
+    return torch.empty(size, dtype=torch.uint8, device=q_aug.device)
 
 
 def flash_attention_bwd(q_aug, k_aug, v, dout, lse, delta, lengths=None,
                         scale=1.0):
     """(dq', dk', dv) of the flash attention. CPU tensors take the plain
-    version; CUDA tensors launch the dq and the dk'/dV kernel."""
+    version; CUDA tensors launch the dq and the dk'/dV kernel (bf16: after
+    the prep stage that writes their aligned copies into the scratch)."""
     if q_aug.device.type == "cpu":
         return flash_attention_bwd_reference(q_aug, k_aug, v, dout, lse,
                                              delta, lengths, scale)
@@ -174,15 +197,15 @@ def flash_attention_bwd(q_aug, k_aug, v, dout, lse, delta, lengths=None,
     dq = torch.empty_like(q_aug)
     dk = torch.empty_like(k_aug)
     dvv = torch.empty_like(v)
-    head = (q_aug.data_ptr(), k_aug.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), lengths.data_ptr())
-    tail = (b * h, h, t, da, dv, float(scale),
-            int(q_aug.dtype == torch.bfloat16), _cuda.stream_ptr(q_aug))
-    fn_dq, fn_dkv = _lib_bwd()
-    _cuda.check(fn_dq(*head, dq.data_ptr(), *tail), KERNEL_DQ)
+    scratch = bwd_scratch(q_aug, v)
+    rc = _lib_bwd()[0](
+        q_aug.data_ptr(), k_aug.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), lengths.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dvv.data_ptr(), scratch.data_ptr(), b * h, h, t, da,
+        dv, float(scale), int(q_aug.dtype == torch.bfloat16), BWD_ALL,
+        _cuda.stream_ptr(q_aug))
+    _cuda.check(rc, KERNEL_DQ)
     _cuda.launches[KERNEL_DQ] += 1
-    _cuda.check(fn_dkv(*head, dk.data_ptr(), dvv.data_ptr(), *tail),
-                KERNEL_DKV)
     _cuda.launches[KERNEL_DKV] += 1
     return dq, dk, dvv
 

@@ -6,8 +6,15 @@ the Pallas dq and dk/dv kernels, as the JAX package's own tests run them on
 the CPU. The port side is `flash_attention` / `rel_pos_flash_attention` on
 CPU tensors: the plain forward and `flash_attention_bwd_reference`. fp32,
 numpy inputs from a seed, ragged lengths including 1. Tolerance 1e-4
-absolute on every gradient (sums over at most 40 keys).
+absolute on every gradient (sums over at most 40 keys). At the flash
+route's own widths (d_a = 321 / 451, d_v = 64 / 90; T = 151 above the JAX
+kernels' 128-row block, and 76): fp32 at 1e-4 absolute, and bf16 inputs at
+8e-3 of each gradient's largest entry (both sides compute in fp32 and round
+each gradient to bf16 once: one bf16 step is 2^-8 of an entry, and the
+forwards' bf16 outputs, which delta reads, may differ by one step).
 """
+
+import pytest
 
 import jax
 import jax.numpy as jnp
@@ -25,6 +32,7 @@ from test_torch_support import t
 
 torch.set_num_threads(1)
 TOL = 1e-4
+BF16_TOL = 8e-3
 
 
 def _close(got, want, tol=TOL):
@@ -114,3 +122,42 @@ def test_backward_wrapper_from_saved_lse():
     (ref * gt * row_ok).sum().backward()
     for a, b in zip(got, leaves):
         _close(a, b.grad.numpy(), 1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("tt,da,dv,lengths", [
+    (151, 321, 64, [151, 0]),    # audio stage 2 of the train step
+    (76, 451, 90, [76, 1]),      # audio stage 3
+])
+def test_plain_flash_backward_matches_pallas_at_route_widths(tt, da, dv,
+                                                             lengths, dtype):
+    """The plain K4b against the JAX Pallas dq and dk/dv kernels (interpret
+    mode) at the widths and lengths the flash route gives them, (B, H) =
+    (2, 2): the same bf16 values on both sides where the inputs are bf16."""
+    rng = np.random.RandomState(tt)
+    mk = lambda d, s: (rng.randn(2, 2, tt, d) * s).astype(np.float32)
+    q, k, v, g = mk(da, 0.3), mk(da, 0.3), mk(dv, 1.0), mk(dv, 1.0)
+    scale = 1.0 / np.sqrt(da)
+    lens = np.array(lengths, np.int32)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+
+    _, vjp = jax.vjp(
+        lambda q, k, v: flash_attention_trainable(q, k, v, jnp.asarray(lens),
+                                                  scale, True),
+        *(jnp.asarray(a).astype(jdt) for a in (q, k, v)))
+    want = vjp(jnp.asarray(g).astype(jdt))
+    leaves = [t(a).to(tdt).requires_grad_(True) for a in (q, k, v)]
+    flash_attention(*leaves, t(lens), scale).backward(t(g).to(tdt))
+    for got, w in zip(leaves, want):
+        assert got.grad.dtype == tdt
+        w = np.asarray(w.astype(jnp.float32))
+        got = got.grad.float().numpy()
+        if dtype == "float32":
+            np.testing.assert_allclose(got, w, rtol=0, atol=TOL)
+        else:
+            assert np.abs(got - w).max() <= BF16_TOL * np.abs(w).max()
+    # queries and keys at or past the length: exact zeros on the port's side
+    pad = t(np.arange(tt)[None, :] >= lens[:, None])[:, None, :, None]
+    for a in leaves:
+        assert float((a.grad.float() * pad).abs().max()) == 0.0

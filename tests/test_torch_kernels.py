@@ -16,7 +16,9 @@ values); whole-model fp32 logits 2e-3. FFN: fp32 1e-4 for y and dx and 3e-4
 of the largest entry for the parameter gradients (atomic sums over all rows);
 bf16 2e-2 / 3e-2 of the largest entry; the bf16 forward and backward give
 the same bits over two calls. Flash backward: fp32 1e-4, bf16 3e-2
-of the largest entry. Attention module: fp32 1e-4 for y and 5e-4 for dx and
+of the largest entry; in bf16 a relative L1 error (sum |got - want| / sum
+|want|) within 1e-4 (p and dS kept at fp32 precision), the same bits over
+two calls. Attention module: fp32 1e-4 for y and 5e-4 for dx and
 the parameter gradients, bf16 2e-2 / 3e-2, all of the largest entry, and
 the bf16 parameter gradients within 2e-3 as well (the backward's fp32
 operands kept at fp32 precision); dropout masks identical entry by entry. Train-mode stem, kernel route against plain
@@ -36,6 +38,7 @@ import pytest
 import torch
 
 from avec_tpu_torch.ops import _cuda, conv_module
+from avec_tpu_torch.ops import flash_attention as flash_ops
 from avec_tpu_torch.ops.attention_module import (
     fused_attention_module_3d, fused_attention_module_reference)
 from avec_tpu_torch.ops.conv_module import (KERNELS as CONV_KERNELS,
@@ -422,6 +425,82 @@ def test_flash_backward_kernels_match_plain(cuda_device, dtype, tol, t, da,
              < lens[:, None])[:, None, :, None]
     for got in grads[0]:
         assert float((got.float() * (~valid)).abs().max()) == 0.0
+
+
+def _flash_bwd_case(device, t, da, dv, lengths):
+    """bf16 q', k', v, dO, the forward's lse, delta and the lengths of a
+    flash backward call."""
+    q, k, v, lens = _flash_inputs(device, torch.bfloat16, t, da, dv, lengths)
+    q, k = q * 0.3, k * 0.3
+    g = torch.randn(v.shape, generator=torch.Generator().manual_seed(9)).to(
+        device, torch.bfloat16)
+    scale = 1.0 / da ** 0.5
+    out, lse = flash_attention_fwd(q, k, v, lens, scale)
+    delta = (g.float() * out.float()).sum(-1).reshape(lse.shape)
+    return q, k, v, g, lse, delta, lens, scale
+
+
+FLASH_ROUTE_SHAPES = [
+    (151, 321, 64, [151, 140, 133, 120, 111, 99, 90, 88, 77, 64, 50, 33, 17,
+                    2, 1, 0]),                        # audio stage 2
+    (76, 451, 90, [76, 70, 67, 60, 56, 50, 45, 44, 39, 32, 25, 17, 9, 2, 1,
+                   0]),                               # audio stage 3
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,da,dv,lengths", FLASH_ROUTE_SHAPES)
+def test_flash_backward_bf16_is_deterministic(cuda_device, t, da, dv,
+                                              lengths):
+    """Each bf16 output tile has one owner that sums its streamed tiles in a
+    fixed order (no atomics): two calls give the same bits."""
+    args = _flash_bwd_case(cuda_device, t, da, dv, lengths)
+    runs = [flash_attention_bwd(*args) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def _rel_l1(got, want) -> float:
+    """sum |got - want| over sum |want|."""
+    return float((got.float() - want.float()).abs().sum()
+                 / want.float().abs().sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,da,dv,lengths", FLASH_ROUTE_SHAPES + [
+    (200, 128, 96, [200, 130, 64, 1]),     # whole column groups, T > 3 tiles
+    (37, 20, 7, [37, 0, 36, 2]),           # ragged widths
+])
+def test_flash_backward_bf16_keeps_fp32_operands(cuda_device, t, da, dv,
+                                                 lengths):
+    """The TPU kernel multiplies p and dS in fp32; the bf16 kernels feed them
+    to the tensor cores as three bf16 parts that sum to them exactly, so
+    dq', dk' and dV differ from the plain version by its bf16 rounding of
+    each entry, a relative L1 error (sum |got - want| / sum |want|) of about
+    2e-6 on the H100. The same call with p and dS rounded to bf16 (a control
+    build of the source) gives about 2e-3, so a bound of 1e-4 tells
+    the two apart; the max error over the largest entry does not, as one
+    bf16 step of an entry near the largest is up to 3.9e-3 of it."""
+    args = _flash_bwd_case(cuda_device, t, da, dv, lengths)
+    want = flash_attention_bwd_reference(*args)
+    got = flash_attention_bwd(*args)
+    q, k, v, g, lse, delta, lens, scale = args
+    b, h = q.shape[:2]
+    rounded = [torch.zeros_like(a) for a in (q, k, v)]
+    scratch = flash_ops.bwd_scratch(q, v)
+    control = _cuda.control_library("flash_attention_bwd",
+                                    flash_ops.ROUNDED_OPERANDS)
+    rc = flash_ops._lib_bwd(control)[0](
+        *(a.data_ptr() for a in (q, k, v, g, lse, delta, lens, *rounded,
+                                 scratch)),
+        b * h, h, t, da, dv, scale, 1, flash_ops.BWD_ALL, _cuda.stream_ptr(q))
+    assert rc == 0
+    torch.cuda.synchronize()
+    for a, r, w in zip(got, rounded, want):
+        assert _rel(a, w) <= 3e-2
+        assert _rel_l1(a, w) <= 1e-4
+        assert _rel_l1(r, w) > 1e-4
 
 
 @pytest.mark.cuda
