@@ -54,20 +54,39 @@
 //
 // bf16 inputs (the training path) were redesigned for the tensor cores
 // against what held that version back (no tensor cores, 6.8 TFLOP/s; 50 MB
-// of fp32 scratch between 16 stages; atomics for the weight gradients): every
-// product runs on mma.sync with fp32 accumulation from bf16 operands staged in
-// 16-byte pieces (tile.cuh `mma_tile`); the weights are cast to bf16 once per
-// call and every value the TPU kernel rounds to x's type lives in bf16
-// scratch laid out so that rows start 16-byte aligned, while the values its
-// backward multiplies unrounded (dO, the softmax, ds, du) stay fp32 and enter
-// their products as three bf16 parts that sum to them exactly (tile.cuh
-// `mma_tile_f32`), so those products are fp32's; scores, softmax, att v,
-// dO V^T, the softmax backward, the rel-pos backward and dq share one stage
-// per (sequence, head, 64 query rows), holding the (64, T) fp32 score tile in
-// shared memory; and every parameter gradient has one owner per element (row
-// splits summed in a fixed order), so the gradients are the same bits on
-// every run. Forward: 6 stages; backward: 9 (the bf16 section below).
+// of fp32 scratch between 16 stages; atomics for the weight gradients). A
+// first stage casts the five weights and the angle table to bf16 once per
+// call and computes LayerNorm; the q/k/v projections and the forward's
+// attention stage and output projection run as TMA-fed `wgmma` (hopper.cuh)
+// on 64-row warpgroup tiles, with fp32 accumulation and the TPU kernel's
+// rounding points read in the accumulator's fragment layout: one stage per
+// (sequence, head, 64 query rows) computes the rel-pos projection of its
+// queries into shared memory, the scores from two products rounded apart,
+// the fp32 softmax in registers and att v from the rounded softmax as a
+// register operand (the bf16 forward section below). The backward's
+// remaining stages run on mma.sync with fp32 accumulation from bf16
+// operands staged in 16-byte pieces (tile.cuh `mma_tile`): every value the
+// TPU kernel rounds to x's type lives in bf16 scratch laid out so that rows
+// start 16-byte aligned, while the values its backward multiplies unrounded
+// (dO, the softmax, ds, du) stay fp32 and enter their products as three
+// bf16 parts that sum to them exactly (tile.cuh `mma_tile_f32`), so those
+// products are fp32's; scores, softmax, att v, dO V^T, the softmax
+// backward, the rel-pos backward and dq share one stage per (sequence,
+// head, 64 query rows), holding the (64, t) fp32 score tile in shared
+// memory; and every parameter gradient has one owner per element (row
+// splits summed in a fixed order). No atomics in either direction: the same
+// bits on every run. Forward: 4 stages (past 256 frames 5: the rel-pos and
+// attention stages of the backward, in their forward form); backward: 9.
+//
+// What bounds the bf16 forward: latency, not operations. At (16, 151, 256,
+// 4) its 2.7 GFLOP take under 3 us at the tensor-core peak; the call takes
+// about 54 us of device time on the H100 (`chip_smoke.py`), of which the
+// attention stage 32 (per block a chain of 10 dependent groups of TMA tiles
+// and products, and the epilogues' bf16 conversions and the softmax, whose
+// exact `expf` and division take about 10) and the q/k/v projections 10
+// (their per-head stores, one column pair each).
 
+#include "hopper.cuh"
 #include "tile.cuh"
 
 namespace {
@@ -760,26 +779,23 @@ col_sums_kernel(const T* __restrict__ x, const T* __restrict__ g, Grads gr, Scra
   }
 }
 
-// ---- bf16 stages on the tensor cores
+// ---- bf16 stages
 //
-// Every product runs on `mma_tile` and its fp32 forms (tile.cuh: mma.sync with
-// fp32 accumulation on bf16 operands staged in 16-byte pieces). A first stage
-// casts the five weights and the angle table to bf16 once per call, and the
-// stages hand bf16 values to each other in layouts whose rows start at
-// multiples of 8 elements: (n, d) activations with rows padded to ldd, q, k, v
-// and the merged heads' cotangent per head (b, H, t, ldh), the softmax and ds
-// as (b, H, t, ldt). Values the TPU kernel rounds to x's type are held in
-// bf16. The values its backward keeps in fp32 (dO = g Wo, the softmax where
-// it is not rounded, ds and the rel-pos cotangent du) stay fp32, in the
-// scratch and in shared memory, and every product that takes one of them
-// takes it at fp32 precision (`mma_tile_f32`, `mma_tile_saf<3>`); dq, dk and
-// dv are fp32 and rounded where the TPU kernel rounds them. One stage per
-// (sequence, head, 64 query rows) computes the scores, the fp32 softmax and
-// att v, and in the backward dO V^T, the softmax backward, the rel-pos
-// backward and dq, holding its (64, t) fp32 score tile in shared memory.
-// Every parameter gradient has one owner per element and every sum a fixed
-// order: no atomics, the same bits on every run. Forward: 6 stages;
-// backward: 9.
+// A first stage casts the five weights and the angle table to bf16 once per
+// call, and the stages hand bf16 values to each other in layouts whose rows
+// start at multiples of 8 elements: (n, d) activations with rows padded to
+// ldd, q, k, v and the merged heads' cotangent per head (b, H, t, ldh), the
+// softmax and ds as (b, H, t, ldt). Values the TPU kernel rounds to x's type
+// are held in bf16. The backward's mma.sync stages keep the values its
+// backward keeps in fp32 (dO = g Wo, the softmax where it is not rounded, ds
+// and the rel-pos cotangent du) in fp32, in the scratch and in shared
+// memory, and every product that takes one of them takes it at fp32
+// precision (`mma_tile_f32`, `mma_tile_saf<3>`); dq, dk and dv are fp32 and
+// rounded where the TPU kernel rounds them. One stage per (sequence, head,
+// 64 query rows) computes the scores, the fp32 softmax and att v, and in the
+// backward dO V^T, the softmax backward, the rel-pos backward and dq,
+// holding its (64, t) fp32 score tile in shared memory. Every parameter
+// gradient has one owner per element and every sum a fixed order.
 
 constexpr int QT = 64;          // query rows per block of the attention stage
 constexpr int LDU = BT + 8;     // row stride (floats) of the attention stage's du tile
@@ -834,7 +850,8 @@ __host__ __device__ inline AttSmem att_smem(int t, bool bwd) {
 #define AVEC_FOR_ACC(nt, e) \
   _Pragma("unroll") for (int nt = 0; nt < 4; ++nt) _Pragma("unroll") for (int e = 0; e < 4; ++e)
 
-__device__ __forceinline__ const bf16* weight16(const Scratch16& sc, int which, int row, int d) {
+__host__ __device__ __forceinline__ const bf16* weight16(const Scratch16& sc, int which, int row,
+                                                        int d) {
   return sc.w + ((size_t)which * d + row) * sc.ldd;
 }
 
@@ -843,30 +860,40 @@ __device__ __forceinline__ size_t head_row(int r, int h, const Shape& sh) {
   return ((size_t)(r / sh.t) * sh.heads + h) * sh.t + r % sh.t;
 }
 
-// blockIdx.x < 5 d: row blockIdx.x % d of weight blockIdx.x / d (Wq, Wk, Wv,
-// P, Wo) to bf16; then the angle table's rows.
-__global__ void __launch_bounds__(THREADS)
-cast16_kernel(Params p, const bf16* __restrict__ tab, Scratch16 sc, Shape sh) {
-  const int d = sh.d, row = blockIdx.x;
-  if (row < NW * d) {
-    const float* ws[NW] = {p.wq, p.wk, p.wv, p.pos_w, p.wo};
-    const float* src = ws[row / d] + (size_t)(row % d) * d;
-    bf16* dst = sc.w + (size_t)row * sc.ldd;
-    for (int c = threadIdx.x; c < d; c += THREADS) dst[c] = from_f<bf16>(src[c]);
-  } else {
-    const int u = row - NW * d;
-    for (int c = threadIdx.x; c < d; c += THREADS)
-      sc.tab[(size_t)u * sc.ldd + c] = tab[(size_t)u * d + c];
-  }
+constexpr int CAST_ROWS = 4;  // rows per block of prep16_kernel's casts
+
+__host__ __device__ inline int cast_blocks(const Shape& sh) {
+  return cdiv(NW * sh.d + sh.t, CAST_ROWS);
 }
 
-// One warp per token row: mean and 1 / sqrt(var + eps) in fp32, h rounded as
-// the TPU kernel rounds it, and in the backward round(g * mask).
+// The bf16 path's first stage. The first cast_blocks blocks: CAST_ROWS rows
+// each of the five weights (Wq, Wk, Wv, P, Wo, one after the other) to bf16,
+// then of the angle table; the rest: LayerNorm of 8 token rows, one warp per
+// row: mean and 1 / sqrt(var + eps) in fp32, h rounded as the TPU kernel
+// rounds it, and in the backward round(g * mask).
 __global__ void __launch_bounds__(THREADS)
-ln_h16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g, Params p, Scratch16 sc,
-              Shape sh, float eps, Drop dr) {
-  const int row = blockIdx.x * (THREADS / 32) + threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int d = sh.d;
+prep16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g, const bf16* __restrict__ tab,
+              Params p, Scratch16 sc, Shape sh, float eps, Drop dr) {
+  const int d = sh.d, casts = cast_blocks(sh);
+  if ((int)blockIdx.x < casts) {
+    const float* ws[NW] = {p.wq, p.wk, p.wv, p.pos_w, p.wo};
+    const int row0 = blockIdx.x * CAST_ROWS, rows = min(CAST_ROWS, NW * d + sh.t - row0);
+    for (int r = 0; r < rows; ++r) {  // uniform over the block
+      const int row = row0 + r;
+      if (row < NW * d) {
+        const float* src = ws[row / d] + (size_t)(row % d) * d;
+        bf16* dst = sc.w + (size_t)row * sc.ldd;
+        for (int c = threadIdx.x; c < d; c += THREADS) dst[c] = from_f<bf16>(src[c]);
+      } else {
+        const bf16* src = tab + (size_t)(row - NW * d) * d;
+        bf16* dst = sc.tab + (size_t)(row - NW * d) * sc.ldd;
+        for (int c = threadIdx.x; c < d; c += THREADS) dst[c] = src[c];
+      }
+    }
+    return;
+  }
+  const int row = (blockIdx.x - casts) * (THREADS / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
   if (row >= sh.n) return;  // uniform over the warp
   const bf16* xr = x + (size_t)row * d;
   float sum = 0.f;
@@ -891,42 +918,25 @@ ln_h16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g, Params p, 
   }
 }
 
-// blockIdx.z 0..2: q, k, v = round(round(h W^T) + round(b)), per head;
-// 3 (backward): dacc = round(g * mask) Wo, the merged heads' cotangent, per
-// head, in fp32 as the TPU kernel keeps it.
+// Backward: dacc = round(g * mask) Wo, the merged heads' cotangent, per head,
+// in fp32 as the TPU kernel keeps it.
 __global__ void __launch_bounds__(THREADS)
-qkv16_kernel(Params p, Scratch16 sc, Shape sh) {
+dacc16_kernel(Scratch16 sc, Shape sh) {
   __shared__ __align__(16) bf16 sm[MMA_STAGE];
-  const int row0 = blockIdx.x * BT, col0 = blockIdx.y * BT, z = blockIdx.z, n = sh.n, d = sh.d;
+  const int row0 = blockIdx.x * BT, col0 = blockIdx.y * BT, n = sh.n, d = sh.d;
   float acc[4][4] = {};
-  const bf16* a_base = z == 3 ? sc.gm : sc.h;
   auto a = rows_of<bf16>([&](int r) {
     const int row = row0 + r;
-    return row < n ? a_base + (size_t)row * sc.ldd : nullptr;
+    return row < n ? sc.gm + (size_t)row * sc.ldd : nullptr;
   });
-  if (z == 3) {
-    auto b = cols_of<bf16>([&](int k) { return weight16(sc, W_O, k, d) + col0; }, d - col0);
-    mma_tile(acc, a, b, 0, d, sm);
-  } else {
-    auto b = rows_of<bf16>([&](int j) {
-      const int col = col0 + j;
-      return col < d ? weight16(sc, z, col, d) : nullptr;
-    });
-    mma_tile(acc, a, b, 0, d, sm);
-  }
-  const float* bias = z == 0 ? p.bq : (z == 1 ? p.bk : p.bv);
-  bf16* out = z == 0 ? sc.q : (z == 1 ? sc.k : sc.v);
+  auto b = cols_of<bf16>([&](int k) { return weight16(sc, W_O, k, d) + col0; }, d - col0);
+  mma_tile(acc, a, b, 0, d, sm);
   AVEC_FOR_ACC(nt, e) {
     int i, j;
     mma_tile_at(nt, e, i, j);
     const int row = row0 + i, col = col0 + j;
-    if (row < n && col < d) {
-      const size_t at = head_row(row, col / sh.dh, sh) * sc.ldh + col % sh.dh;
-      if (z == 3)
-        sc.dacc[at] = acc[nt][e];
-      else
-        out[at] = from_f<bf16>(rnd<bf16>(acc[nt][e]) + rnd<bf16>(bias[col]));
-    }
+    if (row < n && col < d)
+      sc.dacc[head_row(row, col / sh.dh, sh) * sc.ldh + col % sh.dh] = acc[nt][e];
   }
 }
 
@@ -1183,32 +1193,444 @@ att16_kernel(const int* __restrict__ lengths, Params p, Scratch16 sc, Shape sh, 
     }
 }
 
-// y = round(round(round(merged Wo^T) + bo) * mask) [+ x].
-__global__ void __launch_bounds__(THREADS)
-out_proj16_kernel(const bf16* __restrict__ x, bf16* __restrict__ y, Params p, Scratch16 sc,
-                  Shape sh, int residual, Drop dr) {
-  __shared__ __align__(16) bf16 sm[MMA_STAGE];
-  const int row0 = blockIdx.x * BT, col0 = blockIdx.y * BT, n = sh.n, d = sh.d;
-  float acc[4][4] = {};
-  auto a = rows_of<bf16>([&](int r) {
-    const int row = row0 + r;
-    return row < n ? sc.merged + (size_t)row * sc.ldd : nullptr;
-  });
-  auto b = rows_of<bf16>([&](int j) {
-    const int col = col0 + j;
-    return col < d ? weight16(sc, W_O, col, d) : nullptr;
-  });
-  mma_tile(acc, a, b, 0, d, sm);
-  AVEC_FOR_ACC(nt, e) {
-    int i, j;
-    mma_tile_at(nt, e, i, j);
-    const int row = row0 + i, col = col0 + j;
-    if (row < n && col < d) {
-      float val = rnd<bf16>(rnd<bf16>(acc[nt][e]) + rnd<bf16>(p.bo[col]));
-      val = rnd<bf16>(val * drop_mult(dr, row / sh.t, row % sh.t, col, d));
-      if (residual) val = rnd<bf16>(val + to_f(x[(size_t)row * d + col]));
-      y[(size_t)row * d + col] = from_f<bf16>(val);
+// ---- the forward's tensor-core stages (TMA-fed `wgmma`, hopper.cuh)
+//
+// The projections and the attention stage of the bf16 forward: one
+// warpgroup per 64-row output tile, operands brought by TMA into
+// 128-byte-swizzled shared memory, products on `wgmma` with fp32
+// accumulation, every rounding point of the TPU kernel read in the
+// accumulator's fragment layout. No atomics: every output element has one
+// owner, so the forward gives the same bits on every run.
+
+constexpr int WG = 128;           // one warpgroup
+constexpr int PROJ_RING = 4;      // ring stages ({A, B}) of a projection
+constexpr int ATT_MAX_KT = 4;     // key tiles it holds in registers: t <= 256
+enum ProjMode { PROJ_QKV = 0, PROJ_OUT = 1 };
+
+struct ProjMaps {
+  CUtensorMap a, w;  // h or merged (n, d); the five weights (5 d, d): boxes of 64 x 64
+};
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Both values rounded to bf16 (kept in fp32) by one paired conversion: the
+// epilogues below are bound by their conversions.
+__device__ __forceinline__ float2 rnd2(float a, float b) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return make_float2(__low2float(v), __high2float(v));
+}
+
+// Ring stages of a projection: {h, Wq, Wk, Wv} or {merged, Wo}.
+__host__ __device__ constexpr int proj_ring(int mode) { return mode == PROJ_QKV ? 3 : 4; }
+__host__ __device__ constexpr int proj_nb(int mode) { return mode == PROJ_QKV ? 3 : 1; }
+constexpr size_t proj_smem(int mode) {
+  return 1024 + (size_t)proj_ring(mode) * (1 + proj_nb(mode)) * hopper::TILE_BYTES +
+         proj_ring(mode) * 8;
+}
+
+// PROJ_QKV: q, k, v = round(round(h W^T) + round(b)) of the same 64 columns,
+// written per head (b, H, t, ldh). PROJ_OUT: y = round(round(round(merged
+// Wo^T) + round(bo)) * mask) [+ x]. One warpgroup per (64 rows, 64 output
+// columns): the TMA / `wgmma` main loop over d (h's tile read once for the
+// three weights), then the epilogue in the accumulator's layout.
+template <int MODE>
+__global__ void __launch_bounds__(WG)
+proj16_kernel(const __grid_constant__ ProjMaps maps, Params p, Scratch16 sc, Shape sh,
+              const bf16* __restrict__ x, bf16* __restrict__ y, int residual, Drop dr) {
+  using namespace hopper;
+  constexpr int NB = proj_nb(MODE), RING = proj_ring(MODE);
+  unsigned char* base = smem_base_1k();
+  bf16* ring = reinterpret_cast<bf16*>(base);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + RING * (1 + NB) * TILE_BYTES);
+  const int row0 = blockIdx.x * 64, col0 = blockIdx.y * 64, d = sh.d, n = sh.n;
+  const CUtensorMap* mb[NB];
+  int b_row[NB];  // rows past d (the next weight's) are never stored
+  const float* bias[NB];
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    const int z = MODE == PROJ_QKV ? j : W_O;
+    mb[j] = &maps.w;
+    b_row[j] = z * d + col0;
+    bias[j] = MODE == PROJ_OUT ? p.bo : (z == 0 ? p.bq : (z == 1 ? p.bk : p.bv));
+  }
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, q = lane & 3;
+  float bv[NB][16];  // round(bias) at this thread's 16 columns, read first
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int col = col0 + (i / 2) * 8 + 2 * q + (i & 1);
+      bv[j][i] = col < d ? rnd<bf16>(bias[j][col]) : 0.f;
     }
+  float acc[NB][32];
+  const CUtensorMap* const (&mbc)[NB] = mb;
+  const int (&brc)[NB] = b_row;
+  wg_mainloop<NB, RING>(acc, ring, bars, &maps.a, row0, mbc, brc, 0, cdiv(d, 64));
+  if (MODE == PROJ_QKV) {
+    // per-head offsets of this thread's 2 rows and 16 columns
+    size_t rb[2];
+    int co[16];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = row0 + w * 16 + g + 8 * hh;
+      rb[hh] = ((size_t)(row / sh.t) * sh.heads * sh.t + row % sh.t) * sc.ldh;
+    }
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int col = col0 + (i / 2) * 8 + 2 * q + (i & 1), hd = col / sh.dh;
+      co[i] = col < d ? hd * sh.t * sc.ldh + col - hd * sh.dh : -1;
+    }
+    bf16* outs[3] = {sc.q, sc.k, sc.v};
+    // with an even head width a column pair lies in one head, at an even
+    // offset: one 4-byte store
+    const bool pairs = sh.dh % 2 == 0;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        if (row0 + w * 16 + g + 8 * hh >= n) continue;
+#pragma unroll
+        for (int j = 0; j < NB; ++j) {
+          const float2 a = rnd2(acc[j][4 * i + 2 * hh], acc[j][4 * i + 2 * hh + 1]);
+          const __nv_bfloat162 v =
+              __floats2bfloat162_rn(a.x + bv[j][2 * i], a.y + bv[j][2 * i + 1]);
+          bf16* o = outs[j] + rb[hh];
+          if (pairs && co[2 * i] >= 0) {
+            *reinterpret_cast<__nv_bfloat162*>(o + co[2 * i]) = v;
+            continue;
+          }
+          if (co[2 * i] >= 0) o[co[2 * i]] = __low2bfloat16(v);
+          if (co[2 * i + 1] >= 0) o[co[2 * i + 1]] = __high2bfloat16(v);
+        }
+      }
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = row0 + w * 16 + g + 8 * hh, col = col0 + i * 8 + 2 * q;
+      if (row >= n || col >= d) continue;  // d is even, so col + 1 < d
+      const int b = row / sh.t, tt = row % sh.t;
+      const size_t at = (size_t)row * d + col;
+      float2 v = rnd2(acc[0][4 * i + 2 * hh], acc[0][4 * i + 2 * hh + 1]);
+      v = rnd2(v.x + bv[0][2 * i], v.y + bv[0][2 * i + 1]);
+      v = make_float2(v.x * drop_mult(dr, b, tt, col, d), v.y * drop_mult(dr, b, tt, col + 1, d));
+      if (residual) {
+        const __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(x + at);
+        v = rnd2(v.x, v.y);
+        v = make_float2(v.x + __low2float(xv), v.y + __high2float(xv));
+      }
+      *reinterpret_cast<__nv_bfloat162*>(y + at) = __floats2bfloat162_rn(v.x, v.y);
+    }
+}
+
+struct AttMaps {
+  CUtensorMap q, k, v;  // per head (b H slabs of t rows x dh): boxes of 64 x 64
+  CUtensorMap pos;      // P per head (H slabs of dh rows x d): boxes of 64 x 64
+  CUtensorMap tab;      // the angle table (t, d): boxes of 64 x 64
+};
+
+// Streamed tiles of `att_fwd16_kernel`: a key tile's group (its k and tab
+// tiles) and the first three tiles of the next, at least 8.
+__host__ __device__ inline int att_ring(int d, int dh) {
+  const int per_key = cdiv(dh, 64) + cdiv(d, 64);
+  return per_key + 3 > 8 ? per_key + 3 : 8;
+}
+
+// Its shared memory: the block's q tiles, its rotated rel-pos projections
+// a12 (64 x d, one tile per 64 columns), the ring and the barriers.
+size_t att_fwd_smem(int d, int dh) {
+  const int ring = att_ring(d, dh);
+  return 1024 + (size_t)(cdiv(dh, 64) + cdiv(d, 64) + ring) * hopper::TILE_BYTES +
+         (2 * ring + 1) * 8;
+}
+
+// The attention stage of the forward, one warpgroup per (sequence, head, 64
+// query rows) and NKT = ceil(t / 64) key tiles. A producer warp streams the
+// operand tiles by TMA through a ring of `ring_n` stages, in the order they
+// are used, refilling a stage as soon as the four consumer warps have
+// released it; the consumers take the tiles a group at a time (one commit,
+// then each warp retires it and releases the group's stages):
+//   U = q_h P_h^T per 64 columns of d (P_h read MN-major), rotated by the
+//       query's angles in the accumulator's layout (us and uc are adjacent
+//       columns of one thread), rounded: a12 (64 x d) to shared memory;
+//   per key tile u: s_k = q k_u^T and s_e = a12 tab_u^T into separate
+//       accumulators, each rounded before the sum, + round(q . b_pos),
+//       scaled, -1e9 at keys past the length; columns past t are no keys;
+//   the fp32 softmax over all key tiles (a row is held by the four lanes of
+//       a quad), rounded to bf16 as the A fragments of att v;
+//   o = att v per 64 columns of dh (v read MN-major), rounded into merged.
+template <int NKT>
+__global__ void __launch_bounds__(WG + 32)
+att_fwd16_kernel(const __grid_constant__ AttMaps maps, const int* __restrict__ lengths,
+                 Params p, Scratch16 sc, Shape sh, float scale) {
+  using namespace hopper;
+  const int t = sh.t, d = sh.d, dh = sh.dh, hc = cdiv(dh, 64), nch = cdiv(d, 64);
+  const int ring_n = att_ring(d, dh);
+  const int t0 = blockIdx.x * 64, bh = blockIdx.z, b = bh / sh.heads, h = bh % sh.heads;
+  const int tid = threadIdx.x, w = tid / 32, lane = tid % 32, g = lane >> 2, qd = lane & 3;
+  const int len = clamp_len(lengths, b, t);
+  unsigned char* base = smem_base_1k();
+  bf16* qs = reinterpret_cast<bf16*>(base);          // hc tiles
+  bf16* a12 = qs + hc * TILE_ELEMS;                  // nch tiles
+  bf16* ring = a12 + nch * TILE_ELEMS;               // ring_n tiles
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + ring_n * TILE_ELEMS);  // ring_n
+  uint64_t* empty = full + ring_n;                                            // ring_n
+  uint64_t* q_bar = empty + ring_n;
+  __shared__ float qb[64], bpos[128];
+
+  if (tid == 0) {
+    for (int i = 0; i < ring_n; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], WG / 32);  // one arrival per consumer warp
+    }
+    mbar_init(q_bar, 1);
+    mbar_init_fence();
+  }
+  for (int c = tid; c < dh; c += WG + 32) bpos[c] = rnd<bf16>(p.pos_b[h * dh + c]);
+  __syncthreads();  // the last barrier of all WG + 32 threads
+
+  // The producer warp (the block's last): its lane 0 asks for the q tiles,
+  // then for every streamed tile in the order the products take them, each
+  // into the next stage once the four consumer warps have released it: the
+  // P tiles (chunk a of d, k tile b of dh), per key tile a its k (b < hc) and
+  // tab tiles, then per key tile a its v tiles (b).
+  if (w == WG / 32) {
+    if (lane != 0) return;
+    tma_prefetch_desc(&maps.q);
+    tma_prefetch_desc(&maps.pos);
+    tma_prefetch_desc(&maps.k);
+    tma_prefetch_desc(&maps.tab);
+    tma_prefetch_desc(&maps.v);
+    mbar_expect_tx(q_bar, hc * TILE_BYTES);
+    for (int kc = 0; kc < hc; ++kc)
+      tma_load_3d(qs + kc * TILE_ELEMS, &maps.q, q_bar, kc * 64, t0, bh);
+    const int parts[3][2] = {{nch, hc}, {NKT, hc + nch}, {NKT, hc}};  // (outer, inner)
+    int slot = 0, use = 0;  // stage, and how often it was filled before
+    for (int part = 0; part < 3; ++part)
+      for (int a = 0; a < parts[part][0]; ++a)
+        for (int bb = 0; bb < parts[part][1]; ++bb) {
+          if (use > 0) mbar_wait(&empty[slot], (use - 1) & 1);
+          bf16* dst = ring + slot * TILE_ELEMS;
+          mbar_expect_tx(&full[slot], TILE_BYTES);
+          if (part == 0)
+            tma_load_3d(dst, &maps.pos, &full[slot], a * 64, bb * 64, h);
+          else if (part == 1 && bb < hc)
+            tma_load_3d(dst, &maps.k, &full[slot], bb * 64, a * 64, bh);
+          else if (part == 1)
+            tma_load_2d(dst, &maps.tab, &full[slot], (bb - hc) * 64, a * 64);
+          else
+            tma_load_3d(dst, &maps.v, &full[slot], bb * 64, a * 64, bh);
+          if (++slot == ring_n) slot = 0, ++use;
+        }
+    return;
+  }
+
+  // the consumer warpgroup's view: the first tile of the group being taken
+  // (its stage and the parity of that stage's use)
+  const int per_key = hc + nch;
+  int out_slot = 0, out_par = 0;
+  auto stage_of = [&](int i, int& par) {
+    int st = out_slot + i;
+    par = out_par;
+    if (st >= ring_n) st -= ring_n, par ^= 1;
+    return st;
+  };
+  auto tile = [&](int i) {  // the i-th tile of the group being taken
+    int par;
+    return static_cast<const bf16*>(ring + stage_of(i, par) * TILE_ELEMS);
+  };
+  auto wait_group = [&](int count) {
+    for (int i = 0; i < count; ++i) {
+      int par;
+      const int st = stage_of(i, par);
+      mbar_wait(&full[st], par);
+    }
+  };
+  // this warp has retired its products on the group's `count` tiles
+  auto release = [&](int count) {
+    if (lane == 0)
+      for (int i = 0; i < count; ++i) {
+        int par;
+        mbar_arrive(&empty[stage_of(i, par)]);
+      }
+    out_slot = stage_of(count, out_par);
+  };
+  mbar_wait(q_bar, 0);
+
+  // a12 = the rotated U = q_h P_h^T, 64 columns at a time
+  for (int mc = 0; mc < nch; ++mc) {
+    uint32_t tabv[8][2];  // (sin, cos) of this thread's rows and column pairs
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int tt = t0 + w * 16 + g + 8 * hh, c = mc * 64 + i * 8 + 2 * qd;
+        tabv[i][hh] = tt < t && c < d
+                          ? *reinterpret_cast<const uint32_t*>(sc.tab + (size_t)tt * sc.ldd + c)
+                          : 0u;
+      }
+    float u[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) u[i] = 0.f;
+    wait_group(hc);
+    acc_fence(u);
+    wgmma_fence();
+    for (int kc = 0; kc < hc; ++kc)
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        wgmma_64x64_ss<0, 1>(u, sw128_desc(qs + kc * TILE_ELEMS + ks * 16),
+                             sw128_desc(tile(kc) + ks * 16 * 64));
+    wgmma_commit();
+    if (mc == 0) {  // round(q . b_pos) of query row tid / 2 (two threads, half
+                    // the columns each) while the first products run
+      const int r = tid >> 1, c0 = (tid & 1) * 64;
+      float a = 0.f;
+      for (int c = c0; c < min(dh, c0 + 64); ++c)
+        a = fmaf(to_f(qs[(c >> 6) * TILE_ELEMS + sw128_at(r, c & 63)]), bpos[c], a);
+      a += __shfl_xor_sync(0xffffffffu, a, 1);
+      if ((tid & 1) == 0) qb[r] = rnd<bf16>(a);
+    }
+    wgmma_wait_all();
+    acc_fence(u);
+    release(hc);
+    bf16* at = a12 + mc * TILE_ELEMS;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const __nv_bfloat162 sc2 = *reinterpret_cast<const __nv_bfloat162*>(&tabv[i][hh]);
+        const float sn = __low2float(sc2), cs = __high2float(sc2);
+        const float2 uu = rnd2(u[4 * i + 2 * hh], u[4 * i + 2 * hh + 1]);  // (us, uc)
+        const float2 t2 = rnd2(uu.y * sn, uu.x * cs), t1 = rnd2(uu.x * sn, uu.y * cs);
+        // a2 = uc sin - us cos, a1 = us sin + uc cos, rounded as they are stored
+        *reinterpret_cast<__nv_bfloat162*>(at + sw128_at(w * 16 + g + 8 * hh, i * 8 + 2 * qd)) =
+            __floats2bfloat162_rn(t2.x - t2.y, t1.x + t1.y);
+      }
+  }
+  fence_proxy_async();  // a12, written by the threads, is read by `wgmma`
+  asm volatile("bar.sync 1, %0;" ::"n"(WG) : "memory");  // the consumers only
+
+  // scores, one key tile at a time; s holds them all
+  const float neg = rnd<bf16>(-1e9f), qb_row[2] = {qb[w * 16 + g], qb[w * 16 + g + 8]};
+  float s[NKT][32];
+#pragma unroll
+  for (int u = 0; u < NKT; ++u) {
+    float se[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[u][i] = se[i] = 0.f;
+    wait_group(per_key);
+    acc_fence(s[u]);
+    acc_fence(se);
+    wgmma_fence();
+    for (int kc = 0; kc < hc; ++kc) wgmma_tile_k64(s[u], qs + kc * TILE_ELEMS, tile(kc));
+    for (int mc = 0; mc < nch; ++mc) wgmma_tile_k64(se, a12 + mc * TILE_ELEMS, tile(hc + mc));
+    wgmma_commit();
+    wgmma_wait_all();
+    acc_fence(s[u]);
+    acc_fence(se);
+    release(per_key);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {  // columns c, c + 1 of one row
+        const int c = u * 64 + i * 8 + 2 * qd, at = 4 * i + 2 * hh;
+        const float2 k2 = rnd2(s[u][at], s[u][at + 1]), e2 = rnd2(se[at], se[at + 1]);
+        float2 v = rnd2(k2.x + e2.x, k2.y + e2.y);
+        v = rnd2(v.x + qb_row[hh], v.y + qb_row[hh]);
+        v = rnd2(v.x * scale, v.y * scale);
+        // -1e9 at keys past the length (adding 0 to a rounded value is exact)
+        v = rnd2(v.x + (c >= len ? neg : 0.f), v.y + (c + 1 >= len ? neg : 0.f));
+        s[u][at] = c < t ? v.x : -INFINITY;  // past t: no key
+        s[u][at + 1] = c + 1 < t ? v.y : -INFINITY;
+      }
+  }
+
+  // the fp32 softmax of this thread's two rows, then att rounded to bf16 as
+  // the A fragments of att v: af[u][ks] holds key columns 64 u + 16 ks ..
+  float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int u = 0; u < NKT; ++u)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[u][i]);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+    mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+  }
+#pragma unroll
+  for (int u = 0; u < NKT; ++u)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const float e = expf(s[u][i] - mx[(i >> 1) & 1]);
+      s[u][i] = e;
+      sum[(i >> 1) & 1] += e;
+    }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 1);
+    sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 2);
+  }
+  uint32_t af[NKT][4][4];
+#pragma unroll
+  for (int u = 0; u < NKT; ++u)
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i0 = 8 * ks + 2 * r;
+        af[u][ks][r] = pack_bf16(s[u][i0] / sum[r & 1], s[u][i0 + 1] / sum[r & 1]);
+      }
+
+  // o = round(att) v per 64 columns of dh
+  float o[2][32];
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
+#pragma unroll
+  for (int u = 0; u < NKT; ++u) {
+    wait_group(hc);
+    acc_fence(o[0]);
+    acc_fence(o[1]);
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+      if (c < hc)
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) wgmma_64x64_rs_mn(o[c], af[u][ks], tile(c) + ks * 16 * 64);
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) reg_fence(af[u][ks]);
+    acc_fence(o[0]);
+    acc_fence(o[1]);
+    release(hc);
+  }
+  const bool pairs = dh % 2 == 0;  // a column pair in one 4-byte store
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    if (c >= hc) continue;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int tt = t0 + w * 16 + g + 8 * hh, cc = c * 64 + i * 8 + 2 * qd;
+        if (tt >= t || cc >= dh) continue;
+        bf16* m = sc.merged + ((size_t)b * t + tt) * sc.ldd + h * dh + cc;
+        const __nv_bfloat162 v =
+            __floats2bfloat162_rn(o[c][4 * i + 2 * hh], o[c][4 * i + 2 * hh + 1]);
+        if (pairs) {  // dh even: cc + 1 < dh
+          *reinterpret_cast<__nv_bfloat162*>(m) = v;
+        } else {
+          m[0] = __low2bfloat16(v);
+          if (cc + 1 < dh) m[1] = __high2bfloat16(v);
+        }
+      }
   }
 }
 
@@ -1503,6 +1925,13 @@ int weight_splits16(const Shape& sh) {
   return s < 1 ? 1 : s;
 }
 
+// The forward's attention stage on the tensor cores (`att_fwd16_kernel`)
+// takes up to ATT_MAX_KT key tiles and heads up to 128 wide; longer
+// sequences take relpos16 and the mma.sync attention stage.
+bool att_fwd_wgmma(const Shape& sh) {
+  return cdiv(sh.t, 64) <= ATT_MAX_KT && sh.dh <= 128 && att_fwd_smem(sh.d, sh.dh) <= MAX_SMEM;
+}
+
 // Carves `base` (nullptr: only sizes) into the bf16 path's scratch; returns
 // its size in bytes.
 size_t carve16(char* base, const Shape& sh, bool backward, Scratch16* sc) {
@@ -1529,7 +1958,7 @@ size_t carve16(char* base, const Shape& sh, bool backward, Scratch16* sc) {
   sc->q = tb(bht * ldh);
   sc->k = tb(bht * ldh);
   sc->v = tb(bht * ldh);
-  sc->a12 = tb(bht * ldd);
+  if (backward || !att_fwd_wgmma(sh)) sc->a12 = tb(bht * ldd);
   if (backward) {
     sc->gm = tb(n * ldd);
     sc->dacc = tf(bht * ldh);
@@ -1559,7 +1988,7 @@ cudaError_t launch_att16(bool bwd, const int* lengths, const Params& p, const Sc
                          const Shape& sh, float scale, cudaStream_t st) {
   const AttSmem L = att_smem(sh.t, bwd);
   auto kern = bwd ? att16_kernel<true> : att16_kernel<false>;
-  cudaError_t rc =
+  const cudaError_t rc =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
   if (rc != cudaSuccess) return rc;
   kern<<<dim3(cdiv(sh.t, QT), 1, sh.b * sh.heads), THREADS, L.total, st>>>(lengths, p, sc, sh,
@@ -1568,16 +1997,54 @@ cudaError_t launch_att16(bool bwd, const int* lengths, const Params& p, const Sc
 }
 
 // The stages both directions share: the casts, LayerNorm (and round(g mask)),
-// the projections (and dacc), the rel-pos projections, the attention stage.
+// the q/k/v projections on the tensor cores; in the backward dacc, the
+// rel-pos projections and the mma.sync attention stage, in the forward the
+// tensor-core attention stage (or, past ATT_MAX_KT key tiles, the backward's
+// two stages in their forward form). `wmap` is the map over the bf16 weights
+// (the caller's, so the forward's out-projection reuses it).
 cudaError_t run_core16(const bf16* x, const bf16* g, const bf16* tab, const int* lengths,
                        const Params& p, const Scratch16& sc, const Shape& sh, float eps,
-                       float scale, Drop dr, cudaStream_t st) {
+                       float scale, Drop dr, const CUtensorMap& wmap, cudaStream_t st) {
+  using hopper::tensor_map_2d;
+  using hopper::tensor_map_3d;
   const int nt = cdiv(sh.n, BT), dt = cdiv(sh.d, BT), bwd = g != nullptr;
-  AVEC_LAUNCH(cast16_kernel, dim3(NW * sh.d + sh.t), p, tab, sc, sh);
-  AVEC_LAUNCH(ln_h16_kernel, dim3(cdiv(sh.n, THREADS / 32)), x, g, p, sc, sh, eps, dr);
-  AVEC_LAUNCH(qkv16_kernel, dim3(nt, dt, bwd ? 4 : 3), p, sc, sh);
-  AVEC_LAUNCH(relpos16_kernel, dim3(cdiv(sh.t, BT), dt, sh.b * sh.heads), sc, sh);
-  return launch_att16(bwd, lengths, p, sc, sh, scale, st);
+  const int bh = sh.b * sh.heads;
+  ProjMaps pm;
+  pm.w = wmap;
+  if (!tensor_map_2d(&pm.a, sc.h, sh.n, sh.d, sc.ldd, 64)) return cudaErrorInvalidValue;
+  AVEC_LAUNCH(prep16_kernel, dim3(cast_blocks(sh) + cdiv(sh.n, THREADS / 32)), x, g, tab, p, sc,
+              sh, eps, dr);
+  cudaError_t rc = cudaFuncSetAttribute(proj16_kernel<PROJ_QKV>,
+                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                        (int)proj_smem(PROJ_QKV));
+  if (rc != cudaSuccess) return rc;
+  proj16_kernel<PROJ_QKV><<<dim3(nt, dt), WG, proj_smem(PROJ_QKV), st>>>(pm, p, sc, sh, nullptr,
+                                                                          nullptr, 0, dr);
+  rc = cudaGetLastError();
+  if (rc != cudaSuccess) return rc;
+  if (bwd) AVEC_LAUNCH(dacc16_kernel, dim3(nt, dt), sc, sh);
+  if (bwd || !att_fwd_wgmma(sh)) {
+    AVEC_LAUNCH(relpos16_kernel, dim3(cdiv(sh.t, BT), dt, bh), sc, sh);
+    return launch_att16(bwd, lengths, p, sc, sh, scale, st);
+  }
+  AttMaps am;
+  const long long slab = (long long)sh.t * sc.ldh;
+  if (!tensor_map_3d(&am.q, sc.q, sh.dh, sh.t, bh, sc.ldh, slab, 64) ||
+      !tensor_map_3d(&am.k, sc.k, sh.dh, sh.t, bh, sc.ldh, slab, 64) ||
+      !tensor_map_3d(&am.v, sc.v, sh.dh, sh.t, bh, sc.ldh, slab, 64) ||
+      !tensor_map_3d(&am.pos, weight16(sc, W_P, 0, sh.d), sh.d, sh.dh, sh.heads, sc.ldd,
+                     (long long)sh.dh * sc.ldd, 64) ||
+      !tensor_map_2d(&am.tab, sc.tab, sh.t, sh.d, sc.ldd, 64))
+    return cudaErrorInvalidValue;
+  const int nkt = cdiv(sh.t, 64);
+  const size_t smem = att_fwd_smem(sh.d, sh.dh);
+  auto kern = nkt == 1 ? att_fwd16_kernel<1>
+                       : nkt == 2 ? att_fwd16_kernel<2>
+                                  : nkt == 3 ? att_fwd16_kernel<3> : att_fwd16_kernel<4>;
+  rc = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (rc != cudaSuccess) return rc;
+  kern<<<dim3(nkt, 1, bh), WG + 32, smem, st>>>(am, lengths, p, sc, sh, scale);
+  return cudaGetLastError();
 }
 
 cudaError_t run_fwd16(const void* x, const void* tab, const int* lengths, const Params& p,
@@ -1586,12 +2053,19 @@ cudaError_t run_fwd16(const void* x, const void* tab, const int* lengths, const 
   Scratch16 sc;
   carve16(static_cast<char*>(scratch), sh, false, &sc);
   const bf16* xt = static_cast<const bf16*>(x);
-  const cudaError_t rc = run_core16(xt, nullptr, static_cast<const bf16*>(tab), lengths, p, sc,
-                                    sh, eps, scale, dr, st);
+  ProjMaps pm;
+  if (!hopper::tensor_map_2d(&pm.a, sc.merged, sh.n, sh.d, sc.ldd, 64) ||
+      !hopper::tensor_map_2d(&pm.w, sc.w, NW * sh.d, sh.d, sc.ldd, 64))
+    return cudaErrorInvalidValue;
+  cudaError_t rc = run_core16(xt, nullptr, static_cast<const bf16*>(tab), lengths, p, sc, sh,
+                              eps, scale, dr, pm.w, st);
   if (rc != cudaSuccess) return rc;
-  AVEC_LAUNCH(out_proj16_kernel, dim3(cdiv(sh.n, BT), cdiv(sh.d, BT)), xt, static_cast<bf16*>(y),
-              p, sc, sh, residual, dr);
-  return cudaSuccess;
+  rc = cudaFuncSetAttribute(proj16_kernel<PROJ_OUT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                            (int)proj_smem(PROJ_OUT));
+  if (rc != cudaSuccess) return rc;
+  proj16_kernel<PROJ_OUT><<<dim3(cdiv(sh.n, 64), cdiv(sh.d, 64)), WG, proj_smem(PROJ_OUT), st>>>(
+      pm, p, sc, sh, xt, static_cast<bf16*>(y), residual, dr);
+  return cudaGetLastError();
 }
 
 cudaError_t run_bwd16(const void* x, const void* g, const void* tab, const int* lengths,
@@ -1601,8 +2075,11 @@ cudaError_t run_bwd16(const void* x, const void* g, const void* tab, const int* 
   carve16(static_cast<char*>(scratch), sh, true, &sc);
   const bf16* xt = static_cast<const bf16*>(x);
   const bf16* gt = static_cast<const bf16*>(g);
+  CUtensorMap wmap;
+  if (!hopper::tensor_map_2d(&wmap, sc.w, NW * sh.d, sh.d, sc.ldd, 64))
+    return cudaErrorInvalidValue;
   const cudaError_t rc = run_core16(xt, gt, static_cast<const bf16*>(tab), lengths, p, sc, sh,
-                                    eps, scale, dr, st);
+                                    eps, scale, dr, wmap, st);
   if (rc != cudaSuccess) return rc;
   const int nt = cdiv(sh.n, BT), dt = cdiv(sh.d, BT), ht = cdiv(sh.dh, BT), sq = dt * dt;
   AVEC_LAUNCH(kv16_kernel, dim3(cdiv(sh.t, BT), ht, sh.b * sh.heads * 2), sc, sh);

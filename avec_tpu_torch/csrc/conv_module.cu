@@ -43,23 +43,26 @@
 // layout, whatever sequences a row tile straddles.
 //
 // bf16 (the training path): the matrix products of the shared recompute
-// (pw1, both GLU halves) and of the second backward pass (ds = bf16(g m) W2,
-// dW1 = dab^T h, dh = dab W1) run on the tensor cores as `wgmma` on 64-row
-// warpgroup tiles, fed by TMA from K-major bf16 copies (hopper.cuh): the
-// weights are cast to bf16 once per call (rows padded to 8 elements so that
-// TMA addresses d = 180), and the stages write h, dab and their transposes
-// (the products over the token rows read h^T and dab^T) in bf16. Those
-// stages read their rounding points in the epilogues (bias, GLU, BN and its
-// backward, in the accumulator's fragment layout). The second backward pass
-// uses no atomics: dW1 is one-owner 64 x 64 tiles over row splits, and db1,
-// the (E, k) tap gradient and the LayerNorm gradients are per-block partial
-// sums that a last stage adds in a fixed order, once, into the caller's
-// zeroed buffers, so two calls give the same bits. Stage kernels: stats 4,
-// fwd 5, bwd1 6 (cast, LayerNorm, tensor-core pw1, then their fp32-FMA
-// stages: the depthwise conv, pw2, the BN reductions and dW2 with atomics),
-// bwd2 9 (cast, LayerNorm with g m, pw1, depthwise, ds with dc, depthwise
-// backward with the GLU backward, dW1 and dh in one launch, LayerNorm
-// backward, reduce).
+// (pw1, both GLU halves) and of both backward passes (ds = bf16(g m) W2 in
+// each, dW2 = bf16(g m)^T s in the first, dW1 = dab^T h and dh = dab W1 in
+// the second) run on the tensor cores as `wgmma` on 64-row warpgroup tiles,
+// fed by TMA from bf16 copies (hopper.cuh): the weights are cast to bf16
+// once per call (rows padded to 8 elements so that TMA addresses d = 180),
+// and the stages write h, bf16(g m), s and dab in bf16. dW2 reads g m and s
+// MN-major from those row-major arrays (the transpose bits of `wgmma`: no
+// transposed copies); dW1 reads the transposes h^T and dab^T that the
+// second pass's stages write. Those stages read their rounding points in the
+// epilogues (bias, GLU, BN and its backward, in the accumulator's fragment
+// layout). Neither backward pass uses atomics: dW2 and dW1 are one-owner
+// 64 x 64 tiles over row splits, and db2, r1, r2 (first pass), db1, the
+// (E, k) tap gradient and the LayerNorm gradients (second pass) are
+// per-block partial sums that a last stage adds in a fixed order, once,
+// into the caller's zeroed buffers, so two calls give the same bits. Stage
+// kernels: stats 4, fwd 5, bwd1 7 (cast, LayerNorm with g m and db2's
+// partials, pw1, depthwise, ds with r1 / r2's partials, dW2, reduce), bwd2 9
+// (cast, LayerNorm with g m, pw1, depthwise, ds with dc, depthwise backward
+// with the GLU backward, dW1 and dh in one launch, LayerNorm backward,
+// reduce).
 //
 // What still bounds it in bf16: the stage chain and the two depthwise
 // stages, not the products. At (16, 151, 256, 256, 15) the second backward
@@ -67,7 +70,8 @@
 // of which the depthwise stencil and its transpose 25 and 31 us, each of the
 // three product stages 11-13 us (1-2 us of tensor-core work), the rest
 // LayerNorm, cast, LayerNorm backward and reduce at 5-10 us: about 100x the
-// bytes of its inputs and outputs at the card's memory rate.
+// bytes of its inputs and outputs at the card's memory rate. The first pass
+// takes about 70 us, 27 of them the depthwise stencil.
 //
 // fp32 inputs (the verification path) keep the first design: every product
 // as fp32 FMAs through `gemm_tile` (tile.cuh) with operand functors, so
@@ -128,18 +132,22 @@ struct Scratch {
   T* z;                       // GLU output (n, E)
   T *a, *bg;                  // GLU half a and the gate's input bg (n, E): bwd2
   T* c;                       // depthwise output + bias (n, E): bwd1, bwd2
-  T* s;                       // swish(cn) (n, E): fwd, bwd1
+  T* s;                       // swish(cn) (n, lds): fwd, bwd1
   float* dc;                  // BN input cotangent (n, E): bwd2
   T* dab;                     // da | dbg (n, ld_dab): bwd2
   float* dh;                  // LayerNorm output cotangent (n, d): bwd2
   // bf16 only: tensor-core operands and partial sums
   bf16 *w1b, *h;              // pw1 (2E, ldd), LayerNorm output (n, ldd)
-  bf16 *w1t, *w2t;            // pw1^T (d, ld2e), pw2^T (E, ldeo): bwd2
-  bf16 *ht, *gm, *dabt;       // h^T (d, ldn), bf16(g m) (n, ldeo), dab^T (2E, ldn): bwd2
+  bf16 *w1t, *w2t;            // pw1^T (d, ld2e): bwd2; pw2^T (E, ldeo): bwd1, bwd2
+  bf16 *ht, *dabt;            // h^T (d, ldn), dab^T (2E, ldn): bwd2
+  bf16* gm;                   // bf16(g m) (n, ldeo): bwd1, bwd2
   float *part_db1, *part_tap; // (rt_dw, 2E), (rt_dw, E k): bwd2
   float *part_lnb, *part_lnw; // (rt_ln, d) each: bwd2
   float* part_w1;             // (splits, 2E, d): bwd2
-  int ld_dab, ldd, ld2e, ldeo, ldn, rt_dw, rt_ln, splits;
+  float* part_db2;            // (rt_prep, E'): bwd1
+  float *part_r1, *part_r2;   // (rt_tile, E) each: bwd1
+  float* part_w2;             // (splits, E', E): bwd1
+  int ld_dab, lds, ldd, ld2e, ldeo, ldn, rt_dw, rt_ln, rt_prep, rt_tile, splits;
 };
 
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
@@ -312,7 +320,7 @@ conv_depthwise_kernel(Params p, Scratch<T> sc, Shape sh, const float* __restrict
         if (STAGE != FWD) sc.c[o] = from_f<T>(c);
         if (STAGE != BWD2) {
           const float cn = bn_cn<T>((c - mean[ch]) * rstd[ch], p, ch);
-          sc.s[o] = from_f<T>(cn * sigmoid(cn));
+          sc.s[(size_t)row * sc.lds + ch] = from_f<T>(cn * sigmoid(cn));
         }
       }
     }
@@ -344,7 +352,7 @@ conv_pw2_kernel(Params p, Scratch<T> sc, Shape sh, Drop dr, T* __restrict__ y) {
   float acc[4][4] = {};
   auto fa = [&](int i, int k) {
     const int row = row0 + i;
-    return row < n ? to_f(sc.s[(size_t)row * e + k]) : 0.f;
+    return row < n ? to_f(sc.s[(size_t)row * sc.lds + k]) : 0.f;
   };
   auto fb = [&](int k, int j) {
     const int col = col0 + j;
@@ -365,8 +373,8 @@ conv_pw2_kernel(Params p, Scratch<T> sc, Shape sh, Drop dr, T* __restrict__ y) {
 
 // ---- backward stages
 
-// dW2[o][c] += sum over a 256-row chunk of round(g m)[row][o] s[row][c]; the
-// blocks of the first channel tile also add db2[o] += sum g m.
+// fp32: dW2[o][c] += sum over a 256-row chunk of round(g m)[row][o]
+// s[row][c]; the blocks of the first channel tile also add db2[o] += sum g m.
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 conv_grad_w2_kernel(const T* __restrict__ g, Scratch<T> sc, Shape sh, Drop dr,
@@ -382,7 +390,7 @@ conv_grad_w2_kernel(const T* __restrict__ g, Scratch<T> sc, Shape sh, Drop dr,
   };
   auto fb = [&](int row, int j) {
     const int c = c0 + j;
-    return c < e ? to_f(sc.s[(size_t)row * e + c]) : 0.f;
+    return c < e ? to_f(sc.s[(size_t)row * sc.lds + c]) : 0.f;
   };
   gemm_tile<false, false>(acc, fa, fb, r0, r1, sm);
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
@@ -400,8 +408,8 @@ conv_grad_w2_kernel(const T* __restrict__ g, Scratch<T> sc, Shape sh, Drop dr,
   }
 }
 
-// gbn = (round(g m) round(W2)) swish'(cn) for 64 rows x 64 channels as FMAs.
-// BWD1 adds r1 = sum gbn and r2 = sum gbn chat; BWD2 (fp32) stores dc =
+// fp32: gbn = (round(g m) round(W2)) swish'(cn) for 64 rows x 64 channels as
+// FMAs. BWD1 adds r1 = sum gbn and r2 = sum gbn chat; BWD2 stores dc =
 // bn_w rstd (gbn - rn1 - chat rn2).
 template <typename T, int STAGE>
 __global__ void __launch_bounds__(THREADS)
@@ -677,7 +685,8 @@ __global__ void __launch_bounds__(256) conv_cast_kernel(CastJobs jobs) {
 // LayerNorm of PREP_ROWS token rows: the rows come into shared memory in one
 // pass of loads all in flight; then the statistics (one warp per row), h
 // (n, ldd) and, for bwd2, its transpose h^T (d, ldn) through a PREP_ROWS x 64
-// shared tile, and bf16(g m) (n, ldeo).
+// shared tile, and for the backward bf16(g m) (n, ldeo); bwd1 also keeps the
+// block's column sums of the fp32 g m (db2's partial sums).
 __global__ void __launch_bounds__(THREADS)
 conv_prep_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g, Params p,
                  Scratch<bf16> sc, Shape sh, Drop dr, float eps) {
@@ -730,12 +739,24 @@ conv_prep_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g, Params 
     }
     __syncthreads();
   }
-  if (sc.gm != nullptr)
+  if (sc.gm == nullptr) return;
+  if (sc.part_db2 == nullptr) {  // bwd2
     for (int i = tid; i < rows * sh.eo; i += THREADS) {
       const int r = i / sh.eo, o = i % sh.eo;
       sc.gm[(size_t)(row0 + r) * sc.ldeo + o] =
           __float2bfloat16(masked_g(g, dr, row0 + r, o, sh));
     }
+    return;
+  }
+  for (int o = tid; o < sh.eo; o += THREADS) {  // bwd1: a column's rows in order
+    float sum = 0.f;
+    for (int r = 0; r < rows; ++r) {
+      const float v = masked_g(g, dr, row0 + r, o, sh);
+      sc.gm[(size_t)(row0 + r) * sc.ldeo + o] = __float2bfloat16(v);
+      sum += v;
+    }
+    sc.part_db2[(size_t)blockIdx.x * sh.eo + o] = sum;
+  }
 }
 
 // bf16: the depthwise backward of the fp32 kernel above for DWB_ROWS rows x
@@ -892,7 +913,12 @@ struct DsMaps {
 };
 
 // ds = bf16(g m) W2 on the tensor cores, one warpgroup per (64 rows, 64
-// channels), and the BN backward in the epilogue: dc (fp32).
+// channels), and in the epilogue gbn = ds swish'(cn). BWD2: the BN backward,
+// dc (fp32). BWD1: the tile's column sums of gbn and gbn chat (its rows in a
+// fixed order: each thread's two, the eight row groups of a warp by
+// shuffles, the four warps through shared memory) to the partial sums of r1
+// and r2, one owner per (row tile, channel).
+template <int STAGE>
 __global__ void __launch_bounds__(WG)
 conv_grad_bn_wgmma_kernel(const __grid_constant__ DsMaps maps, Params p, Scratch<bf16> sc,
                           Shape sh, const float* __restrict__ mean,
@@ -913,8 +939,8 @@ conv_grad_bn_wgmma_kernel(const __grid_constant__ DsMaps maps, Params p, Scratch
     cp[1][threadIdx.x] = in ? rstd[col] : 0.f;
     cp[2][threadIdx.x] = in ? p.bn_w[col] : 0.f;
     cp[3][threadIdx.x] = in ? p.bn_b[col] : 0.f;
-    cp[4][threadIdx.x] = in ? rn1[col] : 0.f;
-    cp[5][threadIdx.x] = in ? rn2[col] : 0.f;
+    cp[4][threadIdx.x] = in && STAGE == BWD2 ? rn1[col] : 0.f;
+    cp[5][threadIdx.x] = in && STAGE == BWD2 ? rn2[col] : 0.f;
   }
   float acc[1][32];
   wg_mainloop<1, DS_RING>(acc, ring, bars, &maps.gm, row0, mb, b_row, 0, cdiv(sh.eo, 64));
@@ -927,6 +953,7 @@ conv_grad_bn_wgmma_kernel(const __grid_constant__ DsMaps maps, Params p, Scratch
       const int row = row0 + w * 16 + g + (v >> 1) * 8, col = ch0 + i * 8 + 2 * q + (v & 1);
       cv[4 * i + v] = row < sh.n && col < e ? to_f(sc.c[(size_t)row * e + col]) : 0.f;
     }
+  float p1[16] = {}, p2[16] = {};  // BWD1: this thread's column sums
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -939,8 +966,36 @@ conv_grad_bn_wgmma_kernel(const __grid_constant__ DsMaps maps, Params p, Scratch
       const float cn = rnd<bf16>(chat * cp[2][cl] + cp[3][cl]);
       const float sig = sigmoid(cn);
       const float gbn = acc[0][4 * i + v] * (sig + cn * sig * (1.f - sig));
-      sc.dc[(size_t)row * e + col] = cp[2][cl] * rs * (gbn - cp[4][cl] - chat * cp[5][cl]);
+      if (STAGE == BWD1) {
+        p1[2 * i + (v & 1)] += gbn;
+        p2[2 * i + (v & 1)] += gbn * chat;
+      } else {
+        sc.dc[(size_t)row * e + col] = cp[2][cl] * rs * (gbn - cp[4][cl] - chat * cp[5][cl]);
+      }
     }
+  if (STAGE == BWD1) {
+    __shared__ float red[2][4][64];
+#pragma unroll
+    for (int m = 0; m < 16; ++m)
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        p1[m] += __shfl_xor_sync(0xffffffffu, p1[m], off);
+        p2[m] += __shfl_xor_sync(0xffffffffu, p2[m], off);
+      }
+    if (g == 0)
+#pragma unroll
+      for (int m = 0; m < 16; ++m) {
+        red[0][w][(m / 2) * 8 + 2 * q + (m & 1)] = p1[m];
+        red[1][w][(m / 2) * 8 + 2 * q + (m & 1)] = p2[m];
+      }
+    __syncthreads();
+    const int c = threadIdx.x;
+    if (c < 64 && ch0 + c < e) {
+      const size_t at = (size_t)blockIdx.x * e + ch0 + c;
+      sc.part_r1[at] = red[0][0][c] + red[0][1][c] + red[0][2][c] + red[0][3][c];
+      sc.part_r2[at] = red[1][0][c] + red[1][1][c] + red[1][2][c] + red[1][3][c];
+    }
+  }
 }
 
 // bf16: the LayerNorm backward per LNB_ROWS rows: dx, and the rows' partial
@@ -996,50 +1051,73 @@ struct Grads {
   float *ln_w, *ln_b, *w1, *b1, *dw;
 };
 
-// bf16: the partial sums of the second backward pass added in a fixed order
-// and then, once, into the caller's buffers: one warp per element of db1,
-// the tap gradient, dln_b and dln_w over the row blocks (lanes striding, then
-// a fixed shuffle tree; blockIdx.x < sum_blocks), then one thread per element
-// of dW1 over the row splits.
+// One sum of per-block partials: out[i] += sum over r < count of
+// part[r * len + i], for i < len.
+struct PartSum {
+  const float* part;
+  float* out;
+  int len, count;
+};
+
+// What a backward pass's last stage adds: up to four partial sums over row
+// blocks, and a weight gradient over its row splits.
+struct Reduce {
+  PartSum sum[4];
+  const float* part_w;
+  float* w;
+  int w_len, splits;
+};
+
+// bf16: the partial sums of a backward pass added in a fixed order and then,
+// once, into the caller's zeroed buffers: one warp per element of the
+// `sum` entries over the row blocks (lanes striding, then a fixed shuffle
+// tree; blockIdx.x < sum_blocks), then one thread per element of the weight
+// gradient over the row splits. Bwd1: db2, r1, r2 and dW2; bwd2: db1, the
+// tap gradient, dln_b, dln_w and dW1.
 __global__ void __launch_bounds__(256)
-conv_bwd2_reduce_kernel(Scratch<bf16> sc, Shape sh, Grads gr, int sum_blocks) {
-  const int e = sh.e, d = sh.d, ek = sh.e * sh.k;
+conv_reduce_kernel(Reduce rd, int sum_blocks) {
   if ((int)blockIdx.x < sum_blocks) {
-    const int i = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
-    if (i >= 2 * e + ek + 2 * d) return;  // uniform over the warp
-    const float* part;
-    float* out;
-    int at, stride, count;
-    if (i < 2 * e) {
-      part = sc.part_db1, out = gr.b1, at = i, stride = 2 * e, count = sc.rt_dw;
-    } else if (i < 2 * e + ek) {
-      part = sc.part_tap, out = gr.dw, at = i - 2 * e, stride = ek, count = sc.rt_dw;
-    } else if (i < 2 * e + ek + d) {
-      part = sc.part_lnb, out = gr.ln_b, at = i - 2 * e - ek, stride = d, count = sc.rt_ln;
-    } else {
-      part = sc.part_lnw, out = gr.ln_w, at = i - 2 * e - ek - d, stride = d, count = sc.rt_ln;
+    int i = blockIdx.x * 8 + threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+    PartSum ps{nullptr, nullptr, 0, 0};  // the entry element i falls in
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {  // unrolled: the entries stay in parameter space
+      if (ps.part != nullptr) continue;
+      if (i < rd.sum[m].len)
+        ps = rd.sum[m];
+      else
+        i -= rd.sum[m].len;
     }
+    if (ps.part == nullptr) return;  // uniform over the warp
     float v = 0.f;
-    for (int r = lane; r < count; r += 32) v += part[(size_t)r * stride + at];
+    for (int r = lane; r < ps.count; r += 32) v += ps.part[(size_t)r * ps.len + i];
     v = warp_sum(v);
-    if (lane == 0) out[at] += v;
+    if (lane == 0) ps.out[i] += v;
     return;
   }
-  const size_t ed = (size_t)2 * e * d;
   const size_t i = (size_t)(blockIdx.x - sum_blocks) * 256 + threadIdx.x;
-  if (i >= ed) return;
+  if (i >= (size_t)rd.w_len) return;
   float v = 0.f;
-  for (int s = 0; s < sc.splits; ++s) v += sc.part_w1[s * ed + i];
-  gr.w1[i] += v;
+  for (int s = 0; s < rd.splits; ++s) v += rd.part_w[s * (size_t)rd.w_len + i];
+  rd.w[i] += v;
+}
+
+cudaError_t launch_reduce(const Reduce& rd, cudaStream_t st) {
+  int lens = 0;
+  for (const PartSum& ps : rd.sum) lens += ps.len;
+  const int sum_blocks = cdiv(lens, 8);
+  conv_reduce_kernel<<<sum_blocks + cdiv(rd.w_len, 256), 256, 0, st>>>(rd, sum_blocks);
+  return cudaGetLastError();
 }
 
 // ---- host side
 
-// Rows of dW1 = dab^T h are split into this many partial sums.
-int weight_splits(int n, int d, int e) {
-  const int tiles = cdiv(2 * e, 64) * cdiv(d, 64);
+// The token rows of a weight gradient with `tiles` 64 x 64 output tiles are
+// split into this many partial sums: about two blocks on each SM, at least
+// `min_kt` 64-row k tiles per split.
+int row_splits(int n, int tiles, int min_kt) {
   const int by_card = cdiv(WAVE_BLOCKS, tiles);
-  const int by_depth = cdiv(n, 64) / 8;  // keep at least 8 k-tiles per split
+  const int by_depth = cdiv(n, 64) / min_kt;
   const int s = by_card < by_depth ? by_card : by_depth;
   return s < 1 ? 1 : s;
 }
@@ -1051,6 +1129,7 @@ size_t carve(char* base, const Shape& sh, int stage, Scratch<T>* sc) {
   constexpr bool BF16 = std::is_same<T, bf16>::value;
   const size_t n = sh.n, e = sh.e, d = sh.d, ne = n * e;
   *sc = Scratch<T>{};
+  sc->lds = BF16 && stage == BWD1 ? round8(sh.e) : sh.e;  // TMA rows: 16-byte strides
   sc->ldd = round8(sh.d);
   sc->ld2e = round8(2 * sh.e);
   sc->ldeo = round8(sh.eo);
@@ -1058,7 +1137,10 @@ size_t carve(char* base, const Shape& sh, int stage, Scratch<T>* sc) {
   sc->ld_dab = BF16 ? sc->ld2e : 2 * sh.e;
   sc->rt_dw = cdiv(sh.n, DWB_ROWS);
   sc->rt_ln = cdiv(sh.n, LNB_ROWS);
-  sc->splits = weight_splits(sh.n, sh.d, sh.e);
+  sc->rt_prep = cdiv(sh.n, PREP_ROWS);
+  sc->rt_tile = cdiv(sh.n, 64);
+  sc->splits = stage == BWD1 ? row_splits(sh.n, cdiv(sh.eo, 64) * cdiv(sh.e, 64), 4)
+                             : row_splits(sh.n, cdiv(2 * sh.e, 64) * cdiv(sh.d, 64), 8);
   size_t at = 0;
   auto take = [&](size_t bytes) {
     char* q = base == nullptr ? nullptr : base + at;
@@ -1079,10 +1161,18 @@ size_t carve(char* base, const Shape& sh, int stage, Scratch<T>* sc) {
     sc->dh = tf(n * d);
   }
   if (stage == BWD1 || stage == BWD2) sc->c = tt(ne);
-  if (stage == FWD || stage == BWD1) sc->s = tt(ne);
+  if (stage == FWD || stage == BWD1) sc->s = tt(n * sc->lds);
   if (BF16) {
     sc->w1b = tb(2 * e * sc->ldd);
     sc->h = tb(n * sc->ldd);
+    if (stage == BWD1) {
+      sc->w2t = tb(e * sc->ldeo);
+      sc->gm = tb(n * sc->ldeo);
+      sc->part_db2 = tf((size_t)sc->rt_prep * sh.eo);
+      sc->part_r1 = tf((size_t)sc->rt_tile * e);
+      sc->part_r2 = tf((size_t)sc->rt_tile * e);
+      sc->part_w2 = tf((size_t)sc->splits * sh.eo * e);
+    }
     if (stage == BWD2) {
       sc->w1t = tb(d * sc->ld2e);
       sc->w2t = tb(e * sc->ldeo);
@@ -1115,9 +1205,9 @@ constexpr size_t pw1_smem() { return 1024 + PW_RING * 3 * hopper::TILE_BYTES + P
 constexpr size_t ds_smem() { return 1024 + DS_RING * 2 * hopper::TILE_BYTES + DS_RING * 8; }
 
 // The shared recompute up to z (and a, bg for bwd2). fp32: LayerNorm
-// statistics, then pw1 as FMAs. bf16: the weights cast once (bwd2 also
-// W1^T and W2^T), LayerNorm into h (bwd2 also h^T and bf16(g m)), then pw1
-// on the tensor cores.
+// statistics, then pw1 as FMAs. bf16: the weights cast once (the backward
+// also W2^T, bwd2 W1^T), LayerNorm into h (the backward also bf16(g m), bwd1
+// with db2's partial sums, bwd2 h^T), then pw1 on the tensor cores.
 template <typename T>
 cudaError_t pre_bn(const T* x, const T* g, const Params& p, const Scratch<T>& sc,
                    const Shape& sh, float eps, Drop dr, cudaStream_t st) {
@@ -1128,17 +1218,17 @@ cudaError_t pre_bn(const T* x, const T* g, const Params& p, const Scratch<T>& sc
     conv_pw1_kernel<T><<<dim3(cdiv(sh.n, BT), cdiv(sh.e, BT)), THREADS, 0, st>>>(x, p, sc, sh);
     LAUNCH_CHECK();
   } else {
-    const bool bwd2 = sc.w1t != nullptr;
     Pw1Maps maps;
     if (!hopper::tensor_map_2d(&maps.h, sc.h, sh.n, sh.d, sc.ldd, 64) ||
         !hopper::tensor_map_2d(&maps.w1, sc.w1b, 2 * sh.e, sh.d, sc.ldd, 64))
       return cudaErrorInvalidValue;
     CastJobs jobs{};
-    jobs.job[0] = {p.w1, sc.w1b, 2 * sh.e, sh.d, sc.ldd, 0};
-    jobs.job[1] = {p.w1, sc.w1t, 2 * sh.e, sh.d, sc.ld2e, 1};
-    jobs.job[2] = {p.w2, sc.w2t, sh.eo, sh.e, sc.ldeo, 1};
+    int njobs = 0;
+    jobs.job[njobs++] = {p.w1, sc.w1b, 2 * sh.e, sh.d, sc.ldd, 0};
+    if (sc.w1t != nullptr) jobs.job[njobs++] = {p.w1, sc.w1t, 2 * sh.e, sh.d, sc.ld2e, 1};
+    if (sc.w2t != nullptr) jobs.job[njobs++] = {p.w2, sc.w2t, sh.eo, sh.e, sc.ldeo, 1};
     const int big = 2 * sh.e > sh.eo ? 2 * sh.e : sh.eo, wide = sh.d > sh.e ? sh.d : sh.e;
-    conv_cast_kernel<<<dim3(cdiv(wide, 32), cdiv(big, 32), bwd2 ? 3 : 1), 256, 0, st>>>(jobs);
+    conv_cast_kernel<<<dim3(cdiv(wide, 32), cdiv(big, 32), njobs), 256, 0, st>>>(jobs);
     LAUNCH_CHECK();
     const int xs_bytes = PREP_ROWS * sh.d * (int)sizeof(bf16);
     AVEC_CHECK(cudaFuncSetAttribute(conv_prep_kernel,
@@ -1185,16 +1275,50 @@ template <typename T>
 cudaError_t run_bwd1(const T* x, const T* g, const Params& p, const float* mean,
                      const float* rstd, float* dw2, float* db2, float* r1, float* r2,
                      const Scratch<T>& sc, const Shape& sh, float eps, Drop dr, cudaStream_t st) {
-  AVEC_CHECK(pre_bn<T>(x, nullptr, p, sc, sh, eps, dr, st));
+  AVEC_CHECK(pre_bn<T>(x, g, p, sc, sh, eps, dr, st));
   conv_depthwise_kernel<T, BWD1><<<dw_grid(sh), THREADS, 0, st>>>(p, sc, sh, mean, rstd,
                                                                    nullptr, nullptr);
   LAUNCH_CHECK();
-  const dim3 w2_grid(cdiv(sh.eo, BT), cdiv(sh.e, BT), cdiv(sh.n, SPLIT_ROWS));
-  conv_grad_w2_kernel<T><<<w2_grid, THREADS, 0, st>>>(g, sc, sh, dr, dw2, db2);
-  LAUNCH_CHECK();
-  conv_grad_bn_kernel<T, BWD1><<<dim3(cdiv(sh.n, BT), cdiv(sh.e, BT)), THREADS, 0, st>>>(
-      g, p, sc, sh, dr, mean, rstd, nullptr, nullptr, r1, r2);
-  LAUNCH_CHECK();
+  if constexpr (std::is_same<T, float>::value) {
+    const dim3 w2_grid(cdiv(sh.eo, BT), cdiv(sh.e, BT), cdiv(sh.n, SPLIT_ROWS));
+    conv_grad_w2_kernel<T><<<w2_grid, THREADS, 0, st>>>(g, sc, sh, dr, dw2, db2);
+    LAUNCH_CHECK();
+    conv_grad_bn_kernel<T, BWD1><<<dim3(cdiv(sh.n, BT), cdiv(sh.e, BT)), THREADS, 0, st>>>(
+        g, p, sc, sh, dr, mean, rstd, nullptr, nullptr, r1, r2);
+    LAUNCH_CHECK();
+  } else {
+    // ds = bf16(g m) W2 with r1, r2's partial sums; dW2 = bf16(g m)^T s over
+    // row splits, both operands read MN-major from their row-major arrays;
+    // then the fixed-order sums.
+    using hopper::tensor_map_2d;
+    DsMaps dm;
+    hopper::ProductMaps<1> pm;
+    const bool maps_ok = tensor_map_2d(&dm.gm, sc.gm, sh.n, sh.eo, sc.ldeo, 64) &&
+                         tensor_map_2d(&dm.w2t, sc.w2t, sh.e, sh.eo, sc.ldeo, 64) &&
+                         tensor_map_2d(&pm.a[0], sc.gm, sh.n, sh.eo, sc.ldeo, 64) &&
+                         tensor_map_2d(&pm.b[0], sc.s, sh.n, sh.e, sc.lds, 64);
+    if (!maps_ok) return cudaErrorInvalidValue;
+    AVEC_CHECK(cudaFuncSetAttribute(conv_grad_bn_wgmma_kernel<BWD1>,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    (int)ds_smem()));
+    conv_grad_bn_wgmma_kernel<BWD1><<<dim3(cdiv(sh.n, 64), cdiv(sh.e, 64)), WG, ds_smem(), st>>>(
+        dm, p, sc, sh, mean, rstd, nullptr, nullptr);
+    LAUNCH_CHECK();
+    hopper::ProductJobs<1> jobs;
+    jobs.job[0] = {sh.eo, sh.e, sh.n, sc.splits, cdiv(sh.e, 64), 0, sc.part_w2, sh.e};
+    const int blocks = hopper::product_blocks(&jobs);
+    auto prod = hopper::wgmma_products_kernel<1, 1, 1>;
+    AVEC_CHECK(cudaFuncSetAttribute(prod, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    (int)hopper::PRODUCT_SMEM));
+    prod<<<blocks, WG, hopper::PRODUCT_SMEM, st>>>(pm, jobs);
+    LAUNCH_CHECK();
+    Reduce rd{};
+    rd.sum[0] = {sc.part_db2, db2, sh.eo, sc.rt_prep};
+    rd.sum[1] = {sc.part_r1, r1, sh.e, sc.rt_tile};
+    rd.sum[2] = {sc.part_r2, r2, sh.e, sc.rt_tile};
+    rd.part_w = sc.part_w2, rd.w = dw2, rd.w_len = sh.eo * sh.e, rd.splits = sc.splits;
+    AVEC_CHECK(launch_reduce(rd, st));
+  }
   return cudaSuccess;
 }
 
@@ -1234,10 +1358,10 @@ cudaError_t run_bwd2(const T* x, const T* g, const Params& p, const float* mean,
         tensor_map_2d(&pm.a[1], sc.dab, sh.n, 2 * sh.e, sc.ld2e, 64) &&
         tensor_map_2d(&pm.b[1], sc.w1t, sh.d, 2 * sh.e, sc.ld2e, 64);
     if (!maps_ok) return cudaErrorInvalidValue;
-    AVEC_CHECK(cudaFuncSetAttribute(conv_grad_bn_wgmma_kernel,
+    AVEC_CHECK(cudaFuncSetAttribute(conv_grad_bn_wgmma_kernel<BWD2>,
                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
                                     (int)ds_smem()));
-    conv_grad_bn_wgmma_kernel<<<dim3(cdiv(sh.n, 64), cdiv(sh.e, 64)), WG, ds_smem(), st>>>(
+    conv_grad_bn_wgmma_kernel<BWD2><<<dim3(cdiv(sh.n, 64), cdiv(sh.e, 64)), WG, ds_smem(), st>>>(
         dm, p, sc, sh, mean, rstd, rn1, rn2);
     LAUNCH_CHECK();
     const dim3 grid(cdiv(sh.n, DWB_ROWS), cdiv(sh.e, DW_CH));
@@ -1254,10 +1378,13 @@ cudaError_t run_bwd2(const T* x, const T* g, const Params& p, const float* mean,
     LAUNCH_CHECK();
     conv_ln_bwd_rows_kernel<<<sc.rt_ln, THREADS, 0, st>>>(x, p, sc, sh, dx);
     LAUNCH_CHECK();
-    const int sum_blocks = cdiv(2 * sh.e + sh.e * sh.k + 2 * sh.d, 8);
-    const int w_blocks = cdiv(2 * sh.e * sh.d, 256);
-    conv_bwd2_reduce_kernel<<<sum_blocks + w_blocks, 256, 0, st>>>(sc, sh, gr, sum_blocks);
-    LAUNCH_CHECK();
+    Reduce rd{};
+    rd.sum[0] = {sc.part_db1, gr.b1, 2 * sh.e, sc.rt_dw};
+    rd.sum[1] = {sc.part_tap, gr.dw, sh.e * sh.k, sc.rt_dw};
+    rd.sum[2] = {sc.part_lnb, gr.ln_b, sh.d, sc.rt_ln};
+    rd.sum[3] = {sc.part_lnw, gr.ln_w, sh.d, sc.rt_ln};
+    rd.part_w = sc.part_w1, rd.w = gr.w1, rd.w_len = 2 * sh.e * sh.d, rd.splits = sc.splits;
+    AVEC_CHECK(launch_reduce(rd, st));
   }
   return cudaSuccess;
 }
@@ -1346,6 +1473,8 @@ extern "C" int avec_conv_fwd(const void* x, const void* const* params, const voi
 }
 
 // K3b-1: dW2 (E', E), db2 (E'), r1, r2 (E) += from the cotangent g (B, T, E').
+// In bf16 every one of those sums has a fixed order (no atomics): two calls
+// add the same bits.
 extern "C" int avec_conv_bwd1(const void* x, const void* g, const void* const* params,
                               const void* mean, const void* rstd, void* dw2, void* db2, void* r1,
                               void* r2, void* scratch, CONV_TAIL) {

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks of the bf16 tensor-core stages of `ffn.cu`,
-// `conv_module.cu` and `flash_attention_bwd.cu`: 2-d TMA tile loads that
-// complete on an `mbarrier`, warpgroup matrix multiplies (`wgmma`) on
-// 128-byte-swizzled, K-major shared-memory tiles (and, with A in registers,
-// on MN-major B tiles), a one-warpgroup TMA/`wgmma` main loop, and a launch
-// of independent 64 x 64 fp32 output tiles (`wgmma_products_kernel`).
+// `conv_module.cu`, `attention_module.cu` and `flash_attention_bwd.cu`: 2-d
+// and 3-d TMA tile loads that complete on an `mbarrier`, warpgroup matrix
+// multiplies (`wgmma`) on 128-byte-swizzled shared-memory tiles read K-major
+// or MN-major (the transpose bits; A from shared memory or registers), a
+// one-warpgroup TMA/`wgmma` main loop, and a launch of independent 64 x 64
+// fp32 output tiles (`wgmma_products_kernel`).
 //
 // Tile convention: a tile is ROWS x 64 bf16 values, one 128-byte row per
 // matrix row (the reduction index k along the row), written by one TMA load
@@ -13,9 +14,16 @@
 // bytes apart (SBO), 128-byte swizzle, and the 16-column slice ks selected
 // by advancing the start address by 32 bytes.
 //
+// MN-major reading: the same TMA tile holds the operand with the reduction
+// index k along the rows and the M (or N) index along the 64 columns; the
+// descriptor keeps the fields above (8-row groups of k 1024 bytes apart) and
+// the 16-row slice ks starts 16 rows (2048 bytes) further on. A product over
+// the token rows of two row-major arrays (a weight gradient) reads both of
+// them this way, with no transposed copies.
+//
 // Tensor maps are encoded on the host with cuTensorMapEncodeTiled, whose
-// address the CUDA runtime hands out (`tensor_map_2d`), so the libraries
-// link against the runtime only.
+// address the CUDA runtime hands out (`tensor_map_2d`, `tensor_map_3d`), so
+// the libraries link against the runtime only.
 
 #pragma once
 
@@ -48,6 +56,11 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
                "r"(bytes)
                : "memory");
+}
+
+// One arrival without transactions.
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
 }
 
 // Spins until the barrier's phase of the given parity has completed. A phase
@@ -89,6 +102,17 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// The 3-d form: the box of `map` at (c0, c1, c2), c0 innermost. A box that
+// runs past the second dimension reads zeros there, not the next c2 slab.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // Fetches the descriptor `map` into the cache ahead of its first load.
 __device__ __forceinline__ void tma_prefetch_desc(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
@@ -124,11 +148,14 @@ __device__ __forceinline__ void acc_fence(float (&d)[32]) {
   for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d (64 x 64, fp32) += A (64 x 16) . B (64 x 16)^T, both K-major in shared
-// memory. In d, thread tid of the warpgroup holds rows 16 (tid / 32) + g and
-// + 8 (g = lane / 4) at columns 8 i + 2 (lane % 4) and + 1: d[4 i + e] sits at
-// row 16 (tid / 32) + g + 8 (e / 2), column 8 i + 2 (lane % 4) + e % 2.
-__device__ __forceinline__ void wgmma_64x64(float (&d)[32], uint64_t desc_a, uint64_t desc_b) {
+// d (64 x 64, fp32) += A (64 x 16) . B (64 x 16)^T from shared memory, each
+// K-major (TA, TB = 0) or MN-major (1). In d, thread tid of the warpgroup
+// holds rows 16 (tid / 32) + g and + 8 (g = lane / 4) at columns 8 i + 2
+// (lane % 4) and + 1: d[4 i + e] sits at row 16 (tid / 32) + g + 8 (e / 2),
+// column 8 i + 2 (lane % 4) + e % 2.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_64x64_ss(float (&d)[32], uint64_t desc_a,
+                                               uint64_t desc_b) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -136,21 +163,34 @@ __device__ __forceinline__ void wgmma_64x64(float (&d)[32], uint64_t desc_a, uin
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n"
+      "%32, %33, p, 1, 1, %35, %36;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(1));
+      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TA), "n"(TB));
 }
 
-// d += A . B^T over one 64-column k tile: four k16 slices.
+__device__ __forceinline__ void wgmma_64x64(float (&d)[32], uint64_t desc_a, uint64_t desc_b) {
+  wgmma_64x64_ss<0, 0>(d, desc_a, desc_b);
+}
+
+// d += A . B^T over one 64-deep k tile: four k16 slices, each operand's tile
+// read K-major (0) or MN-major (1).
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_tile_k64_t(float (&d)[32], const __nv_bfloat16* a,
+                                                 const __nv_bfloat16* b) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+    wgmma_64x64_ss<TA, TB>(d, sw128_desc(a + ks * (TA ? 16 * 64 : 16)),
+                           sw128_desc(b + ks * (TB ? 16 * 64 : 16)));
+}
+
 __device__ __forceinline__ void wgmma_tile_k64(float (&d)[32], const __nv_bfloat16* a,
                                                const __nv_bfloat16* b) {
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks) wgmma_64x64(d, sw128_desc(a + ks * 16), sw128_desc(b + ks * 16));
+  wgmma_tile_k64_t<0, 0>(d, a, b);
 }
 
 // d (64 x 64, fp32) += A (64 x 16, bf16 pairs in registers) . B (16 x 64)
@@ -209,12 +249,14 @@ __device__ __forceinline__ unsigned char* smem_base_1k() {
 
 // One warpgroup (blockDim.x == 128) computes acc[j] = A . B_j^T over the k
 // tiles kt0 .. kt1-1: A is the 64-row box of `ma` at row a_row, B_j the
-// 64-row box of mb[j] at row b_row[j]. Thread 0 keeps the tiles coming by
+// 64-row box of mb[j] at row b_row[j]; with TA (TB) = 1 the operand is read
+// MN-major instead: the box at column a_row (b_row[j]) and row 64 kt of a
+// matrix whose rows are the k index. Thread 0 keeps the tiles coming by
 // TMA through RING stages of 1 + NB tiles at `ring` (1024-byte aligned) that
 // complete on `bars` (RING barriers, initialised here). The products of one
 // stage run while the next stage's tiles are awaited: a stage is refilled
 // once the products that read it have retired in every warp.
-template <int NB, int RING>
+template <int NB, int RING, int TA = 0, int TB = 0>
 __device__ __forceinline__ void wg_mainloop(float (&acc)[NB][32], __nv_bfloat16* ring,
                                             uint64_t* bars, const CUtensorMap* ma, int a_row,
                                             const CUtensorMap* const (&mb)[NB],
@@ -229,10 +271,11 @@ __device__ __forceinline__ void wg_mainloop(float (&acc)[NB][32], __nv_bfloat16*
     const int st = (kt - kt0) % RING;
     __nv_bfloat16* t = ring + st * (1 + NB) * TILE_ELEMS;
     mbar_expect_tx(&bars[st], (1 + NB) * TILE_BYTES);
-    tma_load_2d(t, ma, &bars[st], kt * 64, a_row);
+    tma_load_2d(t, ma, &bars[st], TA ? a_row : kt * 64, TA ? kt * 64 : a_row);
 #pragma unroll
     for (int j = 0; j < NB; ++j)
-      tma_load_2d(t + (1 + j) * TILE_ELEMS, mb[j], &bars[st], kt * 64, b_row[j]);
+      tma_load_2d(t + (1 + j) * TILE_ELEMS, mb[j], &bars[st], TB ? b_row[j] : kt * 64,
+                  TB ? kt * 64 : b_row[j]);
   };
   if (tid == 0)
     for (int kt = kt0; kt < kt1 && kt < kt0 + RING; ++kt) load(kt);
@@ -248,7 +291,7 @@ __device__ __forceinline__ void wg_mainloop(float (&acc)[NB][32], __nv_bfloat16*
     for (int j = 0; j < NB; ++j) acc_fence(acc[j]);
     wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < NB; ++j) wgmma_tile_k64(acc[j], t, t + (1 + j) * TILE_ELEMS);
+    for (int j = 0; j < NB; ++j) wgmma_tile_k64_t<TA, TB>(acc[j], t, t + (1 + j) * TILE_ELEMS);
     wgmma_commit();
     wgmma_wait_one();  // the previous stage's products have retired
 #pragma unroll
@@ -264,8 +307,9 @@ __device__ __forceinline__ void wg_mainloop(float (&acc)[NB][32], __nv_bfloat16*
 
 // One product of `wgmma_products_kernel`: out[split][i][j] (fp32, row stride
 // ldo) = sum over the split's share of k of A[i][k] B[j][k], for A (m, k)
-// and B (nn, k) read through the job's tensor maps; the job's tiles start at
-// block `block0` of the launch.
+// and B (nn, k) read through the job's tensor maps (with the kernel's TA, TB
+// = 1: maps of A^T (k, m) and B^T (k, nn), read MN-major); the job's tiles
+// start at block `block0` of the launch.
 struct ProductJob {
   int m, nn, k, splits, tiles_n, block0;
   float* out;
@@ -287,7 +331,7 @@ constexpr size_t PRODUCT_SMEM = 1024 + PRODUCT_RING * 2 * TILE_BYTES + PRODUCT_R
 
 // J independent products in one launch: one warpgroup per 64 x 64 output
 // tile (and split of k), each element of `out` with one owner.
-template <int J>
+template <int J, int TA = 0, int TB = 0>
 __global__ void __launch_bounds__(128)
 wgmma_products_kernel(const __grid_constant__ ProductMaps<J> maps, ProductJobs<J> jobs) {
   unsigned char* base = smem_base_1k();
@@ -304,7 +348,7 @@ wgmma_products_kernel(const __grid_constant__ ProductMaps<J> maps, ProductJobs<J
   const CUtensorMap* const mb[1] = {&maps.b[j]};
   const int b_row[1] = {n0};
   float acc[1][32];
-  wg_mainloop<1, PRODUCT_RING>(acc, ring, bars, &maps.a[j], m0, mb, b_row, kt0, kt1);
+  wg_mainloop<1, PRODUCT_RING, TA, TB>(acc, ring, bars, &maps.a[j], m0, mb, b_row, kt0, kt1);
 
   float* out = jb.out + (size_t)split * jb.m * jb.ldo;
   const int w = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, q = lane & 3;
@@ -367,6 +411,26 @@ inline bool tensor_map_2d(CUtensorMap* map, const void* base, int rows, int cols
   const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem[2] = {1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+// Tensor map of a bf16 array of d2 slabs of d1 rows x d0 columns (row
+// stride ld1, slab stride ld2 elements, both multiples of 8) read in boxes
+// of 64 columns x `box_rows` rows of one slab, 128-byte swizzled; elements
+// past d0 or d1 (within the slab) read as zero.
+inline bool tensor_map_3d(CUtensorMap* map, const void* base, int d0, int d1, int d2,
+                          long long ld1, long long ld2, int box_rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d0), static_cast<cuuint64_t>(d1),
+                              static_cast<cuuint64_t>(d2)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(ld1) * 2,
+                                 static_cast<cuuint64_t>(ld2) * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box,
             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
          CUDA_SUCCESS;

@@ -72,7 +72,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
 11. step time, utterances/s and peak memory of that path and of phase 6's
     path, interleaved in this one call, and the attention kernels' times per
     launch and per step beside their bounds, the plain version and the
-    port's own unfused attention module (PyTorch library calls);
+    port's own unfused attention module (PyTorch library calls); K2's and
+    K2b's device time by stage kernel and the host's time to issue a call
+    (K2 through its wrapper and through its C entry alone); the bf16 calls
+    at the step's shapes must run K2's tensor-core stages (no mma.sync
+    q/k/v or forward attention stage);
 12. the fused convolution module's kernels (K3-stats, K3-fwd, K3b-1, K3b-2)
     against the plain stages at (B, T, d = E, k) = (16, 301, 180, 15),
     (16, 151, 256, 15) and (16, 76, 360, 15), fp32 and bf16, padding "same"
@@ -80,8 +84,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
     on both sides): y, mean, var, dx and the ten parameter gradients, max abs
     over the largest entry; fp32 1e-4 (y, mean, var) and 5e-4 (gradients),
     bf16 2e-2 and 3e-2; the depthwise-bias gradient exactly zero; in bf16,
-    K3b-2's dx and five gradients bit-identical over two calls on the same
-    inputs;
+    K3b-1's dW2, db2, r1, r2 and K3b-2's dx and five gradients bit-identical
+    over two calls on the same inputs;
 13. training at full width through all the training kernels: fused
     convolution module, fused attention, fused FFN (all three switched on
     explicitly), stem "pallas", use_flash off: the launch counts per step
@@ -91,8 +95,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
     1e-3, every leaf 2e-3, BN statistics 1e-5);
 14. K3 / K3b times per launch and per step beside their device times,
     bounds, the plain stages and the port's own unfused convolution module
-    (PyTorch library calls), K3b-2's device time by kernel (its nine
-    stages) and the host's time to issue each pass, and step time,
+    (PyTorch library calls), K3b-1's and K3b-2's device time by kernel (their
+    seven and nine stages; K3b-1 in bf16 must run no FMA product stage) and
+    the host's time to issue each pass, and step time,
     utterances/s and peak memory of phase 13's path
     and phase 10's path (they differ by `fused_conv` alone), interleaved;
 15. K3dp on two gloo ranks sharing the card (`avec_tpu_torch.parallel.dist
@@ -1312,8 +1317,9 @@ def att_cost(b, t, d, heads, es):
 
 
 def time_att_bwd_kernel(x, g, params, heads, lens, drop, seed):
-    """Time and device time of one fused-attention backward call alone (all its stages),
-    through the library's C entry point with the wrapper's own arguments and
+    """Time, device time (whole and by stage kernel) and host time to issue
+    one fused-attention backward call alone (all its stages), through the
+    library's C entry point with the wrapper's own arguments and
     preallocated scratch and gradient buffers; this call is outside any
     count."""
     from avec_tpu_torch.ops import _cuda, attention_module as am
@@ -1337,7 +1343,40 @@ def time_att_bwd_kernel(x, g, params, heads, lens, drop, seed):
     def launch():
         _cuda.check(bwd(*args), "fused_att_bwd")
 
-    return cuda_time_ms(launch), device_time_ms(launch)[0]
+    return (cuda_time_ms(launch), *device_time_ms(launch), host_ms(launch))
+
+
+def att_fwd_launcher(x, params, heads, lens, drop, seed):
+    """One fused-attention forward through the library's C entry point with
+    the wrapper's arguments over preallocated scratch and output; outside
+    any count."""
+    from avec_tpu_torch.ops import _cuda, attention_module as am
+    from avec_tpu_torch.ops.ffn import _threshold
+
+    b, t, d = x.shape
+    fwd, _, size = am._lib()
+    thr, inv_keep = _threshold(1.0 - drop)
+    bf = int(x.dtype == torch.bfloat16)
+    tab = am._interleaved_table(t, d, x.dtype, x.device)
+    scratch = torch.empty(size(b, t, d, heads, 0, bf), dtype=torch.float32,
+                          device=x.device)
+    y = torch.empty_like(x)
+    args = (x.data_ptr(), tab.data_ptr(), lens.data_ptr(), am._pointers(params),
+            y.data_ptr(), scratch.data_ptr(), b, t, d, heads, 1e-6,
+            1.0 / math.sqrt(d // heads), 0, 1, seed, thr, inv_keep, bf,
+            _cuda.stream_ptr(x))
+
+    def launch():
+        _cuda.check(fwd(*args), "fused_att_fwd (direct)")
+
+    return launch
+
+
+# stage kernels of the bf16 K2 forward at the step's shapes (tensor cores),
+# and the mma.sync stages it must no longer run there
+ATT_FWD_STAGES = ("prep16_kernel", "proj16_kernel<0>", "proj16_kernel<1>")
+ATT_FWD_OLD = ("qkv16_kernel", "relpos16_kernel", "att16_kernel<false>",
+               "out_proj16_kernel", "cast16_kernel", "ln_h16_kernel")
 
 
 def attention_call_shapes(trainer, batch):
@@ -1575,8 +1614,24 @@ def fused_phases(detail, profile: bool, trainer2, batch):
 
         t_f, t_fp = cuda_time_ms(lambda: fwd(True)), cuda_time_ms(
             lambda: fwd(False))
-        d_f = device_time_ms(lambda: fwd(True))[0]
-        t_b, d_b = time_att_bwd_kernel(x, g, params, heads, lt, 0.1, 77)
+        d_f, k_f = device_time_ms(lambda: fwd(True))
+        h_f = host_ms(lambda: fwd(True))
+        h_fe = host_ms(att_fwd_launcher(x, params, heads, lt, 0.1, 77))
+        t_b, d_b, k_b, h_b = time_att_bwd_kernel(x, g, params, heads, lt, 0.1,
+                                                 77)
+        ran_old = [k for k in k_f if k in ATT_FWD_OLD]
+        if (ran_old or not all(k in k_f for k in ATT_FWD_STAGES)
+                or not any(k.startswith("att_fwd16_kernel<") for k in k_f)):
+            raise AssertionError(f"K2 at T={t} d={d} did not run its "
+                                 f"tensor-core stages: {sorted(k_f)}")
+        log(f"fused_att T={t} d={d}: device time of each stage in one call "
+            "(torch.profiler): forward "
+            + ", ".join(f"{nm} {ms:.4f} ms" for nm, ms in k_f.items())
+            + "; backward " + ", ".join(f"{nm} {ms:.4f} ms"
+                                        for nm, ms in k_b.items())
+            + f"; host time to issue a call: forward {h_f:.4f} ms through "
+            f"the wrapper, {h_fe:.4f} ms through the C entry alone; backward "
+            f"{h_b:.4f} ms (the C entry)")
         t_bp = cuda_time_ms(lambda: both(False)) - t_fp
         t_fl = cuda_time_ms(lambda: lib(False))
         t_bl = cuda_time_ms(lambda: lib(True)) - t_fl
@@ -1593,7 +1648,9 @@ def fused_phases(detail, profile: bool, trainer2, batch):
             "fwd_plain_ms": t_fp, "fwd_library_ms": t_fl, "bwd_ms": t_b,
             "bwd_device_ms": d_b, "bwd_plain_ms": t_bp,
             "bwd_library_ms": t_bl, "fwd_bytes": fb, "fwd_ops": fo,
-            "bwd_bytes": bb, "bwd_ops": bo, "lengths": list(lens)}
+            "bwd_bytes": bb, "bwd_ops": bo, "lengths": list(lens),
+            "fwd_kernels_ms": k_f, "bwd_kernels_ms": k_b, "fwd_host_ms": h_f,
+            "bwd_host_ms": h_b, "fwd_entry_host_ms": h_fe}
         for key, ms, dms, pms, lms, nb, no in (
                 (KERNEL_FWD, t_f, d_f, t_fp, t_fl, fb, fo),
                 (KERNEL_BWD, t_b, d_b, t_bp, t_bl, bb, bo)):
@@ -1832,20 +1889,25 @@ def conv_phases(detail, profile: bool, trainer_att, batch):
                         == 0.0):
                     raise AssertionError(f"conv kernels disagree: {key} {e}")
             if dtype == torch.bfloat16:
-                # K3b-2 sums without atomics: from the same inputs (K3b-1's
-                # r1, r2 keep their atomics), dx and its five gradients
+                # both backward passes sum without atomics: from the same
+                # inputs, K3b-1's four sums, then K3b-2's dx and its five
+                # gradients
                 call = cm._Launch(x, params, 4321, cm.pad_lo_for("same", k),
                                   1e-6, 0.1)
                 mean, _, rstd = cm.batch_stats(*call.stats(), b * t, 1e-5)
-                _, _, r1, r2 = call.bwd1(g, mean, rstd)
+                reruns1 = [call.bwd1(g, mean, rstd) for _ in range(2)]
+                same1 = all(torch.equal(u, v) for u, v in zip(*reruns1))
+                _, _, r1, r2 = reruns1[0]
                 reruns = [call.bwd2(g, mean, rstd, r1 / (b * t), r2 / (b * t))
                           for _ in range(2)]
                 same = all(torch.equal(u, v) for u, v in zip(*reruns))
-                log(f"fused_conv T{t}_d{d}_bfloat16_same_drop0.1: K3b-2's dx "
-                    f"and the gradients of {', '.join(BWD2_LEAVES[1:])} "
-                    f"bit-identical over two calls: {same}")
-                if not same:
-                    raise AssertionError(f"bf16 K3b-2 reruns differ: T{t}")
+                log(f"fused_conv T{t}_d{d}_bfloat16_same_drop0.1: K3b-1's "
+                    f"dW2, db2, r1, r2 bit-identical over two calls: {same1}; "
+                    f"K3b-2's dx and the gradients of "
+                    f"{', '.join(BWD2_LEAVES[1:])} bit-identical over two "
+                    f"calls: {same}")
+                if not (same1 and same):
+                    raise AssertionError(f"bf16 K3b reruns differ: T{t}")
             del x, g, params
     detail["conv_kernel_errors"] = errs
 
@@ -1929,14 +1991,22 @@ def conv_phases(detail, profile: bool, trainer_att, batch):
             acc[name]["ops"] += count * no
         row["unfused_fwd_ms"], row["unfused_bwd_ms"] = t_fl, t_bl
         detail[f"conv_T{t}_d{d}"] = row
-        log(f"fused_conv_bwd2 T={t} d={d} device time of each stage in one "
-            f"launch (torch.profiler): "
-            + ", ".join(f"{nm} {ms:.4f} ms" for nm, ms in
-                        times[cm.KERNEL_BWD2 + "_kernels"].items())
-            + f"; whole pass {times[cm.KERNEL_BWD2 + '_device']:.4f} ms on "
-            f"the device, {times[cm.KERNEL_BWD2]:.4f} ms per direct launch, "
-            f"{times[cm.KERNEL_BWD2 + '_host']:.4f} ms of host time to issue "
-            f"it")
+        bwd1_kernels = times[cm.KERNEL_BWD1 + "_kernels"]
+        fma = [nm for nm in bwd1_kernels
+               if nm.split("<")[0] in ("conv_grad_w2_kernel",
+                                       "conv_grad_bn_kernel")]
+        if fma or not {"conv_grad_bn_wgmma_kernel<2>",
+                       "wgmma_products_kernel<1, 1, 1>"} <= set(bwd1_kernels):
+            raise AssertionError(f"bf16 K3b-1 at T={t} did not run its "
+                                 f"tensor-core stages: {sorted(bwd1_kernels)}")
+        for name in (cm.KERNEL_BWD1, cm.KERNEL_BWD2):
+            log(f"{name} T={t} d={d} device time of each stage in one "
+                f"launch (torch.profiler): "
+                + ", ".join(f"{nm} {ms:.4f} ms" for nm, ms in
+                            times[name + "_kernels"].items())
+                + f"; whole pass {times[name + '_device']:.4f} ms on "
+                f"the device, {times[name]:.4f} ms per direct launch, "
+                f"{times[name + '_host']:.4f} ms of host time to issue it")
         log(f"fused_conv T={t} d={d} k={k} x{count}: "
             + "; ".join(f"{name[11:]} {times[name]:.4f} ms (device "
                         f"{times[name + '_device']:.4f}, host issue "
@@ -2512,9 +2582,10 @@ def _category(name: str) -> str:
             "conv_grad_w1_kernel", "conv_grad_h_kernel", "conv_ln_bwd_kernel",
             "conv_cast_kernel", "conv_prep_kernel", "conv_pw1_wgmma_kernel",
             "conv_grad_bn_wgmma_kernel", "conv_depthwise_bwd_bf16_kernel",
-            "conv_ln_bwd_rows_kernel", "conv_bwd2_reduce_kernel",
-            # hopper.cuh's product launch: K3b-2 runs two jobs, K1b three
-            "wgmma_products_kernel<2>")
+            "conv_ln_bwd_rows_kernel", "conv_reduce_kernel",
+            # hopper.cuh's product launch: K3b-1 runs one job (operands
+            # MN-major), K3b-2 two, K1b three
+            "wgmma_products_kernel<1,", "wgmma_products_kernel<2,")
     # checked first: K2's "ln_stats_kernel" and "ln_bwd_kernel" end two of
     # these names
     if any(k in low for k in conv):
@@ -2524,16 +2595,16 @@ def _category(name: str) -> str:
            "grad_wo_kernel", "datt_ds_kernel", "grad_kv_kernel",
            "grad_relpos_u_kernel", "grad_q_kernel", "grad_pos_kernel",
            "grad_w_qkv_kernel", "grad_h_kernel", "ln_bwd_kernel",
-           "col_sums_kernel", "cast16_kernel", "ln_h16_kernel",
-           "qkv16_kernel", "relpos16_kernel", "att16_kernel",
-           "out_proj16_kernel", "kv16_kernel", "weights16_kernel",
+           "col_sums_kernel", "prep16_kernel", "proj16_kernel",
+           "dacc16_kernel", "relpos16_kernel", "att16_kernel",
+           "att_fwd16_kernel", "kv16_kernel", "weights16_kernel",
            "ln_bwd16_kernel", "reduce16_kernel")
     for cat, keys in (("fused attention module kernels (K2 + K2b)", att),
                       ("flash kernel (K4)", ("flash_fwd_kernel",)),
                       ("flash backward kernels (K4b)", ("flash_bwd_",)),
                       ("fused FFN forward kernel (K1)", ("ffn_fwd_",)),
                       ("fused FFN backward kernel (K1b)",
-                       ("ffn_bwd_", "wgmma_products_kernel<3>")),
+                       ("ffn_bwd_", "wgmma_products_kernel<3,")),
                       ("stem kernel (K5)", ("bn_relu_pool_kernel",)),
                       ("CTC loss", ("ctc_loss",)),
                       ("optimizer (Adam, foreach)", ("multi_tensor",)),

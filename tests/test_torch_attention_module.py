@@ -14,7 +14,7 @@ on the way back.
 Tolerances: fp32 forward 3e-5 and gradients 5e-4, absolute and relative (those
 of tests/test_pallas_attention_module.py:59-60 and :78-85); bf16 5e-2 of the
 largest entry plus 1e-6 (the JAX wrapper also rounds its positional gradients
-to bf16).
+to bf16), also at the step's head widths 45 and 90.
 With dropout on, both sides draw the same hash mask from the same seed, so
 the fp32 tolerances hold and the dropped entries coincide.
 """
@@ -158,6 +158,27 @@ def test_plain_attention_module_matches_pallas_bf16(drop, seed):
                                [want_y] + want_g):
         # + 1e-6: the key bias shifts every score of a row alike, so its
         # gradient is analytically zero and holds rounding noise only
+        assert np.abs(got - want).max() <= 5e-2 * np.abs(want).max() + 1e-6, (
+            name)
+
+
+@pytest.mark.parametrize("b,tt,d,heads", [(2, 37, 180, 4), (2, 19, 360, 4)],
+                         ids=["dh45", "dh90"])
+def test_plain_attention_module_matches_pallas_bf16_at_step_widths(b, tt, d,
+                                                                   heads):
+    """The widths of the AV step's 180- and 360-wide stages: heads 45 and 90
+    wide, no multiple of 16, where the card's kernels pad the head to 64 or
+    128 columns. bf16, dropout 0.4, the residual, a ragged length and a
+    length of 0: y, dx and all twelve parameter gradients."""
+    x, g, p = _inputs(5, b, tt, d)
+    lengths = [tt - 7, 0]
+    want_y, want_g = _jax_side(x, g, p, heads, lengths, 77, 0.4, True,
+                               jnp.bfloat16)
+    got_y, got_g = _port_side(x, g, p, heads, lengths, 77, 0.4, True,
+                              torch.bfloat16)
+    for name, got, want in zip(("y", "x") + NAMES, [got_y] + got_g,
+                               [want_y] + want_g):
+        # + 1e-6: the key bias's gradient is analytically zero (see above)
         assert np.abs(got - want).max() <= 5e-2 * np.abs(want).max() + 1e-6, (
             name)
 

@@ -15,7 +15,8 @@ way back.
 Tolerances: fp32 y, mean and var 3e-5, all eleven gradients 5e-4, absolute
 and relative (those of tests/test_pallas_conv_module.py:80-118); the
 depthwise-bias gradient exactly zero on both sides; bf16 5e-2 of the largest
-entry. With dropout on, both sides draw the same hash mask from the same
+entry. The plain first backward pass alone against the JAX pass one: the
+same tolerances. With dropout on, both sides draw the same hash mask from the same
 seed, so the fp32 tolerances hold and the dropped entries coincide. Module
 level: output and running statistics 1e-5 against the JAX module under
 AVEC_TPU_FUSED_CONV=1; the plain backward against autograd of the port's
@@ -34,8 +35,9 @@ from avec_tpu.models.conformer import ConvolutionModule as JaxConvolutionModule
 from avec_tpu.ops.pallas_conv_module import (
     fused_conv_module_3d as jax_fused_conv_module_3d)
 from avec_tpu_torch.models.conformer import ConvolutionModule
-from avec_tpu_torch.ops.conv_module import (conv_module_params,
-                                            fused_conv_module_3d)
+from avec_tpu_torch.ops.conv_module import (conv_bwd1_reference,
+                                            conv_module_params,
+                                            fused_conv_module_3d, pad_lo_for)
 from avec_tpu_torch.ops.ffn import dropout_mask
 
 from test_torch_support import init_variables, port_state, t
@@ -176,6 +178,39 @@ def _module_pair(d, e, k, padding, x, seed=5, drop=0.0):
     port.load_state_dict(port_state(params, stats, wrap="conv_module",
                                     strip="conv_module."))
     return jmod, params, stats, port
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-4),
+                                       (torch.bfloat16, 5e-2)],
+                         ids=["fp32", "bf16"])
+def test_plain_first_backward_pass_matches_pallas(dtype, tol):
+    """The plain K3b-1 (`conv_bwd1_reference`) on its own: its four outputs
+    dW2, db2, r1 = sum gbn and r2 = sum gbn chat against what the JAX pass
+    one (the `_bwd1_kernel` pallas_call) returns as the gradients of pw2, its
+    bias, the BN bias and the BN scale, from JAX's batch statistics; E != d,
+    neither a multiple of 64, dropout 0.4. fp32 5e-4 absolute and relative,
+    bf16 5e-2 of the largest entry."""
+    d, e, k, b, tt = 20, 24, 5, 3, 37
+    x, g, p = _inputs(6, d, e, k, b, tt)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    (_, mean, var), want = _jax_side(x, g, p, "same", 4321, 0.4, jdt)
+    want = dict(zip(("x",) + NAMES, want))
+    params = [t(_to_port(n, p[n])) for n in NAMES]
+    got = conv_bwd1_reference(
+        t(x).to(dtype), t(g).to(dtype), params, t(mean),
+        torch.rsqrt(t(var) + 1e-5), 4321, pad_lo_for("same", k),
+        drop_rate=0.4)
+    pairs = zip(("pw2_k", "pw2_b", "bn_bias", "bn_scale"), got)
+    for name, a in pairs:
+        a = a.numpy()
+        w = want[name]
+        if name == "pw2_k":
+            a, w = a.T, w[0]                  # (E', E) -> JAX's (E, E')
+        assert a.shape == w.shape, name
+        if dtype == torch.float32:
+            np.testing.assert_allclose(a, w, atol=tol, rtol=tol, err_msg=name)
+        else:
+            assert np.abs(a - w).max() <= tol * np.abs(w).max(), name
 
 
 @pytest.mark.parametrize("padding", ["same", "causal"])

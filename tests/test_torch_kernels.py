@@ -21,15 +21,16 @@ of the largest entry; in bf16 a relative L1 error (sum |got - want| / sum
 two calls. Attention module: fp32 1e-4 for y and 5e-4 for dx and
 the parameter gradients, bf16 2e-2 / 3e-2, all of the largest entry, and
 the bf16 parameter gradients within 2e-3 as well (the backward's fp32
-operands kept at fp32 precision); dropout masks identical entry by entry. Train-mode stem, kernel route against plain
+operands kept at fp32 precision); the bf16 forward and backward give the same
+bits over two calls; dropout masks identical entry by entry. Train-mode stem, kernel route against plain
 route: fp32 1e-5 (pooled, mean, var) and 1e-4 of the largest entry
 (gradients); bf16 exact forward, gradients 1e-2 (atomic-free library sums in
 another order); conv-bias gradient exactly zero. Convolution module, kernels
 against the plain stages: fp32 1e-4 of the largest entry for y, mean and var
 and 5e-4 for dx and the parameter gradients (atomic sums over all rows); bf16
 2e-2 and 3e-2; dropout masks identical entry by entry; the depthwise-bias
-gradient exactly zero; the bf16 second backward pass gives the same bits
-over two calls. K3dp on two gloo ranks sharing the card against one
+gradient exactly zero; both bf16 backward passes give the same bits over
+two calls. K3dp on two gloo ranks sharing the card against one
 K3/K3b call on the whole batch: the convolution module's tolerances.
 """
 
@@ -627,6 +628,33 @@ def test_attention_module_bf16_backward_is_deterministic(cuda_device):
                        17, 2, 1, 0]),
     (16, 76, 360, 4, [76, 70, 67, 60, 56, 50, 45, 44, 39, 32, 25, 17, 9, 2,
                       1, 0]),
+    (4, 99, 180, 4, [99, 50, 1, 0]),          # T, d and d_head 45 on no tile
+])
+def test_attention_module_bf16_forward_is_deterministic(cuda_device, b, t, d,
+                                                        heads, lengths):
+    """The bf16 forward has one owner per output element and no atomics:
+    two calls give the same bits, with dropout and the residual, lengths
+    down to 0."""
+    x, _, params = _att_inputs(cuda_device, torch.bfloat16, b, t, d)
+    lens = torch.tensor(lengths, device=cuda_device)
+    n0 = _cuda.launches["fused_att_fwd"]
+    with torch.no_grad():
+        runs = [fused_attention_module_3d(
+            x, *params, num_heads=heads, lengths=lens, seed=99, drop_rate=0.1,
+            deterministic=False, residual=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert _cuda.launches["fused_att_fwd"] - n0 == 2
+    assert runs[0].dtype == torch.bfloat16
+    assert bool(torch.isfinite(runs[0].float()).all())
+    assert torch.equal(runs[0], runs[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,d,heads,lengths", [
+    (16, 151, 256, 4, [151, 140, 133, 120, 111, 99, 90, 88, 77, 64, 50, 33,
+                       17, 2, 1, 0]),
+    (16, 76, 360, 4, [76, 70, 67, 60, 56, 50, 45, 44, 39, 32, 25, 17, 9, 2,
+                      1, 0]),
     (4, 200, 256, 4, [200, 130, 1, 0]),
     (2, 330, 32, 2, [330, 3]),
     (1, 740, 32, 2, [740]),                  # the FMA stages
@@ -748,23 +776,30 @@ def test_conv_module_kernels_match_plain(cuda_device, dtype, tol, wtol,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("stage", ["bwd1", "bwd2"])
 @pytest.mark.parametrize("b,t,d,e,k", [(16, 301, 180, 180, 15),
                                        (3, 37, 20, 24, 5)])
-def test_conv_module_bf16_bwd2_is_deterministic(cuda_device, b, t, d, e, k):
-    """The bf16 second backward pass sums without atomics: from the same
-    inputs (the batch statistics and r1 / n, r2 / n of one first backward
-    pass, whose own sums keep their atomics) two calls give the same bits
-    for dx and the five gradients they write, with dropout."""
+def test_conv_module_bf16_bwd2_is_deterministic(cuda_device, stage, b, t, d,
+                                                e, k):
+    """Both bf16 backward passes sum without atomics (per-block partial sums
+    added once in a fixed order): from the same inputs two calls give the
+    same bits, with dropout: the first pass's dW2, db2, r1 and r2, and the
+    second pass's dx and the five gradients it writes (from the batch
+    statistics and one first pass's r1 / n, r2 / n)."""
     x, g, params = _conv_inputs(cuda_device, torch.bfloat16, b, t, d, e, k)
     call = conv_module._Launch(x, params, 99, conv_module.pad_lo_for("same", k),
                                1e-6, 0.1)
     mean, _, rstd = batch_stats(*call.stats(), b * t, 1e-5)
-    _, _, r1, r2 = call.bwd1(g, mean, rstd)
-    runs = [call.bwd2(g, mean, rstd, r1 / (b * t), r2 / (b * t))
-            for _ in range(2)]
+    if stage == "bwd1":
+        names = ("pw2_w", "pw2_b", "r1", "r2")
+        runs = [call.bwd1(g, mean, rstd) for _ in range(2)]
+    else:
+        names = ("x", "ln_w", "ln_b", "pw1_w", "pw1_b", "dw_w")
+        _, _, r1, r2 = call.bwd1(g, mean, rstd)
+        runs = [call.bwd2(g, mean, rstd, r1 / (b * t), r2 / (b * t))
+                for _ in range(2)]
     torch.cuda.synchronize()
-    for name, first, second in zip(
-            ("x", "ln_w", "ln_b", "pw1_w", "pw1_b", "dw_w"), *runs):
+    for name, first, second in zip(names, *runs):
         assert torch.equal(first, second), name
 
 
