@@ -37,15 +37,19 @@
 // one scratch buffer that the caller allocates and frees after the call. The
 // intermediates the TPU kernel rounds to x's dtype (h, z, a, bg, c, s, the
 // GLU cotangents dab) are stored in that dtype, which loses nothing; dc and dh
-// stay fp32. The depthwise stages give a thread one channel and a run of rows;
-// their taps read z (or dc) of the same sequence only, so the halo is zeros
-// outside [0, T) and never the neighbouring sequence of the flat (B T)
-// layout, whatever sequences a row tile straddles.
+// stay fp32. The depthwise stencil, one template for all four passes, and
+// the bf16 depthwise backward stage each block's window of z (or dc) in
+// shared memory, its rows and the halo of its taps, read from device memory
+// once; a thread owns one channel and a few rows. Their taps read z (or dc)
+// of the same sequence only, so the halo is zeros outside [0, T) and never
+// the neighbouring sequence of the flat (B T) layout, whatever sequences a
+// row tile straddles.
 //
-// bf16 (the training path): the matrix products of the shared recompute
-// (pw1, both GLU halves) and of both backward passes (ds = bf16(g m) W2 in
-// each, dW2 = bf16(g m)^T s in the first, dW1 = dab^T h and dh = dab W1 in
-// the second) run on the tensor cores as `wgmma` on 64-row warpgroup tiles,
+// bf16 (the training path): every matrix product, those of the shared
+// recompute (pw1, both GLU halves), the forward's y = s W2^T, and those of
+// both backward passes (ds = bf16(g m) W2 in each, dW2 = bf16(g m)^T s in the
+// first, dW1 = dab^T h and dh = dab W1 in the second), runs on the tensor
+// cores as `wgmma` on 64-row warpgroup tiles,
 // fed by TMA from bf16 copies (hopper.cuh): the weights are cast to bf16
 // once per call (rows padded to 8 elements so that TMA addresses d = 180),
 // and the stages write h, bf16(g m), s and dab in bf16. dW2 reads g m and s
@@ -53,25 +57,22 @@
 // transposed copies); dW1 reads the transposes h^T and dab^T that the
 // second pass's stages write. Those stages read their rounding points in the
 // epilogues (bias, GLU, BN and its backward, in the accumulator's fragment
-// layout). Neither backward pass uses atomics: dW2 and dW1 are one-owner
+// layout). The forward has one owner for each element of y, and neither
+// backward pass uses atomics: dW2 and dW1 are one-owner
 // 64 x 64 tiles over row splits, and db2, r1, r2 (first pass), db1, the
 // (E, k) tap gradient and the LayerNorm gradients (second pass) are
 // per-block partial sums that a last stage adds in a fixed order, once,
 // into the caller's zeroed buffers, so two calls give the same bits. Stage
-// kernels: stats 4, fwd 5, bwd1 7 (cast, LayerNorm with g m and db2's
+// kernels: stats 4 (cast, LayerNorm, pw1, depthwise with the per-channel
+// sums, atomic), fwd 5 (the same four, then pw2), bwd1 7 (cast, LayerNorm with g m and db2's
 // partials, pw1, depthwise, ds with r1 / r2's partials, dW2, reduce), bwd2 9
 // (cast, LayerNorm with g m, pw1, depthwise, ds with dc, depthwise backward
 // with the GLU backward, dW1 and dh in one launch, LayerNorm backward,
 // reduce).
 //
-// What still bounds it in bf16: the stage chain and the two depthwise
-// stages, not the products. At (16, 151, 256, 256, 15) the second backward
-// pass takes about 124 us of device time on the H100 (`chip_smoke.py`),
-// of which the depthwise stencil and its transpose 25 and 31 us, each of the
-// three product stages 11-13 us (1-2 us of tensor-core work), the rest
-// LayerNorm, cast, LayerNorm backward and reduce at 5-10 us: about 100x the
-// bytes of its inputs and outputs at the card's memory rate. The first pass
-// takes about 70 us, 27 of them the depthwise stencil.
+// What still bounds it in bf16: the chain of stage kernels, each a few us
+// of latency on a few MB, not the products (1-2 us of tensor-core work a
+// pass); `chip_smoke.py` phase 14 prints every pass's device time by stage.
 //
 // fp32 inputs (the verification path) keep the first design: every product
 // as fp32 FMAs through `gemm_tile` (tile.cuh) with operand functors, so
@@ -94,7 +95,9 @@ constexpr int THREADS = GEMM_THREADS;   // every FMA and elementwise stage: 256 
 constexpr int SPLIT_ROWS = 256;         // token rows per block of an fp32 weight gradient
 constexpr int DW_CH = 64;               // channels per block of a depthwise stage
 constexpr int DW_LANES = THREADS / DW_CH;
-constexpr int DW_ROWS = 64;             // token rows per block of a depthwise stage
+constexpr int DW_ROWS = 64;             // token rows per block of the fp32 depthwise backward
+constexpr int DWS_ROWS = 16;            // the same for the depthwise stencil of all four passes
+constexpr int DWS_RPT = DWS_ROWS / DW_LANES;  // its consecutive rows per thread
 constexpr int DWB_ROWS = 16;            // the same for the bf16 depthwise backward
 constexpr int LN_ROWS = 32;             // token rows per block of the fp32 LayerNorm backward
 constexpr int LNB_ROWS = 16;            // token rows per block of the bf16 LayerNorm backward
@@ -139,6 +142,7 @@ struct Scratch {
   // bf16 only: tensor-core operands and partial sums
   bf16 *w1b, *h;              // pw1 (2E, ldd), LayerNorm output (n, ldd)
   bf16 *w1t, *w2t;            // pw1^T (d, ld2e): bwd2; pw2^T (E, ldeo): bwd1, bwd2
+  bf16* w2b;                  // pw2 (E', lds): fwd
   bf16 *ht, *dabt;            // h^T (d, ldn), dab^T (2E, ldn): bwd2
   bf16* gm;                   // bf16(g m) (n, ldeo): bwd1, bwd2
   float *part_db1, *part_tap; // (rt_dw, 2E), (rt_dw, E k): bwd2
@@ -285,43 +289,105 @@ conv_pw1_kernel(const T* __restrict__ x, Params p, Scratch<T> sc, Shape sh) {
     }
 }
 
-// The depthwise conv, one thread per channel and a run of rows of one block:
-// c = round(round(sum_j z[t + j - pad_lo] w[j]) + round(b_dw)). STATS adds the
-// per-channel sums of c and c^2; FWD stores swish(cn); BWD1 stores c and
-// swish(cn); BWD2 stores c.
+// Stages rows [r0, r0 + rows) x channels [ch0, ch0 + DW_CH) of the row-major
+// (n, e) array `src` into win[rows][DW_CH] as fp32, zeros outside [0, n) x
+// [0, e): 16-byte loads where the rows allow them (e a multiple of 8 bf16 or
+// 4 fp32 values), else bf16 pairs (e even), else single elements.
+template <typename T>
+__device__ __forceinline__ void stage_window(float (*win)[DW_CH], const T* __restrict__ src,
+                                             int r0, int rows, int n, int ch0, int e) {
+  constexpr int VEC = 16 / sizeof(T);
+  if (e % VEC == 0) {  // a group of VEC channels is all inside e or all outside
+    constexpr int GROUPS = DW_CH / VEC;
+    for (int i = threadIdx.x; i < rows * GROUPS; i += blockDim.x) {
+      const int wr = i / GROUPS, c = (i % GROUPS) * VEC, row = r0 + wr;
+      float v[VEC];
+      if (row >= 0 && row < n && ch0 + c < e) {
+        load16(src + (size_t)row * e + ch0 + c, v);
+      } else {
+#pragma unroll
+        for (int m = 0; m < VEC; ++m) v[m] = 0.f;
+      }
+#pragma unroll
+      for (int m = 0; m < VEC; m += 4)
+        *reinterpret_cast<float4*>(&win[wr][c + m]) = make_float4(v[m], v[m + 1], v[m + 2], v[m + 3]);
+    }
+  } else if (sizeof(T) == 2 && e % 2 == 0) {
+    for (int i = threadIdx.x; i < rows * (DW_CH / 2); i += blockDim.x) {
+      const int wr = i / (DW_CH / 2), c = (i % (DW_CH / 2)) * 2, row = r0 + wr;
+      float2 f = make_float2(0.f, 0.f);
+      if (row >= 0 && row < n && ch0 + c < e)
+        f = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(src + (size_t)row * e + ch0 + c));
+      *reinterpret_cast<float2*>(&win[wr][c]) = f;
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * DW_CH; i += blockDim.x) {
+      const int wr = i / DW_CH, c = i % DW_CH, row = r0 + wr;
+      win[wr][c] = row >= 0 && row < n && ch0 + c < e ? to_f(src[(size_t)row * e + ch0 + c]) : 0.f;
+    }
+  }
+}
+
+// The depthwise conv of DWS_ROWS rows x 64 channels a block, the same
+// template for all four passes: the block's window of z (its rows and the
+// k - 1 rows of its taps, zeros outside [0, n)) staged in shared memory
+// first, read from device memory once; the taps in registers; a thread owns
+// one channel and DWS_RPT consecutive rows, each of whose taps reads only
+// rows of its own sequence. c = round(round(sum_j z[t + j - pad_lo] w[j]) +
+// round(b_dw)), the taps in ascending j into an fp32 sum. STATS adds the
+// per-channel sums of c and c^2 (atomics); FWD stores swish(cn); BWD1 stores
+// c and swish(cn); BWD2 stores c.
 template <typename T, int STAGE>
 __global__ void __launch_bounds__(THREADS)
 conv_depthwise_kernel(Params p, Scratch<T> sc, Shape sh, const float* __restrict__ mean,
                const float* __restrict__ rstd, float* __restrict__ s1, float* __restrict__ s2) {
+  constexpr int WIN = DWS_ROWS + KMAX - 1;
+  __shared__ __align__(16) float zs[WIN][DW_CH];  // zs[wr] = z[row0 - pad_lo + wr]
   __shared__ float red[2][DW_LANES][DW_CH];
   const int cl = threadIdx.x % DW_CH, lane = threadIdx.x / DW_CH;
-  const int ch = blockIdx.y * DW_CH + cl, row0 = blockIdx.x * DW_ROWS;
-  const int e = sh.e, k = sh.k, t = sh.t;
+  const int ch0 = blockIdx.y * DW_CH, ch = ch0 + cl, row0 = blockIdx.x * DWS_ROWS;
+  const int e = sh.e, k = sh.k, t = sh.t, rl0 = lane * DWS_RPT;
+  float w[KMAX];  // the loads in flight while the window is staged
+#pragma unroll
+  for (int j = 0; j < KMAX; ++j) w[j] = ch < e && j < k ? p.dw[(size_t)ch * k + j] : 0.f;
+  const float bias = ch < e ? rnd<T>(p.dwb[ch]) : 0.f;
+  stage_window<T>(zs, sc.z, row0 - sh.pad_lo, DWS_ROWS + k - 1, sh.n, ch0, e);
+  // tap j of row i reads its own sequence iff jlo[i] <= j < jhi[i]
+  int jlo[DWS_RPT], jhi[DWS_RPT];
+#pragma unroll
+  for (int i = 0; i < DWS_RPT; ++i) {
+    const int tt = (row0 + rl0 + i) % t;
+    jlo[i] = sh.pad_lo - tt;
+    jhi[i] = t - tt + sh.pad_lo;
+  }
+  __syncthreads();
+  float c[DWS_RPT];
+#pragma unroll
+  for (int i = 0; i < DWS_RPT; ++i) c[i] = 0.f;
+#pragma unroll
+  for (int j = 0; j < KMAX; ++j) {
+    if (j >= k) break;
+#pragma unroll
+    for (int i = 0; i < DWS_RPT; ++i)
+      if (j >= jlo[i] && j < jhi[i]) c[i] = fmaf(zs[rl0 + i + j][cl], w[j], c[i]);
+  }
+  const float mu = STAGE == FWD || STAGE == BWD1 ? (ch < e ? mean[ch] : 0.f) : 0.f;
+  const float rs = STAGE == FWD || STAGE == BWD1 ? (ch < e ? rstd[ch] : 0.f) : 0.f;
   float sum = 0.f, sq = 0.f;
-  if (ch < e) {
-    const float* w = p.dw + (size_t)ch * k;
-    const float bias = rnd<T>(p.dwb[ch]);
-    for (int r = lane; r < DW_ROWS; r += DW_LANES) {
-      const int row = row0 + r;
-      if (row >= sh.n) break;
-      const int tt = row % t;
-      const T* zs = sc.z + (size_t)(row - tt) * e + ch;  // this sequence's z
-      float c = 0.f;
-      for (int j = 0; j < k; ++j) {
-        const int ts = tt + j - sh.pad_lo;
-        if (ts >= 0 && ts < t) c = fmaf(to_f(zs[(size_t)ts * e]), w[j], c);
-      }
-      c = rnd<T>(rnd<T>(c) + bias);
-      const size_t o = (size_t)row * e + ch;
-      if (STAGE == STATS) {
-        sum += c;
-        sq += c * c;
-      } else {
-        if (STAGE != FWD) sc.c[o] = from_f<T>(c);
-        if (STAGE != BWD2) {
-          const float cn = bn_cn<T>((c - mean[ch]) * rstd[ch], p, ch);
-          sc.s[(size_t)row * sc.lds + ch] = from_f<T>(cn * sigmoid(cn));
-        }
+#pragma unroll
+  for (int i = 0; i < DWS_RPT; ++i) {
+    const int row = row0 + rl0 + i;
+    if (row >= sh.n || ch >= e) continue;
+    const float cv = rnd<T>(rnd<T>(c[i]) + bias);
+    if (STAGE == STATS) {
+      sum += cv;
+      sq += cv * cv;
+    } else {
+      if (STAGE != FWD) sc.c[(size_t)row * e + ch] = from_f<T>(cv);
+      if (STAGE != BWD2) {
+        const float cn = bn_cn<T>((cv - mu) * rs, p, ch);
+        sc.s[(size_t)row * sc.lds + ch] = from_f<T>(cn * sigmoid(cn));
       }
     }
   }
@@ -998,6 +1064,57 @@ conv_grad_bn_wgmma_kernel(const __grid_constant__ DsMaps maps, Params p, Scratch
   }
 }
 
+struct Pw2Maps {
+  CUtensorMap s, w2;  // s (n, E), bf16 W2 (E', E): boxes of 64 x 64
+};
+
+// pw2 on the tensor cores, one warpgroup per (64 rows, 64 output channels),
+// through the ds stage's ring: y = round((s W2^T + b2) * mask), in the
+// epilogue in the accumulator's fragment layout (the dropout hash per
+// sequence tile, `drop_mult`). Every element of y has one owner.
+__global__ void __launch_bounds__(WG)
+conv_pw2_wgmma_kernel(const __grid_constant__ Pw2Maps maps, Params p, Shape sh, Drop dr,
+                      bf16* __restrict__ y) {
+  using namespace hopper;
+  unsigned char* base = smem_base_1k();
+  bf16* ring = reinterpret_cast<bf16*>(base);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + DS_RING * 2 * TILE_BYTES);
+  const int row0 = blockIdx.x * 64, col0 = blockIdx.y * 64, eo = sh.eo;
+  const CUtensorMap* const mb[1] = {&maps.w2};
+  const int b_row[1] = {col0};
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, q = lane & 3;
+  float bias[16];  // b2 of this thread's 16 columns, read first
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int col = col0 + (i / 2) * 8 + 2 * q + (i & 1);
+    bias[i] = col < eo ? p.b2[col] : 0.f;
+  }
+  float acc[1][32];
+  wg_mainloop<1, DS_RING>(acc, ring, bars, &maps.s, row0, mb, b_row, 0, cdiv(sh.e, 64));
+  const bool pairs = eo % 2 == 0;  // 4-byte stores of a column pair (2-byte ones: +1.5-1.9 us)
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + w * 16 + g + h * 8, col = col0 + i * 8 + 2 * q;
+      if (row >= sh.n || col >= eo) continue;
+      const float v0 = (acc[0][4 * i + 2 * h] + bias[2 * i]) * drop_mult(dr, row, col, sh);
+      bf16* out = y + (size_t)row * eo + col;
+      if (col + 1 >= eo) {
+        out[0] = __float2bfloat16(v0);
+        continue;
+      }
+      const float v1 =
+          (acc[0][4 * i + 2 * h + 1] + bias[2 * i + 1]) * drop_mult(dr, row, col + 1, sh);
+      if (pairs) {
+        *reinterpret_cast<__nv_bfloat162*>(out) = __floats2bfloat162_rn(v0, v1);
+      } else {
+        out[0] = __float2bfloat16(v0);
+        out[1] = __float2bfloat16(v1);
+      }
+    }
+}
+
 // bf16: the LayerNorm backward per LNB_ROWS rows: dx, and the rows' partial
 // sums of dh and dh xhat (xhat unrounded) per column.
 __global__ void __launch_bounds__(THREADS)
@@ -1129,7 +1246,8 @@ size_t carve(char* base, const Shape& sh, int stage, Scratch<T>* sc) {
   constexpr bool BF16 = std::is_same<T, bf16>::value;
   const size_t n = sh.n, e = sh.e, d = sh.d, ne = n * e;
   *sc = Scratch<T>{};
-  sc->lds = BF16 && stage == BWD1 ? round8(sh.e) : sh.e;  // TMA rows: 16-byte strides
+  // TMA rows of s (bf16 fwd, bwd1): 16-byte strides
+  sc->lds = BF16 && (stage == FWD || stage == BWD1) ? round8(sh.e) : sh.e;
   sc->ldd = round8(sh.d);
   sc->ld2e = round8(2 * sh.e);
   sc->ldeo = round8(sh.eo);
@@ -1165,6 +1283,7 @@ size_t carve(char* base, const Shape& sh, int stage, Scratch<T>* sc) {
   if (BF16) {
     sc->w1b = tb(2 * e * sc->ldd);
     sc->h = tb(n * sc->ldd);
+    if (stage == FWD) sc->w2b = tb(sh.eo * sc->lds);
     if (stage == BWD1) {
       sc->w2t = tb(e * sc->ldeo);
       sc->gm = tb(n * sc->ldeo);
@@ -1227,6 +1346,7 @@ cudaError_t pre_bn(const T* x, const T* g, const Params& p, const Scratch<T>& sc
     jobs.job[njobs++] = {p.w1, sc.w1b, 2 * sh.e, sh.d, sc.ldd, 0};
     if (sc.w1t != nullptr) jobs.job[njobs++] = {p.w1, sc.w1t, 2 * sh.e, sh.d, sc.ld2e, 1};
     if (sc.w2t != nullptr) jobs.job[njobs++] = {p.w2, sc.w2t, sh.eo, sh.e, sc.ldeo, 1};
+    if (sc.w2b != nullptr) jobs.job[njobs++] = {p.w2, sc.w2b, sh.eo, sh.e, sc.lds, 0};
     const int big = 2 * sh.e > sh.eo ? 2 * sh.e : sh.eo, wide = sh.d > sh.e ? sh.d : sh.e;
     conv_cast_kernel<<<dim3(cdiv(wide, 32), cdiv(big, 32), njobs), 256, 0, st>>>(jobs);
     LAUNCH_CHECK();
@@ -1247,12 +1367,13 @@ cudaError_t pre_bn(const T* x, const T* g, const Params& p, const Scratch<T>& sc
 }
 
 dim3 dw_grid(const Shape& sh) { return dim3(cdiv(sh.n, DW_ROWS), cdiv(sh.e, DW_CH)); }
+dim3 dws_grid(const Shape& sh) { return dim3(cdiv(sh.n, DWS_ROWS), cdiv(sh.e, DW_CH)); }
 
 template <typename T>
 cudaError_t run_stats(const T* x, const Params& p, float* s1, float* s2, const Scratch<T>& sc,
                       const Shape& sh, float eps, cudaStream_t st) {
   AVEC_CHECK(pre_bn<T>(x, nullptr, p, sc, sh, eps, Drop{}, st));
-  conv_depthwise_kernel<T, STATS><<<dw_grid(sh), THREADS, 0, st>>>(p, sc, sh, nullptr, nullptr,
+  conv_depthwise_kernel<T, STATS><<<dws_grid(sh), THREADS, 0, st>>>(p, sc, sh, nullptr, nullptr,
                                                                     s1, s2);
   LAUNCH_CHECK();
   return cudaSuccess;
@@ -1262,11 +1383,23 @@ template <typename T>
 cudaError_t run_fwd(const T* x, const Params& p, const float* mean, const float* rstd, T* y,
                     const Scratch<T>& sc, const Shape& sh, float eps, Drop dr, cudaStream_t st) {
   AVEC_CHECK(pre_bn<T>(x, nullptr, p, sc, sh, eps, dr, st));
-  conv_depthwise_kernel<T, FWD><<<dw_grid(sh), THREADS, 0, st>>>(p, sc, sh, mean, rstd,
+  conv_depthwise_kernel<T, FWD><<<dws_grid(sh), THREADS, 0, st>>>(p, sc, sh, mean, rstd,
                                                                   nullptr, nullptr);
   LAUNCH_CHECK();
-  conv_pw2_kernel<T><<<dim3(cdiv(sh.n, BT), cdiv(sh.eo, BT)), THREADS, 0, st>>>(p, sc, sh, dr,
-                                                                                y);
+  if constexpr (std::is_same<T, float>::value) {
+    conv_pw2_kernel<T><<<dim3(cdiv(sh.n, BT), cdiv(sh.eo, BT)), THREADS, 0, st>>>(p, sc, sh,
+                                                                                  dr, y);
+  } else {
+    Pw2Maps maps;
+    if (!hopper::tensor_map_2d(&maps.s, sc.s, sh.n, sh.e, sc.lds, 64) ||
+        !hopper::tensor_map_2d(&maps.w2, sc.w2b, sh.eo, sh.e, sc.lds, 64))
+      return cudaErrorInvalidValue;
+    AVEC_CHECK(cudaFuncSetAttribute(conv_pw2_wgmma_kernel,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    (int)ds_smem()));
+    conv_pw2_wgmma_kernel<<<dim3(cdiv(sh.n, 64), cdiv(sh.eo, 64)), WG, ds_smem(), st>>>(
+        maps, p, sh, dr, y);
+  }
   LAUNCH_CHECK();
   return cudaSuccess;
 }
@@ -1276,7 +1409,7 @@ cudaError_t run_bwd1(const T* x, const T* g, const Params& p, const float* mean,
                      const float* rstd, float* dw2, float* db2, float* r1, float* r2,
                      const Scratch<T>& sc, const Shape& sh, float eps, Drop dr, cudaStream_t st) {
   AVEC_CHECK(pre_bn<T>(x, g, p, sc, sh, eps, dr, st));
-  conv_depthwise_kernel<T, BWD1><<<dw_grid(sh), THREADS, 0, st>>>(p, sc, sh, mean, rstd,
+  conv_depthwise_kernel<T, BWD1><<<dws_grid(sh), THREADS, 0, st>>>(p, sc, sh, mean, rstd,
                                                                    nullptr, nullptr);
   LAUNCH_CHECK();
   if constexpr (std::is_same<T, float>::value) {
@@ -1328,7 +1461,7 @@ cudaError_t run_bwd2(const T* x, const T* g, const Params& p, const float* mean,
                      const Grads& gr, const Scratch<T>& sc, const Shape& sh, float eps, Drop dr,
                      cudaStream_t st) {
   AVEC_CHECK(pre_bn<T>(x, g, p, sc, sh, eps, dr, st));
-  conv_depthwise_kernel<T, BWD2><<<dw_grid(sh), THREADS, 0, st>>>(p, sc, sh, mean, rstd,
+  conv_depthwise_kernel<T, BWD2><<<dws_grid(sh), THREADS, 0, st>>>(p, sc, sh, mean, rstd,
                                                                    nullptr, nullptr);
   LAUNCH_CHECK();
   if constexpr (std::is_same<T, float>::value) {

@@ -35,6 +35,21 @@ template <typename T> __device__ __forceinline__ float rnd(float x) {
   return to_f(from_f<T>(x));
 }
 
+// The 16 bytes at p (16-byte aligned) as fp32: 8 bf16 or 4 fp32 values.
+__device__ __forceinline__ void load16(const __nv_bfloat16* p, float (&v)[8]) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const uint32_t u[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {  // bf16 -> fp32 is exact: the bits, shifted
+    v[2 * i] = __uint_as_float(u[i] << 16);
+    v[2 * i + 1] = __uint_as_float(u[i] & 0xFFFF0000u);
+  }
+}
+__device__ __forceinline__ void load16(const float* p, float (&v)[4]) {
+  const float4 f = *reinterpret_cast<const float4*>(p);
+  v[0] = f.x, v[1] = f.y, v[2] = f.z, v[3] = f.w;
+}
+
 // acc[i][j] += sum_k a[k * lda + i] * b[k * ldb + j]: both operands k-major,
 // `a` and `b` point at this thread's first row / column (16-byte aligned).
 __device__ __forceinline__ void mma_kk(float (&acc)[4][4], const float* a, int lda,

@@ -37,7 +37,8 @@ def _lib():
 
 def bn_relu_pool(y, a, b) -> torch.Tensor:
     """Fused BN-apply + ReLU + 3x3/2 max pool over (N, H, W, C) frames
-    (pallas_stem.py:136). CPU tensors take the plain version."""
+    (pallas_stem.py:136). CPU tensors take the plain version; on the card C
+    must be a multiple of 8 in bf16 or 4 in fp32 (16-byte loads)."""
     if y.device.type == "cpu":
         return bn_relu_pool_reference(y, a, b)
     req = _cuda.require
@@ -50,6 +51,9 @@ def bn_relu_pool(y, a, b) -> torch.Tensor:
         and a.shape == (c,) and b.shape == (c,), "a, b must be (C,) fp32")
     req(y.is_contiguous() and a.is_contiguous() and b.is_contiguous(),
         "y, a, b must be contiguous (channels-last frames)")
+    vec = 8 if y.dtype == torch.bfloat16 else 4     # channels in 16 bytes
+    req(c % vec == 0, f"C must be a multiple of {vec} for {y.dtype}, got {c}")
+    req(y.data_ptr() % 16 == 0, "y must be 16-byte aligned")
     out = torch.empty((n, (h - 1) // 2 + 1, (w - 1) // 2 + 1, c),
                       dtype=y.dtype, device=y.device)
     rc = _lib()(y.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(),

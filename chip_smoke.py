@@ -12,15 +12,17 @@ Phases, in order; any failure raises and the exit code is non-zero:
     build the CUDA kernels from `avec_tpu_torch/csrc` (nvcc, sm_90a) and
     print each kernel's registers and spill bytes as ptxas reports them;
  2. each kernel against its plain PyTorch version at the serving shapes, in
-    fp32 (max abs <= 1e-4) and bf16 (flash <= 2e-2, stem exact);
+    fp32 (max abs <= 1e-4) and bf16 (flash <= 2e-2, stem exact), the stem
+    also on odd frames (45x43x64, 3x5x8);
  3. serving at full width: the reference-depth AV model (61.7M params,
     vocab 256, use_flash, stem "pallas", seeded random weights and BN
     statistics) answers 8 seeded requests of 2-6 s in rounds; the flash
     kernel must launch 7 times and the stem kernel once per forward; the
     same batch through the kernels' plain versions in fp32 must give logits
     within 2e-3 and identical greedy token ids;
- 4. kernel timings (CUDA events) beside their bounds, the plain versions and
-    a PyTorch library call where one computes the same function;
+ 4. kernel timings (CUDA events) beside their bounds (the stem's as a
+    multiple of it), the plain versions and a PyTorch library call where
+    one computes the same function;
  5. the training kernels against their plain versions at the training
     shapes: fused FFN forward and backward for (d, F) = (180, 720),
     (256, 1024), (360, 1440) at N = 16 x T rows, fp32 and bf16, dropout off
@@ -62,7 +64,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
  9. the train-mode stem (`fused_stem_train`) on the card, B=16 x 151 frames,
     kernel route against plain route: pooled (fp32 1e-5, bf16 exact), mean,
     var, the gradients of the conv weight, BN scale and BN bias, and a
-    conv-bias gradient of exactly zero;
+    conv-bias gradient of exactly zero; then the stem kernel's time at that
+    shape (2416 frames) as a multiple of its bound;
 10. training at full width through those kernels: fused attention, fused
     FFN (both switched on explicitly), stem "pallas", use_flash off: the
     launch counts per step must be 19 + 19 attention, 48 + 48 FFN, 1 stem
@@ -84,8 +87,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
     on both sides): y, mean, var, dx and the ten parameter gradients, max abs
     over the largest entry; fp32 1e-4 (y, mean, var) and 5e-4 (gradients),
     bf16 2e-2 and 3e-2; the depthwise-bias gradient exactly zero; in bf16,
-    K3b-1's dW2, db2, r1, r2 and K3b-2's dx and five gradients bit-identical
-    over two calls on the same inputs;
+    K3-fwd's y, K3b-1's dW2, db2, r1, r2 and K3b-2's dx and five gradients
+    bit-identical over two calls on the same inputs;
 13. training at full width through all the training kernels: fused
     convolution module, fused attention, fused FFN (all three switched on
     explicitly), stem "pallas", use_flash off: the launch counts per step
@@ -95,8 +98,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
     1e-3, every leaf 2e-3, BN statistics 1e-5);
 14. K3 / K3b times per launch and per step beside their device times,
     bounds, the plain stages and the port's own unfused convolution module
-    (PyTorch library calls), K3b-1's and K3b-2's device time by kernel (their
-    seven and nine stages; K3b-1 in bf16 must run no FMA product stage) and
+    (PyTorch library calls), each pass's device time by kernel (K3-stats's
+    four, K3-fwd's five, K3b-1's seven and K3b-2's nine stages; in bf16
+    K3-fwd must run its `wgmma` pw2 and no `conv_pw2_kernel`, K3b-1 no FMA
+    product stage) and
     the host's time to issue each pass, and step time,
     utterances/s and peak memory of phase 13's path
     and phase 10's path (they differ by `fused_conv` alone), interleaved;
@@ -487,6 +492,19 @@ def main() -> int:
         if not err <= tol:
             raise AssertionError(f"stem kernel disagrees: {key} {err}")
         del y, got
+    # odd frames clip the window at the last row and column; C = 8 is one
+    # 16-byte load of bf16 channels
+    for n_odd, h, w, c in ((5, 45, 43, 64), (9, 3, 5, 8)):
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 0.0)):
+            y = torch.randn(n_odd, h, w, c, generator=gen).to(dev, dtype)
+            ao, bo = a5[:c].contiguous(), b5[:c].contiguous()
+            err = max_abs(bn_relu_pool(y, ao, bo),
+                          bn_relu_pool_reference(y, ao, bo))
+            key = f"N{n_odd}_{h}x{w}x{c}_{str(dtype)[6:]}"
+            errs["bn_relu_pool"][key] = err
+            log(f"bn_relu_pool {key}: max abs {err:.3e} (tol {tol})")
+            if not err <= tol:
+                raise AssertionError(f"stem kernel disagrees: {key} {err}")
     detail["kernel_errors"] = errs
 
     # ---- 3. serving at full width
@@ -601,7 +619,8 @@ def main() -> int:
     detail["stem"] = {"ms": s_ms, "device_ms": s_dev, "plain_ms": s_plain,
                       "bytes": s_bytes, "bound_ms": s_bound}
     log(f"bn_relu_pool N={n_frames}: {s_ms:.4f} ms (device {s_dev:.4f}), "
-        f"plain {s_plain:.4f}, bound {s_bound:.5f}")
+        f"plain {s_plain:.4f}, bound {s_bound:.5f} ({s_by}): "
+        f"{s_ms / s_bound:.2f}x the bound (device {s_dev / s_bound:.2f}x)")
 
     kernels = [
         {"name": "flash_attention_fwd", "route": "cuda",
@@ -1528,9 +1547,11 @@ def fused_phases(detail, profile: bool, trainer2, batch):
     s_dev = device_time_ms(lambda: bn_relu_pool(y, a5, b5))[0]
     s_plain = cuda_time_ms(lambda: bn_relu_pool_reference(y, a5, b5))
     s_bytes = y.numel() * 2 + (y.numel() // 4) * 2 + 2 * 64 * 4
-    s_bound = bound(s_bytes, 3.0 * y.numel(), "bf16")[0]
+    s_bound, s_by = bound(s_bytes, 3.0 * y.numel(), "bf16")
     log(f"bn_relu_pool N={y.shape[0]} (training shape): {s_ms:.4f} ms "
-        f"(device {s_dev:.4f}), plain {s_plain:.4f}, bound {s_bound:.5f}")
+        f"(device {s_dev:.4f}), plain {s_plain:.4f}, bound {s_bound:.5f} "
+        f"({s_by}): {s_ms / s_bound:.2f}x the bound (device "
+        f"{s_dev / s_bound:.2f}x)")
     detail["stem_train"] = {"ms": s_ms, "device_ms": s_dev,
                             "plain_ms": s_plain,
                             "bytes": s_bytes, "bound_ms": s_bound}
@@ -1889,12 +1910,18 @@ def conv_phases(detail, profile: bool, trainer_att, batch):
                         == 0.0):
                     raise AssertionError(f"conv kernels disagree: {key} {e}")
             if dtype == torch.bfloat16:
-                # both backward passes sum without atomics: from the same
-                # inputs, K3b-1's four sums, then K3b-2's dx and its five
-                # gradients
+                # y has one owner per element and both backward passes sum
+                # without atomics: from the same inputs, K3-fwd's y, then
+                # K3b-1's four sums, then K3b-2's dx and its five gradients
                 call = cm._Launch(x, params, 4321, cm.pad_lo_for("same", k),
                                   1e-6, 0.1)
                 mean, _, rstd = cm.batch_stats(*call.stats(), b * t, 1e-5)
+                same0 = torch.equal(call.fwd(mean, rstd),
+                                    call.fwd(mean, rstd))
+                log(f"fused_conv T{t}_d{d}_bfloat16_same_drop0.1: K3-fwd's "
+                    f"y bit-identical over two calls: {same0}")
+                if not same0:
+                    raise AssertionError(f"bf16 K3-fwd reruns differ: T{t}")
                 reruns1 = [call.bwd1(g, mean, rstd) for _ in range(2)]
                 same1 = all(torch.equal(u, v) for u, v in zip(*reruns1))
                 _, _, r1, r2 = reruns1[0]
@@ -1999,7 +2026,12 @@ def conv_phases(detail, profile: bool, trainer_att, batch):
                        "wgmma_products_kernel<1, 1, 1>"} <= set(bwd1_kernels):
             raise AssertionError(f"bf16 K3b-1 at T={t} did not run its "
                                  f"tensor-core stages: {sorted(bwd1_kernels)}")
-        for name in (cm.KERNEL_BWD1, cm.KERNEL_BWD2):
+        fwd_kernels = times[cm.KERNEL_FWD + "_kernels"]
+        if (any(nm.split("<")[0] == "conv_pw2_kernel" for nm in fwd_kernels)
+                or "conv_pw2_wgmma_kernel" not in fwd_kernels):
+            raise AssertionError(f"bf16 K3-fwd at T={t} did not run its "
+                                 f"tensor-core pw2: {sorted(fwd_kernels)}")
+        for name in cm.KERNELS:
             log(f"{name} T={t} d={d} device time of each stage in one "
                 f"launch (torch.profiler): "
                 + ", ".join(f"{nm} {ms:.4f} ms" for nm, ms in

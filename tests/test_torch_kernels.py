@@ -12,8 +12,9 @@ Tests marked `cuda` decide inside a fixture whether a card is present and
 skip without one; the others run on the CPU, where each wrapper computes its
 plain version. Tolerances: fp32 max abs 1e-4; flash bf16 2e-2 (bf16 inputs,
 fp32 accumulation in both); stem bf16 exact (a max of identically rounded
-values); whole-model fp32 logits 2e-3. FFN: fp32 1e-4 for y and dx and 3e-4
-of the largest entry for the parameter gradients (atomic sums over all rows);
+values), on odd frames too; whole-model fp32 logits 2e-3. FFN: fp32 1e-4
+for y and dx and 3e-4 of the largest entry for the parameter gradients
+(atomic sums over all rows);
 bf16 2e-2 / 3e-2 of the largest entry; the bf16 forward and backward give
 the same bits over two calls. Flash backward: fp32 1e-4, bf16 3e-2
 of the largest entry; in bf16 a relative L1 error (sum |got - want| / sum
@@ -29,9 +30,10 @@ another order); conv-bias gradient exactly zero. Convolution module, kernels
 against the plain stages: fp32 1e-4 of the largest entry for y, mean and var
 and 5e-4 for dx and the parameter gradients (atomic sums over all rows); bf16
 2e-2 and 3e-2; dropout masks identical entry by entry; the depthwise-bias
-gradient exactly zero; both bf16 backward passes give the same bits over
-two calls. K3dp on two gloo ranks sharing the card against one
-K3/K3b call on the whole batch: the convolution module's tolerances.
+gradient exactly zero; the bf16 forward and both bf16 backward passes give
+the same bits over two calls. K3dp on two gloo ranks sharing the card
+against one K3/K3b call on the whole batch: the convolution module's
+tolerances.
 """
 
 import numpy as np
@@ -260,17 +262,38 @@ def test_flash_kernel_rejects_bad_inputs(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 0.0)])
-def test_stem_kernel_matches_plain(cuda_device, dtype, tol):
+@pytest.mark.parametrize("n,h,w,c", [(37, 44, 44, 64), (5, 45, 43, 64),
+                                     (7, 3, 5, 64), (4, 45, 43, 8),
+                                     (9, 3, 5, 8), (3, 1, 2, 16)])
+def test_stem_kernel_matches_plain(cuda_device, dtype, tol, n, h, w, c):
+    """The stem's frames (44x44x64) and odd ones, whose last row and column
+    clip the window (z >= 0, so clipping is the TPU kernel's zero padding):
+    a thread's walk carries the last input row's max only where it
+    exists."""
     gen = torch.Generator().manual_seed(1)
-    y = torch.randn(37, 44, 44, 64, generator=gen).to(cuda_device, dtype)
-    a = (torch.rand(64, generator=gen) + 0.5).to(cuda_device)
-    b = (torch.randn(64, generator=gen) * 0.2).to(cuda_device)
+    y = torch.randn(n, h, w, c, generator=gen).to(cuda_device, dtype)
+    a = (torch.rand(c, generator=gen) + 0.5).to(cuda_device)
+    b = (torch.randn(c, generator=gen) * 0.2).to(cuda_device)
     n0 = _cuda.launches["bn_relu_pool"]
     got = bn_relu_pool(y, a, b)
     torch.cuda.synchronize()
     assert _cuda.launches["bn_relu_pool"] == n0 + 1
-    assert got.shape == (37, 22, 22, 64) and got.dtype == dtype
+    assert got.shape == (n, (h - 1) // 2 + 1, (w - 1) // 2 + 1, c)
+    assert got.dtype == dtype
     assert _err(got, bn_relu_pool_reference(y, a, b)) <= tol
+
+
+@pytest.mark.cuda
+def test_stem_kernel_rejects_bad_channels(cuda_device):
+    """The kernel loads 16 bytes of channels a thread: C a multiple of 8 in
+    bf16 and of 4 in fp32, else a ValueError and no launch."""
+    n0 = _cuda.launches["bn_relu_pool"]
+    for dtype, c in ((torch.bfloat16, 12), (torch.float32, 6)):
+        y = torch.randn(2, 9, 9, c, device=cuda_device).to(dtype)
+        a = torch.ones(c, device=cuda_device)
+        with pytest.raises(ValueError, match="multiple of"):
+            bn_relu_pool(y, a, a)
+    assert _cuda.launches["bn_relu_pool"] == n0
 
 
 @pytest.mark.cuda
@@ -776,21 +799,25 @@ def test_conv_module_kernels_match_plain(cuda_device, dtype, tol, wtol,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("stage", ["bwd1", "bwd2"])
+@pytest.mark.parametrize("stage", ["fwd", "bwd1", "bwd2"])
 @pytest.mark.parametrize("b,t,d,e,k", [(16, 301, 180, 180, 15),
                                        (3, 37, 20, 24, 5)])
 def test_conv_module_bf16_bwd2_is_deterministic(cuda_device, stage, b, t, d,
                                                 e, k):
-    """Both bf16 backward passes sum without atomics (per-block partial sums
-    added once in a fixed order): from the same inputs two calls give the
-    same bits, with dropout: the first pass's dW2, db2, r1 and r2, and the
-    second pass's dx and the five gradients it writes (from the batch
-    statistics and one first pass's r1 / n, r2 / n)."""
+    """The bf16 forward has one owner per element of y, and both bf16
+    backward passes sum without atomics (per-block partial sums added once in
+    a fixed order): from the same inputs two calls give the same bits, with
+    dropout: y; the first pass's dW2, db2, r1 and r2; the second pass's dx
+    and the five gradients it writes (from the batch statistics and one
+    first pass's r1 / n, r2 / n)."""
     x, g, params = _conv_inputs(cuda_device, torch.bfloat16, b, t, d, e, k)
     call = conv_module._Launch(x, params, 99, conv_module.pad_lo_for("same", k),
                                1e-6, 0.1)
     mean, _, rstd = batch_stats(*call.stats(), b * t, 1e-5)
-    if stage == "bwd1":
+    if stage == "fwd":
+        names = ("y",)
+        runs = [(call.fwd(mean, rstd),) for _ in range(2)]
+    elif stage == "bwd1":
         names = ("pw2_w", "pw2_b", "r1", "r2")
         runs = [call.bwd1(g, mean, rstd) for _ in range(2)]
     else:
@@ -801,6 +828,26 @@ def test_conv_module_bf16_bwd2_is_deterministic(cuda_device, stage, b, t, d,
     torch.cuda.synchronize()
     for name, first, second in zip(names, *runs):
         assert torch.equal(first, second), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol,wtol", [(torch.float32, 1e-4, 5e-4),
+                                            (torch.bfloat16, 2e-2, 3e-2)])
+def test_conv_module_kernels_match_plain_at_odd_widths(cuda_device, dtype, tol,
+                                                       wtol):
+    """Odd d and E: the depthwise stencil stages its window one element at a
+    time (no 16-byte or pair loads), and the row tiles straddle sequences."""
+    b, t, d, e, k = 3, 29, 17, 21, 7
+    x, g, params = _conv_inputs(cuda_device, dtype, b, t, d, e, k)
+    (outs, grads), (want_outs, want_grads) = (
+        _conv_run(x, g, params, "same", 0.1, use_kernel)
+        for use_kernel in (True, False))
+    for name, got, want in zip(("y", "mean", "var"), outs, want_outs):
+        assert _rel(got, want) <= tol, name
+    for name, got, want in zip(("x",) + CONV_PARAMS, grads, want_grads):
+        if name != "dw_b":
+            assert _rel(got, want) <= (tol if name == "x" and dtype
+                                       == torch.bfloat16 else wtol), name
 
 
 @pytest.mark.cuda
