@@ -63,8 +63,8 @@
 // (E, k) tap gradient and the LayerNorm gradients (second pass) are
 // per-block partial sums that a last stage adds in a fixed order, once,
 // into the caller's zeroed buffers, so two calls give the same bits. Stage
-// kernels: stats 4 (cast, LayerNorm, pw1, depthwise with the per-channel
-// sums, atomic), fwd 5 (the same four, then pw2), bwd1 7 (cast, LayerNorm with g m and db2's
+// kernels: stats 5 (cast, LayerNorm, pw1, depthwise with the per-channel
+// sums' partials, reduce), fwd 5 (the same first four, then pw2), bwd1 7 (cast, LayerNorm with g m and db2's
 // partials, pw1, depthwise, ds with r1 / r2's partials, dW2, reduce), bwd2 9
 // (cast, LayerNorm with g m, pw1, depthwise, ds with dc, depthwise backward
 // with the GLU backward, dW1 and dh in one launch, LayerNorm backward,
@@ -74,12 +74,16 @@
 // of latency on a few MB, not the products (1-2 us of tensor-core work a
 // pass); `chip_smoke.py` phase 14 prints every pass's device time by stage.
 //
+// The batch statistics s1, s2 of the stats pass have a fixed order in both
+// types: the depthwise stencil writes one partial sum per row tile and
+// channel, and the reduce stage adds them once, as the backward passes' sums.
+//
 // fp32 inputs (the verification path) keep the first design: every product
 // as fp32 FMAs through `gemm_tile` (tile.cuh) with operand functors, so
 // LayerNorm, rounding and the dropout mask fuse into the operand loads, and
-// per-channel sums and weight gradients added with atomicAdd into zeroed
+// the backward's sums and weight gradients added with atomicAdd into zeroed
 // fp32 buffers, so their last bits vary from run to run; y and dx have one
-// owner per element. Stage kernels: stats 3, fwd 4, bwd1 5, bwd2 8.
+// owner per element. Stage kernels: stats 4, fwd 4, bwd1 5, bwd2 8.
 
 #include "hopper.cuh"
 #include "tile.cuh"
@@ -151,7 +155,8 @@ struct Scratch {
   float* part_db2;            // (rt_prep, E'): bwd1
   float *part_r1, *part_r2;   // (rt_tile, E) each: bwd1
   float* part_w2;             // (splits, E', E): bwd1
-  int ld_dab, lds, ldd, ld2e, ldeo, ldn, rt_dw, rt_ln, rt_prep, rt_tile, splits;
+  float *part_s1, *part_s2;   // (rt_dws, E) each: stats, both types
+  int ld_dab, lds, ldd, ld2e, ldeo, ldn, rt_dw, rt_dws, rt_ln, rt_prep, rt_tile, splits;
 };
 
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
@@ -335,13 +340,14 @@ __device__ __forceinline__ void stage_window(float (*win)[DW_CH], const T* __res
 // first, read from device memory once; the taps in registers; a thread owns
 // one channel and DWS_RPT consecutive rows, each of whose taps reads only
 // rows of its own sequence. c = round(round(sum_j z[t + j - pad_lo] w[j]) +
-// round(b_dw)), the taps in ascending j into an fp32 sum. STATS adds the
-// per-channel sums of c and c^2 (atomics); FWD stores swish(cn); BWD1 stores
-// c and swish(cn); BWD2 stores c.
+// round(b_dw)), the taps in ascending j into an fp32 sum. STATS writes the
+// block's per-channel sums of c and c^2 (its row tile's partials, which the
+// reduce stage adds in a fixed order); FWD stores swish(cn); BWD1 stores c
+// and swish(cn); BWD2 stores c.
 template <typename T, int STAGE>
 __global__ void __launch_bounds__(THREADS)
 conv_depthwise_kernel(Params p, Scratch<T> sc, Shape sh, const float* __restrict__ mean,
-               const float* __restrict__ rstd, float* __restrict__ s1, float* __restrict__ s2) {
+                      const float* __restrict__ rstd) {
   constexpr int WIN = DWS_ROWS + KMAX - 1;
   __shared__ __align__(16) float zs[WIN][DW_CH];  // zs[wr] = z[row0 - pad_lo + wr]
   __shared__ float red[2][DW_LANES][DW_CH];
@@ -402,8 +408,8 @@ conv_depthwise_kernel(Params p, Scratch<T> sc, Shape sh, const float* __restrict
         a += red[0][l][cl];
         b += red[1][l][cl];
       }
-      atomicAdd(s1 + ch, a);
-      atomicAdd(s2 + ch, b);
+      sc.part_s1[(size_t)blockIdx.x * e + ch] = a;
+      sc.part_s2[(size_t)blockIdx.x * e + ch] = b;
     }
   }
 }
@@ -1185,12 +1191,13 @@ struct Reduce {
   int w_len, splits;
 };
 
-// bf16: the partial sums of a backward pass added in a fixed order and then,
-// once, into the caller's zeroed buffers: one warp per element of the
-// `sum` entries over the row blocks (lanes striding, then a fixed shuffle
-// tree; blockIdx.x < sum_blocks), then one thread per element of the weight
-// gradient over the row splits. Bwd1: db2, r1, r2 and dW2; bwd2: db1, the
-// tap gradient, dln_b, dln_w and dW1.
+// The partial sums of a pass added in a fixed order and then, once, into
+// the caller's zeroed buffers: one warp per element of the `sum` entries
+// over the row blocks (lanes striding, then a fixed shuffle tree;
+// blockIdx.x < sum_blocks), then one thread per element of the weight
+// gradient over the row splits. Stats (both types): s1 and s2; bf16 bwd1:
+// db2, r1, r2 and dW2; bf16 bwd2: db1, the tap gradient, dln_b, dln_w and
+// dW1.
 __global__ void __launch_bounds__(256)
 conv_reduce_kernel(Reduce rd, int sum_blocks) {
   if ((int)blockIdx.x < sum_blocks) {
@@ -1254,6 +1261,7 @@ size_t carve(char* base, const Shape& sh, int stage, Scratch<T>* sc) {
   sc->ldn = round8(sh.n);
   sc->ld_dab = BF16 ? sc->ld2e : 2 * sh.e;
   sc->rt_dw = cdiv(sh.n, DWB_ROWS);
+  sc->rt_dws = cdiv(sh.n, DWS_ROWS);
   sc->rt_ln = cdiv(sh.n, LNB_ROWS);
   sc->rt_prep = cdiv(sh.n, PREP_ROWS);
   sc->rt_tile = cdiv(sh.n, 64);
@@ -1280,6 +1288,10 @@ size_t carve(char* base, const Shape& sh, int stage, Scratch<T>* sc) {
   }
   if (stage == BWD1 || stage == BWD2) sc->c = tt(ne);
   if (stage == FWD || stage == BWD1) sc->s = tt(n * sc->lds);
+  if (stage == STATS) {
+    sc->part_s1 = tf((size_t)sc->rt_dws * e);
+    sc->part_s2 = tf((size_t)sc->rt_dws * e);
+  }
   if (BF16) {
     sc->w1b = tb(2 * e * sc->ldd);
     sc->h = tb(n * sc->ldd);
@@ -1373,18 +1385,19 @@ template <typename T>
 cudaError_t run_stats(const T* x, const Params& p, float* s1, float* s2, const Scratch<T>& sc,
                       const Shape& sh, float eps, cudaStream_t st) {
   AVEC_CHECK(pre_bn<T>(x, nullptr, p, sc, sh, eps, Drop{}, st));
-  conv_depthwise_kernel<T, STATS><<<dws_grid(sh), THREADS, 0, st>>>(p, sc, sh, nullptr, nullptr,
-                                                                    s1, s2);
+  conv_depthwise_kernel<T, STATS><<<dws_grid(sh), THREADS, 0, st>>>(p, sc, sh, nullptr, nullptr);
   LAUNCH_CHECK();
-  return cudaSuccess;
+  Reduce rd{};
+  rd.sum[0] = {sc.part_s1, s1, sh.e, sc.rt_dws};
+  rd.sum[1] = {sc.part_s2, s2, sh.e, sc.rt_dws};
+  return launch_reduce(rd, st);
 }
 
 template <typename T>
 cudaError_t run_fwd(const T* x, const Params& p, const float* mean, const float* rstd, T* y,
                     const Scratch<T>& sc, const Shape& sh, float eps, Drop dr, cudaStream_t st) {
   AVEC_CHECK(pre_bn<T>(x, nullptr, p, sc, sh, eps, dr, st));
-  conv_depthwise_kernel<T, FWD><<<dws_grid(sh), THREADS, 0, st>>>(p, sc, sh, mean, rstd,
-                                                                  nullptr, nullptr);
+  conv_depthwise_kernel<T, FWD><<<dws_grid(sh), THREADS, 0, st>>>(p, sc, sh, mean, rstd);
   LAUNCH_CHECK();
   if constexpr (std::is_same<T, float>::value) {
     conv_pw2_kernel<T><<<dim3(cdiv(sh.n, BT), cdiv(sh.eo, BT)), THREADS, 0, st>>>(p, sc, sh,
@@ -1409,8 +1422,7 @@ cudaError_t run_bwd1(const T* x, const T* g, const Params& p, const float* mean,
                      const float* rstd, float* dw2, float* db2, float* r1, float* r2,
                      const Scratch<T>& sc, const Shape& sh, float eps, Drop dr, cudaStream_t st) {
   AVEC_CHECK(pre_bn<T>(x, g, p, sc, sh, eps, dr, st));
-  conv_depthwise_kernel<T, BWD1><<<dws_grid(sh), THREADS, 0, st>>>(p, sc, sh, mean, rstd,
-                                                                   nullptr, nullptr);
+  conv_depthwise_kernel<T, BWD1><<<dws_grid(sh), THREADS, 0, st>>>(p, sc, sh, mean, rstd);
   LAUNCH_CHECK();
   if constexpr (std::is_same<T, float>::value) {
     const dim3 w2_grid(cdiv(sh.eo, BT), cdiv(sh.e, BT), cdiv(sh.n, SPLIT_ROWS));
@@ -1461,8 +1473,7 @@ cudaError_t run_bwd2(const T* x, const T* g, const Params& p, const float* mean,
                      const Grads& gr, const Scratch<T>& sc, const Shape& sh, float eps, Drop dr,
                      cudaStream_t st) {
   AVEC_CHECK(pre_bn<T>(x, g, p, sc, sh, eps, dr, st));
-  conv_depthwise_kernel<T, BWD2><<<dws_grid(sh), THREADS, 0, st>>>(p, sc, sh, mean, rstd,
-                                                                   nullptr, nullptr);
+  conv_depthwise_kernel<T, BWD2><<<dws_grid(sh), THREADS, 0, st>>>(p, sc, sh, mean, rstd);
   LAUNCH_CHECK();
   if constexpr (std::is_same<T, float>::value) {
     conv_grad_bn_kernel<T, BWD2><<<dim3(cdiv(sh.n, BT), cdiv(sh.e, BT)), THREADS, 0, st>>>(
@@ -1582,7 +1593,8 @@ extern "C" long long avec_conv_scratch_bytes(int b, int t, int d, int e, int eo,
   (void)dr;                                                                  \
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 
-// K3-stats: s1, s2 (E,) += per-channel sums of c and c^2 over all B T rows.
+// K3-stats: s1, s2 (E,) += per-channel sums of c and c^2 over all B T rows,
+// in a fixed order in both types (no atomics): two calls add the same bits.
 extern "C" int avec_conv_stats(const void* x, const void* const* params, void* s1, void* s2,
                                void* scratch, CONV_TAIL) {
   CONV_SETUP

@@ -28,7 +28,8 @@
 //   1 prep  bf16 copies of q', k' (rows padded to lda = d_a rounded up to 8)
 //           and of v, dO (ldv), pad columns zero: rows of 642 / 902 / 180
 //           bytes are no multiple of 16, which TMA's strides need; rows past
-//           the length are zeros, not read;
+//           the length are zeros, not read (`flash_common.cuh`, shared with
+//           the forward);
 //   2 dq    one warpgroup per (b*h, 64-query tile, 192 columns of d_a);
 //   3 dk/dV one warpgroup per (b*h, 64-key tile, 192 columns of d_a), and
 //           per (b*h, 64-key tile) one more for dV.
@@ -65,14 +66,15 @@
 // with masked loads, p and dS through shared memory, the gradient tiles in
 // registers, 4 x 4 per thread for each 64-column block of d_a (and of d_v).
 
+#include "flash_common.cuh"
 #include "hopper.cuh"
 #include "tile.cuh"
 
 namespace {
 
 using namespace avec;
+using namespace avec::flash;
 
-constexpr int BT = 64;         // queries / keys per tile
 // `which` of the C entry: dq, dk and dV (both: the backward)
 constexpr int BWD_DQ = 1, BWD_DKV = 2;
 constexpr int THREADS = 256;   // FMA path: 16 x 16 threads, 4 x 4 register tile each
@@ -82,14 +84,6 @@ struct Args {
   int heads, t, da, dv;
   float scale;
 };
-
-__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
-__host__ __device__ constexpr int round8(int v) { return (v + 7) / 8 * 8; }
-
-__device__ __forceinline__ int clamp_len(const int* lengths, int b, int t) {
-  const int v = lengths[b];
-  return v < 0 ? 0 : (v > t ? t : v);
-}
 
 // ---- fp32: FMA kernels
 
@@ -326,56 +320,6 @@ constexpr int OUT_LD = GT * 64 + 8;             // row stride of the staged outp
 #endif
 constexpr int PARTS = AVEC_FLASH_BWD_PARTS;     // bf16 parts of p and dS
 static_assert(PARTS == 3 || PARTS == 1, "p and dS enter as 3 parts, or 1 (the control)");
-
-// The bf16 copies in scratch: q', k' (bh * t, lda), v, dO (bh * t, ldv).
-struct Copies {
-  bf16 *q, *k, *v, *dout;
-  int lda, ldv;
-};
-
-size_t carve(char* base, int rows, int da, int dv, Copies* c) {
-  c->lda = round8(da);
-  c->ldv = round8(dv);
-  size_t at = 0;
-  auto take = [&](size_t bytes) {
-    bf16* p = base == nullptr ? nullptr : reinterpret_cast<bf16*>(base + at);
-    at += (bytes + 1023) / 1024 * 1024;
-    return p;
-  };
-  c->q = take((size_t)rows * c->lda * 2);
-  c->k = take((size_t)rows * c->lda * 2);
-  c->v = take((size_t)rows * c->ldv * 2);
-  c->dout = take((size_t)rows * c->ldv * 2);
-  return at;
-}
-
-// Stage 1: blockIdx.y picks q', k', v or dO; one thread per 8 columns of a
-// row of the copy, written as one 16-byte store, zero past the width. Rows
-// at or past their sequence's length (about half of them at T = 151) are
-// written as zeros without being read: the kernels mask them, and a tile
-// that reaches them needs them finite.
-__global__ void __launch_bounds__(256)
-flash_bwd_prep_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                      const int* __restrict__ lengths, Copies c, int rows, int t, int heads,
-                      int da, int dv) {
-  const int which = blockIdx.y;
-  const bf16* src = which == 0 ? q : which == 1 ? k : which == 2 ? v : dout;
-  bf16* dst = which == 0 ? c.q : which == 1 ? c.k : which == 2 ? c.v : c.dout;
-  const int cols = which < 2 ? da : dv, ld = which < 2 ? c.lda : c.ldv, chunks = ld / 8;
-  const long long total = (long long)rows * chunks;
-  for (long long i = (long long)blockIdx.x * 256 + threadIdx.x; i < total;
-       i += (long long)gridDim.x * 256) {
-    const int r = (int)(i / chunks), c8 = (int)(i - (long long)r * chunks) * 8;
-    const bool live = r % t < clamp_len(lengths, r / t / heads, t);
-    const bf16* s = src + (size_t)r * cols + c8;
-    __align__(16) bf16 vals[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-      vals[e] = live && c8 + e < cols ? s[e] : __float2bfloat16(0.f);
-    *reinterpret_cast<uint4*>(dst + (size_t)r * ld + c8) = *reinterpret_cast<const uint4*>(vals);
-  }
-}
 
 struct Maps {
   CUtensorMap q, k, v, dout;  // the copies as (bh * t, width) boxes of 64 x 64
@@ -631,19 +575,15 @@ cudaError_t launch_bf16(const Args& a, void* dq, void* dk, void* dv_out, void* s
                         int which, cudaStream_t st) {
   const int rows = bh * a.t;
   Copies c;
-  carve(static_cast<char*>(scratch), rows, a.da, a.dv, &c);
+  carve(static_cast<char*>(scratch), rows, a.da, a.dv, true, &c);
   Maps maps;
   if (!hopper::tensor_map_2d(&maps.q, c.q, rows, a.da, c.lda, BT) ||
       !hopper::tensor_map_2d(&maps.k, c.k, rows, a.da, c.lda, BT) ||
       !hopper::tensor_map_2d(&maps.v, c.v, rows, a.dv, c.ldv, BT) ||
       !hopper::tensor_map_2d(&maps.dout, c.dout, rows, a.dv, c.ldv, BT))
     return cudaErrorInvalidValue;
-  const int prep_blocks = cdiv(cdiv(rows * (c.lda / 8), 256), 4);
-  flash_bwd_prep_kernel<<<dim3(prep_blocks, 4), 256, 0, st>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
-      static_cast<const int*>(a.lengths), c, rows, a.t, a.heads, a.da, a.dv);
-  cudaError_t rc = cudaGetLastError();
+  cudaError_t rc = launch_prep<false>(a.q, a.k, a.v, a.dout, a.lengths, c, rows, a.t, a.heads,
+                                      a.da, a.dv, st);
   if (rc == cudaSuccess && (which & BWD_DQ))
     rc = launch_main<false>(maps, a, dq, nullptr, bh, st);
   if (rc == cudaSuccess && (which & BWD_DKV))
@@ -658,7 +598,7 @@ extern "C" long long avec_flash_attention_bwd_scratch_bytes(int bh, int t, int d
                                                             int is_bf16) {
   if (!is_bf16 || bh <= 0 || t <= 0 || da <= 0 || dv <= 0) return 0;
   Copies c;
-  return (long long)carve(nullptr, bh * t, da, dv, &c);
+  return (long long)carve(nullptr, bh * t, da, dv, true, &c);
 }
 
 // q, k, dq, dk: (bh, t, da); v, dout, dv_out: (bh, t, dv), of one dtype (fp32

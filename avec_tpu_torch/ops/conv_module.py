@@ -22,10 +22,10 @@ on each rank's shard, the (E,)-sized sums all-reduced between them.
 
 `fused_conv_module_3d` runs each pass as the hand-written CUDA kernel of
 `csrc/conv_module.cu` for CUDA tensors and as its plain version
-(`conv_*_reference`) for CPU tensors. In bf16 the second backward pass sums
-every gradient in a fixed order (no atomics), so from the same inputs it
-gives the same bits; the other passes' per-channel sums and weight
-gradients, and every sum of the fp32 kernels, are added with atomics. The backward is the JAX custom VJP
+(`conv_*_reference`) for CPU tensors. The stats pass sums s1 and s2 in a
+fixed order in both types, and in bf16 both backward passes sum every
+gradient so too (no atomics): from the same inputs they give the same bits.
+The fp32 backward's sums are added with atomics. The backward is the JAX custom VJP
 written out, not autograd of the forward: it ignores the cotangents of the
 batch mean and variance, returns a zero depthwise-bias gradient (train-mode
 BN subtracts the batch mean) and the BN gradients as sums (d bn_w = r2,

@@ -7,9 +7,11 @@ plain scores q' k'^T over augmented features
     k' = [k, cos_t, sin_t, 1]   (T, d + D + 1)
 
 so one online-softmax kernel computes the layer without a (T, T) tensor in
-device memory. `flash_attention_fwd` launches the hand-written CUDA kernel
-(`csrc/flash_attention.cu`) for CUDA tensors and computes the plain version
-for CPU tensors; `flash_attention_reference` is that plain version.
+device memory. `flash_attention_fwd` launches the hand-written CUDA kernels
+(`csrc/flash_attention.cu`: for bf16 a prep stage writing aligned copies
+into a scratch buffer, then the online softmax on the tensor cores) for CUDA
+tensors and computes the plain version for CPU tensors;
+`flash_attention_reference` is that plain version.
 
 `flash_attention` is differentiable: its backward launches the kernels of
 `csrc/flash_attention_bwd.cu` (`flash_attention_bwd`: for bf16 a prep stage
@@ -38,8 +40,10 @@ KERNEL_DKV = "flash_attention_bwd_dkv"
 # its aligned copies first in every call)
 BWD_DQ, BWD_DKV = 1, 2
 BWD_ALL = BWD_DQ | BWD_DKV
-# the define of the control build whose bf16 kernels round p and dS to bf16
-# (`_cuda.control_library`), to measure what their three bf16 parts buy
+# the defines of the control builds whose bf16 kernels round p (the forward)
+# and p and dS (the backward) to bf16 (`_cuda.control_library`), to measure
+# what their three bf16 parts buy
+ROUNDED_P = "AVEC_FLASH_FWD_PARTS=1"
 ROUNDED_OPERANDS = "AVEC_FLASH_BWD_PARTS=1"
 
 
@@ -61,15 +65,29 @@ def flash_attention_reference(q_aug, k_aug, v, lengths=None, scale=1.0
     return out, lse
 
 
-def _lib():
-    lib = _cuda.library("flash_attention")
+def _lib(lib=None):
+    """The forward's C entry and its scratch size of `lib` (the kernel
+    library by default; a control build for measurements)."""
+    lib = lib or _cuda.library("flash_attention")
     fn = lib.avec_flash_attention_fwd
+    size = lib.avec_flash_attention_fwd_scratch_bytes
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
-                       ctypes.c_float, ci, vp]
+        fn.argtypes = [vp] * 7 + [ci] * 5 + [ctypes.c_float, ci, vp]
         fn.restype = ci
-    return fn
+        size.argtypes = [ci] * 5
+        size.restype = ctypes.c_longlong
+    return fn, size
+
+
+def fwd_scratch(q_aug: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The forward kernels' scratch for (B, H, T, d_a) `q_aug` and
+    (B, H, T, d_v) `v`: a byte buffer on their device (empty for fp32, whose
+    kernel needs none)."""
+    b, h, t, da = q_aug.shape
+    size = _lib()[1](b * h, t, da, v.shape[-1],
+                     int(q_aug.dtype == torch.bfloat16))
+    return torch.empty(size, dtype=torch.uint8, device=q_aug.device)
 
 
 def flash_attention_fwd(q_aug, k_aug, v, lengths=None, scale=1.0
@@ -93,6 +111,8 @@ def flash_attention_fwd(q_aug, k_aug, v, lengths=None, scale=1.0
     req(q_aug.is_contiguous() and k_aug.is_contiguous() and v.is_contiguous(),
         "q', k', v must be contiguous")
     req(0 < dv <= 96, f"d_v={dv} above the kernel's 96")
+    bf16 = q_aug.dtype == torch.bfloat16
+    req(da <= 512 or not bf16, f"d_a={da} above the bf16 kernel's 512")
     if lengths is None:
         lengths = torch.full((b,), t, dtype=torch.int32, device=q_aug.device)
     req(lengths.shape == (b,) and lengths.dtype == torch.int32
@@ -100,10 +120,11 @@ def flash_attention_fwd(q_aug, k_aug, v, lengths=None, scale=1.0
         "lengths must be a contiguous (B,) int32 tensor on the same device")
     out = torch.empty((b, h, t, dv), dtype=v.dtype, device=v.device)
     lse = torch.empty((b * h, t), dtype=torch.float32, device=v.device)
-    rc = _lib()(q_aug.data_ptr(), k_aug.data_ptr(), v.data_ptr(),
-                lengths.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                b * h, h, t, da, dv, float(scale),
-                int(q_aug.dtype == torch.bfloat16), _cuda.stream_ptr(q_aug))
+    scratch = fwd_scratch(q_aug, v)
+    rc = _lib()[0](q_aug.data_ptr(), k_aug.data_ptr(), v.data_ptr(),
+                   lengths.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                   scratch.data_ptr(), b * h, h, t, da, dv, float(scale),
+                   int(bf16), _cuda.stream_ptr(q_aug))
     _cuda.check(rc, KERNEL)
     _cuda.launches[KERNEL] += 1
     return out, lse

@@ -13,7 +13,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
     print each kernel's registers and spill bytes as ptxas reports them;
  2. each kernel against its plain PyTorch version at the serving shapes, in
     fp32 (max abs <= 1e-4) and bf16 (flash <= 2e-2, stem exact), the stem
-    also on odd frames (45x43x64, 3x5x8);
+    also on odd frames (45x43x64, 3x5x8); the bf16 flash forward's out and
+    lse bit-identical over two calls and its out within a relative L1 error
+    of 1e-4 (p enters P V as three bf16 parts), printed beside the same call
+    with p rounded to bf16 (a control build);
  3. serving at full width: the reference-depth AV model (61.7M params,
     vocab 256, use_flash, stem "pallas", seeded random weights and BN
     statistics) answers 8 seeded requests of 2-6 s in rounds; the flash
@@ -22,13 +25,19 @@ Phases, in order; any failure raises and the exit code is non-zero:
     within 2e-3 and identical greedy token ids;
  4. kernel timings (CUDA events) beside their bounds (the stem's as a
     multiple of it), the plain versions and a PyTorch library call where
-    one computes the same function;
+    one computes the same function (for the flash forward SDPA on the same
+    inputs and on their copies zero-padded to widths of a multiple of 8,
+    each with its device time, the backend its kernel names show and its
+    error against the plain version, the faster form with a finite output
+    the yardstick), the flash forward's device time by kernel (prep, main);
  5. the training kernels against their plain versions at the training
     shapes: fused FFN forward and backward for (d, F) = (180, 720),
     (256, 1024), (360, 1440) at N = 16 x T rows, fp32 and bf16, dropout off
     and 0.1 with a fixed seed (the hash masks must agree exactly); flash
     backward at (T, D) = (151, 256) and (76, 360) with ragged lengths down to
-    1 and one 0. Every error is the max abs difference over the largest entry
+    1 and one 0, the flash forward at those inputs too (max abs, fp32 1e-4,
+    bf16 2e-2, with phase 2's bf16 checks). Every other error is the max abs
+    difference over the largest entry
     of the plain result: fp32 1e-4 (y, dx, dq', dk', dv) and 3e-4 (FFN
     parameter gradients, atomic sums over thousands of rows); bf16 2e-2 and
     3e-2; the bf16 FFN forward and flash backward bit-identical over two
@@ -86,7 +95,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
     and "causal", dropout 0 and 0.1 (exactly the hash mask's entries dropped
     on both sides): y, mean, var, dx and the ten parameter gradients, max abs
     over the largest entry; fp32 1e-4 (y, mean, var) and 5e-4 (gradients),
-    bf16 2e-2 and 3e-2; the depthwise-bias gradient exactly zero; in bf16,
+    bf16 2e-2 and 3e-2; the depthwise-bias gradient exactly zero; K3-stats's
+    s1 and s2 bit-identical over two calls, fp32 and bf16; in bf16,
     K3-fwd's y, K3b-1's dW2, db2, r1, r2 and K3b-2's dx and five gradients
     bit-identical over two calls on the same inputs;
 13. training at full width through all the training kernels: fused
@@ -99,9 +109,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
 14. K3 / K3b times per launch and per step beside their device times,
     bounds, the plain stages and the port's own unfused convolution module
     (PyTorch library calls), each pass's device time by kernel (K3-stats's
-    four, K3-fwd's five, K3b-1's seven and K3b-2's nine stages; in bf16
-    K3-fwd must run its `wgmma` pw2 and no `conv_pw2_kernel`, K3b-1 no FMA
-    product stage) and
+    five, K3-fwd's five, K3b-1's seven and K3b-2's nine stages; in bf16
+    K3-stats must sum its partials in `conv_reduce_kernel`, K3-fwd must run
+    its `wgmma` pw2 and no `conv_pw2_kernel`, K3b-1 no FMA product stage)
+    and
     the host's time to issue each pass, and step time,
     utterances/s and peak memory of phase 13's path
     and phase 10's path (they differ by `fused_conv` alone), interleaved;
@@ -136,8 +147,10 @@ sixteen kernels; the last line is {"ok": true, "device": {...}}. Every time
 there ("ms", "plain_ms", "library_ms") is one of direct calls between CUDA
 events (`cuda_time_ms`), the host's cost of each call included; "device_ms"
 is the same call's device time from torch.profiler (`device_time_ms`), the
-time of every kernel it runs; K4b's two entries add "library_device_ms",
-SDPA's backward on the device. Details go to chiprun_out/chip_smoke.json.
+time of every kernel it runs; K4's entry adds "library_device_ms" and
+"library_backend" (SDPA's forward on the device and its backend), K4b's two
+entries "library_device_ms", SDPA's backward on the device. Details go to
+chiprun_out/chip_smoke.json.
 """
 
 import json
@@ -477,6 +490,9 @@ def main() -> int:
             log(f"flash_attention_fwd {key}: max abs {err:.3e} (tol {tol})")
             if not err <= tol:
                 raise AssertionError(f"flash kernel disagrees: {key} {err}")
+            if dtype == torch.bfloat16:
+                detail[f"flash_fwd_operands_T{t}"] = flash_fwd_bf16_checks(
+                    key, q, k, v, lens, scale, out, lse, want)
     n_frames = 8 * (_bucket(96000) // 640 + 1)     # 8 x 201 video frames
     gen = torch.Generator().manual_seed(5)
     a5 = (torch.rand(64, generator=gen) + 0.5).to(dev)
@@ -580,32 +596,72 @@ def main() -> int:
     alens = inputs[3]
     len1, len2 = stage_lengths(alens)
     flash = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-             "bytes": 0, "ops": 0.0}
+             "library_device_ms": 0.0, "bytes": 0, "ops": 0.0}
+    flash_backends = set()
     for t, d_model, lens, count in ((201, 256, len1, 6), (101, 360, len2, 1)):
         q, k, v, lt, scale = flash_inputs(8, t, d_model, lens,
                                           torch.bfloat16, seed=7)
         keymask = (torch.arange(t, device=dev)[None, :]
                    < lt[:, None])[:, None, None, :]
         ms = cuda_time_ms(lambda: flash_attention_fwd(q, k, v, lt, scale))
-        dev_ms = device_time_ms(lambda: flash_attention_fwd(q, k, v, lt,
-                                                            scale))[0]
+        dev_ms, stages = device_time_ms(lambda: flash_attention_fwd(
+            q, k, v, lt, scale))
+        h_ms = host_ms(lambda: flash_attention_fwd(q, k, v, lt, scale))
+        want = flash_attention_reference(q, k, v, lt, scale)[0]
         plain = cuda_time_ms(lambda: flash_attention_reference(q, k, v, lt,
                                                                scale))
-        lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=keymask, scale=scale))
+        # the library yardstick: SDPA on the same inputs, and on their
+        # copies zero-padded to widths of a multiple of 8 (round8(d_a) =
+        # 328 / 456, round8(d_v) = 64 / 96: the same function, which a
+        # backend other than the math path may take); the faster of the
+        # two forms whose output is finite, its error against the plain
+        # version printed beside it
+        pad8 = lambda a: F.pad(a, (0, -a.shape[-1] % 8)).contiguous()
+        forms = {"sdpa": (q, k, v), "sdpa_padded": (pad8(q), pad8(k),
+                                                    pad8(v))}
+        libs = {}
+        for form, (qf, kf, vf) in forms.items():
+            def sdpa(qf=qf, kf=kf, vf=vf):
+                return F.scaled_dot_product_attention(
+                    qf, kf, vf, attn_mask=keymask, scale=scale)
+
+            l_out = sdpa()[..., :v.shape[-1]]
+            l_err = (max_abs(l_out, want)
+                     if bool(torch.isfinite(l_out).all()) else math.inf)
+            l_dev, l_kernels = device_time_ms(sdpa)
+            libs[form] = {"ms": cuda_time_ms(sdpa), "device_ms": l_dev,
+                          "backend": sdpa_backend(l_kernels),
+                          "max_abs_vs_plain": l_err,
+                          "kernels_ms": l_kernels}
+        finite = [f for f in libs if math.isfinite(libs[f]["max_abs_vs_plain"])]
+        best = min(finite or libs, key=lambda f: libs[f]["ms"])
+        lib, lib_dev = libs[best]["ms"], libs[best]["device_ms"]
+        flash_backends.add(f"{best}: {libs[best]['backend']}")
         nbytes, ops = flash_cost(8, 4, t, q.shape[-1], v.shape[-1], lens, 2)
         detail[f"flash_T{t}"] = {"ms": ms, "device_ms": dev_ms,
-                                 "plain_ms": plain,
-                                 "library_ms": lib, "bytes": nbytes,
-                                 "ops": ops, "lengths": [int(x) for x in lens],
+                                 "host_ms": h_ms, "kernels_ms": stages,
+                                 "plain_ms": plain, "library_ms": lib,
+                                 "library_device_ms": lib_dev,
+                                 "library_form": best, "library": libs,
+                                 "bytes": nbytes, "ops": ops,
+                                 "lengths": [int(x) for x in lens],
                                  "bound_ms": bound(nbytes, ops, "bf16")[0]}
         log(f"flash T={t} D={d_model}: {ms:.4f} ms/launch (device "
-            f"{dev_ms:.4f}), plain {plain:.4f}, "
-            f"sdpa {lib:.4f}, bound {bound(nbytes, ops, 'bf16')[0]:.5f}")
+            f"{dev_ms:.4f}; host issue {h_ms:.4f}), plain {plain:.4f}, "
+            f"bound {bound(nbytes, ops, 'bf16')[0]:.5f}; "
+            + "; ".join(f"{f} {r['ms']:.4f} (device {r['device_ms']:.4f}, "
+                        f"backend: {r['backend']}, max abs vs plain "
+                        f"{r['max_abs_vs_plain']:.2e})"
+                        for f, r in libs.items())
+            + f"; yardstick {best}")
+        log(f"flash T={t} device time of each kernel in one launch "
+            f"(torch.profiler): "
+            + ", ".join(f"{nm} {v_ms:.4f} ms" for nm, v_ms in stages.items()))
         flash["ms"] += count * ms
         flash["device_ms"] += count * dev_ms
         flash["plain_ms"] += count * plain
         flash["library_ms"] += count * lib
+        flash["library_device_ms"] += count * lib_dev
         flash["bytes"] += count * nbytes
         flash["ops"] += count * ops
     f_bound, f_by = bound(flash["bytes"], flash["ops"], "bf16")
@@ -630,7 +686,9 @@ def main() -> int:
          "max_abs_err": max(errs["flash_attention_fwd"].values()),
          "ms": flash["ms"], "device_ms": flash["device_ms"],
          "plain_ms": flash["plain_ms"], "bound_ms": f_bound, "bound_by": f_by,
-         "library_ms": flash["library_ms"]},
+         "library_ms": flash["library_ms"],
+         "library_device_ms": flash["library_device_ms"],
+         "library_backend": "; ".join(sorted(flash_backends))},
         {"name": "bn_relu_pool", "route": "cuda",
          "source": "avec_tpu_torch/csrc/stem.cu",
          "replaces": "avec_tpu/ops/pallas_stem.py:149",
@@ -647,6 +705,8 @@ def main() -> int:
     # ---- 5-7. the training slice
     profile = "--profile" in sys.argv[1:]
     entries, trainer, batch = training_phases(detail, profile)
+    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"],
+                                    *detail["train_flash_fwd_errors"].values())
     kernels += entries
 
     # ---- 8-11. the fused attention module and the train-mode stem
@@ -947,7 +1007,7 @@ def training_phases(detail, profile: bool):
     from avec_tpu_torch.ops.flash_attention import (
         BWD_ALL, BWD_DQ, KERNEL_DKV, KERNEL_DQ, ROUNDED_OPERANDS,
         flash_attention_bwd, flash_attention_bwd_reference,
-        flash_attention_fwd)
+        flash_attention_fwd, flash_attention_reference)
     from avec_tpu_torch.ops.layers import init_params
     from avec_tpu_torch.train.losses import CTCLoss
     from avec_tpu_torch.train.model import Trainer
@@ -1000,6 +1060,7 @@ def training_phases(detail, profile: bool):
                     raise AssertionError(f"bf16 K1 reruns differ: N{n} d{d}")
             del x, g, params
     bwd_lengths = RAGGED_TRAIN_LENGTHS
+    fwd_errs = {}
     for t, d_model in ((151, 256), (76, 360)):
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
             q, k, v, lens, scale = flash_inputs(16, t, d_model,
@@ -1007,13 +1068,24 @@ def training_phases(detail, profile: bool):
             gen = torch.Generator().manual_seed(t + 1)
             dout = torch.randn(v.shape, generator=gen).to(dev, dtype)
             out, lse = flash_attention_fwd(q, k, v, lens, scale)
+            want_out, want_lse = flash_attention_reference(q, k, v, lens,
+                                                           scale)
+            key = f"T{t}_D{d_model}_{str(dtype)[6:]}"
+            e_fwd = max(max_abs(out, want_out), max_abs(lse, want_lse))
+            fwd_errs[key] = e_fwd
+            log(f"flash_attention_fwd {key}, B=16: max abs {e_fwd:.3e} "
+                f"(tol {tol})")
+            if not e_fwd <= tol:
+                raise AssertionError(f"flash kernel disagrees: {key} {e_fwd}")
+            if dtype == torch.bfloat16:
+                flash_fwd_bf16_checks(key, q, k, v, lens, scale, out, lse,
+                                      want_out)
             delta = (dout.float() * out.float()).sum(-1).reshape(lse.shape)
             got = flash_attention_bwd(q, k, v, dout, lse, delta, lens, scale)
             torch.cuda.synchronize()
             want = flash_attention_bwd_reference(q, k, v, dout, lse, delta,
                                                  lens, scale)
             e = [rel_err(a, b) for a, b in zip(got, want)]
-            key = f"T{t}_D{d_model}_{str(dtype)[6:]}"
             errs[KERNEL_DQ][key] = e[0]
             errs[KERNEL_DKV][key] = max(e[1], e[2])
             if dtype == torch.float32:
@@ -1060,6 +1132,7 @@ def training_phases(detail, profile: bool):
                     raise AssertionError(f"K4b's fp32 operands lost "
                                          f"precision: {key} {l1}")
     detail["train_kernel_errors"] = errs
+    detail["train_flash_fwd_errors"] = fwd_errs
 
     # ---- 6. training at full width
     trainer = Trainer(device="cuda", precision="bfloat16", seed=0,
@@ -1194,8 +1267,9 @@ def training_phases(detail, profile: bool):
         t_entry = cuda_time_ms(lambda: launch(BWD_ALL))
         d_prep = sum(ms for nm, ms in stages.items() if "prep" in nm)
         d_dq = d_prep + sum(ms for nm, ms in stages.items()
-                            if "<false" in nm)
-        d_dkv = sum(ms for nm, ms in stages.items() if "<true" in nm)
+                            if nm.startswith("flash_bwd_wgmma_kernel<false"))
+        d_dkv = sum(ms for nm, ms in stages.items()
+                    if nm.startswith("flash_bwd_wgmma_kernel<true"))
 
         # the library yardstick: SDPA's backward alone, its forward (and
         # graph) made outside the timed call
@@ -1909,13 +1983,21 @@ def conv_phases(detail, profile: bool, trainer_att, batch):
                         and float(want[names.index("dw_b")].abs().max())
                         == 0.0):
                     raise AssertionError(f"conv kernels disagree: {key} {e}")
+            # K3-stats sums its per-block partials in a fixed order, in
+            # both types: two calls give the same s1 and s2
+            call = cm._Launch(x, params, 4321, cm.pad_lo_for("same", k),
+                              1e-6, 0.1)
+            sums = [call.stats() for _ in range(2)]
+            same_s = all(torch.equal(u, v) for u, v in zip(*sums))
+            log(f"fused_conv T{t}_d{d}_{str(dtype)[6:]}: K3-stats's s1, s2 "
+                f"bit-identical over two calls: {same_s}")
+            if not same_s:
+                raise AssertionError(f"K3-stats reruns differ: T{t} {dtype}")
             if dtype == torch.bfloat16:
                 # y has one owner per element and both backward passes sum
                 # without atomics: from the same inputs, K3-fwd's y, then
                 # K3b-1's four sums, then K3b-2's dx and its five gradients
-                call = cm._Launch(x, params, 4321, cm.pad_lo_for("same", k),
-                                  1e-6, 0.1)
-                mean, _, rstd = cm.batch_stats(*call.stats(), b * t, 1e-5)
+                mean, _, rstd = cm.batch_stats(*sums[0], b * t, 1e-5)
                 same0 = torch.equal(call.fwd(mean, rstd),
                                     call.fwd(mean, rstd))
                 log(f"fused_conv T{t}_d{d}_bfloat16_same_drop0.1: K3-fwd's "
@@ -2026,6 +2108,10 @@ def conv_phases(detail, profile: bool, trainer_att, batch):
                        "wgmma_products_kernel<1, 1, 1>"} <= set(bwd1_kernels):
             raise AssertionError(f"bf16 K3b-1 at T={t} did not run its "
                                  f"tensor-core stages: {sorted(bwd1_kernels)}")
+        if "conv_reduce_kernel" not in times[cm.KERNEL_STATS + "_kernels"]:
+            raise AssertionError(f"K3-stats at T={t} did not sum its partials "
+                                 f"in the reduce stage: "
+                                 f"{sorted(times[cm.KERNEL_STATS + '_kernels'])}")
         fwd_kernels = times[cm.KERNEL_FWD + "_kernels"]
         if (any(nm.split("<")[0] == "conv_pw2_kernel" for nm in fwd_kernels)
                 or "conv_pw2_wgmma_kernel" not in fwd_kernels):
@@ -2569,6 +2655,38 @@ def time_ffn_bwd_kernel(x, g, params, drop, seed, check: bool = False):
     return cuda_time_ms(launch), device_time_ms(launch)[0]
 
 
+def flash_fwd_bf16_checks(key, q, k, v, lens, scale, out, lse, want):
+    """The bf16 K4 call that gave (out, lse), against the plain output `want`:
+    a second call must give the same bits (one owner per output, no atomics),
+    and out's relative L1 error (sum |got - want| / sum |want|) must stay
+    within L1_TOL (p enters P V as three bf16 parts); beside it the same
+    call through the control build that rounds p to bf16. Outside any
+    count."""
+    from avec_tpu_torch.ops import _cuda
+    from avec_tpu_torch.ops import flash_attention as fa
+
+    again = fa.flash_attention_fwd(q, k, v, lens, scale)
+    same = torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    control = _cuda.control_library("flash_attention", fa.ROUNDED_P)
+    b, h, t, da = q.shape
+    out_r, lse_r = torch.empty_like(out), torch.empty_like(lse)
+    scratch = fa.fwd_scratch(q, v)
+    _cuda.check(fa._lib(control)[0](
+        *(a.data_ptr() for a in (q, k, v, lens, out_r, lse_r, scratch)),
+        b * h, h, t, da, v.shape[-1], float(scale), 1, _cuda.stream_ptr(q)),
+        "flash_attention_fwd")
+    torch.cuda.synchronize()
+    l1, l1_r = rel_l1(out, want), rel_l1(out_r, want)
+    log(f"flash_attention_fwd {key}: bit-identical over two calls: {same}; "
+        f"p as three bf16 parts: relative L1 error {l1:.2e} (tol {L1_TOL}); "
+        f"rounded to bf16: {l1_r:.2e}")
+    if not same:
+        raise AssertionError(f"bf16 K4 reruns differ: {key}")
+    if l1 > L1_TOL:
+        raise AssertionError(f"K4's fp32 p lost precision: {key} {l1}")
+    return {"bit_identical": same, "rel_l1": l1, "rel_l1_rounded": l1_r}
+
+
 def flash_bwd_launcher(q, k, v, dout, lse, delta, lengths, scale, lib=None):
     """K4b through the C entry of `lib` (the kernel library by default, or a
     control build) with the wrapper's own arguments, preallocated outputs
@@ -2632,8 +2750,10 @@ def _category(name: str) -> str:
            "att_fwd16_kernel", "kv16_kernel", "weights16_kernel",
            "ln_bwd16_kernel", "reduce16_kernel")
     for cat, keys in (("fused attention module kernels (K2 + K2b)", att),
-                      ("flash kernel (K4)", ("flash_fwd_kernel",)),
-                      ("flash backward kernels (K4b)", ("flash_bwd_",)),
+                      ("flash kernel (K4)",
+                       ("flash_fwd_", "flash_prep_kernel<true")),
+                      ("flash backward kernels (K4b)",
+                       ("flash_bwd_", "flash_prep_kernel<false")),
                       ("fused FFN forward kernel (K1)", ("ffn_fwd_",)),
                       ("fused FFN backward kernel (K1b)",
                        ("ffn_bwd_", "wgmma_products_kernel<3,")),

@@ -1,9 +1,13 @@
-"""Port attention vs the JAX package, fp32 on the CPU.
+"""Port attention vs the JAX package on the CPU.
 
 The flash kernel's (K4) plain version is held against the Pallas kernel in
-interpret mode, to 1e-4 as tests/test_pallas_attention.py uses; attention
-modules to 1e-4. The CUDA kernel itself is held against the plain version
-in tests/test_torch_kernels.py.
+interpret mode, to 1e-4 as tests/test_pallas_attention.py uses; at the
+route's own widths (d_a = 321 / 451, d_v = 64 / 90, (B, H) = (2, 2)) also
+with bf16 inputs, to 8e-3 of each output's largest entry as
+tests/test_torch_flash_bwd.py holds the backward (both sides compute in
+fp32 and round out to bf16 once). Attention modules to 1e-4, fp32. The CUDA
+kernel itself is held against the plain version in
+tests/test_torch_kernels.py.
 """
 
 import numpy as np
@@ -13,6 +17,8 @@ import torch
 
 from avec_tpu.ops import attention as ja
 from avec_tpu.ops.masks import padding_mask as jax_padding_mask
+from avec_tpu.ops.pallas_attention import _flash_forward as jax_flash_fwd
+from avec_tpu.ops.pallas_attention import _xla_attention_reference
 from avec_tpu.ops.pallas_attention import flash_attention as jax_flash
 from avec_tpu.ops.pallas_attention import rel_pos_flash_attention as jax_rel_flash
 from avec_tpu_torch.ops import attention as pa
@@ -23,6 +29,7 @@ from avec_tpu_torch.ops.masks import padding_mask
 from test_torch_support import init_variables, port_state, t
 
 TOL = 1e-4
+BF16_TOL = 8e-3
 torch.set_num_threads(1)
 
 
@@ -53,6 +60,62 @@ def test_plain_flash_matches_pallas_interpret():
     m = scores.max(-1, keepdims=True)
     want_lse = (m[..., 0] + np.log(np.exp(scores - m).sum(-1))).reshape(4, 40)
     _close(lse, want_lse)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("tt,da,dv,lengths", [
+    (201, 321, 64, [201, 1]),     # audio stage 1 of the served 8 s bucket
+    (101, 451, 90, [101, 37]),    # audio stage 2
+])
+def test_plain_flash_matches_pallas_at_route_widths(tt, da, dv, lengths,
+                                                    dtype):
+    """The plain K4 against the JAX Pallas forward (interpret mode, its
+    default 128-row blocks, so T is padded) at the widths the serving path
+    and the flash route give it: out and lse, the same bf16 values on both
+    sides where the inputs are bf16."""
+    rng = np.random.RandomState(tt)
+    mk = lambda d, s: (rng.randn(2, 2, tt, d) * s).astype(np.float32)
+    q, k, v = mk(da, 0.3), mk(da, 0.3), mk(dv, 1.0)
+    scale = 1.0 / np.sqrt(da)
+    lens = np.array(lengths, np.int32)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+    out, lse, (_, _, _, _, t_pad, _, dv_pad) = jax_flash_fwd(
+        *(jnp.asarray(a).astype(jdt) for a in (q, k, v)), jnp.asarray(lens),
+        scale, 128, 128, True)
+    want = np.asarray(out.astype(jnp.float32)).reshape(
+        2, 2, t_pad, dv_pad)[:, :, :tt, :dv]
+    want_lse = np.asarray(lse)[:, :tt, 0]
+    got, got_lse = flash_attention_reference(
+        *(t(a).to(tdt) for a in (q, k, v)), t(lens), scale)
+    assert got.dtype == tdt and got_lse.shape == (4, tt)
+    got, got_lse = got.float().numpy(), got_lse.numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=0, atol=TOL)
+        np.testing.assert_allclose(got_lse, want_lse, rtol=0, atol=TOL)
+    else:
+        assert np.abs(got - want).max() <= BF16_TOL * np.abs(want).max()
+        assert (np.abs(got_lse - want_lse).max()
+                <= BF16_TOL * np.abs(want_lse).max())
+
+
+def test_plain_flash_length_zero_row_matches_xla_reference():
+    """A sequence of length 0 softmaxes uniformly over its T keys, as the
+    JAX package's `_xla_attention_reference` does. The Pallas forward
+    spreads it over its t_pad padded keys instead, whose v rows are zeros,
+    so its output there is the mean of v scaled by T / t_pad, which depends
+    on block_q and block_k (a TPU padding artefact, not ported): that row
+    is held against the XLA reference, and lse against the masked
+    logsumexp, -1e30 + log T."""
+    q, k, v = _qkv(6)
+    lengths = np.array([40, 0], np.int32)
+    want = _xla_attention_reference(*map(jnp.asarray, (q, k, v)),
+                                    jnp.asarray(lengths), 0.3)
+    got, lse = flash_attention_reference(t(q), t(k), t(v), t(lengths), 0.3)
+    _close(got, want)
+    np.testing.assert_allclose(got[1].numpy(), np.broadcast_to(
+        v[1].mean(axis=1, keepdims=True), v[1].shape), rtol=0, atol=TOL)
+    assert bool((lse[2:] == np.float32(-1e30)).all())
 
 
 def test_plain_rel_pos_flash_matches_pallas_interpret():

@@ -11,7 +11,9 @@ is absent. On a machine with an NVIDIA H100, from the repository root:
 Tests marked `cuda` decide inside a fixture whether a card is present and
 skip without one; the others run on the CPU, where each wrapper computes its
 plain version. Tolerances: fp32 max abs 1e-4; flash bf16 2e-2 (bf16 inputs,
-fp32 accumulation in both); stem bf16 exact (a max of identically rounded
+fp32 accumulation in both), the bf16 forward's out within a relative L1
+error of 1e-4 (p kept at fp32 precision) and the same bits over two calls;
+stem bf16 exact (a max of identically rounded
 values), on odd frames too; whole-model fp32 logits 2e-3. FFN: fp32 1e-4
 for y and dx and 3e-4 of the largest entry for the parameter gradients
 (atomic sums over all rows);
@@ -30,8 +32,8 @@ another order); conv-bias gradient exactly zero. Convolution module, kernels
 against the plain stages: fp32 1e-4 of the largest entry for y, mean and var
 and 5e-4 for dx and the parameter gradients (atomic sums over all rows); bf16
 2e-2 and 3e-2; dropout masks identical entry by entry; the depthwise-bias
-gradient exactly zero; the bf16 forward and both bf16 backward passes give
-the same bits over two calls. K3dp on two gloo ranks sharing the card
+gradient exactly zero; the stats pass (fp32 and bf16), the bf16 forward and
+both bf16 backward passes give the same bits over two calls. K3dp on two gloo ranks sharing the card
 against one K3/K3b call on the whole batch: the convolution module's
 tolerances.
 """
@@ -232,6 +234,11 @@ def test_missing_nvcc_raises_for_every_library(monkeypatch, tmp_path, name):
     (201, 321, 64, [201, 160, 77, 1]),   # audio stage 1 of the 8 s bucket
     (101, 451, 90, [101, 51, 5, 1]),     # audio stage 2
     (37, 20, 7, [37, 0, 36, 2]),         # ragged widths, a row of length 0
+    # the flash training route's B=16: 192 and 128 blocks
+    (151, 321, 64, [151, 140, 133, 120, 111, 99, 90, 88, 77, 64, 50, 33, 17,
+                    2, 1, 1]),
+    (76, 451, 90, [76, 70, 67, 60, 56, 50, 45, 44, 39, 32, 25, 17, 9, 2, 1,
+                   1]),
 ])
 def test_flash_kernel_matches_plain(cuda_device, dtype, tol, t, da, dv,
                                     lengths):
@@ -244,6 +251,63 @@ def test_flash_kernel_matches_plain(cuda_device, dtype, tol, t, da, dv,
     assert out.dtype == dtype and out.shape == want.shape
     assert _err(out, want) <= tol
     assert _err(lse, want_lse) <= tol
+
+
+FLASH_FWD_SHAPES = [
+    (201, 321, 64, [201, 160, 120, 101, 77, 40, 9, 1]),   # serving, B=8
+    (101, 451, 90, [101, 80, 60, 51, 39, 20, 5, 1]),
+    (151, 321, 64, [151, 140, 133, 120, 111, 99, 90, 88, 77, 64, 50, 33, 17,
+                    2, 1, 0]),                            # training, B=16
+    (76, 451, 90, [76, 70, 67, 60, 56, 50, 45, 44, 39, 32, 25, 17, 9, 2, 1,
+                   0]),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,da,dv,lengths", FLASH_FWD_SHAPES)
+def test_flash_bf16_forward_is_deterministic(cuda_device, t, da, dv,
+                                             lengths):
+    """Each bf16 output element and lse entry has one owner that walks the
+    key tiles in a fixed order (no atomics): two calls give the same
+    bits."""
+    q, k, v, lens = _flash_inputs(cuda_device, torch.bfloat16, t, da, dv,
+                                  lengths)
+    runs = [flash_attention_fwd(q, k, v, lens, da ** -0.5) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,da,dv,lengths", FLASH_FWD_SHAPES + [
+    (37, 20, 7, [37, 0, 36, 2]),           # ragged widths
+])
+def test_flash_bf16_forward_keeps_fp32_p(cuda_device, t, da, dv, lengths):
+    """The TPU kernel multiplies p by v in fp32; the bf16 kernel feeds p to
+    the tensor cores as three bf16 parts that sum to it exactly, so its out
+    differs from the plain version's only where the two fp32 sums round to
+    different bf16 values: a relative L1 error (sum |got - want| / sum
+    |want|) far below 1e-4. The same call through a control build that
+    rounds p to bf16 moves out by up to a bf16 step in a large share of its
+    entries, about 1e-3, so the bound of 1e-4 tells the two apart. lse does
+    not depend on the parts."""
+    q, k, v, lens = _flash_inputs(cuda_device, torch.bfloat16, t, da, dv,
+                                  lengths)
+    scale = da ** -0.5
+    want = flash_attention_reference(q, k, v, lens, scale)[0]
+    got, lse = flash_attention_fwd(q, k, v, lens, scale)
+    b, h = q.shape[:2]
+    rounded, rounded_lse = torch.empty_like(got), torch.empty_like(lse)
+    control = _cuda.control_library("flash_attention", flash_ops.ROUNDED_P)
+    scratch = flash_ops.fwd_scratch(q, v)
+    rc = flash_ops._lib(control)[0](
+        *(a.data_ptr() for a in (q, k, v, lens, rounded, rounded_lse,
+                                 scratch)),
+        b * h, h, t, da, dv, scale, 1, _cuda.stream_ptr(q))
+    assert rc == 0
+    torch.cuda.synchronize()
+    assert _rel_l1(got, want) <= 1e-4
+    assert _rel_l1(rounded, want) > 1e-4
 
 
 @pytest.mark.cuda
@@ -799,22 +863,26 @@ def test_conv_module_kernels_match_plain(cuda_device, dtype, tol, wtol,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("stage", ["fwd", "bwd1", "bwd2"])
+@pytest.mark.parametrize("stage", ["stats", "fwd", "bwd1", "bwd2"])
 @pytest.mark.parametrize("b,t,d,e,k", [(16, 301, 180, 180, 15),
                                        (3, 37, 20, 24, 5)])
 def test_conv_module_bf16_bwd2_is_deterministic(cuda_device, stage, b, t, d,
                                                 e, k):
-    """The bf16 forward has one owner per element of y, and both bf16
-    backward passes sum without atomics (per-block partial sums added once in
-    a fixed order): from the same inputs two calls give the same bits, with
-    dropout: y; the first pass's dW2, db2, r1 and r2; the second pass's dx
-    and the five gradients it writes (from the batch statistics and one
-    first pass's r1 / n, r2 / n)."""
+    """The stats pass and both bf16 backward passes sum without atomics
+    (per-block partial sums added once in a fixed order), and the bf16
+    forward has one owner per element of y: from the same inputs two calls
+    give the same bits, with dropout: s1 and s2 (two fresh calls); y; the
+    first pass's dW2, db2, r1 and r2; the second pass's dx and the five
+    gradients it writes (from the batch statistics and one first pass's
+    r1 / n, r2 / n)."""
     x, g, params = _conv_inputs(cuda_device, torch.bfloat16, b, t, d, e, k)
     call = conv_module._Launch(x, params, 99, conv_module.pad_lo_for("same", k),
                                1e-6, 0.1)
     mean, _, rstd = batch_stats(*call.stats(), b * t, 1e-5)
-    if stage == "fwd":
+    if stage == "stats":
+        names = ("s1", "s2")
+        runs = [call.stats() for _ in range(2)]
+    elif stage == "fwd":
         names = ("y",)
         runs = [(call.fwd(mean, rstd),) for _ in range(2)]
     elif stage == "bwd1":
@@ -828,6 +896,27 @@ def test_conv_module_bf16_bwd2_is_deterministic(cuda_device, stage, b, t, d,
     torch.cuda.synchronize()
     for name, first, second in zip(names, *runs):
         assert torch.equal(first, second), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,b,t,d,e,k", [
+    (torch.float32, 16, 301, 180, 180, 15),
+    (torch.float32, 3, 29, 17, 21, 7),
+    (torch.bfloat16, 3, 29, 17, 21, 7),
+])
+def test_conv_module_stats_is_deterministic(cuda_device, dtype, b, t, d, e,
+                                            k):
+    """In both types the stats pass writes one partial sum per row tile and
+    channel and adds them in a fixed order: two calls give the same s1 and
+    s2, at the step's widths and at odd ones (bf16 at the step's widths:
+    the "stats" case of the test above)."""
+    x, _, params = _conv_inputs(cuda_device, dtype, b, t, d, e, k)
+    call = conv_module._Launch(x, params, 99, conv_module.pad_lo_for("same", k),
+                               1e-6, 0.0)
+    runs = [call.stats() for _ in range(2)]
+    torch.cuda.synchronize()
+    for first, second in zip(*runs):
+        assert torch.equal(first, second)
 
 
 @pytest.mark.cuda
