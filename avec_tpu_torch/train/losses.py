@@ -47,15 +47,18 @@ def ctc_loss(logits, logit_lengths, labels, label_lengths, blank: int = 0,
 
 class CTCLoss:
     """CTC over (y, y_len) targets and (logits, logits_len) outputs
-    (losses.py:164)."""
+    (losses.py:164-184). `assert_shorter` is kept for the configs, as in the
+    JAX package, which leaves that check to the host's data pipeline; the
+    loss itself does not check it."""
 
     def __init__(self, blank: int = 0, reduction: str = "mean",
-                 zero_infinity: bool = False):
+                 zero_infinity: bool = False, assert_shorter: bool = True):
         if reduction not in ("mean", "sum", "default"):
             raise ValueError(f"reduction {reduction!r}")
         self.blank = blank
         self.reduction = reduction
         self.zero_infinity = zero_infinity
+        self.assert_shorter = assert_shorter
 
     def __call__(self, targets, outputs):
         y, y_len = targets

@@ -1,34 +1,54 @@
-"""The AV train step (port of avec_tpu/train/model.py:375-423 and :455-558
-for accumulated_steps=1).
+"""The training engine of the AV model (port of avec_tpu/train/model.py:
+173-199, 303-306, 375-558, 580-1067).
 
 A batch is {"inputs": [video (B, Tv, 88, 88, 1), video_len (B,), audio
 (B, Ta), audio_len (B,)], "targets": (labels (B, U), label_len (B,))} of
-numpy arrays or tensors. One step runs the model in training mode, the six
-CTC losses with their weights, the backward, the global gradient norm
-(clipping only when `grad_max_norm` is set), Adam with L2 in the gradient
-under the Noam schedule, and the step counter; it returns (losses, infos)
-with `lr` and `grad_norm`. Activations run in `precision` on fp32 parameters.
-EMA, gradient accumulation, the fit loop and checkpoints are not ported yet.
+numpy arrays or tensors. One step (`train_step`) runs the model in training
+mode, the weighted CTC losses of every output, the backward, the global
+gradient norm (clipping only when `grad_max_norm` is set), the optimizer
+(by default Adam with L2 in the gradient under the Noam schedule), the step
+counter and, with `set_ema`, the EMA update; it returns (losses, infos) with
+`lr` and `grad_norm`. Activations run in `precision` on fp32 parameters.
+`accumulated_steps=A` splits the batch into A micro-batches in order: their
+gradients and losses are summed, then divided by A. Every micro-batch draws
+its own dropout masks and kernel seeds from the model's generators.
+
+`fit` runs epochs over a `DataLoader` with periodic evaluation and
+checkpoints, summing the losses on the device and reading them only at log
+periods and at the end of an epoch. `evaluate` runs the eval-mode forward,
+the losses, the decoders' device part and the host metrics, one batch
+ahead of the host. `save` / `load` use the reference's torch format
+(`train/checkpoint.py`); `swa` averages the end-of-epoch checkpoints of the
+epochs listed and re-estimates the BatchNorm statistics. `generate` and
+`save_logits` are not ported.
 
 `Trainer(data_parallel=True)` is the data-parallel step (the JAX package's
 step on a batch sharded over the mesh's 'data' axis; the reference's DDP with
 SyncBatchNorm): every rank of an initialized process group passes the same
-global batch, takes its `shard_batch` slice, runs the model with sync-BN and
-the kernels' DP forms (`set_data_parallel`), and sums the rank-weighted
-gradients and losses in one flat all-reduce, so every rank holds the
-gradient and losses of the global batch and takes the same Adam step.
+global batch; each micro-batch is cut into the ranks' `shard_batch` slices,
+the model runs with sync-BN and the kernels' DP forms
+(`set_data_parallel`), and one flat all-reduce sums the rank-weighted
+gradients and losses, so every rank holds the gradient and losses of the
+global batch and takes the same Adam step. Rank 0 prints and writes the
+checkpoints; evaluation runs the whole batch on every rank.
 """
 
-from typing import Dict, Optional, Tuple
+import glob
+import os
+import re
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from avec_tpu_torch.models.zoo import (AudioVisualEfficientConformerInterCTC,
                                        resolve_device)
 from avec_tpu_torch.parallel.dist import shard_batch
+from avec_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from avec_tpu_torch.train.losses import CTCLoss, rank_weight
-from avec_tpu_torch.train.optim import noam_adam
+from avec_tpu_torch.train.optim import Optimizer, noam_adam
 from avec_tpu_torch.train.schedulers import as_scheduler
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -38,13 +58,62 @@ AV_LOSS_WEIGHTS = {"v_ctc_2": 0.5 / 3, "v_ctc_5": 0.5 / 3, "a_ctc_7": 0.5 / 3,
                    "a_ctc_10": 0.5 / 3, "f_ctc_1": 0.5 / 3, "outputs": 0.5}
 
 
+def _per_output(struct, keys) -> Dict[str, Any]:
+    """A metric or decoder spec conformed to the output names (model.py:
+    201-216): a dict keeps its keys (each must be an output), a list is
+    taken in output order, anything else applies to every output."""
+    if struct is None:
+        return {}
+    if isinstance(struct, dict):
+        unknown = [k for k in struct if k not in keys]
+        if unknown:
+            raise KeyError(f"unknown output names {unknown}; the outputs are "
+                           f"{list(keys)}")
+        return {k: struct[k] for k in keys if struct.get(k) is not None}
+    if isinstance(struct, list):
+        return {k: struct[i] for i, k in enumerate(keys)
+                if i < len(struct) and struct[i] is not None}
+    return {k: struct for k in keys}
+
+
+def _as_list(spec) -> list:
+    return spec if isinstance(spec, list) else [spec]
+
+
+def _split_micro(batch, accum: int) -> List[Any]:
+    """(A*B, ...) leaves -> A micro-batches of B rows, in order
+    (model.py:724-731)."""
+    if accum == 1:
+        return [batch]
+
+    def take(a, i):
+        if isinstance(a, dict):
+            return {k: take(v, i) for k, v in a.items()}
+        if isinstance(a, (list, tuple)):
+            return type(a)(take(v, i) for v in a)
+        n = a.shape[0]
+        if n % accum:
+            raise ValueError(f"a batch of {n} does not split into "
+                             f"{accum} micro-batches")
+        m = n // accum
+        return a[i * m:(i + 1) * m]
+
+    return [take(batch, i) for i in range(accum)]
+
+
 class Trainer:
-    """Owns the model in training mode, its loss, optimizer and step counter.
+    """Owns the model in training mode, its loss, optimizer, step counter
+    and optional EMA, and the loops over data.
 
     model_kwargs go to AudioVisualEfficientConformerInterCTC (defaults: the
     reference depth, vocab 256). `loss_weights` maps output names to numbers
     or step schedulers (default: the reference's; an output without an entry
-    weighs 1). It runs on the card unless the caller passes device="cpu".
+    weighs 1). `optimizer` is a function of the parameters that returns an
+    `Optimizer` (`train.optim.Adam(...)`; default `noam_adam`). `metrics`
+    (on decoded strings, `on_host`) and `decoders` are per output as the JAX
+    `compile` takes them (a dict by output name, a list in output order, or
+    one object for every output).
+    It runs on the card unless the caller passes device="cpu".
 
     data_parallel=True needs the default `torch.distributed` process group
     (`avec_tpu_torch.parallel.dist.init_distributed`), over whose ranks the
@@ -56,7 +125,9 @@ class Trainer:
                  loss: Optional[CTCLoss] = None,
                  loss_weights: Optional[Dict] = None,
                  grad_max_norm: Optional[float] = None,
-                 data_parallel: bool = False, **model_kwargs):
+                 data_parallel: bool = False,
+                 optimizer: Optional[Callable[..., Optimizer]] = None,
+                 metrics=None, decoders=None, **model_kwargs):
         self.device = resolve_device(device)
         self.dtype = _DTYPES[precision]
         if model is None:
@@ -70,18 +141,56 @@ class Trainer:
             loss_weights = AV_LOSS_WEIGHTS
         self.loss_weights = {k: as_scheduler(v)
                              for k, v in loss_weights.items()}
-        self.optimizer = noam_adam(self.model.parameters())
+        self.optimizer = (optimizer or noam_adam)(self.model.parameters())
+        specs = (metrics.values() if isinstance(metrics, dict) else
+                 metrics if isinstance(metrics, list) else [metrics])
+        if any(not getattr(m, "on_host", False) for spec in specs
+               if spec is not None for m in _as_list(spec)):
+            raise ValueError("the engine evaluates metrics of decoded "
+                             "strings (on_host); a metric of the device's "
+                             "outputs has no model of the port yet")
+        self.metrics = metrics
+        self.decoders = decoders
         self.grad_max_norm = grad_max_norm
         self.step = 0
+        self.ema_tau = 0.0
+        self.ema_state: Optional[Dict[str, torch.Tensor]] = None
         self.group = None
+        self.rank = 0
         if data_parallel:
             if not (dist.is_available() and dist.is_initialized()):
                 raise RuntimeError("data_parallel=True needs an initialized "
                                    "process group: call avec_tpu_torch."
                                    "parallel.dist.init_distributed first")
             self.group = dist.group.WORLD
+            self.rank = dist.get_rank(self.group)
             self.model.set_data_parallel(self.group)
             self._broadcast_state()
+
+    # ------------------------------------------------------------- state
+    def set_ema(self, ema_tau: float) -> None:
+        """Keep an exponential moving average of the parameters: after each
+        step e = tau * e + (1 - tau) * p, and the EMA's buffers are copies of
+        the live ones (model.py:545-553). It starts from the current state;
+        tau = 0 drops it."""
+        self.ema_tau = float(ema_tau)
+        self.ema_state = None
+        if self.ema_tau:
+            live = self.model.state_dict(keep_vars=True)
+            self.ema_state = {k: v.detach().clone() for k, v in live.items()}
+            params = dict(self.model.named_parameters())
+            # (EMA, live) tensor lists: parameters, then buffers
+            self._ema_pairs = tuple(
+                ([self.ema_state[k] for k in live if (k in params) == is_p],
+                 [live[k].detach() for k in live if (k in params) == is_p])
+                for is_p in (True, False))
+
+    def _update_ema(self) -> None:
+        (ema_p, live_p), (ema_b, live_b) = self._ema_pairs
+        torch._foreach_mul_(ema_p, self.ema_tau)
+        torch._foreach_add_(ema_p, live_p, alpha=1.0 - self.ema_tau)
+        for e, b in zip(ema_b, live_b):
+            e.copy_(b)
 
     def _broadcast_state(self) -> None:
         """Rank 0's parameters and buffers on every rank, in one broadcast."""
@@ -110,8 +219,8 @@ class Trainer:
             p.grad.copy_(g.view_as(p))
         return dict(zip(keys, reduced.clone()))
 
-    def _to_device(self, batch) -> Tuple[list, tuple]:
-        if self.group is not None:
+    def _to_device(self, batch, shard: bool = True) -> Tuple[list, tuple]:
+        if self.group is not None and shard:
             world = dist.get_world_size(self.group)
             size = len(batch["inputs"][0])
             if size % world:
@@ -126,6 +235,7 @@ class Trainer:
                         for a in batch["targets"])
         return inputs, targets
 
+    # ------------------------------------------------------------- steps
     def compute_losses(self, outputs, targets, step: int
                        ) -> Dict[str, torch.Tensor]:
         """Per-output losses and their weighted total, the weights called at
@@ -142,20 +252,31 @@ class Trainer:
             return {"loss": total, **losses}
         return {"loss": total}
 
-    def _forward_backward(self, batch) -> Dict[str, torch.Tensor]:
-        inputs, targets = self._to_device(batch)
+    def _forward_backward(self, batch, accumulated_steps: int = 1
+                          ) -> Dict[str, torch.Tensor]:
+        """The gradients (into .grad) and losses of a batch, summed over its
+        micro-batches and divided by their count (model.py:478-527), of the
+        global batch in data-parallel mode."""
         self.model.train()
         self.optimizer.optimizer.zero_grad(set_to_none=True)
-        outputs = self.model(*inputs)
-        losses = self.compute_losses(outputs, targets, self.step)
-        losses["loss"].backward()
+        total: Dict[str, torch.Tensor] = {}
+        for micro in _split_micro(batch, accumulated_steps):
+            inputs, targets = self._to_device(micro)
+            outputs = self.model(*inputs)
+            losses = self.compute_losses(outputs, targets, self.step)
+            losses["loss"].backward()
+            for k, v in losses.items():
+                total[k] = total[k] + v.detach() if k in total else v.detach()
+        params = list(self.model.parameters())
         # A detached conv bias has no gradient; the JAX package gives it an
         # exact zero, which still takes the optimizer's weight decay.
-        for p in self.model.parameters():
+        for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        losses = {k: v.detach() for k, v in losses.items()}
-        return losses if self.group is None else self._all_reduce(losses)
+        if accumulated_steps > 1:
+            torch._foreach_div_([p.grad for p in params], accumulated_steps)
+            total = {k: v / accumulated_steps for k, v in total.items()}
+        return total if self.group is None else self._all_reduce(total)
 
     def loss_and_grads(self, batch):
         """One forward + backward without an update: (losses, gradients by
@@ -166,9 +287,10 @@ class Trainer:
                  for n, p in self.model.named_parameters()}
         return losses, grads
 
-    def train_step(self, batch):
-        """One optimisation step: (losses, {"lr", "grad_norm"})."""
-        losses = self._forward_backward(batch)
+    def train_step(self, batch, accumulated_steps: int = 1):
+        """One optimisation step over `accumulated_steps` micro-batches:
+        (losses, {"lr", "grad_norm"}), tensors left on the device."""
+        losses = self._forward_backward(batch, accumulated_steps)
         grads = [p.grad for p in self.model.parameters()]
         gnorm = torch.nn.utils.get_total_norm(grads)
         if self.grad_max_norm is not None:
@@ -177,4 +299,312 @@ class Trainer:
                 self.model.parameters(), self.grad_max_norm, gnorm)
         lr = self.optimizer.update(self.step)
         self.step += 1
+        if self.ema_state is not None:
+            with torch.no_grad():
+                self._update_ema()
         return losses, {"lr": lr, "grad_norm": gnorm}
+
+    # --------------------------------------------------------------- fit
+    def _log(self, *args) -> None:
+        if self.rank == 0:
+            print(*args, flush=True)
+
+    def _checkpoint_name(self, callback_path: str, epoch: int) -> str:
+        return os.path.join(callback_path, f"checkpoints_epoch_{epoch}_step_"
+                                           f"{self.step}.ckpt")
+
+    def fit(self, dataset_train, epochs: int, dataset_eval=None,
+            eval_steps: Optional[int] = None, verbose_eval: int = 0,
+            initial_epoch: int = 0, callback_path: Optional[str] = None,
+            steps_per_epoch: Optional[int] = None,
+            accumulated_steps: int = 1,
+            eval_period_step: Optional[int] = None,
+            eval_period_epoch: Optional[int] = 1,
+            saving_period_step: Optional[int] = None,
+            saving_period_epoch: Optional[int] = 1,
+            step_log_period: int = 10, recompute_metrics: bool = False
+            ) -> List[Dict[str, Any]]:
+        """The training loop (model.py:580-722). Returns one record per
+        epoch: {"epoch", "steps", "seconds", "losses" (epoch means),
+        "eval": [(losses, metrics)] and, with EMA, "eval_ema"}."""
+        history = []
+        for epoch in range(initial_epoch, epochs):
+            dataset_train.set_epoch(epoch)
+            self._log(f"Epoch {epoch + 1}/{epochs}:")
+            sums: Dict[str, torch.Tensor] = {}
+            n_steps = 0
+            t_epoch = time.perf_counter()
+            batches = iter(dataset_train)
+            try:
+                for batch in batches:
+                    losses, infos = self.train_step(batch, accumulated_steps)
+                    n_steps += 1
+                    for k, v in losses.items():
+                        sums[k] = sums[k] + v if k in sums else v
+                    if self.rank == 0 and self.step % step_log_period == 0:
+                        self._log(self._display(sums, n_steps, infos))
+                    if (eval_period_step and dataset_eval is not None
+                            and self.step % eval_period_step == 0):
+                        self._evaluate(dataset_eval, eval_steps, verbose_eval,
+                                       recompute_metrics)
+                    if (saving_period_step and callback_path
+                            and self.rank == 0
+                            and self.step % saving_period_step == 0):
+                        os.makedirs(callback_path, exist_ok=True)
+                        self.save(self._checkpoint_name(callback_path,
+                                                        epoch + 1))
+                    if steps_per_epoch is not None and \
+                            n_steps >= steps_per_epoch:
+                        break
+            finally:
+                close = getattr(batches, "close", None)
+                if close is not None:
+                    close()
+            means = {k: float(v) / max(n_steps, 1) for k, v in sums.items()}
+            seconds = time.perf_counter() - t_epoch
+            self._log("  " + " - ".join(f"{k}: {v:.4f}"
+                                        for k, v in means.items()))
+            self._log(f"  epoch time {seconds:.1f}s ({n_steps} steps)")
+            record = {"epoch": epoch + 1, "steps": n_steps,
+                      "seconds": seconds, "losses": means}
+            if (eval_period_epoch and dataset_eval is not None
+                    and (epoch + 1) % eval_period_epoch == 0):
+                record.update(self._evaluate(dataset_eval, eval_steps,
+                                             verbose_eval, recompute_metrics))
+            if (saving_period_epoch and callback_path and self.rank == 0
+                    and (epoch + 1) % saving_period_epoch == 0):
+                os.makedirs(callback_path, exist_ok=True)
+                self.save(self._checkpoint_name(callback_path, epoch + 1))
+            history.append(record)
+        return history
+
+    def _display(self, sums, n_steps: int, infos) -> str:
+        parts = [f"{k}: {float(v) / n_steps:.4f}" for k, v in sums.items()]
+        parts.append(f"lr: {infos['lr']:.2e}")
+        parts.append(f"grad_norm: {float(infos['grad_norm']):.4f}")
+        parts.append(f"step: {self.step}")
+        return "  " + " - ".join(parts)
+
+    # ----------------------------------------------------------- evaluate
+    def _evaluate(self, datasets, eval_steps, verbose, recompute_metrics
+                  ) -> Dict[str, list]:
+        """Evaluate each dataset, and again with the EMA when there is one
+        (model.py:734-757); prints the results on rank 0."""
+        out: Dict[str, list] = {"eval": []}
+        runs = [("eval", False)]
+        if self.ema_state is not None:
+            out["eval_ema"] = []
+            runs.append(("eval_ema", True))
+        for ds in datasets if isinstance(datasets, list) else [datasets]:
+            for key, use_ema in runs:
+                losses, metrics = self.evaluate(ds, eval_steps, verbose,
+                                                recompute_metrics,
+                                                use_ema=use_ema)
+                out[key].append((losses, metrics))
+                prefix = "ema eval" if use_ema else "eval"
+                for k, v in {**losses, **metrics}.items():
+                    self._log(f"{prefix} {k}: {v:.4f}")
+        return out
+
+    def _eval_forward(self, inputs, use_ema: bool):
+        if use_ema:
+            return torch.func.functional_call(self.model, self.ema_state,
+                                              tuple(inputs))
+        return self.model(*inputs)
+
+    def evaluate(self, dataset_eval, eval_steps: Optional[int] = None,
+                 verbose: int = 0, recompute_metrics: bool = False,
+                 use_ema: bool = False, return_transcripts: bool = False):
+        """(mean losses, metrics) over the batches of `dataset_eval`
+        (model.py:759-838), and the gathered {metric: (truths, preds)} with
+        return_transcripts. The metrics are taken per batch on the decoded
+        strings and averaged, or, with recompute_metrics, over the gathered
+        transcripts. Batch i + 1's forward is issued before batch i is
+        decoded on the host."""
+        if use_ema and self.ema_state is None:
+            raise ValueError("use_ema=True without set_ema")
+        was_training = self.model.training
+        self.model.eval()
+        loss_sums: Dict[str, torch.Tensor] = {}
+        sums: Dict[str, float] = {}
+        metric_of: Dict[str, Any] = {}
+        mkey_of: Dict[Tuple[str, int], str] = {}
+        truths: Dict[str, List[str]] = {}
+        preds: Dict[str, List[str]] = {}
+        n = 0
+
+        def flush(pending):
+            host_targets, decode_pre, metrics, decoders = pending
+            for key, pre in decode_pre.items():
+                decoder = _as_list(decoders[key])[0]
+                for i, metric in enumerate(_as_list(metrics[key])):
+                    if (key, i) not in mkey_of:   # model.py:857
+                        mkey_of[key, i] = (
+                            metric.name if metric.name not in metric_of
+                            else f"{metric.name}_{key}")
+                        metric_of[mkey_of[key, i]] = metric
+                    mkey = mkey_of[key, i]
+                    t = decoder(host_targets, from_logits=False)
+                    p = decoder(pre)
+                    if verbose:
+                        print("Groundtruths:\n", t)
+                        print("Predictions:\n", p)
+                    sums[mkey] = sums.get(mkey, 0.0) + float(metric(t, p))
+                    if recompute_metrics or return_transcripts:
+                        truths.setdefault(mkey, []).extend(t)
+                        preds.setdefault(mkey, []).extend(p)
+
+        pending = None
+        batches = iter(dataset_eval)
+        try:
+            with torch.no_grad():
+                for batch in batches:
+                    inputs, targets = self._to_device(batch, shard=False)
+                    outputs = self._eval_forward(inputs, use_ema)
+                    losses = self.compute_losses(outputs, targets, self.step)
+                    for k, v in losses.items():
+                        loss_sums[k] = loss_sums[k] + v if k in loss_sums \
+                            else v
+                    metrics = _per_output(self.metrics, list(outputs))
+                    decoders = _per_output(self.decoders, list(outputs))
+                    decode_pre = {
+                        key: _as_list(decoders[key])[0].device_fn(outputs[key])
+                        for key in metrics if key in decoders}
+                    n += 1
+                    if pending is not None:
+                        flush(pending)
+                    pending = (batch["targets"], decode_pre, metrics,
+                               decoders)
+                    if eval_steps and n >= eval_steps:
+                        break
+                if pending is not None:
+                    flush(pending)
+        finally:
+            close = getattr(batches, "close", None)
+            if close is not None:
+                close()
+            self.model.train(was_training)
+
+        denom = max(n, 1)
+        out_losses = {k: float(v) / denom for k, v in loss_sums.items()}
+        out_metrics = {
+            k: (float(metric_of[k](truths[k], preds[k])) if recompute_metrics
+                else v / denom) for k, v in sums.items()}
+        if return_transcripts:
+            return out_losses, out_metrics, {k: (truths[k], preds[k])
+                                             for k in truths}
+        return out_losses, out_metrics
+
+    def eval_time(self, dataset_eval, eval_steps: Optional[int] = None,
+                  num_evals: int = 10, warmup_eval: bool = True
+                  ) -> Dict[str, float]:
+        """Seconds of `num_evals` evaluations (model.py:1053-1067): mean,
+        std, min, max. Each ends on the host's read of its results."""
+        if warmup_eval:
+            self.evaluate(dataset_eval, eval_steps=eval_steps)
+        times = []
+        for _ in range(num_evals):
+            start = time.perf_counter()
+            self.evaluate(dataset_eval, eval_steps=eval_steps)
+            times.append(time.perf_counter() - start)
+        arr = np.asarray(times)
+        return {"mean": float(arr.mean()), "std": float(arr.std()),
+                "min": float(arr.min()), "max": float(arr.max())}
+
+    # --------------------------------------------------------- save/load
+    def save(self, path: str, save_optimizer: bool = True) -> None:
+        """A checkpoint in the reference's torch format (model.py:879-893)."""
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        save_checkpoint(
+            path, self.model.state_dict(),
+            optimizer_state=(self.optimizer.optimizer.state_dict()
+                             if save_optimizer else None),
+            model_step=self.step, ema_state=self.ema_state)
+        self._log(f"Model saved at step {self.step}")
+
+    def load(self, path: str, load_optimizer: bool = True,
+             strict: bool = True) -> None:
+        """Restore the model's parameters and buffers and, with
+        load_optimizer, the optimizer state and the step (model.py:
+        895-931); an EMA in the file is restored where `set_ema` is on."""
+        payload = load_checkpoint(path)
+        self.model.load_state_dict(payload["model_state_dict"], strict=strict)
+        if load_optimizer and payload.get("optimizer_state_dict") is not None:
+            self.optimizer.optimizer.load_state_dict(
+                payload["optimizer_state_dict"])
+            self.step = int(payload["model_step"])
+        ema = payload.get("ema_model_state_dict")
+        if ema is not None and self.ema_state is not None:
+            missing = set(self.ema_state) - set(ema)
+            if strict and (missing or set(ema) - set(self.ema_state)):
+                raise KeyError(f"EMA state keys differ: missing "
+                               f"{sorted(missing)[:5]}")
+            with torch.no_grad():
+                for k, v in ema.items():
+                    if k in self.ema_state:
+                        self.ema_state[k].copy_(v)
+
+    # --------------------------------------------------------------- swa
+    def swa(self, dataset, callback_path: str, start_epoch=None,
+            end_epoch=None, epochs_list=None, update_steps=None,
+            swa_type: str = "equal", swa_decay: float = 0.9) -> str:
+        """Stochastic weight averaging (model.py:965-1036): the parameters
+        of each listed epoch's end-of-epoch checkpoint (its largest step)
+        averaged equally ("equal") or exponentially ("exp", each new one
+        weighted swa_decay); then the BatchNorm statistics re-estimated by
+        training-mode forwards over `update_steps` batches (default: one
+        pass over `dataset`) from the last loaded checkpoint's statistics.
+        Saves and returns "checkpoints_swa-{type}-{first}-{last}.ckpt"."""
+        if swa_type not in ("equal", "exp"):
+            raise ValueError(f"swa_type {swa_type!r}")
+        if epochs_list is None:
+            epochs_list = list(range(int(start_epoch), int(end_epoch) + 1))
+        self._log(f"Stochastic Weight Averaging on checkpoints : "
+                  f"{epochs_list}")
+        avg: Optional[List[torch.Tensor]] = None
+        for n_avg, epoch in enumerate(epochs_list):
+            matches = glob.glob(os.path.join(
+                callback_path, f"checkpoints_epoch_{epoch}_step_*.ckpt"))
+            if not matches:
+                raise FileNotFoundError(f"no checkpoint for epoch {epoch} in "
+                                        f"{callback_path}")
+            matches.sort(key=lambda p: int(
+                re.search(r"_step_(\d+)\.ckpt$", p).group(1)))
+            self.load(matches[-1], load_optimizer=False, strict=True)
+            params = [p.detach().clone() for p in self.model.parameters()]
+            if avg is None:
+                avg = params
+            elif swa_type == "equal":
+                avg = [a + (b - a) / (n_avg + 1) for a, b in zip(avg, params)]
+            else:
+                avg = [(1 - swa_decay) * a + swa_decay * b
+                       for a, b in zip(avg, params)]
+        with torch.no_grad():
+            for p, a in zip(self.model.parameters(), avg):
+                p.copy_(a)
+
+        self._log("Updating Batch Normalization Statistics")
+        self.model.train()
+        update_steps = (update_steps if update_steps is not None
+                        else len(dataset))
+        steps = 0
+        while steps < update_steps:
+            batches = iter(dataset)
+            try:
+                with torch.no_grad():     # the statistics need no gradient
+                    for batch in batches:
+                        inputs, _ = self._to_device(batch)
+                        self.model(*inputs)
+                        steps += 1
+                        if steps >= update_steps:
+                            break
+            finally:
+                close = getattr(batches, "close", None)
+                if close is not None:
+                    close()
+        path = os.path.join(callback_path, f"checkpoints_swa-{swa_type}-"
+                                           f"{epochs_list[0]}-"
+                                           f"{epochs_list[-1]}.ckpt")
+        if self.rank == 0:
+            self.save(path, save_optimizer=False)
+        return path

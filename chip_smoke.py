@@ -142,8 +142,27 @@ Phases, in order; any failure raises and the exit code is non-zero:
     and the gradients printed beside the plain trainer's own run-to-run
     floor (the kernels' atomic sums vary in their last bits);
 then the K3dp passes' times per rank at the B=8 shapes beside their
-bounds and plain stages. The line before the last is a JSON `kernels` line of
-sixteen kernels; the last line is {"ok": true, "device": {...}}. Every time
+bounds and plain stages;
+18. the AV-Tone learning run (`avec_tpu_torch/configs/av_tone.py`, the
+    config's depth v (2, 1), a (2, 2, 1), f 2 at the flagship's widths,
+    vocab 32) through the training engine on the fused-conv route (fused
+    FFN, attention and convolution modules, stem "pallas"), bf16 on fp32
+    parameters, dropout and SpecAugment on: the greedy WER of the 64
+    evaluation utterances at init; `fit` for 2 epochs of 400 steps of 16
+    utterances with an EMA (tau 0.99), a checkpoint (under `build/`, removed
+    at the end) and an evaluation, plain and EMA, per epoch; the launches
+    of the 800 steps equal to the counts per step from the module tree; the
+    last checkpoint reloaded into a fresh setup gives bit-identical bf16
+    logits; the audio-alone control (video zeroed; printed, not asserted);
+    SWA over both epochs and its WER. Every WER after training (plain, EMA,
+    SWA) must be below the WER at init, and after the last epoch at most 10
+    (plain, SWA) and 20 (EMA). Printed: the WERs, the step's median
+    ms (synchronized around each step) and utterances/s, peak GiB, the
+    phase's wall time; details under `learning_run` in
+    chiprun_out/chip_smoke.json.
+The line before the last is a JSON `kernels` line of sixteen kernels (the
+nine of phase 18 with their launches there as `launches_learning_run`); the
+last line is {"ok": true, "device": {...}}. Every time
 there ("ms", "plain_ms", "library_ms") is one of direct calls between CUDA
 events (`cuda_time_ms`), the host's cost of each call included; "device_ms"
 is the same call's device time from torch.profiler (`device_time_ms`), the
@@ -725,6 +744,12 @@ def main() -> int:
 
     # ---- 15-17. data-parallel training (K3dp, sync-BN, NCCL)
     kernels += dp_phases(detail, conv_shapes)
+
+    # ---- 18. the AV-Tone learning run through the training engine
+    run_launches = learning_phase(detail, root, profile)
+    for entry in kernels:
+        if entry["name"] in run_launches:
+            entry["launches_learning_run"] = run_launches[entry["name"]]
     detail["kernels"] = kernels
 
     os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
@@ -2622,6 +2647,195 @@ def dp_phases(detail, conv_shapes):
             "library_ms": (acc[name]["library_ms"] if name in (
                 cm.KERNELS_DP[1], cm.KERNELS_DP[3]) else None)})
     return entries
+
+
+class _ZeroVideo:
+    """The batches of a loader with the video zeroed (its lengths kept):
+    the audio-alone control of the AV-Tone run."""
+
+    def __init__(self, loader):
+        self.loader = loader
+
+    def __iter__(self):
+        for batch in self.loader:
+            video, *rest = batch["inputs"]
+            yield {"inputs": [np.zeros_like(video), *rest],
+                   "targets": batch["targets"]}
+
+
+# Phase 18's ceilings on the greedy WER after the last epoch: the plain
+# model and SWA, and the EMA (tau 0.99, whose average still holds the
+# earlier steps). Three runs of the phase on the H100 read 0.00 for all
+# three (PERF.md, PR 12); the prediction made before them was under 20
+# after epoch 2. A route that learns a little (a WER of 30-80) fails here.
+WER_CEILING = 10.0
+EMA_WER_CEILING = 20.0
+
+
+def learning_phase(detail, root, profile: bool) -> dict:
+    """Phase 18: the AV-Tone learning run (`avec_tpu_torch/configs/
+    av_tone.py`) on the fused-conv route through the training engine. The
+    greedy WER of the 64 evaluation utterances at init; `fit` for the
+    config's 2 epochs of 400 steps (B = 16) with an EMA of tau 0.99, a
+    checkpoint and an evaluation (plain and EMA) per epoch; the launches of
+    the fit's steps against the module tree's count per step; the last
+    checkpoint reloaded into a fresh setup (bf16 logits bit-identical); the
+    audio-alone control (video zeroed, printed only); SWA over both epochs
+    and its WER. Every WER after training must be below the WER at init,
+    and after the last epoch at most WER_CEILING (plain, SWA) and
+    EMA_WER_CEILING (EMA). With `profile`, one more train step is traced (device time by category,
+    idle share). Returns the kernel launches of the fit's 800 steps."""
+    import shutil
+    import tempfile
+
+    from avec_tpu_torch.configs import av_tone
+    from avec_tpu_torch.ops import _cuda
+
+    t_phase = time.perf_counter()
+    build_dir = os.path.join(root, "build")
+    os.makedirs(build_dir, exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="av_tone_", dir=build_dir)
+    route = dict(fused_ffn=True, fused_att=True, fused_conv=True,
+                 stem_mode="pallas")
+    try:
+        setup = av_tone.build(ckpt_dir, device="cuda", route=route)
+        trainer = setup.trainer
+        per_step = setup.model.kernel_launches_per_step()
+        want = {"fused_ffn_fwd", "fused_ffn_bwd", "fused_att_fwd",
+                "fused_att_bwd", "fused_conv_stats", "fused_conv_fwd",
+                "fused_conv_bwd1", "fused_conv_bwd2", "bn_relu_pool"}
+        if set(per_step) != want:
+            raise AssertionError(f"AV-Tone route kernels {per_step}")
+        n_params = sum(p.numel() for p in setup.model.parameters())
+        log(f"AV-Tone: {n_params / 1e6:.2f}M params, {len(setup.train_set)} "
+            f"training and {len(setup.eval_set)} evaluation utterances, "
+            f"B={setup.train_loader.batch_size}, {setup.epochs} epochs of "
+            f"{len(setup.train_loader)} steps; launches per step {per_step}")
+
+        def wer(ds, use_ema=False):
+            return trainer.evaluate(ds, recompute_metrics=True,
+                                    use_ema=use_ema)[1]["wer"]
+
+        wers = {"init": wer(setup.eval_loader)}
+        log(f"AV-Tone greedy WER at init: {wers['init']:.2f}")
+        trainer.set_ema(0.99)
+
+        step_ms, train_launches = [], {}
+        fit_step = trainer.train_step
+
+        def timed_step(batch, accumulated_steps=1):
+            torch.cuda.synchronize()
+            before = dict(_cuda.launches)
+            t0 = time.perf_counter()
+            out = fit_step(batch, accumulated_steps)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            for k, v in _cuda.launches.items():
+                train_launches[k] = train_launches.get(k, 0) + v - \
+                    before.get(k, 0)
+            return out
+
+        trainer.train_step = timed_step
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _cuda.reset_launches()
+        t_fit = time.perf_counter()
+        history = trainer.fit(setup.train_loader, setup.epochs,
+                              dataset_eval=setup.eval_loader,
+                              callback_path=ckpt_dir,
+                              recompute_metrics=setup.recompute_metrics,
+                              step_log_period=200)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t_fit
+        launches = dict(_cuda.launches)
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        del trainer.train_step
+        n_steps = len(step_ms)
+        log(f"main path launches over the fit's {n_steps} train steps: "
+            f"{train_launches}; over the fit (its evaluations included): "
+            f"{launches}")
+        if train_launches != {k: v * n_steps for k, v in per_step.items()}:
+            raise AssertionError(f"launches {train_launches} != {n_steps} x "
+                                 f"{per_step}")
+        losses = [h["losses"] for h in history]
+        if n_steps != setup.epochs * len(setup.train_loader) or not all(
+                math.isfinite(v) for row in losses for v in row.values()):
+            raise AssertionError(f"{n_steps} steps, epoch losses {losses}")
+        for h in history:
+            wers[f"epoch_{h['epoch']}"] = h["eval"][0][1]["wer"]
+            wers[f"epoch_{h['epoch']}_ema"] = h["eval_ema"][0][1]["wer"]
+
+        # the last checkpoint in a fresh setup: the same bf16 logits
+        last = os.path.join(ckpt_dir, f"checkpoints_epoch_{setup.epochs}_"
+                                      f"step_{trainer.step}.ckpt")
+        fresh = av_tone.build(os.path.join(ckpt_dir, "fresh"),
+                              device="cuda", route=route)
+        fresh.trainer.load(last)
+        batch = next(iter(setup.eval_loader))
+        logits = []
+        for tr in (trainer, fresh.trainer):
+            tr.model.eval()
+            with torch.no_grad():
+                inputs, _ = tr._to_device(batch)
+                logits.append(tr.model(*inputs)["outputs"][0])
+            tr.model.train()
+        reload_equal = bool(torch.equal(*logits))
+        log(f"checkpoint {os.path.basename(last)} reloaded into a fresh "
+            f"setup: bf16 logits {tuple(logits[0].shape)} bit-identical: "
+            f"{reload_equal}")
+        if not reload_equal:
+            raise AssertionError("reloaded checkpoint gives other logits")
+        del fresh, logits
+
+        wers["audio_alone"] = wer(_ZeroVideo(setup.eval_loader))
+        t_swa = time.perf_counter()
+        trainer.swa(setup.train_loader, ckpt_dir,
+                    epochs_list=list(range(1, setup.epochs + 1)))
+        swa_s = time.perf_counter() - t_swa
+        wers["swa"] = wer(setup.eval_loader)
+        wall_s = time.perf_counter() - t_phase
+        warm = min(20, n_steps // 2)         # warm-up steps left out
+        counted = sorted(step_ms[warm:])
+        median = counted[len(counted) // 2]
+        run = {"wer": wers, "epoch_losses": losses, "steps": n_steps,
+               "batch": setup.train_loader.batch_size,
+               "step_ms_median": median,
+               "step_ms_p10_p90": [counted[len(counted) // 10],
+                                   counted[9 * len(counted) // 10]],
+               "utterances_per_s": setup.train_loader.batch_size * 1e3
+               / median,
+               "fit_s": fit_s, "epoch_s": [h["seconds"] for h in history],
+               "swa_s": swa_s, "peak_gib": peak_gib, "wall_s": wall_s,
+               "params_m": n_params / 1e6, "launches_per_step": per_step,
+               "launches_train_steps": train_launches,
+               "launches_fit": launches, "reload_bit_identical":
+               reload_equal}
+        log("AV-Tone greedy WER: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in wers.items())
+            + " (audio_alone: the video zeroed, a control, not asserted)")
+        log(f"AV-Tone train step: median {median:.3f} ms over steps "
+            f"{warm + 1}-{n_steps} (p10 {run['step_ms_p10_p90'][0]:.3f}, p90 "
+            f"{run['step_ms_p10_p90'][1]:.3f}; synchronized around each "
+            f"step), {run['utterances_per_s']:.2f} utterances/s, peak "
+            f"{peak_gib:.2f} GiB; fit {fit_s:.1f} s (evaluations and "
+            "checkpoints included; its epochs' training loops "
+            + ", ".join(f"{x:.1f}" for x in run["epoch_s"])
+            + f" s), SWA {swa_s:.1f} s, phase wall {wall_s:.1f} s")
+        if profile:     # one more step of the SWA model, traced
+            run["profile"] = profile_train_step(trainer, batch)
+        detail["learning_run"] = run
+        trained = [k for k in wers if k not in ("init", "audio_alone")]
+        if not all(wers[k] < wers["init"] for k in trained):
+            raise AssertionError(f"WER did not fall below init: {wers}")
+        final = f"epoch_{setup.epochs}"
+        ceilings = {final: WER_CEILING, "swa": WER_CEILING,
+                    final + "_ema": EMA_WER_CEILING}
+        over = {k: wers[k] for k, c in ceilings.items() if wers[k] > c}
+        if over:
+            raise AssertionError(f"WER above its ceiling {ceilings}: {over}")
+        return train_launches
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
 
 
 def time_ffn_bwd_kernel(x, g, params, drop, seed, check: bool = False):

@@ -81,6 +81,7 @@ def port_state(params, batch_stats=None, wrap=None, strip=""):
 
 def _port_files():
     files = sorted((REPO / "avec_tpu_torch").rglob("*.py"))
+    files += sorted((REPO / "tools").glob("torch_*.py"))
     smoke = REPO / "chip_smoke.py"
     return files + ([smoke] if smoke.exists() else [])
 
@@ -92,7 +93,12 @@ def test_port_imports_no_jax():
             "avec_tpu_torch.convert, avec_tpu_torch.ops.ffn, "
             "avec_tpu_torch.train.model, avec_tpu_torch.train.losses, "
             "avec_tpu_torch.train.optim, avec_tpu_torch.train.schedulers, "
-            "avec_tpu_torch.parallel.dist\n"
+            "avec_tpu_torch.parallel.dist, avec_tpu_torch.train.checkpoint, "
+            "avec_tpu_torch.train.metrics, avec_tpu_torch.utils.wer, "
+            "avec_tpu_torch.utils.tokenizer, avec_tpu_torch.data.dataset, "
+            "avec_tpu_torch.data.collate, avec_tpu_torch.data.synthetic, "
+            "avec_tpu_torch.data.loader, avec_tpu_torch.decode.greedy, "
+            "avec_tpu_torch.configs.av_tone\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'avec_tpu')]\n"
             "assert not bad, bad\nprint('ok')\n")
@@ -105,8 +111,8 @@ def test_port_imports_no_jax():
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.name)
 def test_port_source_has_no_jax_reference(path):
     """No import of jax/flax and no import of `avec_tpu` (as opposed to
-    `avec_tpu_torch`), in any statement form, in any port source or in
-    chip_smoke.py. Docstrings may still name the JAX file a module ports."""
+    `avec_tpu_torch`), in any statement form, in any port source, in the
+    port's tools (tools/torch_*.py) or in chip_smoke.py. Docstrings may still name the JAX file a module ports."""
     src = path.read_text()
     mod = r"(jax|jaxlib|flax|avec_tpu(?!_torch))\b"
     assert not re.search(r"^\s*(import|from)\s+" + mod, src, re.M), path
@@ -114,7 +120,7 @@ def test_port_source_has_no_jax_reference(path):
     assert not re.search(r"(import_module|__import__)\(\s*['\"]" + mod, src), path
 
 
-def test_entry_points_default_to_cuda():
+def test_entry_points_default_to_cuda(tmp_path):
     """Entry points run on the card unless the caller asks for the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: the CUDA default is valid here")
@@ -131,6 +137,10 @@ def test_entry_points_default_to_cuda():
 
     with pytest.raises(RuntimeError, match="CUDA"):
         Trainer(vocab_size=8)
+    from avec_tpu_torch.configs import av_tone
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        av_tone.build(str(tmp_path / "av_tone"))
 
 
 def test_import_scan_covers_the_training_modules():
@@ -139,4 +149,11 @@ def test_import_scan_covers_the_training_modules():
             "avec_tpu_torch/train/losses.py", "avec_tpu_torch/train/optim.py",
             "avec_tpu_torch/train/schedulers.py",
             "avec_tpu_torch/parallel/__init__.py",
-            "avec_tpu_torch/parallel/dist.py", "chip_smoke.py"} <= names
+            "avec_tpu_torch/parallel/dist.py", "chip_smoke.py",
+            "avec_tpu_torch/train/checkpoint.py",
+            "avec_tpu_torch/train/metrics.py", "avec_tpu_torch/utils/wer.py",
+            "avec_tpu_torch/utils/tokenizer.py",
+            "avec_tpu_torch/data/dataset.py", "avec_tpu_torch/data/collate.py",
+            "avec_tpu_torch/data/synthetic.py", "avec_tpu_torch/data/loader.py",
+            "avec_tpu_torch/configs/av_tone.py",
+            "tools/torch_av_tone_routes.py"} <= names
