@@ -10,6 +10,7 @@ rules of the JAX package's torch converter apply here in the other direction:
                             -> weight (O, C*F), channel-major
   scale / bias              -> weight / bias
   pos_kernel / pos_bias     -> pos_layer.weight (transposed) / pos_layer.bias
+  u / v (Transformer-XL)    -> u / v
   batch_stats mean / var    -> running_mean / running_var
   blocks_{F}_{L}.block.*    -> conformer_blocks.{F..L}.* (unstacked scan run)
   interctc_{N}              -> interctc_modules.{ordinal of N in its scope}
@@ -104,6 +105,8 @@ def _leaf_rule(segs: List[str], leaf: str, in_batch_stats: bool):
         return "pos_layer.weight", _linear
     if leaf == "pos_bias":
         return "pos_layer.bias", _identity
+    if leaf in ("u", "v"):      # RelPosMultiHeadSelfAttention's biases
+        return leaf, _identity
     raise KeyError(f"no rule for leaf {leaf!r} under {'.'.join(segs)}")
 
 

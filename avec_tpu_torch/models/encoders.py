@@ -107,29 +107,47 @@ def _att_params_audio(att_type: str, num_heads: int, use_flash: bool
 class AudioEfficientConformerEncoder(nn.Module):
     """Raw audio -> features (encoders.py:229): fbank (fp32, no
     normalisation) -> conv2d stem 1->180 k3 s2 + BN + swish -> channel-major
-    flatten (180*40) -> Linear 180 -> conformer [180, 256, 360]."""
+    flatten (180*40) -> Linear 180 -> conformer [180, 256, 360].
+
+    `causal` is the offline path of the causal variant (encoders.py:286-
+    336): the stem pads causally in time and centred in frequency, every
+    convolution module pads causally (`pad_lo` = k - 1), and every stage
+    runs Transformer-XL attention under a causal band mask of `left_context`
+    stage-1 frames, which the restriding halves per stage. The stem runs
+    channels-first on (B, 1, 80, T), frequency before time, so its padding
+    is ("same", "causal") where the JAX stem, time-major, has ("causal",
+    "same"). The chunked streaming step (`_stream_step`) is not ported."""
 
     def __init__(self, include_head: bool = True, vocab_size: int = 256,
                  att_type: str = "patch",
                  interctc_blocks: Sequence[int] = (3, 6, 10, 13),
                  num_blocks: Sequence[int] = (5, 6, 5),
                  loss_prefix: str = "ctc", use_flash: bool = False,
+                 causal: bool = False, left_context: Optional[int] = None,
                  fused_att: Optional[bool] = None,
                  fused_conv: Optional[bool] = None,
                  fused_ffn: Optional[bool] = None):
         super().__init__()
         n_mels, filters, dims, heads = 80, 180, [180, 256, 360], 4
+        self.causal, self.left_context = causal, left_context
         self.preprocessing = AudioPreprocessing(
             sample_rate=16000, n_fft=512, win_length_ms=25, hop_length_ms=10,
             n_mels=n_mels, normalize=False)
         self.spec_augment = SpecAugment(mF=2, F=27, mT=5, pS=0.05)
         self.subsampling_module = ConvNeuralNetwork(
-            1, [filters], 3, ndim=2, strides=2, act_fun="Swish")
+            1, [filters], 3, ndim=2, strides=2, act_fun="Swish",
+            padding=("same", "causal") if causal else "same")
         self.linear = Linear(filters * (n_mels // 2), dims[0])
+        if causal:
+            xl = {"class": "RelPosMultiHeadSelfAttention",
+                  "params": {"num_heads": heads, "causal": True}}
+            att_params = [xl, xl, xl]
+        else:
+            att_params = _att_params_audio(att_type, heads, use_flash)
         self.back_end = ConformerInterCTC(
             dims, list(num_blocks), list(interctc_blocks), vocab_size,
-            _att_params_audio(att_type, heads, use_flash),
-            loss_prefix=loss_prefix, fused_att=fused_att,
+            att_params, loss_prefix=loss_prefix,
+            conv_padding="causal" if causal else "same", fused_att=fused_att,
             fused_conv=fused_conv, fused_ffn=fused_ffn)
         self.head = Linear(dims[-1], vocab_size) if include_head else None
 
@@ -139,7 +157,12 @@ class AudioEfficientConformerEncoder(nn.Module):
         x, lengths = self.subsampling_module(x[:, None], lengths)
         b, c, f, t = x.shape                               # (B, 180, 40, T'')
         x = self.linear(x.permute(0, 3, 1, 2).reshape(b, t, c * f))
-        x, lengths, inter = self.back_end(x, lengths, make_mask(t, lengths))
+        if self.causal:
+            mask = make_mask(t, lengths, left_context=self.left_context,
+                             right_context=0)
+        else:
+            mask = make_mask(t, lengths)
+        x, lengths, inter = self.back_end(x, lengths, mask)
         if self.head is not None:
             x = self.head(x)
         return x, lengths, inter

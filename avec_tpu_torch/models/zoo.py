@@ -1,24 +1,35 @@
-"""Task models (port of avec_tpu/models/zoo.py): the AV model, eval and
-training forward.
+"""Task models (port of avec_tpu/models/zoo.py): the audio-visual, audio-only
+(offline and causal), video-only and LRW word-classification models, eval
+and training forward.
 
 Weights are drawn from an explicit `torch.Generator` (default seed 0) on the
 CPU, so a seed gives the same model on every device, then moved to `device`.
-Entry points default to CUDA and raise when it is absent.
+Entry points default to CUDA and raise when it is absent. Each model's
+`compile_defaults` are the JAX `compile` defaults the training engine takes
+when its caller gives none: the loss, the loss weights (a list is mapped
+onto the output names sorted, as the JAX engine maps it) and the metrics.
 """
 
-from typing import Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 import torch.nn as nn
 
 from avec_tpu_torch.models.encoders import (
-    AudioVisualEfficientConformerEncoder, FusedVideoStem)
+    AudioEfficientConformerEncoder, AudioVisualEfficientConformerEncoder,
+    FusedVideoStem, VisualEfficientConformerEncoder)
 from avec_tpu_torch.ops.layers import init_params
+from avec_tpu_torch.train.losses import CTCLoss, SoftmaxCrossEntropy
+from avec_tpu_torch.train.metrics import CategoricalAccuracy
 
 
 # offset of each rank's Dropout / SpecAugment generator seed
 _RANK_SEED_STRIDE = 1_000_003
+
+# zoo.py:254-256 (configs/LRS23/AV/EffConfInterCTC.py:14-21)
+AV_LOSS_WEIGHTS = {"v_ctc_2": 0.5 / 3, "v_ctc_5": 0.5 / 3, "a_ctc_7": 0.5 / 3,
+                   "a_ctc_10": 0.5 / 3, "f_ctc_1": 0.5 / 3, "outputs": 0.5}
 
 
 def resolve_device(device) -> torch.device:
@@ -29,37 +40,18 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-class AudioVisualEfficientConformerInterCTC(nn.Module):
-    """AV Efficient Conformer with InterCTC (zoo.py:200-260).
+def hflip(video: torch.Tensor) -> torch.Tensor:
+    """Horizontal flip of (B, T, H, W, C) frames: the VO config's test-time
+    augmentation (configs/LRS23/VO/EffConfInterCTC.py:45-48)."""
+    return torch.flip(video, dims=(3,))
 
-    forward(video, video_len, audio, audio_len) returns
-    {"outputs": [logits (B, T, vocab), lengths], "<prefix>_<i>": [...]}: with
-    the reference blocks the six outputs `outputs`, `v_ctc_2`, `v_ctc_5`,
-    `a_ctc_7`, `a_ctc_10`, `f_ctc_1`. The model is built in eval mode, where
-    the forward records no graph; `.train()` does what `training=True` does
-    in the JAX package (zoo.py:211-227)."""
 
-    def __init__(self, vocab_size: int = 256,
-                 v_interctc_blocks: Sequence[int] = (3, 6),
-                 a_interctc_blocks: Sequence[int] = (8, 11),
-                 f_interctc_blocks: Sequence[int] = (2,),
-                 use_flash: bool = False,
-                 v_num_blocks: Sequence[int] = (6, 1),
-                 a_num_blocks: Sequence[int] = (5, 6, 1),
-                 f_num_blocks: int = 5, stem_mode: Optional[str] = None,
-                 fused_att: Optional[bool] = None,
-                 fused_conv: Optional[bool] = None,
-                 fused_ffn: Optional[bool] = None, device="cuda",
-                 generator: Optional[torch.Generator] = None):
-        super().__init__()
-        device = resolve_device(device)
-        self.encoder = AudioVisualEfficientConformerEncoder(
-            vocab_size=vocab_size, v_interctc_blocks=v_interctc_blocks,
-            a_interctc_blocks=a_interctc_blocks,
-            f_interctc_blocks=f_interctc_blocks, v_num_blocks=v_num_blocks,
-            a_num_blocks=a_num_blocks, f_num_blocks=f_num_blocks,
-            use_flash=use_flash, stem_mode=stem_mode, fused_att=fused_att,
-            fused_conv=fused_conv, fused_ffn=fused_ffn)
+class ZooModel(nn.Module):
+    """What every task model shares: seeded initialisation, the kernel,
+    regularization, noise and data-parallel switches, and the kernel
+    launches of a training step counted from the model's own module tree."""
+
+    def _finish_init(self, device, generator: Optional[torch.Generator]):
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         init_params(self, generator)
@@ -136,7 +128,8 @@ class AudioVisualEfficientConformerInterCTC(nn.Module):
         route launches the fused forward and backward once, every flash
         attention layer the flash forward and both flash backward kernels
         once, every attention module that takes
-        the fused route (with the key-padding masks the encoders build) the
+        the fused route (non-causal `RelPos1dMultiHeadAttention` with the
+        key-padding masks the encoders build) the
         fused attention forward and backward once, every convolution module
         that takes the fused route the four conv kernels (statistics,
         forward, backward-1, backward-2) once each, under their K3dp names in
@@ -148,11 +141,15 @@ class AudioVisualEfficientConformerInterCTC(nn.Module):
                                                      FeedForwardModule)
         from avec_tpu_torch.ops import (attention_module, conv_module, ffn,
                                         flash_attention, stem)
+        from avec_tpu_torch.ops.attention import RelPos1dMultiHeadAttention
 
         mods = list(self.modules())
         n_ffn = sum(isinstance(m, FeedForwardModule) and m.fused_eligible()
                     for m in mods)
-        n_flash = sum(bool(getattr(m, "use_flash", False)) for m in mods)
+        # the flash route is RelPos1d's alone, never causal: the causal
+        # encoder's layers are Transformer-XL ones
+        n_flash = sum(isinstance(m, RelPos1dMultiHeadAttention)
+                      and m.use_flash for m in mods)
         n_att = sum(isinstance(m, AttentionModule) and m.fused_eligible()
                     for m in mods)
         n_conv = sum(isinstance(m, ConvolutionModule) and m.fused_eligible()
@@ -171,11 +168,173 @@ class AudioVisualEfficientConformerInterCTC(nn.Module):
                   stem.KERNEL: n_stem}
         return {k: v for k, v in counts.items() if v}
 
+
+class AudioVisualEfficientConformerInterCTC(ZooModel):
+    """AV Efficient Conformer with InterCTC (zoo.py:200-260).
+
+    forward(video, video_len, audio, audio_len) returns
+    {"outputs": [logits (B, T, vocab), lengths], "<prefix>_<i>": [...]}: with
+    the reference blocks the six outputs `outputs`, `v_ctc_2`, `v_ctc_5`,
+    `a_ctc_7`, `a_ctc_10`, `f_ctc_1`. The model is built in eval mode, where
+    the forward records no graph; `.train()` does what `training=True` does
+    in the JAX package (zoo.py:211-227)."""
+
+    def __init__(self, vocab_size: int = 256,
+                 v_interctc_blocks: Sequence[int] = (3, 6),
+                 a_interctc_blocks: Sequence[int] = (8, 11),
+                 f_interctc_blocks: Sequence[int] = (2,),
+                 use_flash: bool = False,
+                 v_num_blocks: Sequence[int] = (6, 1),
+                 a_num_blocks: Sequence[int] = (5, 6, 1),
+                 f_num_blocks: int = 5, stem_mode: Optional[str] = None,
+                 fused_att: Optional[bool] = None,
+                 fused_conv: Optional[bool] = None,
+                 fused_ffn: Optional[bool] = None, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        device = resolve_device(device)
+        self.encoder = AudioVisualEfficientConformerEncoder(
+            vocab_size=vocab_size, v_interctc_blocks=v_interctc_blocks,
+            a_interctc_blocks=a_interctc_blocks,
+            f_interctc_blocks=f_interctc_blocks, v_num_blocks=v_num_blocks,
+            a_num_blocks=a_num_blocks, f_num_blocks=f_num_blocks,
+            use_flash=use_flash, stem_mode=stem_mode, fused_att=fused_att,
+            fused_conv=fused_conv, fused_ffn=fused_ffn)
+        self._finish_init(device, generator)
+
+    def compile_defaults(self) -> Dict:
+        return {"loss": CTCLoss(), "loss_weights": dict(AV_LOSS_WEIGHTS),
+                "metrics": None}
+
+
     def forward(self, video, video_len, audio, audio_len):
         with torch.set_grad_enabled(self.training):
             x, lengths, inter = self.encoder(video, video_len, audio,
                                              audio_len)
         return {"outputs": [x, lengths], **inter}
+
+
+
+
+class AudioEfficientConformerInterCTC(ZooModel):
+    """Audio-only Efficient Conformer with InterCTC (zoo.py:82-144).
+
+    forward(audio (B, Ta), audio_len (B,)) returns {"outputs": [logits
+    (B, T, vocab), lengths], "ctc_<i>": [...]} for the InterCTC blocks.
+    `att_type` "patch" (stage 1 patch attention, stages 2-3 regular) or
+    "regular"; `use_flash` routes the regular layers through the flash
+    kernel. `causal=True` is the causal variant's offline path with a
+    `left_context` of stage-1 frames (`AudioEfficientConformerEncoder`)."""
+
+    def __init__(self, vocab_size: int = 256, att_type: str = "patch",
+                 interctc_blocks: Sequence[int] = (3, 6, 10, 13),
+                 num_blocks: Sequence[int] = (5, 6, 5),
+                 use_flash: bool = False, causal: bool = False,
+                 left_context: Optional[int] = None,
+                 fused_att: Optional[bool] = None,
+                 fused_conv: Optional[bool] = None,
+                 fused_ffn: Optional[bool] = None, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        device = resolve_device(device)
+        self.encoder = AudioEfficientConformerEncoder(
+            vocab_size=vocab_size, att_type=att_type,
+            interctc_blocks=interctc_blocks, num_blocks=num_blocks,
+            use_flash=use_flash, causal=causal, left_context=left_context,
+            fused_att=fused_att, fused_conv=fused_conv, fused_ffn=fused_ffn)
+        self._finish_init(device, generator)
+
+    def compile_defaults(self) -> Dict:
+        return {"loss": CTCLoss(), "loss_weights": [0.5 / 4] * 4 + [0.5],
+                "metrics": None}
+
+    def forward(self, audio, audio_len):
+        with torch.set_grad_enabled(self.training):
+            x, lengths, inter = self.encoder(audio, audio_len)
+        return {"outputs": [x, lengths], **inter}
+
+
+class VisualEfficientConformerInterCTC(ZooModel):
+    """Video-only Efficient Conformer with InterCTC (zoo.py:147-197).
+
+    forward(video (B, Tv, 88, 88, 1), video_len (B,)) returns
+    {"outputs": [logits, lengths], "ctc_<i>": [...]}. In eval, each function
+    of `test_augments` (video -> video, e.g. `hflip`) runs the encoder once
+    more, and the outputs' logits and lengths are the base and augmented
+    forwards stacked on a new axis 1: (B, 1 + n, T, vocab), (B, 1 + n)."""
+
+    def __init__(self, vocab_size: int = 256,
+                 interctc_blocks: Sequence[int] = (3, 6, 9),
+                 num_blocks: Sequence[int] = (6, 6),
+                 test_augments: Optional[Sequence[Callable]] = None,
+                 stem_mode: Optional[str] = None,
+                 fused_att: Optional[bool] = None,
+                 fused_conv: Optional[bool] = None,
+                 fused_ffn: Optional[bool] = None, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        device = resolve_device(device)
+        if test_augments is not None and not isinstance(test_augments,
+                                                        (list, tuple)):
+            test_augments = [test_augments]
+        self.test_augments = list(test_augments or [])
+        self.encoder = VisualEfficientConformerEncoder(
+            vocab_size=vocab_size, interctc_blocks=interctc_blocks,
+            num_blocks=num_blocks, stem_mode=stem_mode, fused_att=fused_att,
+            fused_conv=fused_conv, fused_ffn=fused_ffn)
+        self._finish_init(device, generator)
+
+    def compile_defaults(self) -> Dict:
+        return {"loss": CTCLoss(), "loss_weights": [0.5 / 3] * 3 + [0.5],
+                "metrics": None}
+
+    def forward(self, video, video_len):
+        with torch.set_grad_enabled(self.training):
+            x, lengths, inter = self.encoder(video, video_len)
+            if not self.training and self.test_augments:
+                xs, lens = [x], [lengths]
+                for aug in self.test_augments:
+                    xa, la, _ = self.encoder(aug(video), video_len)
+                    xs.append(xa)
+                    lens.append(la)
+                x, lengths = torch.stack(xs, dim=1), torch.stack(lens, dim=1)
+        return {"outputs": [x, lengths], **inter}
+
+
+class Classifier(ZooModel):
+    """A classifier's `compile` defaults (models.py `Classifier`, zoo.py:
+    41-53): softmax cross-entropy and categorical accuracy."""
+
+    def compile_defaults(self) -> Dict:
+        return {"loss": SoftmaxCrossEntropy(), "loss_weights": None,
+                "metrics": CategoricalAccuracy()}
+
+
+class VisualEfficientConformerCE(Classifier):
+    """The LRW word classifier (zoo.py:56-79): the video encoder without
+    InterCTC blocks, its logits averaged over every frame (no lengths:
+    clips have one length). forward(video (B, T, 88, 88, 1)) returns
+    {"output": logits (B, vocab)}."""
+
+    def __init__(self, vocab_size: int = 500,
+                 num_blocks: Sequence[int] = (6, 6),
+                 stem_mode: Optional[str] = None,
+                 fused_att: Optional[bool] = None,
+                 fused_conv: Optional[bool] = None,
+                 fused_ffn: Optional[bool] = None, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        device = resolve_device(device)
+        self.encoder = VisualEfficientConformerEncoder(
+            vocab_size=vocab_size, interctc_blocks=(), num_blocks=num_blocks,
+            stem_mode=stem_mode, fused_att=fused_att, fused_conv=fused_conv,
+            fused_ffn=fused_ffn)
+        self._finish_init(device, generator)
+
+    def forward(self, video):
+        with torch.set_grad_enabled(self.training):
+            x, _, _ = self.encoder(video, None)
+        return {"output": x.mean(dim=1)}
 
 
 def randomize_batch_stats(model: nn.Module, generator: torch.Generator):

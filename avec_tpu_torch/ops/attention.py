@@ -1,18 +1,39 @@
-"""Multi-head attention (port of avec_tpu/ops/attention.py), eval only.
+"""Multi-head attention (port of avec_tpu/ops/attention.py).
 
 Sequences are (B, T, D); masks are boolean, additive -1e9. The rel-pos layer
 computes its relative scores through the exact sin/cos factorization (the JAX
 in-model default), or, with `use_flash`, through the flash kernel of
-`ops/flash_attention.py` with key-padding lengths.
+`ops/flash_attention.py` with key-padding lengths. The Transformer-XL layer
+(`RelPosMultiHeadSelfAttention`, the causal audio encoder's) computes them
+through the relative table and the skew of `rel_to_abs`.
 """
 
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from avec_tpu_torch.ops.flash_attention import rel_pos_flash_attention
 from avec_tpu_torch.ops.layers import Linear, avg_pool, upsample_nearest
 from avec_tpu_torch.ops.masks import apply_mask, min_pool_mask
+from avec_tpu_torch.ops.pos_embeddings import relative_pos_encoding
+
+
+def rel_to_abs(scores: torch.Tensor, causal: bool) -> torch.Tensor:
+    """Relative-indexed -> absolute-indexed scores (attention.py:48-69).
+
+    Full context: (B, H, T, Th + 2T - 1) -> (B, H, T, Th + T); causal:
+    (B, H, T, Th + T) -> (B, H, T, Th + T). The pad / flatten / reshape /
+    slice skew: causal pads one column on the left, flattens, pads
+    t2 - t1 entries on the left and drops the first row."""
+    b, h, t1, t2 = scores.shape
+    if causal:
+        x = F.pad(scores, (1, 0)).reshape(b, h, t1 * (1 + t2))
+        x = F.pad(x, (t2 - t1, 0)).reshape(b, h, 1 + t1, t2)
+        return x[:, :, 1:]
+    x = F.pad(scores, (0, 1)).reshape(b, h, t1 * (t2 + 1))
+    x = F.pad(x, (0, t2 - t1)).reshape(b, h, 1 + t1, t2)
+    return x[:, :, :t1, t1 - 1:]
 
 
 def _split_heads(x, num_heads, dim_head):
@@ -140,10 +161,41 @@ class RelPosPatch1dMultiHeadAttention(RelPos1dMultiHeadAttention):
         return upsample_nearest(o, p, axis=1)[:, :t]
 
 
+class RelPosMultiHeadSelfAttention(MultiHeadAttention):
+    """Transformer-XL rel-pos self-attention with the u and v biases
+    (attention.py:354-404), offline: scores = ((q + u) k^T +
+    rel_to_abs((q + v) E^T)) / sqrt(d), E = pos_layer(relative table), the
+    table causal (positions T - 1 .. 0) when `causal`. The key/value cache
+    of the JAX layer (`hidden`, `return_hidden`) is not ported."""
+
+    def __init__(self, dim_model: int, num_heads: int, causal: bool = False):
+        super().__init__(dim_model, num_heads)
+        self.causal = causal
+        self.pos_layer = Linear(dim_model, dim_model)
+        self.u = nn.Parameter(torch.zeros(dim_model))
+        self.v = nn.Parameter(torch.zeros(dim_model))
+
+    def forward(self, x, mask=None, lengths=None):
+        t, dtype = x.shape[1], x.dtype
+        q, k, v = self.query_layer(x), self.key_layer(x), self.value_layer(x)
+        split = lambda a: _split_heads(a, self.num_heads, self.dim_head)
+        qu, qv = split(q + self.u.to(dtype)), split(q + self.v.to(dtype))
+        e = self.pos_layer(relative_pos_encoding(
+            t, self.dim_model, self.causal, device=x.device).to(dtype))
+        e = split(e)[0]                                   # (H, R, d)
+        scores_k = torch.einsum("bhqd,bhkd->bhqk", qu, split(k))
+        scores_e = rel_to_abs(torch.einsum("bhqd,hkd->bhqk", qv, e),
+                              self.causal)
+        scores = (scores_k + scores_e) / self.dim_head ** 0.5
+        return self.output_layer(_merge_heads(_attend(scores, split(v),
+                                                      mask)))
+
+
 att_dict = {
     "MultiHeadAttention": MultiHeadAttention,
     "RelPos1dMultiHeadAttention": RelPos1dMultiHeadAttention,
     "RelPosPatch1dMultiHeadAttention": RelPosPatch1dMultiHeadAttention,
+    "RelPosMultiHeadSelfAttention": RelPosMultiHeadSelfAttention,
 }
 
 

@@ -1,8 +1,12 @@
-"""Batched serving of the AV Efficient Conformer (port of tools/serve.py:57-286).
+"""Batched serving of the Efficient Conformer models (port of
+tools/serve.py:57-286), in the modes of tools/serve.py:72-90: "av" the
+audio-visual model, "ao" the audio-only model, "vo" the video-only model.
 
 Requests are dicts of arrays, {"video": (Tv, 88, 88, 1) float32 frames at
-25 fps, "audio": (Ta,) float32 samples at 16 kHz}. A batch of requests is
-padded to a power-of-two length bucket and batch bucket, run through one
+25 fps, "audio": (Ta,) float32 samples at 16 kHz}, with what the mode reads:
+"ao" feeds the audio alone, "vo" the video alone. A batch of requests is
+padded to a power-of-two length bucket (in audio samples; a video frame
+counts 640) and batch bucket, run through one
 forward, and collapsed greedily on the device; each result carries its token
 ids, latency and real-time factor. Padding is masked by the model's length
 semantics, so neither bucket nor batch padding changes a transcription.
@@ -17,10 +21,15 @@ import numpy as np
 import torch
 
 from avec_tpu_torch.decode.greedy import CTCGreedySearchDecoder
-from avec_tpu_torch.models.zoo import (AudioVisualEfficientConformerInterCTC,
+from avec_tpu_torch.models.zoo import (AudioEfficientConformerInterCTC,
+                                       AudioVisualEfficientConformerInterCTC,
+                                       VisualEfficientConformerInterCTC,
                                        resolve_device)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+_MODELS = {"av": AudioVisualEfficientConformerInterCTC,
+           "ao": AudioEfficientConformerInterCTC,
+           "vo": VisualEfficientConformerInterCTC}
 
 
 def _bucket(n: int, floor: int = 4000) -> int:
@@ -38,11 +47,12 @@ def _batch_bucket(n: int) -> int:
 
 
 class Server:
-    """AV serving loop: bucket -> forward -> greedy collapse -> token ids.
+    """Serving loop: bucket -> forward -> greedy collapse -> token ids.
 
-    model_kwargs go to AudioVisualEfficientConformerInterCTC (defaults: the
-    reference depth, vocab 256). The activations run in `precision`
-    (bf16 by default, as tools/serve.py); parameters stay fp32."""
+    model_kwargs go to the zoo model of `mode` (defaults: the reference
+    depth, vocab 256; mode "ao" without InterCTC blocks, as tools/serve.py
+    builds it). The activations run in `precision` (bf16 by default, as
+    tools/serve.py); parameters stay fp32."""
 
     # Batch-padding rows: zero audio/video with this many valid samples, so
     # every mask row has real frames (no all-masked attention).
@@ -50,11 +60,16 @@ class Server:
 
     def __init__(self, model: Optional[torch.nn.Module] = None,
                  device="cuda", precision: str = "bfloat16", seed: int = 0,
-                 **model_kwargs):
+                 mode: str = "av", **model_kwargs):
+        if mode not in _MODELS:
+            raise ValueError(f"mode {mode!r} not in {sorted(_MODELS)}")
+        self.mode = mode
         self.device = resolve_device(device)
         self.dtype = _DTYPES[precision]
         if model is None:
-            model = AudioVisualEfficientConformerInterCTC(
+            if mode == "ao":
+                model_kwargs.setdefault("interctc_blocks", ())
+            model = _MODELS[mode](
                 device=self.device,
                 generator=torch.Generator().manual_seed(seed), **model_kwargs)
         self.model = model
@@ -62,22 +77,35 @@ class Server:
         self.latencies: List[float] = []
         self.rtfs: List[float] = []
 
+    @staticmethod
+    def _request_samples(req) -> int:
+        """A request's length in audio samples (a video frame counts 640)."""
+        n = len(req.get("audio", ()))
+        return int(n) if n else int(req["video"].shape[0] * 640)
+
     def _inputs_for_batch(self, reqs, bucket_len: int, batch_bucket: int):
-        """Pad requests into one batch: [video, video_len, audio, audio_len]
-        as numpy arrays (float32 / int32)."""
+        """Pad requests into one batch of the mode's inputs as numpy arrays
+        (float32 / int32): [video, video_len, audio, audio_len] ("av"),
+        [audio, audio_len] ("ao") or [video, video_len] ("vo")."""
         pad_samples = min(self.PAD_ROW_SAMPLES, bucket_len)
-        audio = np.zeros((batch_bucket, bucket_len), np.float32)
-        alens = np.full((batch_bucket,), pad_samples, np.int32)
-        vb = bucket_len // 640 + 1
-        vshape = reqs[0]["video"].shape[1:]
-        video = np.zeros((batch_bucket, vb) + vshape, np.float32)
-        vlens = np.full((batch_bucket,), pad_samples // 640 + 1, np.int32)
-        for i, r in enumerate(reqs):
-            audio[i, :len(r["audio"])] = r["audio"]
-            alens[i] = len(r["audio"])
-            video[i, :r["video"].shape[0]] = r["video"]
-            vlens[i] = r["video"].shape[0]
-        return [video, vlens, audio, alens]
+        out = []
+        if self.mode != "ao":
+            vb = bucket_len // 640 + 1
+            vshape = reqs[0]["video"].shape[1:]
+            video = np.zeros((batch_bucket, vb) + vshape, np.float32)
+            vlens = np.full((batch_bucket,), pad_samples // 640 + 1, np.int32)
+            for i, r in enumerate(reqs):
+                video[i, :r["video"].shape[0]] = r["video"]
+                vlens[i] = r["video"].shape[0]
+            out += [video, vlens]
+        if self.mode != "vo":
+            audio = np.zeros((batch_bucket, bucket_len), np.float32)
+            alens = np.full((batch_bucket,), pad_samples, np.int32)
+            for i, r in enumerate(reqs):
+                audio[i, :len(r["audio"])] = r["audio"]
+                alens[i] = len(r["audio"])
+            out += [audio, alens]
+        return out
 
     def forward(self, inputs, dtype: Optional[torch.dtype] = None):
         """Padded numpy inputs -> (logits, lengths) on the device. Float
@@ -94,7 +122,7 @@ class Server:
         enqueue_times[i] (default: now) to the moment the result is ready."""
         if enqueue_times is None:
             enqueue_times = [time.perf_counter()] * len(reqs)
-        samples = [len(r["audio"]) for r in reqs]
+        samples = [self._request_samples(r) for r in reqs]
         inputs = self._inputs_for_batch(reqs, _bucket(max(samples)),
                                         _batch_bucket(len(reqs)))
         logits, lengths = self.forward(inputs)

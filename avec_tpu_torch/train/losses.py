@@ -1,7 +1,8 @@
 """Training losses (port of avec_tpu/train/losses.py and avec_tpu/ops/ctc.py:215).
 
 CTC is plain XLA in the JAX package, so here it is the library's
-`torch.nn.functional.ctc_loss` on an fp32 `log_softmax`.
+`torch.nn.functional.ctc_loss` on an fp32 `log_softmax`; the softmax
+cross-entropy of the classifiers is an fp32 `log_softmax` and a gather.
 """
 
 import torch
@@ -66,3 +67,24 @@ class CTCLoss:
         return ctc_loss(logits, logits_len, y, y_len, blank=self.blank,
                         reduction=self.reduction,
                         zero_infinity=self.zero_infinity)
+
+
+class SoftmaxCrossEntropy:
+    """Cross-entropy of integer targets over logits (..., V), in fp32
+    (losses.py:136-161): targets equal to `ignore_index` add 0, and the
+    mean runs over every element, ignored ones included."""
+
+    def __init__(self, ignore_index: int = -1, reduction: str = "mean"):
+        if reduction not in ("mean", "sum"):
+            raise ValueError(f"reduction {reduction!r}")
+        self.ignore_index = ignore_index
+        self.reduction = reduction
+
+    def __call__(self, targets, outputs):
+        y = torch.as_tensor(targets, device=outputs.device)
+        valid = y != self.ignore_index
+        logp = torch.log_softmax(outputs.float(), dim=-1)
+        nll = -torch.gather(logp, -1, torch.where(valid, y, 0).long()
+                            [..., None])[..., 0]
+        nll = torch.where(valid, nll, torch.zeros_like(nll))
+        return nll.mean() if self.reduction == "mean" else nll.sum()

@@ -1,10 +1,13 @@
-"""The training engine of the AV model (port of avec_tpu/train/model.py:
-173-199, 303-306, 375-558, 580-1067).
+"""The training engine of the task models (port of avec_tpu/train/model.py:
+173-306, 375-558, 580-1067).
 
-A batch is {"inputs": [video (B, Tv, 88, 88, 1), video_len (B,), audio
-(B, Ta), audio_len (B,)], "targets": (labels (B, U), label_len (B,))} of
-numpy arrays or tensors. One step (`train_step`) runs the model in training
-mode, the weighted CTC losses of every output, the backward, the global
+A batch is {"inputs": ..., "targets": ...} of numpy arrays or tensors: the
+inputs a list of the model's positional arguments (or one array), e.g. for
+the AV model [video (B, Tv, 88, 88, 1), video_len (B,), audio (B, Ta),
+audio_len (B,)], and the targets, e.g. (labels (B, U), label_len (B,)) for
+the CTC models or labels (B,) for the LRW classifier. One step
+(`train_step`) runs the model in training
+mode, the weighted losses of the outputs, the backward, the global
 gradient norm (clipping only when `grad_max_norm` is set), the optimizer
 (by default Adam with L2 in the gradient under the Noam schedule), the step
 counter and, with `set_ema`, the EMA update; it returns (losses, infos) with
@@ -43,25 +46,23 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from avec_tpu_torch.models.zoo import (AudioVisualEfficientConformerInterCTC,
-                                       resolve_device)
+from avec_tpu_torch.models.zoo import (  # noqa: F401 (AV_LOSS_WEIGHTS)
+    AV_LOSS_WEIGHTS, AudioVisualEfficientConformerInterCTC, Classifier,
+    resolve_device)
 from avec_tpu_torch.parallel.dist import shard_batch
 from avec_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
-from avec_tpu_torch.train.losses import CTCLoss, rank_weight
+from avec_tpu_torch.train.losses import rank_weight
 from avec_tpu_torch.train.optim import Optimizer, noam_adam
 from avec_tpu_torch.train.schedulers import as_scheduler
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
-# avec_tpu/models/zoo.py:254-256 (configs/LRS23/AV/EffConfInterCTC.py:14-21)
-AV_LOSS_WEIGHTS = {"v_ctc_2": 0.5 / 3, "v_ctc_5": 0.5 / 3, "a_ctc_7": 0.5 / 3,
-                   "a_ctc_10": 0.5 / 3, "f_ctc_1": 0.5 / 3, "outputs": 0.5}
-
 
 def _per_output(struct, keys) -> Dict[str, Any]:
-    """A metric or decoder spec conformed to the output names (model.py:
-    201-216): a dict keeps its keys (each must be an output), a list is
-    taken in output order, anything else applies to every output."""
+    """A spec conformed to the output names `keys` as the JAX
+    `map_to_outputs` does (model.py:212-227): a dict keeps its keys (each
+    must be an output), the i-th entry of a list goes to keys[i], anything
+    else applies to every output; None entries are left out."""
     if struct is None:
         return {}
     if isinstance(struct, dict):
@@ -76,8 +77,41 @@ def _per_output(struct, keys) -> Dict[str, Any]:
     return {k: struct for k in keys}
 
 
+def _by_output(struct, outputs) -> Dict[str, Any]:
+    """`_per_output` over the names of `outputs` sorted, the order in which
+    the JAX engine sees them (`jax.eval_shape` returns a dict's keys
+    sorted, model.py:242-252), so a list's i-th entry goes to the i-th name
+    in sorted order; the result is in the outputs' own order."""
+    mapped = _per_output(struct, sorted(outputs))
+    return {k: mapped[k] for k in outputs if k in mapped}
+
+
 def _as_list(spec) -> list:
     return spec if isinstance(spec, list) else [spec]
+
+
+def _loss_weights(spec):
+    """Loss weights as the JAX `compile` takes them (model.py:182-192):
+    None weighs every output 1, a number weighs every output alike, a dict
+    or a list (a tuple is taken as a list) holds a number or a step
+    scheduler per output."""
+    if spec is None:
+        return None
+    if isinstance(spec, dict):
+        return {k: as_scheduler(v) for k, v in spec.items()}
+    if isinstance(spec, (list, tuple)):
+        return [as_scheduler(v) for v in spec]
+    return as_scheduler(spec)
+
+
+def _to(struct, device):
+    """Arrays in a list, tuple or dict (or one array) -> tensors on
+    `device`, the container kept."""
+    if isinstance(struct, dict):
+        return {k: _to(v, device) for k, v in struct.items()}
+    if isinstance(struct, (list, tuple)):
+        return type(struct)(_to(v, device) for v in struct)
+    return torch.as_tensor(struct).to(device)
 
 
 def _split_micro(batch, accum: int) -> List[Any]:
@@ -102,17 +136,29 @@ def _split_micro(batch, accum: int) -> List[Any]:
 
 
 class Trainer:
-    """Owns the model in training mode, its loss, optimizer, step counter
+    """Owns the model in training mode, its losses, optimizer, step counter
     and optional EMA, and the loops over data.
 
-    model_kwargs go to AudioVisualEfficientConformerInterCTC (defaults: the
-    reference depth, vocab 256). `loss_weights` maps output names to numbers
-    or step schedulers (default: the reference's; an output without an entry
-    weighs 1). `optimizer` is a function of the parameters that returns an
-    `Optimizer` (`train.optim.Adam(...)`; default `noam_adam`). `metrics`
-    (on decoded strings, `on_host`) and `decoders` are per output as the JAX
-    `compile` takes them (a dict by output name, a list in output order, or
-    one object for every output).
+    `model` is any zoo model (`models/zoo.py`); without one, model_kwargs
+    go to AudioVisualEfficientConformerInterCTC (defaults: the reference
+    depth, vocab 256). `loss`, `loss_weights`, `metrics` and `decoders` are
+    per output as the JAX `compile` takes them: a dict by output name, a
+    list mapped onto the output names sorted (as `jax.eval_shape` returns
+    them: AO-Tone's [0.25, 0.25, 0.5] puts 0.5 on "outputs", the last of
+    "ctc_1", "ctc_3", "outputs"), or one object for every output; an output
+    without a loss adds none, one without a weight weighs 1, and a dict of
+    weights may name outputs that the model's depth does not have (the
+    reference's AV weights on a shallower AV model). `loss`,
+    `loss_weights` and `metrics="default"` left out take the model's
+    `compile_defaults` (e.g. CTC and [0.125] * 4 + [0.5] for the AO model,
+    cross-entropy and accuracy for the LRW classifier); a weight is a number
+    or a step scheduler, and a single number weighs every output.
+    `optimizer` is a function of the parameters that returns an `Optimizer`
+    (`train.optim.Adam(...)`; default `noam_adam`). Metrics on decoded
+    strings (`on_host`) need a decoder of the output; the accuracy metrics
+    (not `on_host`) run on a classifier's outputs on the device. Targets
+    map onto the outputs as `metrics` do: a tuple or one array goes to
+    every output.
     It runs on the card unless the caller passes device="cpu".
 
     data_parallel=True needs the default `torch.distributed` process group
@@ -122,12 +168,11 @@ class Trainer:
 
     def __init__(self, model: Optional[torch.nn.Module] = None,
                  device="cuda", precision: str = "bfloat16", seed: int = 0,
-                 loss: Optional[CTCLoss] = None,
-                 loss_weights: Optional[Dict] = None,
+                 loss=None, loss_weights=None,
                  grad_max_norm: Optional[float] = None,
                  data_parallel: bool = False,
                  optimizer: Optional[Callable[..., Optimizer]] = None,
-                 metrics=None, decoders=None, **model_kwargs):
+                 metrics="default", decoders=None, **model_kwargs):
         self.device = resolve_device(device)
         self.dtype = _DTYPES[precision]
         if model is None:
@@ -136,19 +181,23 @@ class Trainer:
                 generator=torch.Generator().manual_seed(seed), **model_kwargs)
         self.model = model.train()
         self.model.set_generators(seed)
-        self.loss = loss or CTCLoss()
-        if loss_weights is None:
-            loss_weights = AV_LOSS_WEIGHTS
-        self.loss_weights = {k: as_scheduler(v)
-                             for k, v in loss_weights.items()}
+        defaults = self.model.compile_defaults()
+        self.loss = loss if loss is not None else defaults["loss"]
+        self.loss_weights = _loss_weights(
+            loss_weights if loss_weights is not None
+            else defaults["loss_weights"])
         self.optimizer = (optimizer or noam_adam)(self.model.parameters())
+        if isinstance(metrics, str) and metrics == "default":
+            metrics = defaults["metrics"]
         specs = (metrics.values() if isinstance(metrics, dict) else
                  metrics if isinstance(metrics, list) else [metrics])
-        if any(not getattr(m, "on_host", False) for spec in specs
-               if spec is not None for m in _as_list(spec)):
-            raise ValueError("the engine evaluates metrics of decoded "
-                             "strings (on_host); a metric of the device's "
-                             "outputs has no model of the port yet")
+        if not isinstance(self.model, Classifier) and any(
+                not getattr(m, "on_host", False) for spec in specs
+                if spec is not None for m in _as_list(spec)):
+            raise ValueError("a CTC model's outputs are (logits, lengths) "
+                             "pairs: its metrics are those of decoded "
+                             "strings (on_host); the accuracy metrics run "
+                             "on a classifier's outputs")
         self.metrics = metrics
         self.decoders = decoders
         self.grad_max_norm = grad_max_norm
@@ -227,26 +276,32 @@ class Trainer:
                 raise ValueError(f"a global batch of {size} does not split "
                                  f"into {world} equal shards")
             batch = shard_batch(batch, self.group)
+        raw = batch["inputs"]
         inputs = []
-        for a in batch["inputs"]:
+        for a in (raw if isinstance(raw, (list, tuple)) else [raw]):
             t = torch.as_tensor(a).to(self.device)
             inputs.append(t.to(self.dtype) if t.is_floating_point() else t)
-        targets = tuple(torch.as_tensor(a).to(self.device)
-                        for a in batch["targets"])
-        return inputs, targets
+        return inputs, _to(batch["targets"], self.device)
 
     # ------------------------------------------------------------- steps
     def compute_losses(self, outputs, targets, step: int
                        ) -> Dict[str, torch.Tensor]:
         """Per-output losses and their weighted total, the weights called at
-        step + 1 (model.py:375-423). Every output is held against the same
-        targets."""
+        step + 1 (model.py:375-423), each output against its targets."""
         losses = {}
         total = torch.zeros((), dtype=torch.float32, device=self.device)
+        loss_of = _by_output(self.loss, outputs)
+        weights = self.loss_weights
+        weight_of = ({k: w for k, w in weights.items() if k in outputs}
+                     if isinstance(weights, dict)
+                     else _by_output(weights, outputs))
+        target_of = _by_output(targets, outputs)
         for key, out in outputs.items():
-            loss = self.loss(targets, out)
+            if key not in loss_of:
+                continue
+            loss = loss_of[key](target_of[key], out)
             losses["loss_" + key] = loss
-            weight = self.loss_weights.get(key)
+            weight = weight_of.get(key)
             total = total + loss * (weight(step + 1) if weight else 1.0)
         if len(losses) > 1:
             return {"loss": total, **losses}
@@ -417,10 +472,12 @@ class Trainer:
                  use_ema: bool = False, return_transcripts: bool = False):
         """(mean losses, metrics) over the batches of `dataset_eval`
         (model.py:759-838), and the gathered {metric: (truths, preds)} with
-        return_transcripts. The metrics are taken per batch on the decoded
-        strings and averaged, or, with recompute_metrics, over the gathered
-        transcripts. Batch i + 1's forward is issued before batch i is
-        decoded on the host."""
+        return_transcripts. The metrics of decoded strings are taken per
+        batch and averaged, or, with recompute_metrics, over the gathered
+        transcripts; the metrics of the device's outputs (accuracy) are
+        taken per batch on the device and averaged (model.py:425-439).
+        Batch i + 1's forward is issued before batch i is decoded on the
+        host."""
         if use_ema and self.ema_state is None:
             raise ValueError("use_ema=True without set_ema")
         was_training = self.model.training
@@ -433,18 +490,20 @@ class Trainer:
         preds: Dict[str, List[str]] = {}
         n = 0
 
+        device_sums: Dict[str, torch.Tensor] = {}
+
         def flush(pending):
             host_targets, decode_pre, metrics, decoders = pending
             for key, pre in decode_pre.items():
                 decoder = _as_list(decoders[key])[0]
-                for i, metric in enumerate(_as_list(metrics[key])):
+                for i, metric in enumerate(metrics[key]):
                     if (key, i) not in mkey_of:   # model.py:857
                         mkey_of[key, i] = (
                             metric.name if metric.name not in metric_of
                             else f"{metric.name}_{key}")
                         metric_of[mkey_of[key, i]] = metric
                     mkey = mkey_of[key, i]
-                    t = decoder(host_targets, from_logits=False)
+                    t = decoder(host_targets[key], from_logits=False)
                     p = decoder(pre)
                     if verbose:
                         print("Groundtruths:\n", t)
@@ -465,16 +524,32 @@ class Trainer:
                     for k, v in losses.items():
                         loss_sums[k] = loss_sums[k] + v if k in loss_sums \
                             else v
-                    metrics = _per_output(self.metrics, list(outputs))
-                    decoders = _per_output(self.decoders, list(outputs))
+                    metrics = _by_output(self.metrics, outputs)
+                    decoders = _by_output(self.decoders, outputs)
+                    target_of = _by_output(targets, outputs)
+                    named: Dict[str, Any] = {}     # model.py:425-439
+                    for key, spec in metrics.items():
+                        for metric in _as_list(spec):
+                            if getattr(metric, "on_host", False):
+                                continue
+                            mkey = (metric.name if metric.name not in named
+                                    else f"{metric.name}_{key}")
+                            named[mkey] = metric(target_of[key], outputs[key])
+                    for k, v in named.items():
+                        device_sums[k] = (device_sums[k] + v
+                                          if k in device_sums else v)
+                    on_host = {key: [m for m in _as_list(spec)
+                                     if getattr(m, "on_host", False)]
+                               for key, spec in metrics.items()}
                     decode_pre = {
                         key: _as_list(decoders[key])[0].device_fn(outputs[key])
-                        for key in metrics if key in decoders}
+                        for key, ms in on_host.items()
+                        if ms and key in decoders}
                     n += 1
                     if pending is not None:
                         flush(pending)
-                    pending = (batch["targets"], decode_pre, metrics,
-                               decoders)
+                    pending = (_by_output(batch["targets"], outputs),
+                               decode_pre, on_host, decoders)
                     if eval_steps and n >= eval_steps:
                         break
                 if pending is not None:
@@ -487,9 +562,10 @@ class Trainer:
 
         denom = max(n, 1)
         out_losses = {k: float(v) / denom for k, v in loss_sums.items()}
-        out_metrics = {
+        out_metrics = {k: float(v) / denom for k, v in device_sums.items()}
+        out_metrics.update({
             k: (float(metric_of[k](truths[k], preds[k])) if recompute_metrics
-                else v / denom) for k, v in sums.items()}
+                else v / denom) for k, v in sums.items()})
         if return_transcripts:
             return out_losses, out_metrics, {k: (truths[k], preds[k])
                                              for k in truths}
@@ -523,11 +599,28 @@ class Trainer:
         self._log(f"Model saved at step {self.step}")
 
     def load(self, path: str, load_optimizer: bool = True,
-             strict: bool = True) -> None:
+             strict: bool = True,
+             select: Optional[Callable[[str], bool]] = None) -> None:
         """Restore the model's parameters and buffers and, with
         load_optimizer, the optimizer state and the step (model.py:
-        895-931); an EMA in the file is restored where `set_ema` is on."""
+        895-931); an EMA in the file is restored where `set_ema` is on.
+        With `select`, a predicate on state_dict keys, only the model
+        entries it keeps are loaded and nothing else: the partial load of
+        the LRW front end into the VO and AV models (model.py:282-294,
+        configs/LRS23/VO/EffConfInterCTC.py:77-86, `select=lambda k:
+        "front_end" in k`); a kept key the model lacks raises KeyError."""
         payload = load_checkpoint(path)
+        if select is not None:
+            state = {k: v for k, v in payload["model_state_dict"].items()
+                     if select(k)}
+            unknown = sorted(set(state) - set(self.model.state_dict()))
+            if unknown or not state:
+                raise KeyError(f"partial load of {len(state)} entries; not "
+                               f"in the model: {unknown[:5]}")
+            self.model.load_state_dict(state, strict=False)
+            self._log(f"Applied partial checkpoint load ({len(state)} "
+                      "entries)")
+            return
         self.model.load_state_dict(payload["model_state_dict"], strict=strict)
         if load_optimizer and payload.get("optimizer_state_dict") is not None:
             self.optimizer.optimizer.load_state_dict(
