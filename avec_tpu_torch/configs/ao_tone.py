@@ -12,21 +12,22 @@ blocks 2 and 4.
                       callback_path=setup.callback_path,
                       recompute_metrics=setup.recompute_metrics)
 
-The greedy decoder stands in for the config's beam search with a 2-gram
-ARPA model and GPT rescoring, which the port does not have yet (ROADMAP
-queue 1 item 5). `avec_tpu_torch/configs/ao_tone_causal.py` is the same run
-on the causal variant.
+The evaluation decodes as the config does: beam 8 with a 2-gram estimated
+from the training transcripts and, once LM-Tone has trained
+(`configs/lm_tone.py`), GPT rescoring (`lm_tone.tone_beam_decoder`).
+`avec_tpu_torch/configs/ao_tone_causal.py` is the same run on the causal
+variant, decoded greedily.
 """
 
 import os
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
 from avec_tpu_torch.data.loader import DataLoader
 from avec_tpu_torch.data.synthetic import ToneSpeechDataset, tone_tokenizer
-from avec_tpu_torch.decode.greedy import CTCGreedySearchDecoder
+from avec_tpu_torch.configs import lm_tone
 from avec_tpu_torch.models.zoo import (AudioEfficientConformerInterCTC,
                                        resolve_device)
 from avec_tpu_torch.train.losses import CTCLoss
@@ -74,15 +75,21 @@ class Setup:
 def build(callback_path: str, device="cuda", route: Optional[Dict[str, Any]]
           = None, precision: str = PRECISION, seed: int = 0,
           batch_size: int = BATCH_SIZE, train_samples: int = TRAIN_SAMPLES,
-          eval_samples: int = EVAL_SAMPLES, **model_kwargs) -> Setup:
+          eval_samples: int = EVAL_SAMPLES,
+          decoder: Optional[Callable[[str], Any]] = None,
+          **model_kwargs) -> Setup:
     """The AO-Tone setup on `device` (the card unless the caller passes
     "cpu"). `route` holds the model's kernel switches (`fused_ffn`,
     `fused_att`, `fused_conv`, `use_flash`); `model_kwargs` change the
     model (`causal`, `left_context`). The tone tokenizer is written to
     `callback_path`/tokenizer.json (:27-30). The training loader shuffles
     by epoch and drops a last partial batch, the evaluation loader keeps
-    its order. Smaller `train_samples`, `eval_samples` and `batch_size` cut
-    the run for the CPU."""
+    its order. The evaluation decoder is `decoder(tokenizer_path)`, or
+    with None the config's, `lm_tone.tone_beam_decoder` (its 2-gram
+    written to `callback_path`, GPT rescoring with the last LM-Tone
+    checkpoint in `lm_tone.callback_path` if there is one). Smaller
+    `train_samples`, `eval_samples` and `batch_size` cut the run for the
+    CPU."""
     device = resolve_device(device)
     os.makedirs(callback_path, exist_ok=True)
     tokenizer_path = os.path.join(callback_path, "tokenizer.json")
@@ -101,8 +108,9 @@ def build(callback_path: str, device="cuda", route: Optional[Dict[str, Any]]
         loss=CTCLoss(zero_infinity=True, assert_shorter=False),   # :75
         loss_weights=LOSS_WEIGHTS, optimizer=optimizer(),
         metrics={"outputs": WordErrorRate()},                        # :81
-        decoders={"outputs": CTCGreedySearchDecoder(
-            tokenizer_path=tokenizer_path)})
+        decoders={"outputs": lm_tone.tone_beam_decoder(
+            callback_path, tokenizer_path, train_set, device)
+            if decoder is None else decoder(tokenizer_path)})
     train_loader = DataLoader(train_set, batch_size=batch_size,
                               drop_last=True)
     eval_loader = DataLoader(eval_set, batch_size=batch_size,

@@ -3,8 +3,7 @@
 (`avec_tpu_torch/configs/ao_tone.py`, the same data, sizes and schedule) on
 the causal variant of the audio-only model, `causal=True` with a left
 context of 64 stage-1 frames (1.28 s of audio, :42-47). Every output frame
-depends on past audio only. The config decodes greedily (:38-40), as the
-port does.
+depends on past audio only. The config decodes greedily (:38-40).
 
     setup = build(callback_path="callbacks/AO-Tone-Causal-torch")
     setup.trainer.fit(setup.train_loader, epochs=setup.epochs,
@@ -14,12 +13,15 @@ port does.
 """
 
 from avec_tpu_torch.configs import ao_tone
+from avec_tpu_torch.decode.greedy import CTCGreedySearchDecoder
 
 LEFT_CONTEXT = 64                                  # AO-Tone-Causal.py:47
 
 
 def build(callback_path: str, **kwargs) -> ao_tone.Setup:
-    """`ao_tone.build` with `causal=True, left_context=64`; the same
-    keyword arguments (`device`, `route`, `precision`, `seed`, the sizes)."""
+    """`ao_tone.build` with `causal=True, left_context=64` and the greedy
+    decoder; the same keyword arguments (`device`, `route`, `precision`,
+    `seed`, the sizes)."""
     return ao_tone.build(callback_path, causal=True,
-                         left_context=LEFT_CONTEXT, **kwargs)
+                         left_context=LEFT_CONTEXT,
+                         decoder=CTCGreedySearchDecoder, **kwargs)

@@ -12,9 +12,9 @@ Conv3d stem, ResNet18, the video conformer and the fusion module).
                       callback_path=setup.callback_path,
                       recompute_metrics=setup.recompute_metrics)
 
-The greedy decoder stands in for the config's beam search with a 2-gram
-ARPA model and GPT rescoring, which the port does not have yet (ROADMAP
-queue 1 item 5).
+The evaluation decodes as the config does: beam 8 with a 2-gram estimated
+from the training transcripts and, once LM-Tone has trained
+(`configs/lm_tone.py`), GPT rescoring (`lm_tone.tone_beam_decoder`).
 """
 
 import os
@@ -25,7 +25,7 @@ import torch
 
 from avec_tpu_torch.data.loader import DataLoader
 from avec_tpu_torch.data.synthetic import ToneAVSpeechDataset, tone_tokenizer
-from avec_tpu_torch.decode.greedy import CTCGreedySearchDecoder
+from avec_tpu_torch.configs import lm_tone
 from avec_tpu_torch.models.zoo import (AudioVisualEfficientConformerInterCTC,
                                        resolve_device)
 from avec_tpu_torch.train.losses import CTCLoss
@@ -75,15 +75,19 @@ class Setup:
 def build(callback_path: str, device="cuda", route: Optional[Dict[str, Any]]
           = None, precision: str = PRECISION, seed: int = 0,
           batch_size: int = BATCH_SIZE, train_samples: int = TRAIN_SAMPLES,
-          eval_samples: int = EVAL_SAMPLES) -> Setup:
+          eval_samples: int = EVAL_SAMPLES,
+          lm_callback_path: str = lm_tone.callback_path) -> Setup:
     """The AV-Tone setup on `device` (the card unless the caller passes
     "cpu"). `route` holds the model's kernel switches (`fused_ffn`,
     `fused_att`, `fused_conv`, `stem_mode`, `use_flash`). The tone
     tokenizer is written to `callback_path`/tokenizer.json (:30-33). The
     training loader shuffles by epoch and drops a last partial batch, the
     evaluation loader keeps its order (the JAX CLI's loaders,
-    avec_tpu/cli/functions.py:64-84). Smaller `train_samples`,
-    `eval_samples` and `batch_size` cut the run for the CPU."""
+    avec_tpu/cli/functions.py:64-84). The decoder is
+    `lm_tone.tone_beam_decoder` (its 2-gram written to `callback_path`),
+    rescoring with the last LM-Tone checkpoint in `lm_callback_path` if
+    there is one. Smaller `train_samples`, `eval_samples` and `batch_size`
+    cut the run for the CPU."""
     device = resolve_device(device)
     os.makedirs(callback_path, exist_ok=True)
     tokenizer_path = os.path.join(callback_path, "tokenizer.json")
@@ -102,8 +106,9 @@ def build(callback_path: str, device="cuda", route: Optional[Dict[str, Any]]
         loss=CTCLoss(zero_infinity=True, assert_shorter=False),   # :76
         loss_weights=LOSS_WEIGHTS, optimizer=optimizer(),
         metrics={"outputs": WordErrorRate()},                        # :83
-        decoders={"outputs": CTCGreedySearchDecoder(
-            tokenizer_path=tokenizer_path)})
+        decoders={"outputs": lm_tone.tone_beam_decoder(
+            callback_path, tokenizer_path, train_set, device,
+            lm_callback_path)})
     train_loader = DataLoader(train_set, batch_size=batch_size,
                               drop_last=True)
     eval_loader = DataLoader(eval_set, batch_size=batch_size,

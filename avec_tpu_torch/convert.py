@@ -11,9 +11,13 @@ rules of the JAX package's torch converter apply here in the other direction:
   scale / bias              -> weight / bias
   pos_kernel / pos_bias     -> pos_layer.weight (transposed) / pos_layer.bias
   u / v (Transformer-XL)    -> u / v
+  embedding / pos_encoding  -> Embedding weight / pos_encoding (GPT)
   batch_stats mean / var    -> running_mean / running_var
   blocks_{F}_{L}.block.*    -> conformer_blocks.{F..L}.* (unstacked scan run)
   interctc_{N}              -> interctc_modules.{ordinal of N in its scope}
+  transformer.block_{N}     -> transformer.blocks.{N} (GPT), its ff_module
+                               layers {0, 1, 4}, PosEmbedding1d_0 ->
+                               pos_embedding, LayerNorm_0 -> layernorm
 
 Inputs are nested dicts of numpy arrays (the flax `params` and
 `batch_stats` trees); the output maps state_dict keys to fp32 CPU tensors.
@@ -107,6 +111,10 @@ def _leaf_rule(segs: List[str], leaf: str, in_batch_stats: bool):
         return "pos_layer.bias", _identity
     if leaf in ("u", "v"):      # RelPosMultiHeadSelfAttention's biases
         return leaf, _identity
+    if leaf == "embedding":
+        return "weight", _identity
+    if leaf == "pos_encoding":
+        return "pos_encoding", _identity
     raise KeyError(f"no rule for leaf {leaf!r} under {'.'.join(segs)}")
 
 
@@ -117,7 +125,8 @@ def _map_segments(segs: List[str], ordinals: Dict[str, Dict[int, int]]) -> str:
         s, prev = segs[i], (segs[i - 1] if i else "")
         m = _BLOCK_RE.match(s)
         if m:
-            out.append(f"blocks.{m.group(1)}" if prev == "front_end_resnet"
+            out.append(f"blocks.{m.group(1)}"
+                       if prev in ("front_end_resnet", "transformer")
                        else f"conformer_blocks.{m.group(1)}")
             i += 1
         elif _INTERCTC_RE.match(s):
@@ -148,7 +157,10 @@ def _map_segments(segs: List[str], ordinals: Dict[str, Dict[int, int]]) -> str:
               and "front_end.3" in ".".join(out)):
             out.append(_RESNET_IDX[s])
             i += 1
-        elif s in ("ff_module1", "ff_module2"):
+        elif s.startswith(("PosEmbedding", "SinPosEmbedding")):
+            out.append("pos_embedding")
+            i += 1
+        elif s in ("ff_module1", "ff_module2", "ff_module"):
             out.append(s + "." + _FF_MODULE_IDX[segs[i + 1]])
             i += 2
         elif s == "conv_module":
@@ -164,7 +176,7 @@ def _map_segments(segs: List[str], ordinals: Dict[str, Dict[int, int]]) -> str:
                 raise KeyError(f"self_att_module child {nxt!r}")
             i += 2
         elif s == "LayerNorm_0":
-            out.append("norm")
+            out.append("layernorm" if prev == "transformer" else "norm")
             i += 1
         else:
             out.append(s)

@@ -45,29 +45,37 @@ def _indexed(mods: Dict[int, nn.Module]) -> nn.ModuleDict:
 
 
 class FeedForwardModule(nn.Module):
-    """Pre-norm FFN: LN(1e-6) -> Linear(d_ffn) -> swish -> drop -> Linear(d)
-    -> drop (conformer.py:86).
+    """Pre-norm FFN: LN(1e-6) -> Linear(d_ffn) -> act -> drop (inner) ->
+    Linear(d) -> drop (conformer.py:86-139). `act_fun` is "Swish" (the
+    conformer's) or "GELU" (the GPT's, with `inner_dropout=False` and the
+    Linear inits "normal_02" / "zeros").
 
     With `fused_ffn` (None: the environment variable AVEC_TPU_FUSED_FFN) a
     (B, T, d) input in training mode goes through the fused kernel of
-    `ops/ffn.py` (the JAX gate of conformer.py:103-107: training, pre-norm,
-    3-d input, Swish), with a 31-bit dropout seed drawn from
-    `seed_generator`, a CPU `torch.Generator` set by the owning model; with a
-    `process_group` (data-parallel training) through `fused_ffn_3d_dp`, which
-    offsets that seed per rank. Otherwise, as the JAX package's default
-    training step does (conformer.py:130-139), and always in eval, it runs
-    the unfused layers with the generator's Dropout on the inner and outer
-    activations. `use_kernel=False` routes the fused path through its plain
-    version; `regularize=False` turns dropout off."""
+    `ops/ffn.py` where the JAX gate of conformer.py:103-107 lets it:
+    training, pre-norm, 3-d input, Swish (the kernel computes swish) and
+    inner dropout or no dropout at all; the 31-bit dropout seed is drawn
+    from `seed_generator`, a CPU `torch.Generator` set by the owning model;
+    with a `process_group` (data-parallel training) it goes through
+    `fused_ffn_3d_dp`, which offsets that seed per rank. Otherwise, as the
+    JAX package's default training step does (conformer.py:130-139), and
+    always in eval, it runs the unfused layers with the generator's Dropout.
+    `use_kernel=False` routes the fused path through its plain version;
+    `regularize=False` turns dropout off."""
 
     def __init__(self, dim_model: int, dim_ffn: int, drop_rate: float = 0.1,
-                 fused_ffn: Optional[bool] = None):
+                 fused_ffn: Optional[bool] = None, act_fun: str = "Swish",
+                 inner_dropout: bool = True, weight_init: str = "default",
+                 bias_init: str = "default"):
         super().__init__()
+        inits = dict(weight_init=weight_init, bias_init=bias_init)
         self.layers = _indexed({0: LayerNorm(dim_model, 1e-6),
-                                1: Linear(dim_model, dim_ffn),
-                                4: Linear(dim_ffn, dim_model)})
+                                1: Linear(dim_model, dim_ffn, **inits),
+                                4: Linear(dim_ffn, dim_model, **inits)})
         self.dropout = Dropout(drop_rate)
         self.drop_rate = drop_rate
+        self.act_fun = act_fun
+        self.inner_dropout = inner_dropout
         self.fused_ffn = (_fused_ffn_enabled() if fused_ffn is None
                           else bool(fused_ffn))
         self.use_kernel = True
@@ -79,7 +87,8 @@ class FeedForwardModule(nn.Module):
     def fused_eligible(self, ndim: int = 3) -> bool:
         """Whether a training-mode call with an input of `ndim` axes takes
         the fused kernels."""
-        return self.fused_ffn and ndim == 3
+        return (self.fused_ffn and ndim == 3 and self.act_fun == "Swish"
+                and (self.inner_dropout or self.drop_rate == 0.0))
 
     def forward(self, x):
         norm, lin1, lin2 = (self.layers[k] for k in ("0", "1", "4"))
@@ -92,7 +101,9 @@ class FeedForwardModule(nn.Module):
                       lin2.weight, lin2.bias, seed=seed, epsilon=norm.eps,
                       drop_rate=rate, deterministic=False,
                       use_kernel=self.use_kernel, **dp)
-        x = self.dropout(swish(lin1(norm(x))))
+        x = get_act(self.act_fun)(lin1(norm(x)))
+        if self.inner_dropout:
+            x = self.dropout(x)
         return self.dropout(lin2(x))
 
 

@@ -1,13 +1,14 @@
 """Task models (port of avec_tpu/models/zoo.py): the audio-visual, audio-only
-(offline and causal), video-only and LRW word-classification models, eval
-and training forward.
+(offline and causal), video-only and LRW word-classification models and the
+GPT language model, eval and training forward.
 
 Weights are drawn from an explicit `torch.Generator` (default seed 0) on the
 CPU, so a seed gives the same model on every device, then moved to `device`.
 Entry points default to CUDA and raise when it is absent. Each model's
 `compile_defaults` are the JAX `compile` defaults the training engine takes
 when its caller gives none: the loss, the loss weights (a list is mapped
-onto the output names sorted, as the JAX engine maps it) and the metrics.
+onto the output names sorted, as the JAX engine maps it), the metrics and,
+for the GPT, the optimizer.
 """
 
 from typing import Callable, Dict, Optional, Sequence
@@ -19,9 +20,13 @@ import torch.nn as nn
 from avec_tpu_torch.models.encoders import (
     AudioEfficientConformerEncoder, AudioVisualEfficientConformerEncoder,
     FusedVideoStem, VisualEfficientConformerEncoder)
+from avec_tpu_torch.models.transformer import GPT_LR, GPTNet
 from avec_tpu_torch.ops.layers import init_params
 from avec_tpu_torch.train.losses import CTCLoss, SoftmaxCrossEntropy
-from avec_tpu_torch.train.metrics import CategoricalAccuracy
+from avec_tpu_torch.train.metrics import (CategoricalAccuracy,
+                                          CategoricalAccuracyTopK)
+from avec_tpu_torch.train.optim import AdamW, gpt_decay_mask
+from avec_tpu_torch.train.schedulers import CosineAnnealingScheduler
 
 
 # offset of each rank's Dropout / SpecAugment generator seed
@@ -335,6 +340,47 @@ class VisualEfficientConformerCE(Classifier):
         with torch.set_grad_enabled(self.training):
             x, _, _ = self.encoder(video, None)
         return {"output": x.mean(dim=1)}
+
+
+class GPT(GPTNet, Classifier):
+    """The GPT language model (zoo.py:263-290; `models/transformer.py`).
+
+    forward(ids (B, L) int) returns {"output": logits (B, L, vocab)}; the
+    model runs in the dtype of its fp32 parameters. Its `compile` defaults:
+    softmax cross-entropy over (B, L, vocab) logits, accuracy and top-10
+    accuracy on "output", and AdamW (betas (0.9, 0.95), eps 1e-8, decay 0.1
+    on the Linear weights) under the cosine schedule of the size's GPT_LR
+    (warmup 750, end 520000)."""
+
+    def __init__(self, vocab_size: int = 25000,
+                 padding_idx: Optional[int] = None,
+                 max_pos_encoding: int = 2048, model: str = "GPT-Small",
+                 pos_embedding: str = "learned", drop_rate: float = 0.1,
+                 device="cuda", generator: Optional[torch.Generator] = None):
+        device = resolve_device(device)
+        super().__init__(vocab_size=vocab_size, padding_idx=padding_idx,
+                         max_pos_encoding=max_pos_encoding, model=model,
+                         pos_embedding=pos_embedding, drop_rate=drop_rate)
+        self.model_size = model
+        self._finish_init(device, generator)
+
+    def compile_defaults(self) -> Dict:
+        lr_max, lr_min = GPT_LR[self.model_size]
+        return {"loss": SoftmaxCrossEntropy(transpose_logits=True),
+                "loss_weights": None,
+                "metrics": {"output": [CategoricalAccuracy(),
+                                       CategoricalAccuracyTopK(topk=10)]},
+                "optimizer": AdamW(
+                    lr=CosineAnnealingScheduler(warmup_steps=750,
+                                                val_max=lr_max,
+                                                val_min=lr_min,
+                                                end_step=520000),
+                    betas=(0.9, 0.95), eps=1e-8, weight_decay=0.1,
+                    decay_mask=gpt_decay_mask)}
+
+    def forward(self, ids):
+        with torch.set_grad_enabled(self.training):
+            return {"output": super().forward(ids)}
 
 
 def randomize_batch_stats(model: nn.Module, generator: torch.Generator):

@@ -14,7 +14,12 @@ def glu(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return a * torch.sigmoid(b)
 
 
-act_dict = {"Swish": swish, "ReLU": torch.relu}
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """GELU, the exact erf form (activations.py:53-55)."""
+    return torch.nn.functional.gelu(x, approximate="none")
+
+
+act_dict = {"Swish": swish, "ReLU": torch.relu, "GELU": gelu}
 
 
 def get_act(name):

@@ -14,7 +14,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from avec_tpu_torch.ops.flash_attention import rel_pos_flash_attention
-from avec_tpu_torch.ops.layers import Linear, avg_pool, upsample_nearest
+from avec_tpu_torch.ops.layers import (Dropout, Linear, avg_pool,
+                                       upsample_nearest)
 from avec_tpu_torch.ops.masks import apply_mask, min_pool_mask
 from avec_tpu_torch.ops.pos_embeddings import relative_pos_encoding
 
@@ -46,22 +47,31 @@ def _merge_heads(x):
     return x.transpose(1, 2).reshape(b, t, h * d)
 
 
-def _attend(scores, v, mask):
+def _attend(scores, v, mask, dropout=None):
     scores = apply_mask(scores, mask)
     att = torch.softmax(scores.float(), dim=-1).to(v.dtype)
+    if dropout is not None:
+        att = dropout(att)
     return torch.einsum("bhqk,bhkd->bhqd", att, v)
 
 
 class MultiHeadAttention(nn.Module):
-    """Scaled dot-product MHA (attention.py:92)."""
+    """Scaled dot-product MHA (attention.py:92-170). With `attn_drop_rate`
+    the attention weights take a `Dropout` in training mode, its mask drawn
+    from the owning model's generator. `weight_init` / `bias_init` are the
+    projections' inits (`Linear`): the GPT's are "normal_02" / "zeros"."""
 
-    def __init__(self, dim_model: int, num_heads: int):
+    def __init__(self, dim_model: int, num_heads: int,
+                 attn_drop_rate: float = 0.0, weight_init: str = "default",
+                 bias_init: str = "default"):
         super().__init__()
         self.dim_model, self.num_heads = dim_model, num_heads
-        self.query_layer = Linear(dim_model, dim_model)
-        self.key_layer = Linear(dim_model, dim_model)
-        self.value_layer = Linear(dim_model, dim_model)
-        self.output_layer = Linear(dim_model, dim_model)
+        inits = dict(weight_init=weight_init, bias_init=bias_init)
+        self.query_layer = Linear(dim_model, dim_model, **inits)
+        self.key_layer = Linear(dim_model, dim_model, **inits)
+        self.value_layer = Linear(dim_model, dim_model, **inits)
+        self.output_layer = Linear(dim_model, dim_model, **inits)
+        self.dropout = Dropout(attn_drop_rate) if attn_drop_rate > 0 else None
 
     @property
     def dim_head(self):
@@ -75,7 +85,8 @@ class MultiHeadAttention(nn.Module):
     def forward(self, x, mask=None, lengths=None):
         q, k, v = self._heads(x, x, x)
         scores = torch.einsum("bhqd,bhkd->bhqk", q, k) / self.dim_head ** 0.5
-        return self.output_layer(_merge_heads(_attend(scores, v, mask)))
+        return self.output_layer(_merge_heads(_attend(scores, v, mask,
+                                                      self.dropout)))
 
 
 class RelPos1dMultiHeadAttention(MultiHeadAttention):

@@ -67,18 +67,28 @@ def _uniform_(t: torch.Tensor, bound: float, gen: torch.Generator):
 
 
 class Linear(nn.Module):
-    """Dense layer over the last axis; torch-default init."""
+    """Dense layer over the last axis. Init: torch-default ("default"), or
+    the GPT's N(0, 0.02) weights ("normal_02") and zero biases ("zeros")."""
 
-    def __init__(self, in_features: int, out_features: int, bias: bool = True):
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 weight_init: str = "default", bias_init: str = "default"):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
         self.bias = nn.Parameter(torch.empty(out_features)) if bias else None
+        self.weight_init, self.bias_init = weight_init, bias_init
 
     def init_(self, gen: torch.Generator):
         bound = 1.0 / math.sqrt(self.weight.shape[1])
-        _uniform_(self.weight, bound, gen)
-        if self.bias is not None:
-            _uniform_(self.bias, bound, gen)
+        with torch.no_grad():
+            if self.weight_init == "normal_02":
+                self.weight.normal_(0.0, 0.02, generator=gen)
+            else:
+                _uniform_(self.weight, bound, gen)
+            if self.bias is not None:
+                if self.bias_init == "zeros":
+                    self.bias.zero_()
+                else:
+                    _uniform_(self.bias, bound, gen)
 
     def forward(self, x):
         b = None if self.bias is None else self.bias.to(x.dtype)
@@ -292,6 +302,28 @@ class Dropout(nn.Module):
                           device=x.device) < keep
         return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                        device=x.device))
+
+
+class Embedding(nn.Module):
+    """Token embedding (layers.py:643-663): a gather of `weight` rows, drawn
+    N(0, 0.02) at init (the GPT's init, its only user) with the
+    `padding_idx` row zero. The pad row is gathered like any other and
+    takes its gradient, as the JAX gather does (no `padding_idx` in
+    `F.embedding`)."""
+
+    def __init__(self, num_embeddings: int, features: int, padding_idx=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(num_embeddings, features))
+        self.padding_idx = padding_idx
+
+    def init_(self, gen: torch.Generator):
+        with torch.no_grad():
+            self.weight.normal_(0.0, 0.02, generator=gen)
+            if self.padding_idx is not None:
+                self.weight[self.padding_idx].zero_()
+
+    def forward(self, ids):
+        return F.embedding(ids, self.weight)
 
 
 def init_params(module: nn.Module, gen: torch.Generator) -> nn.Module:

@@ -1,5 +1,5 @@
-"""Sinusoidal positional encodings (port of avec_tpu/ops/pos_embeddings.py:
-26-66).
+"""Positional encodings (port of avec_tpu/ops/pos_embeddings.py:26-115): the
+sinusoidal tables and the additive absolute embeddings of the GPT.
 
 Tables are computed for the sequence length at hand rather than sliced from
 a stored 2 * max_len - 1 row buffer: the relative table lists the positions
@@ -9,6 +9,7 @@ positive, right context negative.
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 
 def _sinusoid(pos: torch.Tensor, dim_model: int) -> torch.Tensor:
@@ -41,3 +42,32 @@ def relative_pos_encoding(seq_len: int, dim_model: int, causal: bool = False,
     pos = torch.arange(seq_len + hidden_len - 1, stop, -1,
                        dtype=torch.float32, device=device)
     return _sinusoid(pos, dim_model)[None]
+
+
+class SinPosEmbedding(nn.Module):
+    """x + the absolute sinusoidal encoding of its T positions
+    (pos_embeddings.py:88-98); no parameters."""
+
+    def __init__(self, num_embeddings: int, dim_emb: int):
+        super().__init__()
+        self.num_embeddings, self.dim_emb = num_embeddings, dim_emb
+
+    def forward(self, x):
+        pe = sinusoidal_pos_encoding(x.shape[1], self.dim_emb, x.device)
+        return x + pe.to(x.dtype)
+
+
+class PosEmbedding1d(nn.Module):
+    """x + a learned (num_embeddings, dim_emb) table's first T rows, zeros
+    at init (pos_embeddings.py:101-115)."""
+
+    def __init__(self, num_embeddings: int, dim_emb: int):
+        super().__init__()
+        self.pos_encoding = nn.Parameter(torch.zeros(num_embeddings, dim_emb))
+
+    def init_(self, gen: torch.Generator):
+        with torch.no_grad():
+            self.pos_encoding.zero_()
+
+    def forward(self, x):
+        return x + self.pos_encoding[None, :x.shape[1]].to(x.dtype)

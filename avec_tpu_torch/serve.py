@@ -6,12 +6,15 @@ Requests are dicts of arrays, {"video": (Tv, 88, 88, 1) float32 frames at
 25 fps, "audio": (Ta,) float32 samples at 16 kHz}, with what the mode reads:
 "ao" feeds the audio alone, "vo" the video alone. A batch of requests is
 padded to a power-of-two length bucket (in audio samples; a video frame
-counts 640) and batch bucket, run through one
-forward, and collapsed greedily on the device; each result carries its token
-ids, latency and real-time factor. Padding is masked by the model's length
-semantics, so neither bucket nor batch padding changes a transcription.
+counts 640) and batch bucket, run through one forward, and collapsed
+greedily on the device, or decoded by a beam decoder given as `decoder`
+(`decode/beam.py`'s on the host, `decode/device_beam.py`'s on the card;
+tools/serve.py:94-103, :231-248), which sees the real rows only; each
+result carries its token ids (greedy) or its text (beam), latency and
+real-time factor. Padding is masked by the model's length semantics, so
+neither bucket nor batch padding changes a transcription.
 
-Reading wav/mp4 files and detokenization are not ported yet.
+Reading wav/mp4 files is not ported yet.
 """
 
 import time
@@ -52,7 +55,9 @@ class Server:
     model_kwargs go to the zoo model of `mode` (defaults: the reference
     depth, vocab 256; mode "ao" without InterCTC blocks, as tools/serve.py
     builds it). The activations run in `precision` (bf16 by default, as
-    tools/serve.py); parameters stay fp32."""
+    tools/serve.py); parameters stay fp32. `decoder`: None for greedy
+    token ids, or a beam decoder (`CTCBeamSearchDecoder`,
+    `CTCDeviceBeamSearchDecoder`) for strings."""
 
     # Batch-padding rows: zero audio/video with this many valid samples, so
     # every mask row has real frames (no all-masked attention).
@@ -60,7 +65,7 @@ class Server:
 
     def __init__(self, model: Optional[torch.nn.Module] = None,
                  device="cuda", precision: str = "bfloat16", seed: int = 0,
-                 mode: str = "av", **model_kwargs):
+                 mode: str = "av", decoder=None, **model_kwargs):
         if mode not in _MODELS:
             raise ValueError(f"mode {mode!r} not in {sorted(_MODELS)}")
         self.mode = mode
@@ -74,6 +79,7 @@ class Server:
                 generator=torch.Generator().manual_seed(seed), **model_kwargs)
         self.model = model
         self.decoder = CTCGreedySearchDecoder()
+        self.beam_decoder = decoder
         self.latencies: List[float] = []
         self.rtfs: List[float] = []
 
@@ -126,8 +132,13 @@ class Server:
         inputs = self._inputs_for_batch(reqs, _bucket(max(samples)),
                                         _batch_bucket(len(reqs)))
         logits, lengths = self.forward(inputs)
-        tokens, tok_lens = self.decoder.device_fn((logits, lengths))
-        ids = self.decoder((tokens[:len(reqs)], tok_lens[:len(reqs)]))
+        if self.beam_decoder is not None:
+            out = self.beam_decoder.device_fn((logits[:len(reqs)],
+                                               lengths[:len(reqs)]))
+            texts = self.beam_decoder(out)
+        else:
+            tokens, tok_lens = self.decoder.device_fn((logits, lengths))
+            ids = self.decoder((tokens[:len(reqs)], tok_lens[:len(reqs)]))
         done = time.perf_counter()
         results = []
         for i, n in enumerate(samples):
@@ -135,7 +146,9 @@ class Server:
             rtf = dt / max(n / 16000.0, 1e-6)
             self.latencies.append(dt)
             self.rtfs.append(rtf)
-            results.append({"tokens": ids[i], "latency_s": round(dt, 4),
+            out = ({"text": texts[i]} if self.beam_decoder is not None
+                   else {"tokens": ids[i]})
+            results.append({**out, "latency_s": round(dt, 4),
                             "rtf": round(rtf, 5), "batch_size": len(reqs)})
         return results
 

@@ -72,9 +72,12 @@ class CTCLoss:
 class SoftmaxCrossEntropy:
     """Cross-entropy of integer targets over logits (..., V), in fp32
     (losses.py:136-161): targets equal to `ignore_index` add 0, and the
-    mean runs over every element, ignored ones included."""
+    mean runs over every element, ignored ones included. The logits always
+    have the vocabulary last: `transpose_logits` is accepted for the
+    configs and changes nothing, as in the JAX package."""
 
-    def __init__(self, ignore_index: int = -1, reduction: str = "mean"):
+    def __init__(self, ignore_index: int = -1, transpose_logits: bool = False,
+                 reduction: str = "mean"):
         if reduction not in ("mean", "sum"):
             raise ValueError(f"reduction {reduction!r}")
         self.ignore_index = ignore_index

@@ -90,6 +90,21 @@ def _as_list(spec) -> list:
     return spec if isinstance(spec, list) else [spec]
 
 
+def _metric_names(metrics: Dict[str, list]) -> Dict[Tuple[str, int], str]:
+    """The name of the i-th metric of each output, as the JAX engine names
+    them (model.py:425-439, :843-857): over the output names in sorted
+    order, a metric takes its own name the first time and
+    "<name>_<output>" after that; one WER object on several outputs is
+    "wer" on the first output name in sorted order."""
+    names: Dict[Tuple[str, int], str] = {}
+    for key in sorted(metrics):
+        for i, metric in enumerate(metrics[key]):
+            taken = set(names.values())
+            names[key, i] = (metric.name if metric.name not in taken
+                             else f"{metric.name}_{key}")
+    return names
+
+
 def _loss_weights(spec):
     """Loss weights as the JAX `compile` takes them (model.py:182-192):
     None weighs every output 1, a number weighs every output alike, a dict
@@ -153,8 +168,9 @@ class Trainer:
     `compile_defaults` (e.g. CTC and [0.125] * 4 + [0.5] for the AO model,
     cross-entropy and accuracy for the LRW classifier); a weight is a number
     or a step scheduler, and a single number weighs every output.
-    `optimizer` is a function of the parameters that returns an `Optimizer`
-    (`train.optim.Adam(...)`; default `noam_adam`). Metrics on decoded
+    `optimizer` is a function of the model that returns an `Optimizer`
+    (`train.optim.Adam(...)`, `AdamW(...)`; default: the model's
+    `compile_defaults` optimizer, else `noam_adam`). Metrics on decoded
     strings (`on_host`) need a decoder of the output; the accuracy metrics
     (not `on_host`) run on a classifier's outputs on the device. Targets
     map onto the outputs as `metrics` do: a tuple or one array goes to
@@ -186,7 +202,8 @@ class Trainer:
         self.loss_weights = _loss_weights(
             loss_weights if loss_weights is not None
             else defaults["loss_weights"])
-        self.optimizer = (optimizer or noam_adam)(self.model.parameters())
+        self.optimizer = (optimizer or defaults.get("optimizer", noam_adam))(
+            self.model)
         if isinstance(metrics, str) and metrics == "default":
             metrics = defaults["metrics"]
         specs = (metrics.values() if isinstance(metrics, dict) else
@@ -485,7 +502,6 @@ class Trainer:
         loss_sums: Dict[str, torch.Tensor] = {}
         sums: Dict[str, float] = {}
         metric_of: Dict[str, Any] = {}
-        mkey_of: Dict[Tuple[str, int], str] = {}
         truths: Dict[str, List[str]] = {}
         preds: Dict[str, List[str]] = {}
         n = 0
@@ -494,15 +510,12 @@ class Trainer:
 
         def flush(pending):
             host_targets, decode_pre, metrics, decoders = pending
+            names = _metric_names({k: metrics[k] for k in decode_pre})
             for key, pre in decode_pre.items():
                 decoder = _as_list(decoders[key])[0]
                 for i, metric in enumerate(metrics[key]):
-                    if (key, i) not in mkey_of:   # model.py:857
-                        mkey_of[key, i] = (
-                            metric.name if metric.name not in metric_of
-                            else f"{metric.name}_{key}")
-                        metric_of[mkey_of[key, i]] = metric
-                    mkey = mkey_of[key, i]
+                    mkey = names[key, i]
+                    metric_of[mkey] = metric
                     t = decoder(host_targets[key], from_logits=False)
                     p = decoder(pre)
                     if verbose:
@@ -527,14 +540,15 @@ class Trainer:
                     metrics = _by_output(self.metrics, outputs)
                     decoders = _by_output(self.decoders, outputs)
                     target_of = _by_output(targets, outputs)
-                    named: Dict[str, Any] = {}     # model.py:425-439
-                    for key, spec in metrics.items():
-                        for metric in _as_list(spec):
-                            if getattr(metric, "on_host", False):
-                                continue
-                            mkey = (metric.name if metric.name not in named
-                                    else f"{metric.name}_{key}")
-                            named[mkey] = metric(target_of[key], outputs[key])
+                    on_device = {key: [m for m in _as_list(spec)
+                                        if not getattr(m, "on_host", False)]
+                                 for key, spec in metrics.items()}
+                    names = _metric_names(on_device)
+                    named: Dict[str, Any] = {}
+                    for key, ms in on_device.items():
+                        for i, metric in enumerate(ms):
+                            named[names[key, i]] = metric(target_of[key],
+                                                          outputs[key])
                     for k, v in named.items():
                         device_sums[k] = (device_sums[k] + v
                                           if k in device_sums else v)

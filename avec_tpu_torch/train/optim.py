@@ -1,24 +1,29 @@
-"""Optimizer of the conformer models (port of avec_tpu/train/optim.py:34-84
-and avec_tpu/models/zoo.py:35-38).
+"""Optimizers of the conformer and GPT models (port of avec_tpu/train/
+optim.py:34-116 and avec_tpu/models/zoo.py:35-38).
 
 `torch.optim.Adam` has the JAX package's semantics: the L2 weight decay is
 added to the gradient before the moments, and eps is added to the root of
-the bias-corrected second moment. Its learning rate is set from the
-scheduler at every step: lr = scheduler(step + 1), `step` being the counter
-before the update.
+the bias-corrected second moment. `torch.optim.AdamW` has those of the JAX
+AdamW (optax's Adam scale, then the decoupled decay wd * p added to the
+update, both scaled by lr). The learning rate is set from the scheduler at
+every step: lr = scheduler(step + 1), `step` being the counter before the
+update.
 
-`Adam(lr=..., betas=..., eps=..., weight_decay=...)` takes the JAX
-package's arguments, `lr` a number or a step scheduler, and returns a
-function of the parameters that makes the `Optimizer`: the form the
-`Trainer`'s `optimizer` argument takes (a config builds the optimizer
-before the model has parameters).
+`Adam(...)` and `AdamW(...)` take the JAX package's arguments, `lr` a number
+or a step scheduler, and return a function of the model (or of its
+parameters) that makes the `Optimizer`: the form the `Trainer`'s
+`optimizer` argument takes (a config builds the optimizer before the model
+has parameters).
 """
 
-from typing import Callable, Iterable, Tuple
+from typing import Callable, Dict, Iterable, Tuple, Union
 
 import torch
+import torch.nn as nn
 
 from avec_tpu_torch.train.schedulers import NoamDecayScheduler, as_scheduler
+
+ParamsLike = Union[nn.Module, Iterable[nn.Parameter]]
 
 
 class Optimizer:
@@ -41,17 +46,59 @@ class Optimizer:
         return lr
 
 
+def _params(model: ParamsLike):
+    return model.parameters() if isinstance(model, nn.Module) else model
+
+
 def Adam(lr=0.001, betas: Tuple[float, float] = (0.9, 0.999),
          eps: float = 1e-8, weight_decay: float = 0.0
-         ) -> Callable[[Iterable[torch.nn.Parameter]], Optimizer]:
+         ) -> Callable[[ParamsLike], Optimizer]:
     """Adam with L2 in the gradient under `lr` (a number or a scheduler of
-    the incremented step); returns `make(params) -> Optimizer`."""
+    the incremented step); returns `make(model or params) -> Optimizer`."""
     scheduler = as_scheduler(lr)
 
-    def make(params) -> Optimizer:
-        adam = torch.optim.Adam(params, lr=scheduler(1), betas=betas,
+    def make(model) -> Optimizer:
+        adam = torch.optim.Adam(_params(model), lr=scheduler(1), betas=betas,
                                 eps=eps, weight_decay=weight_decay)
         return Optimizer(adam, scheduler)
+
+    return make
+
+
+def gpt_decay_mask(model: nn.Module) -> Dict[str, bool]:
+    """The GPT's decay / no-decay split (optim.py:98-116) by parameter
+    name: the weights of Linear and Conv layers decay; embeddings, position
+    tables, norm affines (a LayerNorm's scale is also `weight`) and biases
+    do not."""
+    from avec_tpu_torch.ops.layers import Conv, Linear
+
+    decayed = {id(m.weight) for m in model.modules()
+               if isinstance(m, (Linear, Conv))}
+    return {name: id(p) in decayed for name, p in model.named_parameters()}
+
+
+def AdamW(lr=0.001, betas: Tuple[float, float] = (0.9, 0.999),
+          eps: float = 1e-8, weight_decay: float = 0.01,
+          decay_mask: Callable[[nn.Module], Dict[str, bool]] = None
+          ) -> Callable[[ParamsLike], Optimizer]:
+    """Adam with decoupled weight decay (optim.py:86-95) under `lr`; with
+    `decay_mask` (a function of the model, e.g. `gpt_decay_mask`) only the
+    parameters it marks decay. Returns `make(model) -> Optimizer`; without
+    a mask `make` also takes an iterable of parameters."""
+    scheduler = as_scheduler(lr)
+
+    def make(model) -> Optimizer:
+        if decay_mask is None:
+            groups = [{"params": list(_params(model))}]
+        else:
+            mask = decay_mask(model)
+            named = list(model.named_parameters())
+            groups = [{"params": [p for n, p in named if mask[n]]},
+                      {"params": [p for n, p in named if not mask[n]],
+                       "weight_decay": 0.0}]
+        adamw = torch.optim.AdamW(groups, lr=scheduler(1), betas=betas,
+                                  eps=eps, weight_decay=weight_decay)
+        return Optimizer(adamw, scheduler)
 
     return make
 

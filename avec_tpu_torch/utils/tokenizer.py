@@ -7,23 +7,18 @@ SentencePiece-style semantics, pure Python:
   * BPE merges are applied in learned rank order at encode time;
   * decode concatenates pieces and restores the spaces.
 
-SentencePiece `.model` files are not read or written by the port yet
-(ROADMAP queue 1 item 5): such a path raises NotImplementedError.
+A SentencePiece `.model` path is read and written by the port's own proto
+reader (`utils/spm_model.py`); the sentencepiece wheel is not used.
 """
 
 import collections
 import json
+import os
 from typing import Dict, Iterable, List, Sequence, Tuple, Union
 
 WORD_BOUNDARY = "▁"
 UNK_ID = 0
 UNK_PIECE = "<unk>"
-
-
-def _spm_not_ported(path: str):
-    return NotImplementedError(
-        f"{path}: SentencePiece .model files are not ported yet (ROADMAP "
-        "queue 1 item 5); use a tokenizer in the JSON format")
 
 
 def _word_to_symbols(word: str) -> Tuple[str, ...]:
@@ -150,13 +145,18 @@ class Tokenizer:
 def train_tokenizer(corpus_path: str, tokenizer_path: str,
                     vocab_size: int = 256, vocab_type: str = "bpe"):
     """Train a BPE tokenizer on the lines of `corpus_path` and save it in the
-    JSON format (".json" appended where the path lacks it)."""
+    JSON format (".json" appended where the path lacks it), or, for a path
+    ending in ".model", as a SentencePiece ModelProto."""
     if vocab_type != "bpe":
         raise ValueError(f"vocab_type {vocab_type!r}: only 'bpe'")
-    if tokenizer_path.endswith(".model"):
-        raise _spm_not_ported(tokenizer_path)
     with open(corpus_path) as f:
         pieces = train_bpe(f, vocab_size)
+    if tokenizer_path.endswith(".model"):
+        from avec_tpu_torch.utils.spm_model import bpe_model_from_pieces
+
+        model = bpe_model_from_pieces(pieces)
+        model.save(tokenizer_path)
+        return model
     tok = Tokenizer(pieces)
     if not tokenizer_path.endswith(".json"):
         tokenizer_path = tokenizer_path + ".json"
@@ -164,8 +164,17 @@ def train_tokenizer(corpus_path: str, tokenizer_path: str,
     return tok
 
 
-def load_tokenizer(path: str) -> Tokenizer:
-    """A tokenizer in the JSON format."""
+def load_tokenizer(path: str):
+    """A tokenizer in the JSON format, or a SentencePiece `.model` read by
+    `utils/spm_model.py` (tokenizer.py:199-219 without the wheel; where the
+    `.model` is missing, the ".json" beside it)."""
     if path.endswith(".model"):
-        raise _spm_not_ported(path)
+        if os.path.exists(path):
+            from avec_tpu_torch.utils.spm_model import SentencePieceModel
+
+            return SentencePieceModel.from_file(path)
+        json_path = path[:-len(".model")] + ".json"
+        if os.path.exists(json_path):
+            return Tokenizer.from_file(json_path)
+        raise FileNotFoundError(path)
     return Tokenizer.from_file(path)

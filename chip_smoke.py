@@ -147,8 +147,10 @@ bounds and plain stages;
     config's depth v (2, 1), a (2, 2, 1), f 2 at the flagship's widths,
     vocab 32) through the training engine on the fused-conv route (fused
     FFN, attention and convolution modules, stem "pallas"), bf16 on fp32
-    parameters, dropout and SpecAugment on: the greedy WER of the 64
-    evaluation utterances at init; `fit` for 2 epochs of 400 steps of 16
+    parameters, dropout and SpecAugment on: the WER of the 64 evaluation
+    utterances through the config's decoder (beam 8, the 2-gram, GPT
+    rescoring by phase 24's LM-Tone) at init; `fit` for 2 epochs of 400
+    steps of 16
     utterances with an EMA (tau 0.99), a checkpoint (under `build/`, removed
     at the end) and an evaluation, plain and EMA, per epoch; the launches
     of the 800 steps equal to the counts per step from the module tree; the
@@ -199,10 +201,35 @@ bounds and plain stages;
     step's median ms (synchronized), utterances/s, peak GiB, the phase's
     wall time; details under `zoo` and `learning_run_causal` in the same
     file.
+24. (run before phase 18) the LM-Tone learning run (`avec_tpu_torch/
+    configs/lm_tone.py`: GPT-Tiny on the 512-line tone corpus, 1 epoch of
+    32 steps at B=16, AdamW, fp32): its evaluation loss (below ln 34),
+    accuracy and top-10 accuracy, and the checkpoint that phase 18's
+    decoder rescores with (beam 8, a 2-gram over the training transcripts,
+    GPT 0.3 / 0.3); phase 18 prints the greedy WER of the same logits
+    beside each of its WERs and holds both decoders' WERs to the same
+    checks (below init; the ceilings after the last epoch);
+25. decoding at full width: the reference-depth AV model (use_flash, stem
+    "pallas", vocab 256, seeded weights and BN statistics) served through
+    `Server(decoder=CTCDeviceBeamSearchDecoder(...))` (beam 16, an order-6
+    ARPA that `estimate_arpa` builds from 4000 seeded transcripts, alpha
+    0.6, beta 1.0) for 8 requests in the 8 s bucket: 7 flash and 1 stem
+    launch per served forward (`launches_decode`); on the same log-probs
+    the device search against the native decoder (8 threads: equal best
+    prefixes, equal prefixes where scores do not tie, scores within 1e-3),
+    and utterance 0 with cutoff_top_n 32 in the Python, native and device
+    searches likewise; GPT-Small at full width (88.2M params, seeded
+    weights) rescoring the native beams, its fp32 forward on the card
+    against the CPU's (1e-4 of the largest logit) and 3 AdamW steps on one
+    8 x 128 batch (finite, falling losses). Printed: the forward,
+    device-beam, native-beam, Python-search, rescoring and GPT step times
+    and the GPT step's peak GiB beside the card's name and power limit;
+    details under `lm_tone` and `decode` in the same file.
 The line before the last is a JSON `kernels` line of sixteen kernels (the
 nine of phase 18 with their launches there as `launches_learning_run`, the
 launches of phases 19-22 by phase as `launches_zoo`, those of phase 23 as
-`launches_learning_run_causal`); the
+`launches_learning_run_causal`, K4's and K5's per served forward of phase
+25 as `launches_decode`); the
 last line is {"ok": true, "device": {...}}. Every time
 there ("ms", "plain_ms", "library_ms") is one of direct calls between CUDA
 events (`cuda_time_ms`), the host's cost of each call included; "device_ms"
@@ -787,8 +814,20 @@ def main() -> int:
     # ---- 15-17. data-parallel training (K3dp, sync-BN, NCCL)
     kernels += dp_phases(detail, conv_shapes)
 
-    # ---- 18. the AV-Tone learning run through the training engine
-    run_launches = learning_phase(detail, root, profile)
+    # ---- 24. the LM-Tone learning run (before phase 18, whose decoder
+    # rescores with its checkpoint)
+    import shutil
+    import tempfile
+
+    os.makedirs(os.path.join(root, "build"), exist_ok=True)
+    lm_dir = tempfile.mkdtemp(prefix="lm_tone_", dir=os.path.join(root,
+                                                                   "build"))
+    try:
+        lm_tone_phase(detail, lm_dir)
+        # ---- 18. the AV-Tone learning run through the training engine
+        run_launches = learning_phase(detail, root, profile, lm_dir)
+    finally:
+        shutil.rmtree(lm_dir, ignore_errors=True)
     for entry in kernels:
         if entry["name"] in run_launches:
             entry["launches_learning_run"] = run_launches[entry["name"]]
@@ -806,6 +845,11 @@ def main() -> int:
         if entry["name"] in causal_launches:
             entry["launches_learning_run_causal"] = \
                 causal_launches[entry["name"]]
+    # ---- 25. decoding at full width
+    decode_launches = decode_phase(detail, root)
+    for entry in kernels:
+        if entry["name"] in decode_launches:
+            entry["launches_decode"] = decode_launches[entry["name"]]
     detail["kernels"] = kernels
 
     os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
@@ -2726,27 +2770,83 @@ class _ZeroVideo:
                    "targets": batch["targets"]}
 
 
-# Phase 18's ceilings on the greedy WER after the last epoch: the plain
+# Phase 18's ceilings on the WER after the last epoch, of the config's
+# decoder and of the greedy decoder on the same logits alike: the plain
 # model and SWA, and the EMA (tau 0.99, whose average still holds the
-# earlier steps). Three runs of the phase on the H100 read 0.00 for all
-# three (PERF.md, PR 12); the prediction made before them was under 20
-# after epoch 2. A route that learns a little (a WER of 30-80) fails here.
+# earlier steps). Three runs of the phase on the H100 read a greedy 0.00
+# for all three (PERF.md, PR 12); the prediction made before them was
+# under 20 after epoch 2. A route that learns a little (a WER of 30-80) fails here.
 WER_CEILING = 10.0
 EMA_WER_CEILING = 20.0
 
 
-def learning_phase(detail, root, profile: bool) -> dict:
+class GreedyBeside:
+    """An evaluation decoder that decodes with `decoder` and keeps the
+    greedy transcripts of the same logits and the targets. `evaluate`
+    wraps a Trainer's evaluate so that each call appends (use_ema, the
+    decoder's WER, the greedy WER) to `readings`; `by_key` lays them
+    beside a dict of the decoder's WERs recorded in the same order."""
+
+    def __init__(self, decoder, tokenizer_path):
+        from avec_tpu_torch.decode.greedy import CTCGreedySearchDecoder
+
+        self.decoder = decoder
+        self.greedy = CTCGreedySearchDecoder(tokenizer_path=tokenizer_path)
+        self.truths, self.preds, self.readings = [], [], []
+
+    def device_fn(self, outputs):
+        return self.decoder.device_fn(outputs)
+
+    def __call__(self, outputs, from_logits: bool = True):
+        if not from_logits:
+            truths = self.decoder(outputs, from_logits=False)
+            self.truths.extend(truths)
+            return truths
+        self.preds.extend(self.greedy(self.greedy.device_fn(outputs)))
+        return self.decoder(outputs)
+
+    def evaluate(self, evaluate):
+        from avec_tpu_torch.train.metrics import WordErrorRate
+
+        def evaluate_beside(*args, use_ema=False, **kwargs):
+            out = evaluate(*args, use_ema=use_ema, **kwargs)
+            greedy = float(WordErrorRate()(self.truths, self.preds))
+            self.truths, self.preds = [], []
+            self.readings.append((use_ema, out[1]["wer"], greedy))
+            return out
+        return evaluate_beside
+
+    def by_key(self, wers: dict) -> dict:
+        """The greedy WER under each key of `wers`; each reading must carry
+        that key's WER and its EMA flag (keys ending in "_ema")."""
+        if len(self.readings) != len(wers):
+            raise AssertionError(f"{len(self.readings)} greedy readings for "
+                                 f"{len(wers)} WERs {list(wers)}")
+        out = {}
+        for (key, w), (ema, beam, greedy) in zip(wers.items(),
+                                                 self.readings):
+            if ema != key.endswith("_ema") or beam != w:
+                raise AssertionError(f"greedy reading (ema {ema}, WER "
+                                     f"{beam}) does not belong to {key} {w}")
+            out[key] = greedy
+        return out
+
+
+def learning_phase(detail, root, profile: bool, lm_dir: str) -> dict:
     """Phase 18: the AV-Tone learning run (`avec_tpu_torch/configs/
     av_tone.py`) on the fused-conv route through the training engine. The
-    greedy WER of the 64 evaluation utterances at init; `fit` for the
+    WER of the 64 evaluation utterances at init; `fit` for the
     config's 2 epochs of 400 steps (B = 16) with an EMA of tau 0.99, a
     checkpoint and an evaluation (plain and EMA) per epoch; the launches of
     the fit's steps against the module tree's count per step; the last
     checkpoint reloaded into a fresh setup (bf16 logits bit-identical); the
     audio-alone control (video zeroed, printed only); SWA over both epochs
-    and its WER. Every WER after training must be below the WER at init,
-    and after the last epoch at most WER_CEILING (plain, SWA) and
-    EMA_WER_CEILING (EMA). With `profile`, one more train step is traced (device time by category,
+    and its WER. Every evaluation decodes with the config's decoder (beam
+    8, the 2-gram, GPT rescoring by phase 24's LM-Tone checkpoint in
+    `lm_dir`), and the greedy WER of the same logits is kept beside each
+    (`GreedyBeside`). For both decoders, every WER after training must be
+    below the WER at init, and after the last epoch at most WER_CEILING
+    (plain, SWA) and EMA_WER_CEILING (EMA). With `profile`, one more train step is traced (device time by category,
     idle share). Returns the kernel launches of the fit's 800 steps."""
     import shutil
     import tempfile
@@ -2761,8 +2861,16 @@ def learning_phase(detail, root, profile: bool) -> dict:
     route = dict(fused_ffn=True, fused_att=True, fused_conv=True,
                  stem_mode="pallas")
     try:
-        setup = av_tone.build(ckpt_dir, device="cuda", route=route)
+        setup = av_tone.build(ckpt_dir, device="cuda", route=route,
+                              lm_callback_path=lm_dir)
         trainer = setup.trainer
+        decoder = trainer.decoders["outputs"]
+        if decoder.neural_rescorer is None or decoder.beam_size != 8:
+            raise AssertionError("AV-Tone decoder without the LM-Tone "
+                                 "rescorer")
+        beside = GreedyBeside(decoder, setup.tokenizer_path)
+        trainer.decoders = {"outputs": beside}
+        trainer.evaluate = beside.evaluate(trainer.evaluate)
         per_step = setup.model.kernel_launches_per_step()
         want = {"fused_ffn_fwd", "fused_ffn_bwd", "fused_att_fwd",
                 "fused_att_bwd", "fused_conv_stats", "fused_conv_fwd",
@@ -2780,7 +2888,8 @@ def learning_phase(detail, root, profile: bool) -> dict:
                                     use_ema=use_ema)[1]["wer"]
 
         wers = {"init": wer(setup.eval_loader)}
-        log(f"AV-Tone greedy WER at init: {wers['init']:.2f}")
+        log(f"AV-Tone beam WER at init: {wers['init']:.2f} (greedy "
+            f"{beside.readings[0][2]:.2f})")
         trainer.set_ema(0.99)
 
         step_ms, train_launches = [], {}
@@ -2832,7 +2941,8 @@ def learning_phase(detail, root, profile: bool) -> dict:
         last = os.path.join(ckpt_dir, f"checkpoints_epoch_{setup.epochs}_"
                                       f"step_{trainer.step}.ckpt")
         fresh = av_tone.build(os.path.join(ckpt_dir, "fresh"),
-                              device="cuda", route=route)
+                              device="cuda", route=route,
+                              lm_callback_path=lm_dir)
         fresh.trainer.load(last)
         batch = next(iter(setup.eval_loader))
         logits = []
@@ -2856,12 +2966,13 @@ def learning_phase(detail, root, profile: bool) -> dict:
                     epochs_list=list(range(1, setup.epochs + 1)))
         swa_s = time.perf_counter() - t_swa
         wers["swa"] = wer(setup.eval_loader)
+        greedy = beside.by_key(wers)
         wall_s = time.perf_counter() - t_phase
         warm = min(20, n_steps // 2)         # warm-up steps left out
         counted = sorted(step_ms[warm:])
         median = counted[len(counted) // 2]
-        run = {"wer": wers, "epoch_losses": losses, "steps": n_steps,
-               "batch": setup.train_loader.batch_size,
+        run = {"wer": wers, "greedy_wer": greedy, "epoch_losses": losses,
+               "steps": n_steps, "batch": setup.train_loader.batch_size,
                "step_ms_median": median,
                "step_ms_p10_p90": [counted[len(counted) // 10],
                                    counted[9 * len(counted) // 10]],
@@ -2873,9 +2984,11 @@ def learning_phase(detail, root, profile: bool) -> dict:
                "launches_train_steps": train_launches,
                "launches_fit": launches, "reload_bit_identical":
                reload_equal}
-        log("AV-Tone greedy WER: " + ", ".join(
+        log("AV-Tone WER (beam 8, 2-gram, GPT rescoring): " + ", ".join(
             f"{k} {v:.2f}" for k, v in wers.items())
             + " (audio_alone: the video zeroed, a control, not asserted)")
+        log("AV-Tone greedy WER of the same logits: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in greedy.items()))
         log(f"AV-Tone train step: median {median:.3f} ms over steps "
             f"{warm + 1}-{n_steps} (p10 {run['step_ms_p10_p90'][0]:.3f}, p90 "
             f"{run['step_ms_p10_p90'][1]:.3f}; synchronized around each "
@@ -2888,14 +3001,17 @@ def learning_phase(detail, root, profile: bool) -> dict:
             run["profile"] = profile_train_step(trainer, batch)
         detail["learning_run"] = run
         trained = [k for k in wers if k not in ("init", "audio_alone")]
-        if not all(wers[k] < wers["init"] for k in trained):
-            raise AssertionError(f"WER did not fall below init: {wers}")
         final = f"epoch_{setup.epochs}"
         ceilings = {final: WER_CEILING, "swa": WER_CEILING,
                     final + "_ema": EMA_WER_CEILING}
-        over = {k: wers[k] for k, c in ceilings.items() if wers[k] > c}
-        if over:
-            raise AssertionError(f"WER above its ceiling {ceilings}: {over}")
+        for what, w in (("beam", wers), ("greedy", greedy)):
+            if not all(w[k] < w["init"] for k in trained):
+                raise AssertionError(f"{what} WER did not fall below init: "
+                                     f"{w}")
+            over = {k: w[k] for k, c in ceilings.items() if w[k] > c}
+            if over:
+                raise AssertionError(f"{what} WER above its ceiling "
+                                     f"{ceilings}: {over}")
         return train_launches
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
@@ -3304,6 +3420,303 @@ def causal_learning_phase(detail, root) -> dict:
         return train_launches
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+def lm_tone_phase(detail, lm_dir: str) -> None:
+    """Phase 24, run before phase 18: the LM-Tone learning run
+    (`avec_tpu_torch/configs/lm_tone.py`: GPT-Tiny over the 512-line tone
+    corpus, 1 epoch of 32 steps at B = 16, AdamW, fp32) through the
+    training engine into `lm_dir`, with an evaluation (loss, accuracy,
+    top-10 accuracy) and the epoch's checkpoint, which phase 18's decoder
+    rescores with. The losses must be finite and the evaluation loss below
+    the uniform ln(34)."""
+    from avec_tpu_torch.configs import lm_tone
+
+    t_phase = time.perf_counter()
+    setup = lm_tone.build(lm_dir, device="cuda")
+    init = setup.trainer.evaluate(setup.eval_loader)
+    history = setup.trainer.fit(setup.train_loader, setup.epochs,
+                                dataset_eval=setup.eval_loader,
+                                callback_path=lm_dir, step_log_period=16)
+    losses, metrics = history[-1]["eval"][0]
+    ckpt = lm_tone.last_checkpoint(lm_dir)
+    wall_s = time.perf_counter() - t_phase
+    run = {"init": {"losses": init[0], "metrics": init[1]},
+           "eval_losses": losses, "eval_metrics": metrics,
+           "train_losses": history[-1]["losses"],
+           "steps": history[-1]["steps"], "checkpoint": ckpt,
+           "wall_s": wall_s}
+    log(f"LM-Tone: {history[-1]['steps']} steps; eval loss "
+        f"{losses['loss']:.4f} (init {init[0]['loss']:.4f}), accuracy "
+        f"{metrics['acc']:.2f}, top-10 accuracy {metrics['topk10']:.2f} "
+        f"(init {init[1]['acc']:.2f}, {init[1]['topk10']:.2f}); checkpoint "
+        f"{os.path.basename(ckpt or '')}; phase wall {wall_s:.1f} s")
+    detail["lm_tone"] = run
+    if ckpt is None or not all(math.isfinite(v) for v in
+                               {**losses, **history[-1]["losses"]}.values()):
+        raise AssertionError(f"LM-Tone run: {run}")
+    if not losses["loss"] < math.log(34):
+        raise AssertionError(f"LM-Tone eval loss {losses['loss']} not below "
+                             f"ln(34)")
+
+
+DECODE_BEAM = 16                   # configs/LRS23/AV/EffConfInterCTC.py
+DECODE_ORDER = 6
+DECODE_CUTOFF = 32                 # the Python search's check
+GPT_SMALL = dict(vocab_size=1025, padding_idx=0, max_pos_encoding=2048,
+                 model="GPT-Small", pos_embedding="learned")
+
+
+def _beams_agree(got, want, what, tol=1e-3):
+    """The same best prefix, scores within `tol`, and the same prefix at
+    every rank whose score ties no other beam's (by more than 1e-3)."""
+    if got[0][0] != want[0][0]:
+        raise AssertionError(f"{what}: best prefixes differ: {got[0]} vs "
+                             f"{want[0]}")
+    n = min(len(got), len(want))
+    worst = 0.0
+    for k in range(n):
+        (pa, sa), (pb, sb) = got[k], want[k]
+        if not (math.isfinite(sa) and math.isfinite(sb)):
+            if sa != sb:
+                raise AssertionError(f"{what}: rank {k}: {sa} vs {sb}")
+            continue
+        worst = max(worst, abs(sa - sb))
+        others = [s for j, (_, s) in enumerate(want[:n]) if j != k]
+        if all(abs(sb - o) > 1e-3 for o in others) and pa != pb:
+            raise AssertionError(f"{what}: rank {k}: {pa} vs {pb}")
+    if worst > tol:
+        raise AssertionError(f"{what}: scores differ by {worst} > {tol}")
+    return worst
+
+
+def decode_phase(detail, root) -> dict:
+    """Phase 25: decoding at full width. The reference-depth AV model
+    (use_flash, stem "pallas", vocab 256, seeded weights and BN statistics)
+    served through `Server(decoder=CTCDeviceBeamSearchDecoder(...))`: 8
+    requests in the 8 s bucket, beam 16 with an order-6 ARPA that
+    `estimate_arpa` builds from 4000 seeded transcripts over the vocab
+    (offset 100), alpha 0.6, beta 1.0; the launches of ROUNDS served
+    batches must be 7 flash and 1 stem per forward. On the same log-probs
+    the device search is held against the native decoder (8 threads): the
+    same best prefix per utterance, the same prefixes where scores do not
+    tie, scores within 1e-3; utterance 0 again with cutoff_top_n 32 in the
+    Python, native and device searches. The native decoder's beams are
+    rescored by GPT-Small at full width (d 768, 12 blocks, 12 heads, vocab
+    1025, learned positions to 2048, seeded N(0, 0.02) weights), whose fp32
+    forward on the card is held against the CPU's (max abs over max abs
+    <= 1e-4); 3 AdamW steps of GPT-Small (its compile defaults, dropout off)
+    on one fixed batch of 8 x 128 tokens: finite, falling losses. Printed:
+    forward, device-beam, native-beam, Python-search and rescoring times,
+    the GPT step's ms and peak GiB. Returns the launches per forward."""
+    import shutil
+    import tempfile
+
+    from avec_tpu_torch.data.synthetic import tone_tokenizer
+    from avec_tpu_torch.decode.beam import (CTCBeamSearchDecoder,
+                                            GPTRescorer,
+                                            ctc_prefix_beam_search)
+    from avec_tpu_torch.decode.device_beam import (CTCDeviceBeamSearchDecoder,
+                                                   device_beam_search)
+    from avec_tpu_torch.decode.native import NativeBeamDecoder
+    from avec_tpu_torch.decode.ngram import ArpaLM, estimate_arpa
+    from avec_tpu_torch.models.zoo import GPT, randomize_batch_stats
+    from avec_tpu_torch.ops import _cuda
+    from avec_tpu_torch.serve import Server, _batch_bucket, _bucket
+    from avec_tpu_torch.train.model import Trainer
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="decode_", dir=os.path.join(root, "build"))
+    rec = {}
+    try:
+        rng = np.random.RandomState(24)
+        tok_path = os.path.join(work, "tokenizer.json")
+        tone_tokenizer(256).save(tok_path)
+        lm_tok_path = os.path.join(work, "lm_tokenizer.json")
+        tone_tokenizer(1024).save(lm_tok_path)
+        t0 = time.perf_counter()
+        seqs = [[chr(100 + int(t)) for t in rng.randint(1, 256,
+                                                        rng.randint(4, 41))]
+                for _ in range(4000)]
+        arpa = estimate_arpa(seqs, os.path.join(work, "6gram.arpa"),
+                             order=DECODE_ORDER)
+        lm = ArpaLM(arpa)
+        dev_dec = CTCDeviceBeamSearchDecoder(
+            tok_path, beam_size=DECODE_BEAM, ngram_path=arpa,
+            ngram_alpha=0.6, ngram_beta=1.0, ngram_offset=100)
+        rec["arpa"] = {"order": lm.order, "ngrams": len(lm.probs),
+                       "build_s": time.perf_counter() - t0}
+        log(f"decode: order-{lm.order} ARPA of {len(lm.probs)} n-grams from "
+            f"{len(seqs)} seeded transcripts, with the device tables in "
+            f"{rec['arpa']['build_s']:.1f} s")
+
+        srv = Server(device="cuda", precision="bfloat16", seed=0,
+                     vocab_size=256, use_flash=True, stem_mode="pallas",
+                     decoder=dev_dec)
+        with torch.no_grad():
+            randomize_batch_stats(srv.model, torch.Generator().manual_seed(1))
+        reqs = make_requests(np.random.RandomState(25), low=3.7)
+        samples = [len(r["audio"]) for r in reqs]
+        inputs = srv._inputs_for_batch(reqs, _bucket(max(samples)),
+                                       _batch_bucket(len(reqs)))
+        srv.transcribe_batch(reqs)                   # warm-up
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        for _ in range(ROUNDS):
+            results = srv.transcribe_batch(reqs)
+        torch.cuda.synchronize()
+        served_s = (time.perf_counter() - t0) / ROUNDS
+        launches = dict(_cuda.launches)
+        per_forward = {k: v // ROUNDS for k, v in launches.items()}
+        log(f"launches_decode: main path launches over {ROUNDS} served "
+            f"batches {launches}: per served forward {per_forward}")
+        if launches != {"flash_attention_fwd": 7 * ROUNDS,
+                        "bn_relu_pool": ROUNDS}:
+            raise AssertionError(f"decode path launches {launches}")
+        if not all(isinstance(r["text"], str) for r in results) or all(
+                not r["text"] for r in results):
+            raise AssertionError(f"served texts {results}")
+
+        with torch.no_grad():
+            logits, lengths = srv.forward(inputs)
+        logits, lengths = logits[:len(reqs)], lengths[:len(reqs)]
+        logp_dev = dev_dec.log_probs(logits)
+        logp, lens = logp_dev.cpu().numpy(), lengths.cpu().numpy()
+        fwd_ms = cuda_time_ms(lambda: srv.forward(inputs), iters=5, warmup=1)
+
+        def wall_ms(fn, n=3):
+            times = []
+            for _ in range(n):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            return sorted(times)[n // 2], out
+
+        dev_ms, dev_beams = wall_ms(lambda: dev_dec.search(logp_dev,
+                                                           lengths))
+        native = NativeBeamDecoder(beam_size=DECODE_BEAM, alpha=0.6,
+                                   beta=1.0, ngram_path=arpa,
+                                   ngram_offset=100, num_threads=8)
+        nat_ms, nat_beams = wall_ms(lambda: native.decode_batch(logp, lens))
+        worst = max(_beams_agree(d, n_, f"utterance {i} device vs native")
+                    for i, (d, n_) in enumerate(zip(dev_beams, nat_beams)))
+        log(f"decode: logits {tuple(logits.shape)}, frames "
+            f"{lens.tolist()}; device beam vs native beam (beam "
+            f"{DECODE_BEAM}, order {DECODE_ORDER}): best prefixes equal for "
+            f"all {len(lens)}, scores max abs diff {worst:.3e} (tol 1e-3)")
+
+        py_t0 = time.perf_counter()
+        py = ctc_prefix_beam_search(
+            logp[0].astype(np.float64), int(lens[0]), DECODE_BEAM, lm=lm,
+            alpha=0.6, beta=1.0, token_to_word=lambda i: chr(i + 100),
+            cutoff_top_n=DECODE_CUTOFF)
+        py_ms = (time.perf_counter() - py_t0) * 1e3
+        nat_c = NativeBeamDecoder(beam_size=DECODE_BEAM, alpha=0.6, beta=1.0,
+                                  ngram_path=arpa, ngram_offset=100,
+                                  cutoff_top_n=DECODE_CUTOFF).decode(
+            logp[0], int(lens[0]))
+        dev_c = device_beam_search(logp_dev[:1], lengths[:1], DECODE_BEAM,
+                                   tables=dev_dec.tables, alpha=0.6,
+                                   beta=1.0, cutoff_top_n=DECODE_CUTOFF)[0]
+        worst_c = max(_beams_agree(nat_c, py, "cutoff 32: native vs Python"),
+                      _beams_agree(dev_c, py, "cutoff 32: device vs Python"))
+        log(f"decode: utterance 0 with cutoff_top_n {DECODE_CUTOFF}: Python "
+            f"search {py_ms:.1f} ms; native and device against it: best "
+            f"prefixes equal, scores max abs diff {worst_c:.3e} (tol 1e-3)")
+
+        # GPT-Small: rescoring, the fp32 forward against the CPU, 3 steps
+        gpt = GPT(**GPT_SMALL, device="cuda",
+                  generator=torch.Generator().manual_seed(0))
+        gpt_params = sum(p.numel() for p in gpt.parameters())
+        dec = CTCBeamSearchDecoder(
+            tok_path, beam_size=DECODE_BEAM, ngram_path=arpa,
+            ngram_alpha=0.6, ngram_beta=1.0, ngram_offset=100,
+            neural_rescorer=GPTRescorer(gpt), neural_tokenizer_path=lm_tok_path,
+            neural_alpha=0.6, neural_beta=1.0, neural_pad_token=0,
+            neural_sos_token=1024, neural_eos_token=1024, num_processes=8)
+        padded = [b + [((), -math.inf)] * (DECODE_BEAM - len(b))
+                  for b in nat_beams]
+        dec.neural_scores(padded)                    # warm-up
+        resc_ms, (nscores, _) = wall_ms(lambda: dec.neural_scores(padded))
+        best = dec.beam_search(logits, lens)
+        if len(best) != len(reqs) or not np.isfinite(nscores).all():
+            raise AssertionError("GPT rescoring failed")
+        seqs = []
+        for b in padded:
+            for prefix, _ in b:
+                text = dec.tokenizer.decode([list(prefix)])[0]
+                seqs.append([1024] + dec.neural_tokenizer.encode(text)
+                            + [1024])
+        n_tok = sum(len(x) for x in seqs)
+        log(f"decode: GPT-Small {gpt_params / 1e6:.2f}M params rescored "
+            f"{len(seqs)} beams ({n_tok} tokens) in {resc_ms:.1f} ms; best "
+            f"beams after rescoring: {[len(x) for x in best]} tokens")
+
+        check = torch.zeros((8, 64), dtype=torch.long)
+        for j, x in enumerate(seqs[:8 * DECODE_BEAM:DECODE_BEAM]):
+            check[j, :min(len(x), 64)] = torch.tensor(x[:64])
+        with torch.no_grad():
+            gpu = gpt(check.cuda())["output"].float().cpu()
+            cpu_model = GPT(**GPT_SMALL, device="cpu")
+            cpu_model.load_state_dict(gpt.state_dict())
+            cpu = cpu_model(check)["output"]
+        gpt_rel = float((gpu - cpu).abs().max() / cpu.abs().max())
+        log(f"decode: GPT-Small fp32 forward (8, 64) on the card vs the CPU: "
+            f"max abs diff over max abs {gpt_rel:.3e} (tol 1e-4)")
+        del cpu_model, cpu
+        if not gpt_rel <= 1e-4:
+            raise AssertionError(f"GPT-Small card vs CPU {gpt_rel}")
+
+        trainer = Trainer(model=gpt, device="cuda", precision="float32",
+                          seed=0)
+        gpt.set_regularization(False)
+        ids = torch.from_numpy(np.random.RandomState(26).randint(
+            1, 1024, (8, 128)))
+        batch = {"inputs": [ids], "targets": torch.roll(ids, -1, 1)}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_losses, step_ms = [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses, _ = trainer.train_step(batch)
+            step_losses.append(float(losses["loss"]))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"decode: GPT-Small AdamW steps on one 8 x 128 batch: losses "
+            + ", ".join(f"{x:.6f}" for x in step_losses)
+            + f"; step ms {', '.join(f'{x:.1f}' for x in step_ms)}; peak "
+            f"{peak_gib:.2f} GiB")
+        if not (all(math.isfinite(x) for x in step_losses)
+                and step_losses[0] > step_losses[1] > step_losses[2]):
+            raise AssertionError(f"GPT-Small losses {step_losses}")
+
+        rec.update({
+            "launches": launches, "per_forward": per_forward,
+            "served_batch_ms": served_s * 1e3,
+            "forward_ms": fwd_ms, "device_beam_ms": dev_ms,
+            "native_beam_ms": nat_ms, "native_threads": 8,
+            "python_search_ms_one_utterance_cutoff32": py_ms,
+            "rescoring_ms": resc_ms, "rescored_beams": len(seqs),
+            "rescored_tokens": n_tok, "device_vs_native_max_abs": worst,
+            "cutoff32_max_abs": worst_c, "gpt_small_params_m":
+            gpt_params / 1e6, "gpt_small_card_vs_cpu_rel": gpt_rel,
+            "gpt_small_losses": step_losses, "gpt_small_step_ms": step_ms,
+            "gpt_small_peak_gib": peak_gib,
+            "texts": [r["text"] for r in results],
+            "wall_s": time.perf_counter() - t_phase})
+        log(f"decode ({gpu_line()}): served batch {served_s * 1e3:.1f} ms "
+            f"(forward {fwd_ms:.2f} ms, device beam {dev_ms:.1f} ms), native "
+            f"beam {nat_ms:.1f} ms on 8 threads, GPT-Small rescoring "
+            f"{resc_ms:.1f} ms, GPT-Small step {sorted(step_ms)[1]:.1f} ms, "
+            f"peak {peak_gib:.2f} GiB; phase wall {rec['wall_s']:.1f} s")
+        detail["decode"] = rec
+        return per_forward
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def time_ffn_bwd_kernel(x, g, params, drop, seed, check: bool = False):

@@ -677,9 +677,12 @@ def test_per_output_specs_match_jax_map_to_outputs():
 
 def test_metric_names_eval_time_and_device_metrics(env):
     """One WER object on every output is named as the JAX engine names it
-    (model.py:857: "wer", then "wer_<output>"), each the WER of that
-    output's transcripts; `eval_time` times whole evaluations; a metric of
-    the device's outputs is refused."""
+    (model.py:425-439, :843-857: over the output names in sorted order,
+    "wer" first, then "wer_<output>"): the names and the value under each
+    equal those of the JAX engine's host metric pass on the same outputs;
+    `eval_time` times whole evaluations; a metric of the device's outputs
+    is refused."""
+    from avec_tpu.train.model import Model as JaxModel
     from avec_tpu_torch.train.metrics import CategoricalAccuracy
 
     trainer = _trainer(env)
@@ -689,9 +692,26 @@ def test_metric_names_eval_time_and_device_metrics(env):
     _, metrics, transcripts = trainer.evaluate(evals, eval_steps=1,
                                                recompute_metrics=True,
                                                return_transcripts=True)
-    assert list(metrics) == ["wer"] + [f"wer_{k}" for k in OUTPUTS[1:]]
-    for k, v in metrics.items():
-        assert v == WordErrorRate()(*transcripts[k])
+    batch = next(iter(evals))
+    trainer.model.eval()
+    with torch.no_grad():
+        inputs, _ = trainer._to_device(batch, shard=False)
+        outputs = trainer.model(*inputs)
+    jmodel = JaxModel()
+    jmodel.output_names = sorted(OUTPUTS)
+    proto = {k: None for k in OUTPUTS}
+    jmodel.metrics = jmodel.map_to_outputs(proto, JaxWER())
+    jmodel.decoders = jmodel.map_to_outputs(
+        proto, JaxGreedy(tokenizer_path=env["tok"]))
+    pre = {k: jmodel.decoders[k].device_fn(
+        tuple(jnp.asarray(o.numpy()) for o in outputs[k])) for k in OUTPUTS}
+    want = jmodel._host_metric_pass(pre, batch["targets"])
+    assert set(metrics) == set(want) == {"wer"} | {f"wer_{k}" for k in
+                                                   sorted(OUTPUTS)[1:]}
+    for k, (truths, preds, value) in want.items():
+        assert transcripts[k] == (truths, preds), k
+        assert metrics[k] == pytest.approx(value, rel=1e-12), k
+        assert metrics[k] == WordErrorRate()(*transcripts[k])
     times = trainer.eval_time(evals, eval_steps=1, num_evals=2)
     assert set(times) == {"mean", "std", "min", "max"}
     assert 0 < times["min"] <= times["mean"] <= times["max"]

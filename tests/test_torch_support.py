@@ -98,7 +98,11 @@ def test_port_imports_no_jax():
             "avec_tpu_torch.utils.tokenizer, avec_tpu_torch.data.dataset, "
             "avec_tpu_torch.data.collate, avec_tpu_torch.data.synthetic, "
             "avec_tpu_torch.data.loader, avec_tpu_torch.decode.greedy, "
-            "avec_tpu_torch.configs.av_tone\n"
+            "avec_tpu_torch.configs.av_tone, avec_tpu_torch.decode.beam, "
+            "avec_tpu_torch.decode.native, avec_tpu_torch.decode.ngram, "
+            "avec_tpu_torch.decode.device_beam, avec_tpu_torch.configs.lm_tone, "
+            "avec_tpu_torch.models.transformer, avec_tpu_torch.data.corpus_lm, "
+            "avec_tpu_torch.utils.spm_model\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'avec_tpu')]\n"
             "assert not bad, bad\nprint('ok')\n")
@@ -137,10 +141,20 @@ def test_entry_points_default_to_cuda(tmp_path):
 
     with pytest.raises(RuntimeError, match="CUDA"):
         Trainer(vocab_size=8)
-    from avec_tpu_torch.configs import av_tone
+    from avec_tpu_torch.configs import av_tone, lm_tone
+    from avec_tpu_torch.decode.device_beam import CTCDeviceBeamSearchDecoder
+    from avec_tpu_torch.models.zoo import GPT
 
     with pytest.raises(RuntimeError, match="CUDA"):
         av_tone.build(str(tmp_path / "av_tone"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm_tone.build(str(tmp_path / "lm_tone"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GPT(model="GPT-Tiny", vocab_size=8)
+    tok = str(tmp_path / "tok.json")
+    lm_tone.tokenizer.save(tok)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CTCDeviceBeamSearchDecoder(tok)
 
 
 def test_import_scan_covers_the_training_modules():
@@ -156,4 +170,11 @@ def test_import_scan_covers_the_training_modules():
             "avec_tpu_torch/data/dataset.py", "avec_tpu_torch/data/collate.py",
             "avec_tpu_torch/data/synthetic.py", "avec_tpu_torch/data/loader.py",
             "avec_tpu_torch/configs/av_tone.py",
-            "tools/torch_av_tone_routes.py"} <= names
+            "tools/torch_av_tone_routes.py",
+            "avec_tpu_torch/decode/beam.py", "avec_tpu_torch/decode/native.py",
+            "avec_tpu_torch/decode/ngram.py",
+            "avec_tpu_torch/decode/device_beam.py",
+            "avec_tpu_torch/configs/lm_tone.py",
+            "avec_tpu_torch/models/transformer.py",
+            "avec_tpu_torch/data/corpus_lm.py",
+            "avec_tpu_torch/utils/spm_model.py"} <= names

@@ -72,12 +72,22 @@ def test_train_bpe_and_tokenizer_round_trips_are_equal(tmp_path):
 
 
 def test_sentencepiece_model_paths_are_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+    """A `.model` path: missing, it raises FileNotFoundError as the JAX
+    loader does without the wheel; trained, it writes the same ModelProto
+    bytes as the JAX package's `train_tokenizer`, and the port reads it back
+    with the same pieces and segmentation (the name predates the port's
+    SentencePiece reader)."""
+    with pytest.raises(FileNotFoundError):
         ttok.load_tokenizer(str(tmp_path / "tokenizerbpe256.model"))
     corpus = tmp_path / "c.txt"
-    corpus.write_text("a b\n")
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        ttok.train_tokenizer(str(corpus), str(tmp_path / "t.model"), 8)
+    corpus.write_text("a b\nab ba b\n")
+    got = ttok.train_tokenizer(str(corpus), str(tmp_path / "t.model"), 8)
+    jtok.train_tokenizer(str(corpus), str(tmp_path / "j.model"), 8)
+    assert ((tmp_path / "t.model").read_bytes()
+            == (tmp_path / "j.model").read_bytes())
+    back = ttok.load_tokenizer(str(tmp_path / "t.model"))
+    assert back.pieces == got.pieces
+    assert back.encode("ab ba b") == got.encode("ab ba b")
 
 
 def test_tone_tokenizer_pieces_are_equal():
