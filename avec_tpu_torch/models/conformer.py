@@ -16,6 +16,12 @@ variables, so by default training runs the unfused layers; dropout follows the
 attention, convolution and feed-forward modules and opens the stack, the
 convolution module's BatchNorm uses batch statistics and the depthwise conv's
 bias is detached.
+
+Streaming (eval, the causal configuration): `ConformerInterCTC.
+stream_forward` runs one chunk with carried state, a per-block list of
+{"att": {"K", "V"}, "conv": tail}: the attention modules take and return
+their Transformer-XL key/value caches (`hidden`), the convolution modules
+their depthwise conv's (k - 1)-frame input tails (`state`).
 """
 
 import os
@@ -177,7 +183,15 @@ class AttentionModule(nn.Module):
                 and att.dim_model % att.num_heads == 0
                 and att.dim_model % 2 == 0)
 
-    def forward(self, x, mask=None, lengths=None):
+    def forward(self, x, mask=None, lengths=None, hidden=None,
+                return_hidden: bool = False):
+        """With `return_hidden` (streaming, Transformer-XL attention) the
+        layer takes the key/value cache `hidden` and the call returns (out,
+        the layer's new cache) (conformer.py:177-220)."""
+        if return_hidden:
+            out, new_hidden = self.attention(
+                self.norm(x), mask=mask, hidden=hidden, return_hidden=True)
+            return self.dropout(out), new_hidden
         if self.training and self.fused_eligible(x.ndim, mask):
             att = self.attention
             rate = self.drop_rate if self.regularize else 0.0
@@ -249,7 +263,25 @@ class ConvolutionModule(nn.Module):
         return (self.fused_conv and ndim == 3 and self.stride == 1
                 and self.padding in ("same", "causal"))
 
-    def forward(self, x):
+    def forward(self, x, state=None, return_state: bool = False):
+        """With `return_state` (streaming, causal padding only) the
+        depthwise conv runs without padding over the carried tail `state`
+        (B, E, k - 1) (the last k - 1 GLU outputs before this chunk)
+        followed by this chunk, and the call returns (out, the new tail):
+        the causal conv of the whole sequence, chunk by chunk
+        (conformer.py:290-317)."""
+        if return_state:
+            if self.padding != "causal":
+                raise ValueError("streaming needs the causal convolution "
+                                 f"module, not padding {self.padding!r}")
+            x = glu(self.layers["1"](self.layers["0"](x).transpose(1, 2)),
+                    dim=1)
+            x = torch.cat([state.to(x.dtype), x], dim=2)
+            depthwise = self.layers["3"]
+            new_state = x[:, :, x.shape[2] - (depthwise.kernel_size[0] - 1):]
+            x = swish(self.layers["4"](depthwise(x, pads=((0, 0),))))
+            return (self.dropout(self.layers["6"](x).transpose(1, 2)),
+                    new_state)
         if self.training and self.fused_eligible(x.ndim):
             rate = self.drop_rate if self.regularize else 0.0
             seed = _draw_seed(self.seed_generator) if rate > 0.0 else None
@@ -326,16 +358,29 @@ class ConformerBlock(nn.Module):
                                             drop_rate, fused_ffn)
         self.norm = LayerNorm(dim_expand, 1e-6)
 
-    def forward(self, x, mask=None, lengths=None):
+    def forward(self, x, mask=None, lengths=None, state=None,
+                return_state: bool = False):
+        """With `return_state` (streaming) the block takes and returns its
+        carried state {"att": {"K", "V"}, "conv": tail}
+        (conformer.py:386-451)."""
         x = x + 0.5 * self.ff_module1(x)
-        x = x + self.self_att_module(x, mask=mask, lengths=lengths)
-        conv_out = self.conv_module(x)
+        if return_state:
+            att_out, att_state = self.self_att_module(
+                x, mask=mask, hidden=state["att"], return_hidden=True)
+            x = x + att_out
+            conv_out, conv_state = self.conv_module(
+                x, state=state["conv"], return_state=True)
+        else:
+            x = x + self.self_att_module(x, mask=mask, lengths=lengths)
+            conv_out = self.conv_module(x)
         if self.conv_res is not None:
             res = self.conv_res(x.transpose(1, 2)).transpose(1, 2)
         else:
             res = x[:, ::self.stride]
         x = res + conv_out
         x = x + 0.5 * self.ff_module2(x)
+        if return_state:
+            return self.norm(x), {"att": att_state, "conv": conv_state}
         return self.norm(x)
 
 
@@ -364,6 +409,8 @@ class ConformerInterCTC(nn.Module):
         nblocks = [num_blocks] if isinstance(num_blocks, int) else list(num_blocks)
         self.loss_prefix = loss_prefix
         self.interctc_at: List[int] = []
+        self.kernel_size = kernel_size
+        self.block_stage: List[int] = []
         blocks, inter = [], []
         i = 0
         for stage in range(len(nblocks)):
@@ -378,6 +425,7 @@ class ConformerInterCTC(nn.Module):
                     kernel_size=kernel_size, conv_padding=conv_padding,
                     drop_rate=drop_rate, fused_att=fused_att,
                     fused_conv=fused_conv, fused_ffn=fused_ffn))
+                self.block_stage.append(stage)
                 if i + 1 in set(interctc_blocks):
                     self.interctc_at.append(i)
                     inter.append(InterCTCResModule(dim_out, vocab_size))
@@ -400,6 +448,34 @@ class ConformerInterCTC(nn.Module):
             if logits is not None:
                 interctc_outputs[f"{self.loss_prefix}_{i}"] = [logits, lengths]
         return x, lengths, interctc_outputs
+
+    def stream_plan(self) -> List[Dict]:
+        """One entry per block (the port has no scanned runs): stage_id,
+        dim_model, dim_expand, kernel_size, stride (conformer.py:575-585);
+        a streaming transcriber sizes each block's carried state from it."""
+        return [dict(stage_id=stage, dim_model=b.ff_module1.layers["1"]
+                     .weight.shape[1],
+                     dim_expand=b.norm.weight.shape[0],
+                     kernel_size=self.kernel_size, stride=b.stride)
+                for stage, b in zip(self.block_stage, self.conformer_blocks)]
+
+    def stream_forward(self, x, masks, states):
+        """One chunk with carried state (eval, causal configurations;
+        conformer.py:633-674): `masks` per stage (B, 1, c_s, L_s + c_s),
+        `states` one {"att": {"K", "V"}, "conv": tail} per block. Returns
+        (x, the blocks' new states, interctc outputs with lengths None); the
+        caller trims the returned key/value caches back to their sizes."""
+        interctc_outputs = {}
+        new_states = []
+        x = self.dropout(x)
+        for i, block in enumerate(self.conformer_blocks):
+            x, st = block(x, mask=masks[self.block_stage[i]],
+                          state=states[i], return_state=True)
+            new_states.append(st)
+            if i in self.interctc_at:
+                x, logits = self.interctc_modules[self.interctc_at.index(i)](x)
+                interctc_outputs[f"{self.loss_prefix}_{i}"] = [logits, None]
+        return x, new_states, interctc_outputs
 
 
 class ConvNeuralNetwork(nn.Module):

@@ -116,7 +116,12 @@ class AudioEfficientConformerEncoder(nn.Module):
     stage-1 frames, which the restriding halves per stage. The stem runs
     channels-first on (B, 1, 80, T), frequency before time, so its padding
     is ("same", "causal") where the JAX stem, time-major, has ("causal",
-    "same"). The chunked streaming step (`_stream_step`) is not ported."""
+    "same").
+
+    `stream_step` is the causal variant's chunked step (encoders.py:345-401,
+    eval): a chunk of fbank frames through the stem and the conformer with
+    carried state, the stem's 2-frame fbank tail taking the place of its
+    causal time padding."""
 
     def __init__(self, include_head: bool = True, vocab_size: int = 256,
                  att_type: str = "patch",
@@ -166,6 +171,46 @@ class AudioEfficientConformerEncoder(nn.Module):
         if self.head is not None:
             x = self.head(x)
         return x, lengths, inter
+
+    def stream_state(self, batch: int, left_context: int, dtype, device):
+        """Zero state for `stream_step`: the stem's fbank tail (B, 1, n_mels,
+        2), then per block a key/value cache of left_context >> stage keys
+        (B, L_s, dim_model) and a depthwise tail (B, dim_expand, k - 1)
+        (causal_streaming.py:111-131)."""
+        zeros = lambda *shape: torch.zeros(shape, dtype=dtype, device=device)
+        n_mels = self.preprocessing.mel.shape[1]
+        blocks = []
+        for p in self.back_end.stream_plan():
+            l_s = left_context >> p["stage_id"]
+            blocks.append({"att": {"K": zeros(batch, l_s, p["dim_model"]),
+                                   "V": zeros(batch, l_s, p["dim_model"])},
+                           "conv": zeros(batch, p["dim_expand"],
+                                         p["kernel_size"] - 1)})
+        return {"stem": zeros(batch, 1, n_mels, 2), "blocks": blocks}
+
+    def stream_step(self, x, state, masks):
+        """One chunk (causal configurations, eval): x (B, n_mels, Tc) log-mel
+        frames, Tc a multiple of 8; `state` as `stream_state` gives it;
+        `masks` per stage (B, 1, c_s, L_s + c_s). The stem's conv runs
+        without time padding over the carried tail and the chunk, which is
+        the offline ("same", "causal") stem. Returns (logits or features
+        (B, Tc / 8, .), interctc outputs, the new state, key/value caches
+        untrimmed)."""
+        if not self.causal:
+            raise ValueError("stream_step needs the causal encoder")
+        x = torch.cat([state["stem"].to(x.dtype), x[:, None]], dim=3)
+        new_stem = x[:, :, :, x.shape[3] - 2:]
+        (conv, bn), = self.subsampling_module.layers
+        freq_pads = conv.pads[0]
+        x = self.subsampling_module.act(bn(conv(x, pads=(freq_pads,
+                                                         (0, 0)))))
+        b, c, f, t = x.shape                               # (B, 180, 40, T)
+        x = self.linear(x.permute(0, 3, 1, 2).reshape(b, t, c * f))
+        x, blocks, inter = self.back_end.stream_forward(x, masks,
+                                                        state["blocks"])
+        if self.head is not None:
+            x = self.head(x)
+        return x, inter, {"stem": new_stem, "blocks": blocks}
 
 
 class VisualEfficientConformerEncoder(nn.Module):

@@ -17,7 +17,8 @@ from avec_tpu_torch.ops.flash_attention import rel_pos_flash_attention
 from avec_tpu_torch.ops.layers import (Dropout, Linear, avg_pool,
                                        upsample_nearest)
 from avec_tpu_torch.ops.masks import apply_mask, min_pool_mask
-from avec_tpu_torch.ops.pos_embeddings import relative_pos_encoding
+from avec_tpu_torch.ops.pos_embeddings import (device_constant,
+                                               relative_pos_encoding)
 
 
 def rel_to_abs(scores: torch.Tensor, causal: bool) -> torch.Tensor:
@@ -53,6 +54,15 @@ def _attend(scores, v, mask, dropout=None):
     if dropout is not None:
         att = dropout(att)
     return torch.einsum("bhqk,bhkd->bhqd", att, v)
+
+
+def _factorized_inv_freq(d_model: int, device) -> torch.Tensor:
+    """(d_model // 2,) 1 / 10000^(2i / d_model), computed in fp64 by numpy
+    and rounded to fp32."""
+    return device_constant(
+        ("factorized_inv_freq", d_model), device,
+        lambda: torch.from_numpy((1.0 / (10000.0 ** (
+            2.0 * np.arange(d_model // 2) / d_model))).astype(np.float32)))
 
 
 class MultiHeadAttention(nn.Module):
@@ -105,7 +115,7 @@ class RelPos1dMultiHeadAttention(MultiHeadAttention):
         self.pos_layer = Linear(dim_model, dim_model)
 
     def _rel_scores_factorized(self, q, t):
-        d_model, half = self.dim_model, self.dim_model // 2
+        d_model = self.dim_model
         dtype = q.dtype
         w = self.pos_layer.weight.t().reshape(d_model, self.num_heads,
                                               self.dim_head).to(dtype)
@@ -114,9 +124,7 @@ class RelPos1dMultiHeadAttention(MultiHeadAttention):
         us = torch.einsum("bhid,mhd->bhim", q, ws)
         uc = torch.einsum("bhid,mhd->bhim", q, wc)
         pos = torch.arange(t, dtype=torch.float32, device=q.device)
-        inv_freq = torch.from_numpy((1.0 / (10000.0 ** (
-            2.0 * np.arange(half) / d_model))).astype(np.float32)).to(q.device)
-        ang = pos[:, None] * inv_freq[None, :]
+        ang = pos[:, None] * _factorized_inv_freq(d_model, q.device)[None, :]
         sin_t, cos_t = torch.sin(ang).to(dtype), torch.cos(ang).to(dtype)
         a1 = us * sin_t + uc * cos_t
         a2 = uc * sin_t - us * cos_t
@@ -173,11 +181,15 @@ class RelPosPatch1dMultiHeadAttention(RelPos1dMultiHeadAttention):
 
 
 class RelPosMultiHeadSelfAttention(MultiHeadAttention):
-    """Transformer-XL rel-pos self-attention with the u and v biases
-    (attention.py:354-404), offline: scores = ((q + u) k^T +
+    """Transformer-XL rel-pos self-attention with the u and v biases and a
+    key/value cache (attention.py:354-404): scores = ((q + u) k^T +
     rel_to_abs((q + v) E^T)) / sqrt(d), E = pos_layer(relative table), the
-    table causal (positions T - 1 .. 0) when `causal`. The key/value cache
-    of the JAX layer (`hidden`, `return_hidden`) is not ported."""
+    table causal (positions Th + T - 1 .. 0) when `causal`.
+
+    `hidden` {"K", "V"}: (B, Th, D) projected keys / values of past frames,
+    concatenated before the new frames' ones before the heads are split;
+    the mask then spans (T, Th + T). With `return_hidden` the call returns
+    (out, {"K", "V"}), the concatenated keys / values, detached."""
 
     def __init__(self, dim_model: int, num_heads: int, causal: bool = False):
         super().__init__(dim_model, num_heads)
@@ -186,20 +198,29 @@ class RelPosMultiHeadSelfAttention(MultiHeadAttention):
         self.u = nn.Parameter(torch.zeros(dim_model))
         self.v = nn.Parameter(torch.zeros(dim_model))
 
-    def forward(self, x, mask=None, lengths=None):
+    def forward(self, x, mask=None, lengths=None, hidden=None,
+                return_hidden: bool = False):
         t, dtype = x.shape[1], x.dtype
         q, k, v = self.query_layer(x), self.key_layer(x), self.value_layer(x)
+        if hidden is not None:
+            k = torch.cat([hidden["K"].to(dtype), k], dim=1)
+            v = torch.cat([hidden["V"].to(dtype), v], dim=1)
+        th = k.shape[1] - t
         split = lambda a: _split_heads(a, self.num_heads, self.dim_head)
         qu, qv = split(q + self.u.to(dtype)), split(q + self.v.to(dtype))
         e = self.pos_layer(relative_pos_encoding(
-            t, self.dim_model, self.causal, device=x.device).to(dtype))
+            t, self.dim_model, self.causal, hidden_len=th,
+            device=x.device).to(dtype))
         e = split(e)[0]                                   # (H, R, d)
         scores_k = torch.einsum("bhqd,bhkd->bhqk", qu, split(k))
         scores_e = rel_to_abs(torch.einsum("bhqd,hkd->bhqk", qv, e),
                               self.causal)
         scores = (scores_k + scores_e) / self.dim_head ** 0.5
-        return self.output_layer(_merge_heads(_attend(scores, split(v),
-                                                      mask)))
+        out = self.output_layer(_merge_heads(_attend(scores, split(v),
+                                                     mask)))
+        if return_hidden:
+            return out, {"K": k.detach(), "V": v.detach()}
+        return out
 
 
 att_dict = {

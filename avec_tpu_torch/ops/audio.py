@@ -3,7 +3,13 @@
 torchaudio-compatible: |STFT|^2 with n_fft 512, periodic hann window of 400
 samples centred in n_fft, hop 160, reflect padding of n_fft//2; HTK mel
 scale, 80 mels over 0-8 kHz, no norm; log(x + 1e-9); lengths // hop + 1.
-The windowed real-DFT basis turns the STFT into one fp32 matmul.
+The windowed real-DFT basis turns the STFT into one fp32 matmul, and the
+mel filterbank is another. The JAX package runs both at Precision.HIGHEST,
+so the port needs TF32 off for fp32 products on the card, PyTorch's default
+(`torch.backends.cuda.matmul.allow_tf32` False): a caller that turns it on
+changes the log-mels.
+`AudioPreprocessing.stream_frames` computes the log-mels of an already
+padded window, the chunked fbank of the causal streaming transcriber.
 
 `SpecAugment` is the training-time augmentation of the audio encoder.
 """
@@ -53,16 +59,28 @@ def _dft_basis(n_fft: int, win_length: int) -> np.ndarray:
     return (basis * win_full[:, None]).astype(np.float32)
 
 
-def power_spectrogram(x: torch.Tensor, basis: torch.Tensor, n_fft: int = 512,
-                      hop_length: int = 160) -> torch.Tensor:
-    """(B, T) -> (B, T // hop + 1, n_fft//2 + 1) power spectrum, fp32."""
-    pad = n_fft // 2
-    xp = F.pad(x.float()[:, None, :], (pad, pad), mode="reflect")[:, 0]
-    frames = xp.unfold(-1, n_fft, hop_length)          # (B, n_frames, n_fft)
+def spectrogram_frames(xp: torch.Tensor, n_frames: int, basis: torch.Tensor,
+                       n_fft: int = 512, hop_length: int = 160
+                       ) -> torch.Tensor:
+    """(B, n_frames, n_fft//2 + 1) power spectrum of an already padded
+    signal (B, L): frame f covers xp[:, f*hop : f*hop + n_fft), L at least
+    (n_frames - 1) * hop + n_fft. fp32."""
+    frames = xp.float().unfold(-1, n_fft, hop_length)[:, :n_frames]
     out = frames @ basis
     n_freq = n_fft // 2 + 1
     real, imag = out[..., :n_freq], out[..., n_freq:]
     return real * real + imag * imag
+
+
+def power_spectrogram(x: torch.Tensor, basis: torch.Tensor, n_fft: int = 512,
+                      hop_length: int = 160) -> torch.Tensor:
+    """(B, T) -> (B, T // hop + 1, n_fft//2 + 1) power spectrum, fp32:
+    reflect padding of n_fft // 2 (torch.stft's center=True), then
+    `spectrogram_frames`."""
+    pad = n_fft // 2
+    xp = F.pad(x.float()[:, None, :], (pad, pad), mode="reflect")[:, 0]
+    return spectrogram_frames(xp, x.shape[1] // hop_length + 1, basis, n_fft,
+                              hop_length)
 
 
 class AudioPreprocessing(nn.Module):
@@ -83,16 +101,27 @@ class AudioPreprocessing(nn.Module):
             n_fft // 2 + 1, n_mels, sample_rate, 0.0, 8000.0)),
             persistent=False)
 
-    def forward(self, x, lengths=None):
-        spec = power_spectrogram(x, self.basis, self.n_fft, self.hop_length)
+    def _log_mels(self, spec):
         out = torch.log(spec @ self.mel + 1e-9)
         if self.normalize:
             out = (out - self.mean) / self.std
-        out = out.transpose(1, 2).to(x.dtype)
+        return out.transpose(1, 2)
+
+    def forward(self, x, lengths=None):
+        spec = power_spectrogram(x, self.basis, self.n_fft, self.hop_length)
+        out = self._log_mels(spec).to(x.dtype)
         if lengths is None:
             return out
         return out, torch.div(lengths, self.hop_length,
                               rounding_mode="floor") + 1
+
+    def stream_frames(self, xp, n_frames: int):
+        """(B, n_mels, n_frames) log-mels, in xp's dtype, of an already
+        padded chunk (B, L): frame f covers xp[:, f*hop : f*hop + n_fft)
+        (audio.py:175-189)."""
+        spec = spectrogram_frames(xp, n_frames, self.basis, self.n_fft,
+                                  self.hop_length)
+        return self._log_mels(spec).to(xp.dtype)
 
 
 class SpecAugment(nn.Module):

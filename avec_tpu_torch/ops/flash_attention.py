@@ -31,6 +31,7 @@ from typing import Tuple
 import torch
 
 from avec_tpu_torch.ops import _cuda
+from avec_tpu_torch.ops.pos_embeddings import device_constant
 
 NEG_INF = -1e30
 KERNEL = "flash_attention_fwd"
@@ -265,6 +266,16 @@ def flash_attention(q_aug, k_aug, v, lengths=None, scale=1.0,
     return _FlashAttention.apply(q_aug, k_aug, v, lengths, scale, use_kernel)
 
 
+def _inv_freq(dim_model: int, device) -> torch.Tensor:
+    """(dim_model // 2,) 1 / 10000^(2i / dim_model), computed in fp64 on the
+    host and rounded to fp32."""
+    return device_constant(
+        ("flash_inv_freq", dim_model), device,
+        lambda: (1.0 / (10000.0 ** (2.0 * torch.arange(
+            dim_model // 2, dtype=torch.float64) / dim_model))).to(
+                torch.float32))
+
+
 def rel_pos_augment(q, k, pos_kernel, pos_bias, dim_model, num_heads):
     """Augmented q', k' of pallas_attention.py:390-415.
 
@@ -279,9 +290,7 @@ def rel_pos_augment(q, k, pos_kernel, pos_bias, dim_model, num_heads):
     us = torch.einsum("bhid,mhd->bhim", q, ws)
     uc = torch.einsum("bhid,mhd->bhim", q, wc)
     pos = torch.arange(t, dtype=torch.float32, device=q.device)
-    inv_freq = (1.0 / (10000.0 ** (2.0 * torch.arange(
-        half, dtype=torch.float64) / dim_model))).to(torch.float32).to(q.device)
-    ang = pos[:, None] * inv_freq[None, :]
+    ang = pos[:, None] * _inv_freq(dim_model, q.device)[None, :]
     sin_t = torch.sin(ang).to(dtype)
     cos_t = torch.cos(ang).to(dtype)
     a1 = us * sin_t + uc * cos_t

@@ -124,12 +124,16 @@ class Conv(nn.Module):
                 _uniform_(self.weight, 1.0 / math.sqrt(fan_in), gen)
                 _uniform_(self.bias, 1.0 / math.sqrt(fan_in), gen)
 
-    def forward(self, x):
+    def forward(self, x, pads=None):
+        """`pads` ((lo, hi) per spatial axis) replaces the layer's padding
+        for this call: the streaming step's carried tails take the place
+        of the causal padding."""
         conv = (F.conv1d, F.conv2d, F.conv3d)[self.ndim - 1]
-        if all(lo == hi for lo, hi in self.pads):
-            padding = tuple(lo for lo, _ in self.pads)
+        pads = self.pads if pads is None else pads
+        if all(lo == hi for lo, hi in pads):
+            padding = tuple(lo for lo, _ in pads)
         else:
-            flat = [p for pair in reversed(self.pads) for p in pair]
+            flat = [p for pair in reversed(pads) for p in pair]
             x = F.pad(x, flat)
             padding = 0
         b = self.bias

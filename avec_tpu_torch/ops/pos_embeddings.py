@@ -12,14 +12,34 @@ import torch
 import torch.nn as nn
 
 
+_DEVICE_CONSTANTS = {}
+
+
+def device_constant(key, device, make) -> torch.Tensor:
+    """`make()` (a CPU tensor) on `device`, copied once per (key, device):
+    a host-to-device copy per call would wait for the device's queue."""
+    full_key = (key, str(device))
+    if full_key not in _DEVICE_CONSTANTS:
+        with torch.inference_mode(False):     # usable by autograd later
+            _DEVICE_CONSTANTS[full_key] = make().to(device)
+    return _DEVICE_CONSTANTS[full_key]
+
+
+def _inv_freq(dim_model: int, device) -> torch.Tensor:
+    """(dim_model // 2,) fp32 1 / 10000^(2i / dim_model), computed in fp32
+    by numpy."""
+    def make():
+        i = np.arange(dim_model // 2, dtype=np.float32)
+        return torch.from_numpy(np.asarray(
+            1.0 / (10000.0 ** (2.0 * i / dim_model)), np.float32))
+    return device_constant(("sinusoid_inv_freq", dim_model), device, make)
+
+
 def _sinusoid(pos: torch.Tensor, dim_model: int) -> torch.Tensor:
     """(N,) float positions -> (N, dim_model): [:, 0::2] = sin and
     [:, 1::2] = cos of pos / 10000^(2i / dim_model), a zero column appended
     for an odd width."""
-    i = np.arange(dim_model // 2, dtype=np.float32)
-    inv_freq = torch.from_numpy(
-        np.asarray(1.0 / (10000.0 ** (2.0 * i / dim_model)), np.float32))
-    angles = pos[:, None] * inv_freq.to(pos.device)[None, :]
+    angles = pos[:, None] * _inv_freq(dim_model, pos.device)[None, :]
     out = torch.stack([torch.sin(angles), torch.cos(angles)], dim=-1)
     out = out.reshape(pos.shape[0], -1)
     if dim_model % 2 == 1:

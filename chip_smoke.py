@@ -225,11 +225,38 @@ bounds and plain stages;
     device-beam, native-beam, Python-search, rescoring and GPT step times
     and the GPT step's peak GiB beside the card's name and power limit;
     details under `lm_tone` and `decode` in the same file.
+26. serving from files: the full-width AO model as `Server(mode="ao")`
+    builds it, with use_flash, bf16, a tokenizer `train_bpe` learns from
+    seeded text; 8 seeded utterances of 2-6 s written as wav and flac
+    under build/. `transcribe_batch` over the wav paths, the flac paths and
+    the same samples as arrays, and `stdin_loop` over the flac paths from an
+    in-memory stream with max_batch 4 (the pipeline holds two batches): 11
+    flash launches per forward (`launches_serve_files`), identical texts
+    from wav, flac and arrays, the loop's texts those of `transcribe_batch`
+    on the same batches, an {"file", "error"} row for a missing path.
+    Printed: latency p50 / p95, mean RTF, the host ms of `submit_batch`
+    beside `finish_batch`'s, and the host syncs of one submit
+    (`torch.cuda.set_sync_debug_mode("warn")`); details under
+    `serve_files`;
+27. streaming: (a) `StreamingTranscriber` on phase 26's model over a 6 s
+    utterance in 200 ms pushes, unbounded: final token ids equal to the
+    offline greedy ids of the same bucket; windowed (4 s) over one 20 s
+    push: bounded buckets, monotone commits; 11 flash launches per forward
+    (`launches_streaming`). (b) `CausalStreamingTranscriber` on the
+    full-width causal AO model (left context 128, chunk 16) in fp32 and
+    bf16 over 96 123 samples in ragged pushes: ceil((n // 160 + 1) / 16)
+    steps, od^3(n // 160 + 1) frames, fp32 logits within 2e-4 of the
+    offline causal forward (1e-3 if the card's reassociation needs it;
+    the bound used is printed), fp32 tokens identical, every partial a
+    prefix of the final text, no kernel launched. Printed: per-chunk
+    latency p50 / p95, the bf16 max abs differences and greedy-id
+    agreement; details under `streaming`.
 The line before the last is a JSON `kernels` line of sixteen kernels (the
 nine of phase 18 with their launches there as `launches_learning_run`, the
 launches of phases 19-22 by phase as `launches_zoo`, those of phase 23 as
 `launches_learning_run_causal`, K4's and K5's per served forward of phase
-25 as `launches_decode`); the
+25 as `launches_decode`, K4's of phases 26 and 27 (a) as
+`launches_serve_files` and `launches_streaming`); the
 last line is {"ok": true, "device": {...}}. Every time
 there ("ms", "plain_ms", "library_ms") is one of direct calls between CUDA
 events (`cuda_time_ms`), the host's cost of each call included; "device_ms"
@@ -240,6 +267,7 @@ entries "library_device_ms", SDPA's backward on the device. Details go to
 chiprun_out/chip_smoke.json.
 """
 
+import copy
 import json
 import math
 import os
@@ -850,6 +878,21 @@ def main() -> int:
     for entry in kernels:
         if entry["name"] in decode_launches:
             entry["launches_decode"] = decode_launches[entry["name"]]
+    # ---- 26-27. serving from files, streaming
+    work = tempfile.mkdtemp(prefix="serve_files_", dir=os.path.join(root,
+                                                                    "build"))
+    try:
+        srv, tok_path, file_launches = serve_files_phase(detail, root, work)
+        stream_launches = streaming_phase(detail, srv, tok_path)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    del srv
+    torch.cuda.empty_cache()
+    for entry in kernels:
+        if entry["name"] in file_launches:
+            entry["launches_serve_files"] = file_launches[entry["name"]]
+        if entry["name"] in stream_launches:
+            entry["launches_streaming"] = stream_launches[entry["name"]]
     detail["kernels"] = kernels
 
     os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
@@ -3717,6 +3760,429 @@ def decode_phase(detail, root) -> dict:
         return per_forward
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+
+def _seeded_text(rng, n_lines: int = 600) -> list:
+    """Seeded lines of random 3-8 letter words: the corpus of phase 26's
+    tokenizer (train_bpe reaches its 256 pieces over it)."""
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    return [" ".join("".join(rng.choice(letters, rng.randint(3, 9)))
+                     for _ in range(rng.randint(4, 12)))
+            for _ in range(n_lines)]
+
+
+def serve_files_phase(detail, root, work: str):
+    """Phase 26: serving from files. The full-width AO model as
+    `Server(mode="ao")` builds it (blocks (5, 6, 5), patch attention in
+    stage 1, no InterCTC, vocab 256) with use_flash, bf16, seeded weights
+    and BN statistics, and a tokenizer `train_bpe` learns (256 pieces) from
+    seeded text; 8 seeded utterances of 2-6 s written as wav and as flac
+    under `work`. Main path (counts set to 0 just before, read just after):
+    `transcribe_batch` over the 8 wav paths, over the 8 flac paths and over
+    the samples as arrays, then `stdin_loop` over the flac paths from an
+    in-memory stream with max_batch 4 (two batches, the second submitted
+    before the first is decoded); 11 flash launches per forward. Required:
+    identical texts from wav, flac and arrays, the loop's texts equal to
+    `transcribe_batch` on the same two batches, an {"file", "error"} row for
+    a missing path, texts not all empty. Then ROUNDS timed submit + finish
+    pairs of the 8 wav paths: the host ms of `submit_batch` and of
+    `finish_batch`, the latency p50 / p95 and mean RTF; one submit under
+    `torch.cuda.set_sync_debug_mode("warn")` lists the host syncs it makes,
+    and one traced submit (`trace_submit`) shows where its host time goes.
+    Returns (the server, the tokenizer path, the main path's launches)."""
+    import io
+
+    from avec_tpu_torch.models.zoo import randomize_batch_stats
+    from avec_tpu_torch.ops import _cuda
+    from avec_tpu_torch.serve import Server, stdin_loop
+    from avec_tpu_torch.utils import media
+    from avec_tpu_torch.utils.tokenizer import Tokenizer, train_bpe
+
+    t_phase = time.perf_counter()
+    tok_path = os.path.join(work, "tokenizer.json")
+    tok = Tokenizer(train_bpe(_seeded_text(np.random.RandomState(26)), 256))
+    tok.save(tok_path)
+    srv = Server(mode="ao", device="cuda", precision="bfloat16", seed=0,
+                 use_flash=True, tokenizer=tok_path, vocab_size=256,
+                 att_type="patch", num_blocks=(5, 6, 5))
+    with torch.no_grad():
+        randomize_batch_stats(srv.model, torch.Generator().manual_seed(1))
+    wavs, flacs, arrays = [], [], []
+    for i, r in enumerate(make_requests(np.random.RandomState(26))):
+        wav, flac = (os.path.join(work, f"utt{i}.{ext}")
+                     for ext in ("wav", "flac"))
+        media.write_audio(wav, r["audio"])
+        audio = media.read_audio(wav)[0]
+        media.write_audio(flac, audio)
+        wavs.append(wav)
+        flacs.append(flac)
+        arrays.append({"audio": audio})
+    seconds = [len(a["audio"]) / 16000 for a in arrays]
+    srv.transcribe_batch(wavs[:4])                   # warm-up (cuDNN plans)
+    torch.cuda.synchronize()
+
+    _cuda.reset_launches()
+    by_wav = srv.transcribe_batch(wavs)
+    by_flac = srv.transcribe_batch(flacs)
+    by_array = srv.transcribe_batch(arrays)
+    out = io.StringIO()
+    stdin_loop(srv, max_batch=4, window_ms=500.0, out=out,
+               stream=io.StringIO("".join(p + "\n" for p in flacs)))
+    torch.cuda.synchronize()
+    launches = dict(_cuda.launches)
+    looped = [json.loads(line) for line in out.getvalue().splitlines()]
+    texts = [r["text"] for r in by_wav]
+    want_loop = srv.transcribe_batch(flacs[:4]) + srv.transcribe_batch(
+        flacs[4:])
+    missing = os.path.join(work, "missing.wav")
+    mixed = srv.transcribe_batch([wavs[0], missing])
+    log(f"AO served from files (flash, 11 layers): main path launches over 5 "
+        f"forwards (wav, flac, arrays, stdin loop x 2): {launches}")
+    flac_texts = [r["text"] for r in by_flac]
+    log(f"  {len(wavs)} requests of {min(seconds):.2f}-{max(seconds):.2f} s; "
+        f"texts wav == flac: {texts == flac_texts}, flac == arrays: "
+        f"{flac_texts == [r['text'] for r in by_array]}, "
+        f"stdin loop (batch sizes {[r['batch_size'] for r in looped]}) == "
+        f"transcribe_batch: "
+        f"{[r['text'] for r in looped] == [r['text'] for r in want_loop]}; "
+        f"missing path -> {mixed[1]}")
+    log(f"  text of utterance 0: {texts[0][:80]!r}")
+    checks = {
+        "launches": launches == {"flash_attention_fwd": 5 * 11},
+        "wav_equals_flac": texts == [r["text"] for r in by_flac],
+        "flac_equals_arrays": [r["text"] for r in by_flac]
+        == [r["text"] for r in by_array],
+        "loop_equals_batches": [r["text"] for r in looped]
+        == [r["text"] for r in want_loop]
+        and [r["file"] for r in looped] == flacs
+        and [r["batch_size"] for r in looped] == [4] * 8,
+        "error_row": set(mixed[1]) == {"file", "error"}
+        and mixed[0]["text"] == srv.transcribe(wavs[0])["text"],
+        "texts_not_empty": any(texts)}
+    if not all(checks.values()):
+        raise AssertionError(f"serving from files: {checks}")
+
+    # host syncs of one submit
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            pending = srv.submit_batch(wavs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    srv.finish_batch(pending)
+    # the detector's warnings only, not its notice that it "does not yet
+    # detect all synchronizing operations"
+    syncs = [str(w.message).splitlines()[0] for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    log(f"  host syncs in one submit_batch (set_sync_debug_mode 'warn'): "
+        f"{len(syncs)} {sorted(set(syncs))}")
+    trace = trace_submit(srv, wavs)
+
+    srv.latencies, srv.rtfs = [], []
+    sub_ms, fin_ms = [], []
+    for _ in range(ROUNDS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pending = srv.submit_batch(wavs)
+        t1 = time.perf_counter()
+        srv.finish_batch(pending)
+        t2 = time.perf_counter()
+        sub_ms.append((t1 - t0) * 1e3)
+        fin_ms.append((t2 - t1) * 1e3)
+    stats = srv.stats_summary()
+    rec = {"launches": launches, "checks": checks, "seconds": seconds,
+           "texts": texts, "host_syncs_in_submit": len(syncs),
+           "host_sync_messages": sorted(set(syncs)), "submit_trace": trace,
+           "submit_host_ms": sub_ms,
+           "finish_host_ms": fin_ms, **stats,
+           "wall_s": time.perf_counter() - t_phase}
+    log(f"  ({gpu_line()}) 8 files of 2-6 s per batch, {ROUNDS} rounds: "
+        f"latency p50 {stats['latency_p50_s'] * 1e3:.1f} ms, p95 "
+        f"{stats['latency_p95_s'] * 1e3:.1f} ms, mean RTF "
+        f"{stats['rtf_mean']:.4f}; host ms submit_batch "
+        f"{', '.join(f'{x:.1f}' for x in sub_ms)} vs finish_batch "
+        f"{', '.join(f'{x:.1f}' for x in fin_ms)}; phase wall "
+        f"{rec['wall_s']:.1f} s")
+    detail["serve_files"] = rec
+    return srv, tok_path, launches
+
+
+def trace_submit(srv, paths):
+    """One `submit_batch(paths)` traced by torch.profiler (after a traced
+    and dropped warm-up submit): the submit's host ms, the host ms of
+    loading the files alone (timed apart), the CUDA runtime calls the
+    submit made by name (count, host ms; a blocking wait shows as a
+    `...Synchronize` call or a long `cudaMemcpy`), and its kernels: count,
+    device-busy ms and when the last one ended, in ms after the submit
+    returned (negative: the card had finished before the host did)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import (ProfilerActivity, profile, record_function,
+                                schedule)
+
+    t0 = time.perf_counter()
+    for p in paths:
+        srv.load_request(p)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    events = []
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # "Profiler clears events ..."
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda pr: events.extend(pr.events())
+                     ) as prof:
+            srv.finish_batch(srv.submit_batch(paths))
+            torch.cuda.synchronize()
+            prof.step()
+            time.sleep(TRACE_MARGIN_S)
+            with record_function("submit_batch"):
+                pending = srv.submit_batch(paths)
+            torch.cuda.synchronize()
+            time.sleep(TRACE_MARGIN_S)
+            prof.step()
+    srv.finish_batch(pending)
+    span = [e for e in events if e.name == "submit_batch"
+            and e.device_type == DeviceType.CPU][0].time_range
+    runtime, kernels = {}, []
+    for e in events:                  # the submit's kernels may end later
+        r = e.time_range
+        if r.start < span.start:
+            continue
+        if e.device_type == DeviceType.CUDA:
+            if not getattr(e, "is_user_annotation", False):
+                kernels.append((r.start, r.end))
+        elif e.name.startswith("cuda") and r.start <= span.end:
+            n, us = runtime.get(e.name, (0, 0.0))
+            runtime[e.name] = (n + 1, us + r.elapsed_us())
+    busy, last = 0.0, span.start
+    for start, end in sorted(kernels):       # the union of kernel intervals
+        busy += max(0.0, end - max(start, last))
+        last = max(last, end)
+    rec = {"submit_ms": span.elapsed_us() / 1e3, "load_files_ms": load_ms,
+           "runtime_calls": {k: {"count": n, "host_ms": us / 1e3}
+                             for k, (n, us) in sorted(
+                                 runtime.items(), key=lambda kv: -kv[1][1])},
+           "kernels": len(kernels), "device_busy_ms": busy / 1e3,
+           "last_kernel_end_after_return_ms": (last - span.end) / 1e3}
+    waits = {k: v for k, v in rec["runtime_calls"].items()
+             if "Synchronize" in k or k in ("cudaMemcpy", "cudaHostAlloc")}
+    log(f"  traced submit_batch (torch.profiler): {rec['submit_ms']:.1f} ms "
+        f"on the host (loading the {len(paths)} files alone "
+        f"{load_ms:.1f} ms), "
+        f"{rec['kernels']} device ops busy {rec['device_busy_ms']:.2f} ms, "
+        f"the last ending {rec['last_kernel_end_after_return_ms']:.2f} ms "
+        f"after the submit returned; runtime calls "
+        + ", ".join(f"{k} {v['count']}x {v['host_ms']:.2f} ms"
+                    for k, v in list(rec["runtime_calls"].items())[:6])
+        + f"; waits among them: {waits or 'none'}")
+    return rec
+
+
+def streaming_phase(detail, srv, tok_path):
+    """Phase 27: streaming. (a) `StreamingTranscriber` on phase 26's model
+    over a 6 s utterance in 200 ms pushes, unbounded: the final token ids
+    equal the offline greedy ids in the same bucket (bf16); then windowed
+    (window_seconds 4) with one 20 s push: every bucket at most
+    bucket(window + hop), commits monotone; 11 flash launches per forward.
+    (b) `CausalStreamingTranscriber` on the full-width causal AO model
+    (blocks (5, 6, 5), vocab 256, left_context 128, chunk 16, seeded
+    weights and BN statistics) over a 6 s utterance (96 123 samples) in
+    ragged pushes of 5 000, fp32 then bf16: the steps are
+    ceil((n // 160 + 1) / 16), the output frames od^3(n // 160 + 1), the
+    fp32 logits within 2e-4 of the offline causal forward (1e-3 if the
+    card's reassociation needs it; the bound used is printed), the fp32
+    tokens identical, every partial a prefix of the final text; no kernel
+    launched. Printed: per-chunk latency p50 / p95, the bf16 max abs
+    differences, the card's fp32 offline forward against the CPU's and the
+    streamed against the offline log-mels (`fbank_stream_gap`). Returns
+    (a)'s launches."""
+    from avec_tpu_torch.decode.causal_streaming import (
+        CausalStreamingTranscriber, _od)
+    from avec_tpu_torch.decode.greedy import CTCGreedySearchDecoder
+    from avec_tpu_torch.decode.streaming import (StreamingTranscriber,
+                                                 _collapse_host)
+    from avec_tpu_torch.models.zoo import (AudioEfficientConformerInterCTC,
+                                           randomize_batch_stats)
+    from avec_tpu_torch.ops import _cuda
+
+    t_phase = time.perf_counter()
+    rec = {}
+    decoder = CTCGreedySearchDecoder(tok_path)
+    audio = make_requests(np.random.RandomState(27))[0]["audio"]   # 6 s
+
+    # ---- (a) the bidirectional transcriber
+    _cuda.reset_launches()
+    st = StreamingTranscriber(srv.model, decoder, precision="bfloat16")
+    partials = [st.push(audio[s: s + 3200])["text"]
+                for s in range(0, len(audio), 3200)]
+    final = st.finish()
+    torch.cuda.synchronize()
+    launches = dict(_cuda.launches)
+    forwards = sum(st._fwd_cache.values())
+    ids = st._committed + st._fresh
+    bucket = st._bucket(len(audio))
+    pad = np.zeros((1, bucket), np.float32)
+    pad[0, :len(audio)] = audio
+    logits, lengths = srv.forward([pad, np.array([len(audio)], np.int32)])
+    toks, tok_len = decoder.device_fn((logits, lengths))
+    offline = toks[0, :int(tok_len[0])].tolist()
+    ok_a = bool(ids) and ids == offline and launches == {
+        "flash_attention_fwd": 11 * forwards}
+    log(f"streaming (bidirectional, unbounded, 200 ms pushes of 6 s): "
+        f"{forwards} forwards, launches {launches}; final ids == offline "
+        f"greedy ids of the {bucket}-sample bucket: {ids == offline} "
+        f"({len(ids)} tokens); {len(partials)} partials; device "
+        f"{final['device_seconds'] * 1e3:.1f} ms")
+    long_audio = np.concatenate([make_requests(np.random.RandomState(
+        270 + k))[0]["audio"] for k in range(4)])[:20 * 16000]
+    win = StreamingTranscriber(srv.model, decoder, window_seconds=4.0,
+                               precision="bfloat16")
+    commits = []
+    slide = win._slide_window
+
+    def recording_slide(preds):
+        out = slide(preds)
+        commits.append(len(win._committed))
+        return out
+
+    win._slide_window = recording_slide
+    win.push(long_audio)
+    wfinal = win.finish()
+    cap = win._bucket(win.window + win.hop)
+    ok_w = (bool(win._fwd_cache) and all(b <= cap for b in win._fwd_cache)
+            and commits == sorted(commits) and commits[-1] > 0)
+    log(f"  windowed (4 s) over one 20 s push: buckets "
+        f"{sorted(win._fwd_cache)} (cap {cap}), {len(commits)} window "
+        f"slides, commits monotone: {commits == sorted(commits)} (last "
+        f"{commits[-1]}), final text {len(wfinal['text'])} chars")
+    rec["bidirectional"] = {
+        "forwards": forwards, "launches": launches, "ids_equal": ids ==
+        offline, "tokens": len(ids), "windowed_buckets": sorted(
+            win._fwd_cache), "windowed_commits": commits}
+    if not (ok_a and ok_w):
+        raise AssertionError(f"bidirectional streaming: {rec}")
+
+    # ---- (b) the causal transcriber at full width
+    model = AudioEfficientConformerInterCTC(
+        device="cuda", vocab_size=256, interctc_blocks=(),
+        num_blocks=(5, 6, 5), causal=True, left_context=128,
+        generator=torch.Generator().manual_seed(7))
+    with torch.no_grad():
+        randomize_batch_stats(model, torch.Generator().manual_seed(8))
+    n = 96123
+    utt = np.concatenate([audio, audio[:n - len(audio)]])
+    with torch.no_grad():
+        want, want_len = model(torch.from_numpy(utt[None]).cuda(),
+                               torch.tensor([n], dtype=torch.int32,
+                                            device="cuda"))["outputs"]
+        want_bf, _ = model(torch.from_numpy(utt[None]).cuda().to(
+            torch.bfloat16), torch.tensor([n], dtype=torch.int32,
+                                          device="cuda"))["outputs"]
+    want = want[0].float().cpu().numpy()
+    want_bf = want_bf[0].float().cpu().numpy()
+    # the card's own fp32 floor: the offline forward on the CPU (its fbank
+    # product sums in another order; near-silent bins' log-mels move most)
+    cpu_model = copy.deepcopy(model).cpu()
+    with torch.no_grad():
+        want_cpu = cpu_model(torch.from_numpy(utt[None]), torch.tensor(
+            [n], dtype=torch.int32))["outputs"][0][0].numpy()
+    del cpu_model
+    floor = float(np.abs(want - want_cpu).max())
+    fbank_gap = fbank_stream_gap(model, decoder, utt)
+    n_out = _od(_od(_od(n // 160 + 1)))
+    steps = -(-(n // 160 + 1) // 16)
+    runs = {}
+    _cuda.reset_launches()
+    for precision in ("float32", "bfloat16"):
+        cst = CausalStreamingTranscriber(model, decoder, chunk_frames=16,
+                                         precision=precision)
+        cst.collect_logits = True
+        parts = [cst.push(utt[s: s + 5000])["text"]
+                 for s in range(0, n, 5000)]
+        fin = cst.finish()
+        got = np.concatenate(cst.logits_chunks)[:cst._o_total]
+        lat = np.sort(np.asarray(cst.push_latencies)) * 1e3
+        keep = [got] if precision == "float32" else []
+        warm = 128 // 4     # output frames over the caches' warm-up
+        runs[precision] = {
+            "steps": len(cst.push_latencies), "frames": int(got.shape[0]),
+            "max_abs_vs_offline_fp32": float(np.abs(got - want).max()),
+            "max_abs_warmup_frames": float(np.abs(got - want)[:warm].max()),
+            "max_abs_later_frames": float(np.abs(got - want)[warm:].max()),
+            "offline_logits_max_abs": float(np.abs(want).max()),
+            "max_abs_vs_offline_bf16": float(np.abs(got - want_bf).max()),
+            "greedy_ids_agree": float((got.argmax(-1)
+                                       == want.argmax(-1)).mean()),
+            "tokens_equal": cst._tokens == _collapse_host(want.argmax(-1)),
+            "prefixes": all(fin["text"].startswith(p) for p in parts),
+            "chunk_ms_p50": float(lat[len(lat) // 2]),
+            "chunk_ms_p95": float(lat[min(len(lat) - 1,
+                                          int(len(lat) * 0.95))]),
+            "text": fin["text"], "logits": keep}
+    runs["bfloat16"].pop("logits")
+    torch.cuda.synchronize()
+    causal_launches = dict(_cuda.launches)
+    f32, bf = runs["float32"], runs["bfloat16"]
+    tol = 2e-4 if f32["max_abs_vs_offline_fp32"] <= 2e-4 else 1e-3
+    f32["streamed_vs_offline_cpu"] = float(np.abs(
+        np.concatenate(runs["float32"].pop("logits")) - want_cpu).max())
+    log(f"streaming (causal, full width, left context 128, chunk 16, "
+        f"{n} samples in pushes of 5000; {gpu_line()}): {f32['steps']} steps "
+        f"(want {steps}), {f32['frames']} frames (want {n_out}); fp32 logits "
+        f"vs offline causal max abs {f32['max_abs_vs_offline_fp32']:.3e} "
+        f"(bound {tol}; frames 0-31, the caches' warm-up, "
+        f"{f32['max_abs_warmup_frames']:.3e}, later "
+        f"{f32['max_abs_later_frames']:.3e}; largest offline logit "
+        f"{f32['offline_logits_max_abs']:.2f}; the card's offline forward "
+        f"vs the CPU's {floor:.3e}, streamed vs the CPU's "
+        f"{f32['streamed_vs_offline_cpu']:.3e}; streamed vs offline "
+        f"log-mels {fbank_gap:.3e}), tokens equal: "
+        f"{f32['tokens_equal']}, partials "
+        f"prefixes: {f32['prefixes']}; per-chunk ms p50 "
+        f"{f32['chunk_ms_p50']:.2f} p95 {f32['chunk_ms_p95']:.2f}")
+    log(f"  bf16: logits vs offline fp32 max abs "
+        f"{bf['max_abs_vs_offline_fp32']:.3e}, vs offline bf16 "
+        f"{bf['max_abs_vs_offline_bf16']:.3e}; greedy ids agree on "
+        f"{bf['greedy_ids_agree'] * 100:.1f}% of frames, tokens equal: "
+        f"{bf['tokens_equal']}; per-chunk ms p50 {bf['chunk_ms_p50']:.2f} "
+        f"p95 {bf['chunk_ms_p95']:.2f}; kernel launches of both runs: "
+        f"{causal_launches} (the causal step runs no hand-written kernel)")
+    rec["causal"] = {**runs, "bound": tol, "launches": causal_launches,
+                     "offline_card_vs_cpu_fp32": floor,
+                     "fbank_streamed_vs_offline": fbank_gap,
+                     "samples": n, "want_steps": steps, "want_frames": n_out}
+    rec["wall_s"] = time.perf_counter() - t_phase
+    detail["streaming"] = rec
+    ok_b = (all(r["steps"] == steps and r["frames"] == n_out
+                and r["prefixes"] for r in runs.values())
+            and f32["max_abs_vs_offline_fp32"] <= 1e-3 and f32["tokens_equal"]
+            and causal_launches == {} and f32["text"] != "")
+    if not ok_b:
+        raise AssertionError(f"causal streaming: {rec['causal']}")
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def fbank_stream_gap(model, decoder, utt) -> float:
+    """Max abs of the streamed log-mels of `utt` (each 16-frame chunk's
+    window through `AudioPreprocessing.stream_frames`, the end reflection
+    included) against the offline log-mels of the whole utterance, on the
+    model's device."""
+    from avec_tpu_torch.decode.causal_streaming import (
+        HOP, CausalStreamingTranscriber)
+
+    pre, dev = model.encoder.preprocessing, next(model.parameters()).device
+    st = CausalStreamingTranscriber(model, decoder, chunk_frames=16)
+    st._buffer = utt
+    total = len(utt) // HOP + 1
+    with torch.no_grad():
+        want = pre(torch.from_numpy(utt[None]).to(dev))[0]
+        got = torch.cat([pre.stream_frames(torch.from_numpy(st._window(
+            f0, end_reflect=True)).to(dev)[None], st.chunk)[0]
+            for f0 in range(0, total, st.chunk)], dim=1)[:, :total]
+    return float((got - want).abs().max())
 
 
 def time_ffn_bwd_kernel(x, g, params, drop, seed, check: bool = False):

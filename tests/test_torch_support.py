@@ -102,7 +102,10 @@ def test_port_imports_no_jax():
             "avec_tpu_torch.decode.native, avec_tpu_torch.decode.ngram, "
             "avec_tpu_torch.decode.device_beam, avec_tpu_torch.configs.lm_tone, "
             "avec_tpu_torch.models.transformer, avec_tpu_torch.data.corpus_lm, "
-            "avec_tpu_torch.utils.spm_model\n"
+            "avec_tpu_torch.utils.spm_model, avec_tpu_torch.utils.flac, "
+            "avec_tpu_torch.utils.media, avec_tpu_torch.data.transforms, "
+            "avec_tpu_torch.demo, avec_tpu_torch.decode.streaming, "
+            "avec_tpu_torch.decode.causal_streaming\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'avec_tpu')]\n"
             "assert not bad, bad\nprint('ok')\n")
@@ -177,4 +180,9 @@ def test_import_scan_covers_the_training_modules():
             "avec_tpu_torch/configs/lm_tone.py",
             "avec_tpu_torch/models/transformer.py",
             "avec_tpu_torch/data/corpus_lm.py",
-            "avec_tpu_torch/utils/spm_model.py"} <= names
+            "avec_tpu_torch/utils/spm_model.py",
+            "avec_tpu_torch/utils/flac.py", "avec_tpu_torch/utils/media.py",
+            "avec_tpu_torch/data/transforms.py", "avec_tpu_torch/demo.py",
+            "avec_tpu_torch/decode/streaming.py",
+            "avec_tpu_torch/decode/causal_streaming.py",
+            "avec_tpu_torch/serve.py"} <= names

@@ -52,13 +52,15 @@ HEADS = ("outputs", "f_ctc_0", "v_ctc_1", "a_ctc_1", "a_ctc_3")
 WINDOW = 100
 
 
-def head_wers(trainer, loader, zero_video) -> dict:
+def head_wers(trainer, loader, zero_video, tokenizer_path: str) -> dict:
     """Greedy WER (recomputed over the gathered transcripts) through each
-    CTC head, and of "outputs" with the video zeroed."""
+    CTC head, and of "outputs" with the video zeroed: the greedy decoder of
+    the setup's tokenizer, not the config's beam decoder."""
+    from avec_tpu_torch.decode.greedy import CTCGreedySearchDecoder
     from avec_tpu_torch.train.metrics import WordErrorRate
 
     metrics, decoders = trainer.metrics, trainer.decoders
-    decoder = decoders["outputs"]
+    decoder = CTCGreedySearchDecoder(tokenizer_path)
     out = {}
     try:
         for head in HEADS:
@@ -94,7 +96,8 @@ def run_route(name: str, route: dict, root: str, args) -> dict:
         return losses, infos
 
     trainer.train_step = recording_step
-    init = head_wers(trainer, setup.eval_loader, cs._ZeroVideo)
+    init = head_wers(trainer, setup.eval_loader, cs._ZeroVideo,
+                     setup.tokenizer_path)
     history = trainer.fit(setup.train_loader, setup.epochs,
                           steps_per_epoch=args.steps_per_epoch,
                           saving_period_epoch=None, eval_period_epoch=None,
@@ -108,7 +111,8 @@ def run_route(name: str, route: dict, root: str, args) -> dict:
         windows.append({"steps": [a + 1, min(a + WINDOW, len(per_step))],
                         **{k: float(v[a:a + WINDOW].mean())
                            for k, v in stacked.items()}})
-    trained = head_wers(trainer, setup.eval_loader, cs._ZeroVideo)
+    trained = head_wers(trainer, setup.eval_loader, cs._ZeroVideo,
+                        setup.tokenizer_path)
     return {"route": route, "steps": len(per_step),
             "kernel_launches_per_step":
                 setup.model.kernel_launches_per_step(),
