@@ -71,12 +71,23 @@ class Setup:
     epochs: int = EPOCHS
     recompute_metrics: bool = RECOMPUTE_METRICS
 
+    @property
+    def training_dataset(self):
+        """The training set, as `avec_tpu_torch.main` reads it."""
+        return self.train_set
+
+    @property
+    def evaluation_dataset(self):
+        """The evaluation set, as `avec_tpu_torch.main` reads it."""
+        return self.eval_set
+
 
 def build(callback_path: str, device="cuda", route: Optional[Dict[str, Any]]
           = None, precision: str = PRECISION, seed: int = 0,
           batch_size: int = BATCH_SIZE, train_samples: int = TRAIN_SAMPLES,
           eval_samples: int = EVAL_SAMPLES,
-          lm_callback_path: str = lm_tone.callback_path) -> Setup:
+          lm_callback_path: str = lm_tone.callback_path,
+          data_parallel: bool = False) -> Setup:
     """The AV-Tone setup on `device` (the card unless the caller passes
     "cpu"). `route` holds the model's kernel switches (`fused_ffn`,
     `fused_att`, `fused_conv`, `stem_mode`, `use_flash`). The tone
@@ -87,7 +98,8 @@ def build(callback_path: str, device="cuda", route: Optional[Dict[str, Any]]
     `lm_tone.tone_beam_decoder` (its 2-gram written to `callback_path`),
     rescoring with the last LM-Tone checkpoint in `lm_callback_path` if
     there is one. Smaller `train_samples`, `eval_samples` and `batch_size`
-    cut the run for the CPU."""
+    cut the run for the CPU. `data_parallel` builds the trainer's
+    data-parallel step (an initialized process group)."""
     device = resolve_device(device)
     os.makedirs(callback_path, exist_ok=True)
     tokenizer_path = os.path.join(callback_path, "tokenizer.json")
@@ -108,7 +120,7 @@ def build(callback_path: str, device="cuda", route: Optional[Dict[str, Any]]
         metrics={"outputs": WordErrorRate()},                        # :83
         decoders={"outputs": lm_tone.tone_beam_decoder(
             callback_path, tokenizer_path, train_set, device,
-            lm_callback_path)})
+            lm_callback_path)}, data_parallel=data_parallel)
     train_loader = DataLoader(train_set, batch_size=batch_size,
                               drop_last=True)
     eval_loader = DataLoader(eval_set, batch_size=batch_size,

@@ -89,10 +89,21 @@ class Setup:
     callback_path: str
     epochs: int = EPOCHS
 
+    @property
+    def training_dataset(self):
+        """The training set, as `avec_tpu_torch.main` reads it."""
+        return self.train_set
+
+    @property
+    def evaluation_dataset(self):
+        """The evaluation set, as `avec_tpu_torch.main` reads it."""
+        return self.eval_set
+
 
 def build(callback_path: str = callback_path, device="cuda", seed: int = 0,
           batch_size: int = BATCH_SIZE,
-          corpus_samples: int = CORPUS_SAMPLES) -> Setup:
+          corpus_samples: int = CORPUS_SAMPLES,
+          data_parallel: bool = False) -> Setup:
     """The LM-Tone setup on `device` (the card unless the caller passes
     "cpu"). The corpus is written to `callback_path`/corpus.txt (:32-38).
     The training set rejects lines over MAX_LENGTH tokens; the evaluation
@@ -111,7 +122,8 @@ def build(callback_path: str = callback_path, device="cuda", seed: int = 0,
                         shuffle=False)
     model = build_model(device, seed)
     trainer = Trainer(model=model, device=device, precision=PRECISION,
-                      seed=seed, optimizer=optimizer())
+                      seed=seed, optimizer=optimizer(),
+                      data_parallel=data_parallel)
     train_loader = DataLoader(train_set, batch_size=batch_size,
                               drop_last=True)
     eval_loader = DataLoader(eval_set, batch_size=batch_size,

@@ -34,6 +34,7 @@ BATCH_SIZE = 32                                    # :11
 ACCUMULATED_STEPS = 2                              # :12
 PRECISION = "bfloat16"                             # :13
 TRAIN_SAMPLES, EVAL_SAMPLES, EVAL_SEED = 256, 64, 123   # :40-45
+callback_path = "callbacks/LRW/EffConfCE"          # :14
 
 
 @dataclass
@@ -46,17 +47,29 @@ class Setup:
     eval_loader: DataLoader
     callback_path: str
     accumulated_steps: int = ACCUMULATED_STEPS
+    precision: str = PRECISION
+
+    @property
+    def training_dataset(self):
+        """The training set, as `avec_tpu_torch.main` reads it."""
+        return self.train_set
+
+    @property
+    def evaluation_dataset(self):
+        """The evaluation set, as `avec_tpu_torch.main` reads it."""
+        return self.eval_set
 
 
-def build(callback_path: str, device="cuda", route: Optional[Dict[str, Any]]
+def build(callback_path: str = callback_path, device="cuda", route: Optional[Dict[str, Any]]
           = None, precision: str = PRECISION, seed: int = 0,
           batch_size: int = BATCH_SIZE, train_samples: int = TRAIN_SAMPLES,
-          eval_samples: int = EVAL_SAMPLES) -> Setup:
+          eval_samples: int = EVAL_SAMPLES,
+          data_parallel: bool = False) -> Setup:
     """The LRW setup on `device` (the card unless the caller passes "cpu").
     `route` holds the model's kernel switches (`fused_ffn`, `fused_att`,
     `fused_conv`, `stem_mode`). The collate gives the clips as the one
     input and the labels as the targets (:21-22). Smaller sizes cut the run
-    for the CPU."""
+    for the CPU. `data_parallel` builds the trainer's data-parallel step."""
     device = resolve_device(device)
     os.makedirs(callback_path, exist_ok=True)
     collate_fn = CollateFn(inputs_params=[{"axis": 0}],
@@ -71,10 +84,10 @@ def build(callback_path: str, device="cuda", route: Optional[Dict[str, Any]]
         vocab_size=VOCAB_SIZE, device=device,
         generator=torch.Generator().manual_seed(seed), **(route or {}))
     trainer = Trainer(model=model, device=device, precision=precision,
-                      seed=seed)
+                      seed=seed, data_parallel=data_parallel)
     train_loader = DataLoader(train_set, batch_size=batch_size,
                               drop_last=True)
     eval_loader = DataLoader(eval_set, batch_size=batch_size,
                              drop_last=False)
     return Setup(model, trainer, train_set, eval_set, train_loader,
-                 eval_loader, callback_path)
+                 eval_loader, callback_path, precision=precision)

@@ -184,6 +184,8 @@ class AudioVisualEfficientConformerInterCTC(ZooModel):
     the forward records no graph; `.train()` does what `training=True` does
     in the JAX package (zoo.py:211-227)."""
 
+    model_name = "Audio-Visual Efficient Conformer Inter CTC"    # zoo.py:241
+
     def __init__(self, vocab_size: int = 256,
                  v_interctc_blocks: Sequence[int] = (3, 6),
                  a_interctc_blocks: Sequence[int] = (8, 11),
@@ -231,6 +233,8 @@ class AudioEfficientConformerInterCTC(ZooModel):
     kernel. `causal=True` is the causal variant's offline path with a
     `left_context` of stage-1 frames (`AudioEfficientConformerEncoder`)."""
 
+    model_name = "Audio Efficient Conformer Inter CTC"           # zoo.py:127
+
     def __init__(self, vocab_size: int = 256, att_type: str = "patch",
                  interctc_blocks: Sequence[int] = (3, 6, 10, 13),
                  num_blocks: Sequence[int] = (5, 6, 5),
@@ -267,6 +271,8 @@ class VisualEfficientConformerInterCTC(ZooModel):
     of `test_augments` (video -> video, e.g. `hflip`) runs the encoder once
     more, and the outputs' logits and lengths are the base and augmented
     forwards stacked on a new axis 1: (B, 1 + n, T, vocab), (B, 1 + n)."""
+
+    model_name = "Visual Efficient Conformer Inter CTC"          # zoo.py:181
 
     def __init__(self, vocab_size: int = 256,
                  interctc_blocks: Sequence[int] = (3, 6, 9),
@@ -321,6 +327,8 @@ class VisualEfficientConformerCE(Classifier):
     clips have one length). forward(video (B, T, 88, 88, 1)) returns
     {"output": logits (B, vocab)}."""
 
+    model_name = "Visual Efficient Conformer CE"                 # zoo.py:71
+
     def __init__(self, vocab_size: int = 500,
                  num_blocks: Sequence[int] = (6, 6),
                  stem_mode: Optional[str] = None,
@@ -362,6 +370,7 @@ class GPT(GPTNet, Classifier):
                          max_pos_encoding=max_pos_encoding, model=model,
                          pos_embedding=pos_embedding, drop_rate=drop_rate)
         self.model_size = model
+        self.model_name = model                                  # zoo.py:269
         self._finish_init(device, generator)
 
     def compile_defaults(self) -> Dict:

@@ -74,8 +74,8 @@ class Server:
     model_kwargs go to the zoo model of `mode` (defaults: the reference
     depth, vocab 256; mode "ao" without InterCTC blocks, as tools/serve.py
     builds it; `causal` builds the causal AO model with `left_context`).
-    `checkpoint`: a torch-format file (`train/checkpoint.py`) whose model
-    weights are loaded. The activations run in `precision` (bf16 by
+    `checkpoint`: a torch-format file or a JAX package's msgpack file
+    (`train/checkpoint.py`) whose model weights are loaded. The activations run in `precision` (bf16 by
     default, as tools/serve.py); parameters stay fp32.
 
     `tokenizer`: a tokenizer path; where the file exists, results carry

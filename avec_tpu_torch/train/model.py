@@ -1,5 +1,5 @@
 """The training engine of the task models (port of avec_tpu/train/model.py:
-173-306, 375-558, 580-1067).
+173-306, 324-345, 375-558, 580-1113).
 
 A batch is {"inputs": ..., "targets": ...} of numpy arrays or tensors: the
 inputs a list of the model's positional arguments (or one array), e.g. for
@@ -11,24 +11,37 @@ mode, the weighted losses of the outputs, the backward, the global
 gradient norm (clipping only when `grad_max_norm` is set), the optimizer
 (by default Adam with L2 in the gradient under the Noam schedule), the step
 counter and, with `set_ema`, the EMA update; it returns (losses, infos) with
-`lr` and `grad_norm`. Activations run in `precision` on fp32 parameters.
+`lr` and `grad_norm`, and where `eval_training` is set (`fit` sets it from
+its argument) the device metrics of the training outputs (a classifier's
+accuracy) in infos["metrics"].
+Activations run in `precision` on fp32 parameters.
 `accumulated_steps=A` splits the batch into A micro-batches in order: their
-gradients and losses are summed, then divided by A. Every micro-batch draws
-its own dropout masks and kernel seeds from the model's generators.
+gradients, losses and metrics are summed, then divided by A. Every
+micro-batch draws its own dropout masks and kernel seeds from the model's
+generators.
 
 `fit` runs epochs over a `DataLoader` with periodic evaluation and
 checkpoints, summing the losses on the device and reading them only at log
-periods and at the end of an epoch. `evaluate` runs the eval-mode forward,
-the losses, the decoders' device part and the host metrics, one batch
-ahead of the host. `save` / `load` use the reference's torch format
-(`train/checkpoint.py`); `swa` averages the end-of-epoch checkpoints of the
-epochs listed and re-estimates the BatchNorm statistics. `generate` and
-`save_logits` are not ported.
+periods and at the end of an epoch; with a `callback_path` it logs the
+step, epoch and evaluation scalars to TensorBoard's `SummaryWriter` under
+`callback_path/logs` where it imports, else to `utils/logging.py:
+JsonlWriter` (events.jsonl), and logs an exception as text before raising
+it again. `evaluate` runs the eval-mode forward, the losses, the decoders'
+device part and the host metrics, one batch ahead of the host. `save` /
+`load` use the reference's torch format (`train/checkpoint.py`); `load`
+also reads the JAX package's msgpack checkpoints, their Adam moments
+included. `swa` averages the end-of-epoch checkpoints of the epochs listed
+and re-estimates the BatchNorm statistics. `save_logits` pickles the
+eval-mode outputs and the targets per batch; `generate` is the generation
+loop of a model that defines `forward_generate`; `summary`, `show_dict` and
+`num_params` describe the model.
 
 `Trainer(data_parallel=True)` is the data-parallel step (the JAX package's
 step on a batch sharded over the mesh's 'data' axis; the reference's DDP with
-SyncBatchNorm): every rank of an initialized process group passes the same
-global batch; each micro-batch is cut into the ranks' `shard_batch` slices,
+SyncBatchNorm): every rank of an initialized process group passes its own
+part of the global batch, as the JAX package's hosts pass their local
+batches (the CLI's loaders shard by rank; `parallel.dist.shard_batch` cuts
+an already padded global batch), split into micro-batches as it is;
 the model runs with sync-BN and the kernels' DP forms
 (`set_data_parallel`), and one flat all-reduce sums the rank-weighted
 gradients and losses, so every rank holds the gradient and losses of the
@@ -49,13 +62,26 @@ import torch.distributed as dist
 from avec_tpu_torch.models.zoo import (  # noqa: F401 (AV_LOSS_WEIGHTS)
     AV_LOSS_WEIGHTS, AudioVisualEfficientConformerInterCTC, Classifier,
     resolve_device)
-from avec_tpu_torch.parallel.dist import shard_batch
+from avec_tpu_torch.parallel.dist import sync_global_devices
 from avec_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from avec_tpu_torch.train.losses import rank_weight
 from avec_tpu_torch.train.optim import Optimizer, noam_adam
 from avec_tpu_torch.train.schedulers import as_scheduler
 
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# model.py:53-59: float16 configs run in bf16, which needs no loss scaler
+_DTYPES = {"float32": torch.float32, "fp32": torch.float32,
+           "bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
+           "float16": torch.bfloat16, "fp16": torch.bfloat16}
+
+
+def resolve_precision(precision) -> torch.dtype:
+    """A precision name or dtype -> the activation dtype (model.py:62-73):
+    None is fp32, float16 runs as bf16."""
+    if precision is None:
+        return torch.float32
+    if isinstance(precision, torch.dtype):
+        return torch.bfloat16 if precision == torch.float16 else precision
+    return _DTYPES[str(precision)]
 
 
 def _per_output(struct, keys) -> Dict[str, Any]:
@@ -129,6 +155,27 @@ def _to(struct, device):
     return torch.as_tensor(struct).to(device)
 
 
+def _detach(struct):
+    """Tensors of a dict / list / tuple of outputs, detached."""
+    if isinstance(struct, dict):
+        return {k: _detach(v) for k, v in struct.items()}
+    if isinstance(struct, (list, tuple)):
+        return type(struct)(_detach(v) for v in struct)
+    return struct.detach() if isinstance(struct, torch.Tensor) else struct
+
+
+def _to_numpy(struct):
+    """Tensors of a dict / list / tuple -> numpy arrays (bf16 as fp32)."""
+    if isinstance(struct, dict):
+        return {k: _to_numpy(v) for k, v in struct.items()}
+    if isinstance(struct, (list, tuple)):
+        return type(struct)(_to_numpy(v) for v in struct)
+    if isinstance(struct, torch.Tensor):
+        t = struct.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return struct
+
+
 def _split_micro(batch, accum: int) -> List[Any]:
     """(A*B, ...) leaves -> A micro-batches of B rows, in order
     (model.py:724-731)."""
@@ -180,7 +227,7 @@ class Trainer:
     data_parallel=True needs the default `torch.distributed` process group
     (`avec_tpu_torch.parallel.dist.init_distributed`), over whose ranks the
     step runs. Rank 0's parameters and statistics are broadcast to the others
-    at construction."""
+    at construction. Every rank passes its own part of the global batch."""
 
     def __init__(self, model: Optional[torch.nn.Module] = None,
                  device="cuda", precision: str = "bfloat16", seed: int = 0,
@@ -190,7 +237,7 @@ class Trainer:
                  optimizer: Optional[Callable[..., Optimizer]] = None,
                  metrics="default", decoders=None, **model_kwargs):
         self.device = resolve_device(device)
-        self.dtype = _DTYPES[precision]
+        self.dtype = resolve_precision(precision)
         if model is None:
             model = AudioVisualEfficientConformerInterCTC(
                 device=self.device,
@@ -223,6 +270,8 @@ class Trainer:
         self.ema_state: Optional[Dict[str, torch.Tensor]] = None
         self.group = None
         self.rank = 0
+        self.eval_training = False
+        self._dist_log = False
         if data_parallel:
             if not (dist.is_available() and dist.is_initialized()):
                 raise RuntimeError("data_parallel=True needs an initialized "
@@ -285,14 +334,7 @@ class Trainer:
             p.grad.copy_(g.view_as(p))
         return dict(zip(keys, reduced.clone()))
 
-    def _to_device(self, batch, shard: bool = True) -> Tuple[list, tuple]:
-        if self.group is not None and shard:
-            world = dist.get_world_size(self.group)
-            size = len(batch["inputs"][0])
-            if size % world:
-                raise ValueError(f"a global batch of {size} does not split "
-                                 f"into {world} equal shards")
-            batch = shard_batch(batch, self.group)
+    def _to_device(self, batch) -> Tuple[list, tuple]:
         raw = batch["inputs"]
         inputs = []
         for a in (raw if isinstance(raw, (list, tuple)) else [raw]):
@@ -324,11 +366,28 @@ class Trainer:
             return {"loss": total, **losses}
         return {"loss": total}
 
-    def _forward_backward(self, batch, accumulated_steps: int = 1
+    def device_metrics(self, outputs, targets) -> Dict[str, torch.Tensor]:
+        """The metrics of the device's outputs (a classifier's accuracy; not
+        those of decoded strings), named as the JAX engine names them
+        (model.py:425-439), as device scalars."""
+        metrics = _by_output(self.metrics, outputs)
+        target_of = _by_output(targets, outputs)
+        on_device = {key: [m for m in _as_list(spec)
+                           if not getattr(m, "on_host", False)]
+                     for key, spec in metrics.items()}
+        names = _metric_names(on_device)
+        return {names[key, i]: metric(target_of[key], outputs[key])
+                for key, ms in on_device.items()
+                for i, metric in enumerate(ms)}
+
+    def _forward_backward(self, batch, accumulated_steps: int = 1,
+                          metrics: Optional[Dict[str, torch.Tensor]] = None
                           ) -> Dict[str, torch.Tensor]:
         """The gradients (into .grad) and losses of a batch, summed over its
         micro-batches and divided by their count (model.py:478-527), of the
-        global batch in data-parallel mode."""
+        global batch in data-parallel mode. With a `metrics` dict, the
+        device metrics of the detached outputs are averaged into it the
+        same way (`eval_training`, model.py:473-475)."""
         self.model.train()
         self.optimizer.optimizer.zero_grad(set_to_none=True)
         total: Dict[str, torch.Tensor] = {}
@@ -339,6 +398,13 @@ class Trainer:
             losses["loss"].backward()
             for k, v in losses.items():
                 total[k] = total[k] + v.detach() if k in total else v.detach()
+            if metrics is not None:
+                with torch.no_grad():
+                    for k, v in self.device_metrics(
+                            _detach(outputs), targets).items():
+                        metrics[k] = (metrics[k] + v / accumulated_steps
+                                      if k in metrics
+                                      else v / accumulated_steps)
         params = list(self.model.parameters())
         # A detached conv bias has no gradient; the JAX package gives it an
         # exact zero, which still takes the optimizer's weight decay.
@@ -361,8 +427,12 @@ class Trainer:
 
     def train_step(self, batch, accumulated_steps: int = 1):
         """One optimisation step over `accumulated_steps` micro-batches:
-        (losses, {"lr", "grad_norm"}), tensors left on the device."""
-        losses = self._forward_backward(batch, accumulated_steps)
+        (losses, {"lr", "grad_norm"} and, where `self.eval_training` is set
+        (by `fit`), "metrics"), tensors left on the device. The metrics are
+        this rank's."""
+        metrics: Optional[Dict[str, torch.Tensor]] = (
+            {} if self.eval_training else None)
+        losses = self._forward_backward(batch, accumulated_steps, metrics)
         grads = [p.grad for p in self.model.parameters()]
         gnorm = torch.nn.utils.get_total_norm(grads)
         if self.grad_max_norm is not None:
@@ -374,7 +444,10 @@ class Trainer:
         if self.ema_state is not None:
             with torch.no_grad():
                 self._update_ema()
-        return losses, {"lr": lr, "grad_norm": gnorm}
+        infos = {"lr": lr, "grad_norm": gnorm}
+        if metrics is not None:
+            infos["metrics"] = metrics
+        return losses, infos
 
     # --------------------------------------------------------------- fit
     def _log(self, *args) -> None:
@@ -388,37 +461,99 @@ class Trainer:
     def fit(self, dataset_train, epochs: int, dataset_eval=None,
             eval_steps: Optional[int] = None, verbose_eval: int = 0,
             initial_epoch: int = 0, callback_path: Optional[str] = None,
-            steps_per_epoch: Optional[int] = None,
+            steps_per_epoch: Optional[int] = None, precision=None,
             accumulated_steps: int = 1,
             eval_period_step: Optional[int] = None,
             eval_period_epoch: Optional[int] = 1,
             saving_period_step: Optional[int] = None,
             saving_period_epoch: Optional[int] = 1,
-            step_log_period: int = 10, recompute_metrics: bool = False
+            log_figure_period_step: Optional[int] = None,
+            log_figure_period_epoch: Optional[int] = None,
+            step_log_period: int = 10, eval_training: bool = True,
+            dist_log: bool = False, grad_init_scale=None,
+            detect_anomaly: bool = False, recompute_metrics: bool = False
             ) -> List[Dict[str, Any]]:
         """The training loop (model.py:580-722). Returns one record per
         epoch: {"epoch", "steps", "seconds", "losses" (epoch means),
-        "eval": [(losses, metrics)] and, with EMA, "eval_ema"}."""
+        "metrics" (the training outputs' device metrics with eval_training),
+        "eval": [(losses, metrics)] and, with EMA, "eval_ema"}.
+
+        `precision` (a name or dtype; None keeps the trainer's) sets the
+        activation dtype from this fit on. `log_figure_period_*` are
+        accepted as the JAX package accepts them (it logs no figure);
+        `grad_init_scale` is accepted and ignored (bf16 needs no loss
+        scaler, model.py:590-592); `detect_anomaly` runs the fit under
+        `torch.autograd.set_detect_anomaly`. `dist_log` logs every rank,
+        its tags suffixed "-{rank}", each rank to its own file."""
+        del log_figure_period_step, log_figure_period_epoch, grad_init_scale
+        if precision is not None:
+            self.dtype = resolve_precision(precision)
+        self._dist_log = bool(dist_log)
+        writer = self._make_writer(callback_path)
+        anomaly = torch.is_anomaly_enabled()
+        eval_before, self.eval_training = self.eval_training, eval_training
+        torch.autograd.set_detect_anomaly(bool(detect_anomaly) or anomaly)
+        try:
+            return self._fit_loop(
+                dataset_train, epochs, dataset_eval, eval_steps, verbose_eval,
+                initial_epoch, callback_path, steps_per_epoch,
+                accumulated_steps, eval_period_step, eval_period_epoch,
+                saving_period_step, saving_period_epoch, step_log_period,
+                recompute_metrics, writer)
+        except Exception as e:
+            # logged, then raised again (model.py:613-624)
+            if writer is not None:
+                try:
+                    writer.add_text("Exceptions", f"Rank: {self.rank}\n{e}",
+                                    self.step)
+                except Exception:
+                    pass
+            raise
+        finally:
+            torch.autograd.set_detect_anomaly(anomaly)
+            self.eval_training = eval_before
+            if writer is not None:
+                writer.close()
+
+    def _fit_loop(self, dataset_train, epochs, dataset_eval, eval_steps,
+                  verbose_eval, initial_epoch, callback_path, steps_per_epoch,
+                  accumulated_steps, eval_period_step, eval_period_epoch,
+                  saving_period_step, saving_period_epoch, step_log_period,
+                  recompute_metrics, writer):
         history = []
         for epoch in range(initial_epoch, epochs):
             dataset_train.set_epoch(epoch)
             self._log(f"Epoch {epoch + 1}/{epochs}:")
             sums: Dict[str, torch.Tensor] = {}
+            metric_sums: Dict[str, torch.Tensor] = {}
             n_steps = 0
             t_epoch = time.perf_counter()
             batches = iter(dataset_train)
             try:
                 for batch in batches:
                     losses, infos = self.train_step(batch, accumulated_steps)
+                    metrics = infos.pop("metrics", {})
                     n_steps += 1
                     for k, v in losses.items():
                         sums[k] = sums[k] + v if k in sums else v
-                    if self.rank == 0 and self.step % step_log_period == 0:
-                        self._log(self._display(sums, n_steps, infos))
+                    for k, v in metrics.items():
+                        metric_sums[k] = (metric_sums[k] + v
+                                          if k in metric_sums else v)
+                    if ((self.rank == 0 or writer is not None)
+                            and self.step % step_log_period == 0):
+                        self._log(self._display(sums, metric_sums, n_steps,
+                                                infos))
+                        if writer is not None:
+                            self._log_scalars(
+                                writer, "Training-step", self.step, losses,
+                                metrics, {"lr": infos["lr"],
+                                          "grad_norm": infos["grad_norm"],
+                                          "step": self.step})
                     if (eval_period_step and dataset_eval is not None
                             and self.step % eval_period_step == 0):
                         self._evaluate(dataset_eval, eval_steps, verbose_eval,
-                                       recompute_metrics)
+                                       recompute_metrics, writer, self.step,
+                                       "Evaluation-step")
                     if (saving_period_step and callback_path
                             and self.rank == 0
                             and self.step % saving_period_step == 0):
@@ -433,16 +568,23 @@ class Trainer:
                 if close is not None:
                     close()
             means = {k: float(v) / max(n_steps, 1) for k, v in sums.items()}
+            metric_means = {k: float(v) / max(n_steps, 1)
+                            for k, v in metric_sums.items()}
             seconds = time.perf_counter() - t_epoch
-            self._log("  " + " - ".join(f"{k}: {v:.4f}"
-                                        for k, v in means.items()))
+            self._log("  " + " - ".join(f"{k}: {v:.4f}" for k, v in
+                                        {**means, **metric_means}.items()))
             self._log(f"  epoch time {seconds:.1f}s ({n_steps} steps)")
+            if writer is not None:
+                self._log_scalars(writer, "Training-epoch", epoch + 1, means,
+                                  metric_means, {})
             record = {"epoch": epoch + 1, "steps": n_steps,
-                      "seconds": seconds, "losses": means}
+                      "seconds": seconds, "losses": means,
+                      "metrics": metric_means}
             if (eval_period_epoch and dataset_eval is not None
                     and (epoch + 1) % eval_period_epoch == 0):
-                record.update(self._evaluate(dataset_eval, eval_steps,
-                                             verbose_eval, recompute_metrics))
+                record.update(self._evaluate(
+                    dataset_eval, eval_steps, verbose_eval, recompute_metrics,
+                    writer, epoch + 1, "Evaluation-epoch"))
             if (saving_period_epoch and callback_path and self.rank == 0
                     and (epoch + 1) % saving_period_epoch == 0):
                 os.makedirs(callback_path, exist_ok=True)
@@ -450,24 +592,64 @@ class Trainer:
             history.append(record)
         return history
 
-    def _display(self, sums, n_steps: int, infos) -> str:
-        parts = [f"{k}: {float(v) / n_steps:.4f}" for k, v in sums.items()]
+    def _display(self, sums, metric_sums, n_steps: int, infos) -> str:
+        parts = [f"{k}: {float(v) / n_steps:.4f}"
+                 for k, v in {**sums, **metric_sums}.items()]
         parts.append(f"lr: {infos['lr']:.2e}")
         parts.append(f"grad_norm: {float(infos['grad_norm']):.4f}")
         parts.append(f"step: {self.step}")
         return "  " + " - ".join(parts)
 
+    # ----------------------------------------------------------- logging
+    def _make_writer(self, callback_path: Optional[str]):
+        """TensorBoard's SummaryWriter under callback_path/logs where it
+        imports, else a JsonlWriter there (model.py:1087-1101); rank 0
+        only unless dist_log. AVEC_TPU_LOG_FORMAT=jsonl takes the
+        JsonlWriter without trying TensorBoard (whose import can pull in
+        TensorFlow: seconds and a GiB of host memory per process)."""
+        if not callback_path or (self.rank != 0 and not self._dist_log):
+            return None
+        logs = os.path.join(callback_path, "logs")
+        os.makedirs(logs, exist_ok=True)
+        try:
+            if os.environ.get("AVEC_TPU_LOG_FORMAT", "") == "jsonl":
+                raise ImportError("JSON lines asked for")
+            from torch.utils.tensorboard import SummaryWriter
+
+            return SummaryWriter(logs)
+        except Exception:
+            from avec_tpu_torch.utils.logging import JsonlWriter
+
+            name = (f"events_rank{self.rank}.jsonl" if self._dist_log
+                    else "events.jsonl")
+            return JsonlWriter(os.path.join(logs, name))
+
+    def _log_scalars(self, writer, tag: str, step, losses, metrics,
+                     infos) -> None:
+        """model.py:1103-1113: "{tag}/{name}" scalars, "{tag}-{rank}/..."
+        with dist_log."""
+        if self._dist_log:
+            tag = f"{tag}-{self.rank}"
+        for k, v in {**losses, **metrics}.items():
+            writer.add_scalar(f"{tag}/{k}", float(v), step)
+        for k, v in infos.items():
+            if isinstance(v, (int, float, torch.Tensor)):
+                writer.add_scalar(f"{tag}/{k}", float(v), step)
+
     # ----------------------------------------------------------- evaluate
-    def _evaluate(self, datasets, eval_steps, verbose, recompute_metrics
+    def _evaluate(self, datasets, eval_steps, verbose, recompute_metrics,
+                  writer=None, step=None, tag: str = "Evaluation"
                   ) -> Dict[str, list]:
         """Evaluate each dataset, and again with the EMA when there is one
-        (model.py:734-757); prints the results on rank 0."""
+        (model.py:734-757); prints the results on rank 0 and logs them as
+        "{tag}/{i}" and "{tag}-ema/{i}" to `writer`."""
         out: Dict[str, list] = {"eval": []}
         runs = [("eval", False)]
         if self.ema_state is not None:
             out["eval_ema"] = []
             runs.append(("eval_ema", True))
-        for ds in datasets if isinstance(datasets, list) else [datasets]:
+        for i, ds in enumerate(datasets if isinstance(datasets, list)
+                               else [datasets]):
             for key, use_ema in runs:
                 losses, metrics = self.evaluate(ds, eval_steps, verbose,
                                                 recompute_metrics,
@@ -476,6 +658,10 @@ class Trainer:
                 prefix = "ema eval" if use_ema else "eval"
                 for k, v in {**losses, **metrics}.items():
                     self._log(f"{prefix} {k}: {v:.4f}")
+                if writer is not None and self.rank == 0:
+                    self._log_scalars(writer, f"{tag}-ema/{i}" if use_ema
+                                      else f"{tag}/{i}", step, losses,
+                                      metrics, {})
         return out
 
     def _eval_forward(self, inputs, use_ema: bool):
@@ -531,7 +717,7 @@ class Trainer:
         try:
             with torch.no_grad():
                 for batch in batches:
-                    inputs, targets = self._to_device(batch, shard=False)
+                    inputs, targets = self._to_device(batch)
                     outputs = self._eval_forward(inputs, use_ema)
                     losses = self.compute_losses(outputs, targets, self.step)
                     for k, v in losses.items():
@@ -539,17 +725,8 @@ class Trainer:
                             else v
                     metrics = _by_output(self.metrics, outputs)
                     decoders = _by_output(self.decoders, outputs)
-                    target_of = _by_output(targets, outputs)
-                    on_device = {key: [m for m in _as_list(spec)
-                                        if not getattr(m, "on_host", False)]
-                                 for key, spec in metrics.items()}
-                    names = _metric_names(on_device)
-                    named: Dict[str, Any] = {}
-                    for key, ms in on_device.items():
-                        for i, metric in enumerate(ms):
-                            named[names[key, i]] = metric(target_of[key],
-                                                          outputs[key])
-                    for k, v in named.items():
+                    for k, v in self.device_metrics(outputs,
+                                                    targets).items():
                         device_sums[k] = (device_sums[k] + v
                                           if k in device_sums else v)
                     on_host = {key: [m for m in _as_list(spec)
@@ -601,6 +778,79 @@ class Trainer:
         return {"mean": float(arr.mean()), "std": float(arr.std()),
                 "min": float(arr.min()), "max": float(arr.max())}
 
+    def save_logits(self, dataset_eval, callback_path: str) -> None:
+        """The eval-mode outputs and the targets of every batch of
+        `dataset_eval`, pickled as lists of numpy trees to
+        callback_path/logits.pkl and targets.pkl (model.py:1069-1085; bf16
+        logits are written as fp32)."""
+        import pickle
+
+        logits_list, targets_list = [], []
+        was_training = self.model.training
+        self.model.eval()
+        batches = iter(dataset_eval)
+        try:
+            with torch.no_grad():
+                for batch in batches:
+                    inputs, _ = self._to_device(batch)
+                    logits_list.append(_to_numpy(self.model(*inputs)))
+                    targets_list.append(_to_numpy(batch["targets"]))
+        finally:
+            close = getattr(batches, "close", None)
+            if close is not None:
+                close()
+            self.model.train(was_training)
+        if self.rank == 0:
+            os.makedirs(callback_path, exist_ok=True)
+            with open(os.path.join(callback_path, "logits.pkl"), "wb") as f:
+                pickle.dump(logits_list, f)
+            with open(os.path.join(callback_path, "targets.pkl"), "wb") as f:
+                pickle.dump(targets_list, f)
+
+    def generate(self, dataset, saving_path: Optional[str] = None) -> None:
+        """The generation loop (model.py:1039-1047): `forward_generate` of
+        each batch's inputs, named "sample_{rank}_{i}"."""
+        if saving_path is not None and self.rank == 0:
+            os.makedirs(saving_path, exist_ok=True)
+        for i, batch in enumerate(dataset):
+            self.forward_generate(batch["inputs"], saving_path,
+                                  f"sample_{self.rank}_{i}")
+
+    def forward_generate(self, inputs, saving_path, name):
+        """A generation model's forward (model.py:1049-1051): the model's
+        own `forward_generate`; the task models have none."""
+        fn = getattr(self.model, "forward_generate", None)
+        if fn is None:
+            raise NotImplementedError(
+                "generation models must implement forward_generate")
+        return fn(inputs, saving_path, name)
+
+    # ------------------------------------------------------------ summary
+    def num_params(self) -> int:
+        """Parameters of the model (model.py:324-326; buffers not
+        counted)."""
+        return sum(p.numel() for p in self.model.parameters())
+
+    def summary(self, show_dict: bool = False,
+                show_modules: bool = False) -> None:
+        """model.py:328-334: the model's name and parameter count; its
+        state entries with show_dict, its module tree with show_modules."""
+        name = getattr(self.model, "model_name", type(self.model).__name__)
+        print(f"Model name: {name}")
+        print("Number Parameters: {:,}".format(self.num_params()))
+        if show_dict:
+            self.show_dict()
+        if show_modules:
+            print(self.model)
+
+    def show_dict(self) -> None:
+        """model.py:336-345: each state entry's numel, shape, mean, std."""
+        for i, (key, value) in enumerate(self.model.state_dict().items()):
+            v = value.detach().float().cpu()
+            print(f"{i:<4} {key:<80} numel: {v.numel():<10} shape: "
+                  f"{str(tuple(v.shape)):<18} mean: {v.mean().item():<10.4f}"
+                  f" std: {v.std(unbiased=False).item():<10.4f}")
+
     # --------------------------------------------------------- save/load
     def save(self, path: str, save_optimizer: bool = True) -> None:
         """A checkpoint in the reference's torch format (model.py:879-893)."""
@@ -614,18 +864,30 @@ class Trainer:
 
     def load(self, path: str, load_optimizer: bool = True,
              strict: bool = True,
-             select: Optional[Callable[[str], bool]] = None) -> None:
+             select: Optional[Callable[[str], bool]] = None,
+             rename: Optional[Callable[[str], str]] = None,
+             verbose: bool = True) -> None:
         """Restore the model's parameters and buffers and, with
         load_optimizer, the optimizer state and the step (model.py:
         895-931); an EMA in the file is restored where `set_ema` is on.
         With `select`, a predicate on state_dict keys, only the model
-        entries it keeps are loaded and nothing else: the partial load of
-        the LRW front end into the VO and AV models (model.py:282-294,
-        configs/LRS23/VO/EffConfInterCTC.py:77-86, `select=lambda k:
-        "front_end" in k`); a kept key the model lacks raises KeyError."""
+        entries it keeps are loaded and nothing else, each key through
+        `rename` when given: the partial load of the LRW front end into the
+        VO model (model.py:282-294, configs/LRS23/VO/EffConfInterCTC.py:
+        77-86, `select=lambda k: "front_end" in k`) and, renamed into its
+        video encoder, the AV model (configs/LRS23/AV/EffConfInterCTC.py:
+        80-91); a kept key the model lacks raises KeyError.
+
+        A JAX msgpack checkpoint is read too (`train/checkpoint.py`): its
+        parameters, batch statistics and EMA by `convert.params_from_jax`,
+        and with load_optimizer its Adam moments and count into the torch
+        optimizer's state under the same mapping, and the step. Moments
+        that do not map one to one onto the model's parameters raise
+        ValueError; none is skipped."""
         payload = load_checkpoint(path)
         if select is not None:
-            state = {k: v for k, v in payload["model_state_dict"].items()
+            state = {(rename(k) if rename is not None else k): v
+                     for k, v in payload["model_state_dict"].items()
                      if select(k)}
             unknown = sorted(set(state) - set(self.model.state_dict()))
             if unknown or not state:
@@ -637,8 +899,11 @@ class Trainer:
             return
         self.model.load_state_dict(payload["model_state_dict"], strict=strict)
         if load_optimizer and payload.get("optimizer_state_dict") is not None:
-            self.optimizer.optimizer.load_state_dict(
-                payload["optimizer_state_dict"])
+            if payload["format"] == "jax":
+                self._load_optax_adam(payload["optimizer_state_dict"])
+            else:
+                self.optimizer.optimizer.load_state_dict(
+                    payload["optimizer_state_dict"])
             self.step = int(payload["model_step"])
         ema = payload.get("ema_model_state_dict")
         if ema is not None and self.ema_state is not None:
@@ -650,11 +915,64 @@ class Trainer:
                 for k, v in ema.items():
                     if k in self.ema_state:
                         self.ema_state[k].copy_(v)
+        if verbose:
+            self._log(f"Rank {self.rank}: Model loaded at step {self.step}")
+
+    def _load_optax_adam(self, opt_state) -> None:
+        """An optax Adam state (the JAX `Adam` / `AdamW` chains of
+        avec_tpu/train/optim.py:72-95: one ScaleByAdamState {count, mu,
+        nu} among empty or mask states) -> torch Adam's per-parameter
+        {step, exp_avg, exp_avg_sq}. The optax moments are those of the
+        same update rule (L2 added to the gradient before them for Adam,
+        the decoupled decay after them for AdamW), so they carry over
+        exactly."""
+        from avec_tpu_torch.convert import params_from_jax
+
+        found = []
+
+        def walk(node):
+            if isinstance(node, dict):
+                if {"count", "mu", "nu"} <= set(node):
+                    found.append(node)
+                else:
+                    for v in node.values():
+                        walk(v)
+
+        walk(opt_state)
+        opt = self.optimizer.optimizer
+        if len(found) != 1 or not isinstance(
+                opt, (torch.optim.Adam, torch.optim.AdamW)):
+            raise ValueError(
+                f"the JAX optimizer state holds {len(found)} Adam moment "
+                f"sets and the trainer's optimizer is "
+                f"{type(opt).__name__}: they do not map one to one (load "
+                f"with load_optimizer=False to take the weights alone)")
+        adam = found[0]
+        params = dict(self.model.named_parameters())
+        moments = [dict(params_from_jax(adam[k])) for k in ("mu", "nu")]
+        for got in moments:
+            missing = sorted(set(params) - set(got))
+            extra = sorted(set(got) - set(params))
+            bad = [k for k in set(params) & set(got)
+                   if tuple(got[k].shape) != tuple(params[k].shape)]
+            if missing or extra or bad:
+                raise ValueError(
+                    f"the JAX Adam moments do not map one to one onto the "
+                    f"model's parameters: missing {missing[:5]}, not in the "
+                    f"model {extra[:5]}, shapes differ {bad[:5]}")
+        count = float(np.asarray(adam["count"]))
+        opt.state.clear()
+        for name, p in params.items():
+            opt.state[p] = {
+                "step": torch.tensor(count, dtype=torch.float32),
+                "exp_avg": moments[0][name].to(p.device, torch.float32),
+                "exp_avg_sq": moments[1][name].to(p.device, torch.float32)}
 
     # --------------------------------------------------------------- swa
     def swa(self, dataset, callback_path: str, start_epoch=None,
             end_epoch=None, epochs_list=None, update_steps=None,
-            swa_type: str = "equal", swa_decay: float = 0.9) -> str:
+            swa_type: str = "equal", swa_decay: float = 0.9,
+            precision=None) -> str:
         """Stochastic weight averaging (model.py:965-1036): the parameters
         of each listed epoch's end-of-epoch checkpoint (its largest step)
         averaged equally ("equal") or exponentially ("exp", each new one
@@ -664,6 +982,8 @@ class Trainer:
         Saves and returns "checkpoints_swa-{type}-{first}-{last}.ckpt"."""
         if swa_type not in ("equal", "exp"):
             raise ValueError(f"swa_type {swa_type!r}")
+        if precision is not None:
+            self.dtype = resolve_precision(precision)
         if epochs_list is None:
             epochs_list = list(range(int(start_epoch), int(end_epoch) + 1))
         self._log(f"Stochastic Weight Averaging on checkpoints : "
@@ -677,7 +997,8 @@ class Trainer:
                                         f"{callback_path}")
             matches.sort(key=lambda p: int(
                 re.search(r"_step_(\d+)\.ckpt$", p).group(1)))
-            self.load(matches[-1], load_optimizer=False, strict=True)
+            self.load(matches[-1], load_optimizer=False, strict=True,
+                      verbose=False)
             params = [p.detach().clone() for p in self.model.parameters()]
             if avg is None:
                 avg = params
@@ -714,4 +1035,6 @@ class Trainer:
                                            f"{epochs_list[-1]}.ckpt")
         if self.rank == 0:
             self.save(path, save_optimizer=False)
+        if self.group is not None:
+            sync_global_devices("swa", self.group)
         return path

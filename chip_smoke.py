@@ -250,13 +250,30 @@ bounds and plain stages;
     the bound used is printed), fp32 tokens identical, every partial a
     prefix of the final text, no kernel launched. Printed: per-chunk
     latency p50 / p95, the bf16 max abs differences and greedy-id
-    agreement; details under `streaming`.
+    agreement (the offline bf16 forward reads fp32 samples, the fbank
+    first, then the cast, as the transcriber does; beside it the offline
+    bf16 forward of samples cast to bf16 first, as the JAX package's bf16
+    forward casts them); details under `streaming`;
+28. the experiment CLI (`avec_tpu_torch/main.py`) from a new directory
+    under build/: `-m pass` for every port config (the flagship AV config
+    in a subprocess of `python -m avec_tpu_torch.main`, the others
+    in-process through `main.main(argv)`), their parameter counts;
+    `lrs23_av` (synthetic fallback, B=16, 4 accumulated micro-batches)
+    trained for 3 steps with AVEC_TPU_FUSED_FFN / _ATT / _CONV = 1 and
+    AVEC_TPU_STEM = pallas: each kernel's launches over the steps equal to
+    `kernel_launches_per_step` x 4 x 3 (`launches_cli`), finite losses, a
+    checkpoint and a TensorBoard or JSON lines log; `--load_last`
+    evaluation, swa and eval_time from that checkpoint, `save_logits` on
+    one batch; `lrs23_ao` trained for 2 steps from a generated LRS2 + LRS3
+    tree and evaluated by its beam decoder (beam 16, the tree's ARPA), its
+    WER printed with no bound; details under `cli`.
 The line before the last is a JSON `kernels` line of sixteen kernels (the
 nine of phase 18 with their launches there as `launches_learning_run`, the
 launches of phases 19-22 by phase as `launches_zoo`, those of phase 23 as
 `launches_learning_run_causal`, K4's and K5's per served forward of phase
 25 as `launches_decode`, K4's of phases 26 and 27 (a) as
-`launches_serve_files` and `launches_streaming`); the
+`launches_serve_files` and `launches_streaming`, the nine of phase 28 as
+`launches_cli`); the
 last line is {"ok": true, "device": {...}}. Every time
 there ("ms", "plain_ms", "library_ms") is one of direct calls between CUDA
 events (`cuda_time_ms`), the host's cost of each call included; "device_ms"
@@ -893,6 +910,11 @@ def main() -> int:
             entry["launches_serve_files"] = file_launches[entry["name"]]
         if entry["name"] in stream_launches:
             entry["launches_streaming"] = stream_launches[entry["name"]]
+    # ---- 28. the experiment CLI
+    cli_launches = cli_phase(detail, root)
+    for entry in kernels:
+        if entry["name"] in cli_launches:
+            entry["launches_cli"] = cli_launches[entry["name"]]
     detail["kernels"] = kernels
 
     os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
@@ -2501,11 +2523,12 @@ def dp_train_rank(device):
     SpecAugment off (rank 0 keeps the global gradients and BN statistics)."""
     import torch.distributed as dist
 
+    from avec_tpu_torch.parallel.dist import shard_batch
     from avec_tpu_torch.train.losses import CTCLoss
     from avec_tpu_torch.train.model import Trainer
 
     rank, world = _dp_rank_setup()
-    batch = make_train_batch(np.random.RandomState(0))
+    batch = shard_batch(make_train_batch(np.random.RandomState(0)))
     trainer = Trainer(device="cuda", precision="bfloat16", seed=0,
                       vocab_size=256, loss=CTCLoss(zero_infinity=True),
                       data_parallel=True, **DP_ROUTE)
@@ -4076,11 +4099,24 @@ def streaming_phase(detail, srv, tok_path):
         want, want_len = model(torch.from_numpy(utt[None]).cuda(),
                                torch.tensor([n], dtype=torch.int32,
                                             device="cuda"))["outputs"]
-        want_bf, _ = model(torch.from_numpy(utt[None]).cuda().to(
+        # the offline bf16 forward as the transcriber runs it: the fbank
+        # on fp32 samples, then the cast
+        hook = model.encoder.preprocessing.register_forward_hook(
+            lambda m, i, o: (o[0].to(torch.bfloat16), o[1]))
+        want_bf, _ = model(torch.from_numpy(utt[None]).cuda(),
+                           torch.tensor([n], dtype=torch.int32,
+                                        device="cuda"))["outputs"]
+        hook.remove()
+        # and with the samples cast to bf16 first, as the JAX package's
+        # bf16 forward casts them (avec_tpu/train/model.py:146-151)
+        wave_bf, _ = model(torch.from_numpy(utt[None]).cuda().to(
             torch.bfloat16), torch.tensor([n], dtype=torch.int32,
                                           device="cuda"))["outputs"]
     want = want[0].float().cpu().numpy()
     want_bf = want_bf[0].float().cpu().numpy()
+    wave_bf = wave_bf[0].float().cpu().numpy()
+    offline_bf16_gap = float(np.abs(want_bf - want).max())
+    offline_wave_bf16_gap = float(np.abs(wave_bf - want).max())
     # the card's own fp32 floor: the offline forward on the CPU (its fbank
     # product sums in another order; near-silent bins' log-mels move most)
     cpu_model = copy.deepcopy(model).cpu()
@@ -4142,13 +4178,18 @@ def streaming_phase(detail, srv, tok_path):
         f"prefixes: {f32['prefixes']}; per-chunk ms p50 "
         f"{f32['chunk_ms_p50']:.2f} p95 {f32['chunk_ms_p95']:.2f}")
     log(f"  bf16: logits vs offline fp32 max abs "
-        f"{bf['max_abs_vs_offline_fp32']:.3e}, vs offline bf16 "
-        f"{bf['max_abs_vs_offline_bf16']:.3e}; greedy ids agree on "
+        f"{bf['max_abs_vs_offline_fp32']:.3e}, vs offline bf16 (fbank on "
+        f"fp32 samples, then the cast) {bf['max_abs_vs_offline_bf16']:.3e}; "
+        f"offline bf16 vs offline fp32 {offline_bf16_gap:.3e}, with the "
+        f"samples cast to bf16 first (the JAX package's bf16 forward) "
+        f"{offline_wave_bf16_gap:.3e}; greedy ids agree on "
         f"{bf['greedy_ids_agree'] * 100:.1f}% of frames, tokens equal: "
         f"{bf['tokens_equal']}; per-chunk ms p50 {bf['chunk_ms_p50']:.2f} "
         f"p95 {bf['chunk_ms_p95']:.2f}; kernel launches of both runs: "
         f"{causal_launches} (the causal step runs no hand-written kernel)")
     rec["causal"] = {**runs, "bound": tol, "launches": causal_launches,
+                     "offline_bf16_vs_fp32": offline_bf16_gap,
+                     "offline_waveform_bf16_vs_fp32": offline_wave_bf16_gap,
                      "offline_card_vs_cpu_fp32": floor,
                      "fbank_streamed_vs_offline": fbank_gap,
                      "samples": n, "want_steps": steps, "want_frames": n_out}
@@ -4163,6 +4204,276 @@ def streaming_phase(detail, srv, tok_path):
     del model
     torch.cuda.empty_cache()
     return launches
+
+
+CLI_ROUTE = {"AVEC_TPU_FUSED_FFN": "1", "AVEC_TPU_FUSED_ATT": "1",
+             "AVEC_TPU_FUSED_CONV": "1", "AVEC_TPU_STEM": "pallas"}
+CLI_CONFIGS = ("lrs23_av", "lrs23_ao", "lrs23_vo", "lrs23_lm_gpt_small",
+               "lrs23_lm_gpt_small_demo", "librispeech_gpt_small", "lrw")
+
+
+class _FitProbe:
+    """Records, around the CLI's in-process runs, each `Trainer.fit`'s
+    history and the kernel launches at the first evaluation of a fit (the
+    launches of its train steps alone); the class is restored on exit."""
+
+    def __init__(self):
+        from avec_tpu_torch.train.model import Trainer
+
+        self.cls, self.histories, self.at_eval = Trainer, [], None
+
+    def __enter__(self):
+        from avec_tpu_torch.ops import _cuda
+
+        fit, evaluate, probe = self.cls.fit, self.cls._evaluate, self
+        self._saved = fit, evaluate
+
+        def fit_(trainer, *a, **k):
+            probe.at_eval = None
+            history = fit(trainer, *a, **k)
+            probe.histories.append(history)
+            return history
+
+        def evaluate_(trainer, *a, **k):
+            if probe.at_eval is None:
+                torch.cuda.synchronize()
+                probe.at_eval = dict(_cuda.launches)
+            return evaluate(trainer, *a, **k)
+
+        self.cls.fit, self.cls._evaluate = fit_, evaluate_
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.fit, self.cls._evaluate = self._saved
+
+
+def _mp4_probe(path: str) -> str:
+    """Whether this machine writes and reads back an mp4 clip through
+    `utils/media.py` (OpenCV): a report, not a check."""
+    from avec_tpu_torch.utils import media
+
+    frames = np.random.RandomState(0).randint(0, 256, (5, 96, 96, 3),
+                                              dtype=np.uint8)
+    try:
+        media.write_video(path, frames, 25.0)
+        got, fps = media.read_video(path)
+        return f"mp4 round trip through OpenCV: {got.shape} at {fps} fps"
+    except Exception as e:           # reported: mp4 is not on the main path
+        return f"mp4 round trip: {type(e).__name__}: {e}"
+
+
+def cli_phase(detail, root) -> dict:
+    """Phase 28: the experiment CLI (`avec_tpu_torch/main.py`) on the
+    card, from a new directory under build/ (no datasets/ there at first,
+    so the configs take their synthetic fallback). (a) `-m pass` for every
+    port config: the flagship AV config in a subprocess of `python -m
+    avec_tpu_torch.main`, the others in-process through
+    `avec_tpu_torch.main.main(argv)`; each one's parameter count. (b)
+    `lrs23_av` (61.7M params, B=16, 4 accumulated micro-batches, bf16)
+    trained in-process with AVEC_TPU_FUSED_FFN / _ATT / _CONV = 1 and
+    AVEC_TPU_STEM = pallas for the call (restored after it), `--epochs 1
+    --steps_per_epoch 3 --eval_steps 1 --step_log_period 1`: each kernel's
+    launches over the 3 steps (counts set to 0 just before the call, read
+    at the fit's first evaluation) must equal the model's
+    `kernel_launches_per_step` x 4 x 3; the losses finite; a checkpoint and
+    a TensorBoard or JSON lines log under the callback path. (c) From that
+    checkpoint: `--load_last -m evaluation`, `-m swa --swa_epochs 1 1`,
+    `--load_last -m eval_time`, then `save_logits` on one batch. (d) A
+    seeded LRS2 + LRS3 tree (`data/lrs_fixture.py`: 136 training and 2 x
+    16 test utterances of 1-3 s, flac and wav, its 256-piece tokenizer and
+    order-6 ARPA) and `lrs23_ao` trained from it for 2 steps, evaluated by
+    the config's own decoder (beam 16 with the ARPA, native search): the
+    WER is printed, with no bound. Returns (b)'s launches."""
+    import pickle
+    import shutil
+    import tempfile
+
+    from avec_tpu_torch import main as cli
+    from avec_tpu_torch.cli import functions
+    from avec_tpu_torch.data.lrs_fixture import write_lrs_fixture
+    from avec_tpu_torch.ops import _cuda
+
+    t_phase = time.perf_counter()
+    rec = {}
+    cfg = lambda name: os.path.join(root, "avec_tpu_torch", "configs",  # noqa
+                                    name + ".py")
+    work = tempfile.mkdtemp(prefix="cli_", dir=os.path.join(root, "build"))
+    here = os.getcwd()
+    saved_env = {k: os.environ.get(k) for k in CLI_ROUTE}
+    try:
+        os.chdir(work)
+        # ---- (a) pass mode
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "avec_tpu_torch.main", "-c",
+             cfg("lrs23_av"), "-m", "pass"], cwd=work, capture_output=True,
+            text=True, timeout=300,
+            env=dict(os.environ, PYTHONPATH=root))
+        if res.returncode != 0 or "Mode: pass" not in res.stdout:
+            raise AssertionError(f"pass mode of lrs23_av: {res.stderr[-2000:]}")
+        counts = {"lrs23_av": int(res.stdout.split("Number Parameters: ")[1]
+                                  .split()[0].replace(",", ""))}
+        for name in CLI_CONFIGS[1:]:
+            args = cli.main(["-c", cfg(name), "-m", "pass"])
+            counts[name] = args.setup.trainer.num_params()
+            del args
+            torch.cuda.empty_cache()
+        rec["pass_params"] = counts
+        rec["pass_s"] = time.perf_counter() - t0
+        log("CLI -m pass on the card: parameters " + ", ".join(
+            f"{k} {v:,}" for k, v in counts.items())
+            + f" ({rec['pass_s']:.1f} s)")
+        if counts["lrs23_av"] != 61738836:
+            raise AssertionError(f"lrs23_av has {counts['lrs23_av']} params")
+
+        # ---- (b) the flagship AV config trained through the CLI
+        os.environ.update(CLI_ROUTE)
+        steps = 3
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with _FitProbe() as probe:
+            _cuda.reset_launches()
+            args = cli.main(["-c", cfg("lrs23_av"), "-m", "training",
+                             "--epochs", "1", "--steps_per_epoch", str(steps),
+                             "--eval_steps", "1", "--step_log_period", "1"])
+            torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        trainer = args.setup.trainer
+        accum = args.setup.accumulated_steps
+        per_step = trainer.model.kernel_launches_per_step()
+        launches = probe.at_eval or {}
+        want = {k: v * accum * steps for k, v in per_step.items()}
+        history = probe.histories[-1]
+        losses = history[0]["losses"]
+        eval_losses = history[0]["eval"][0][0]
+        cb = args.callback_path
+        ckpt = os.path.join(cb, f"checkpoints_epoch_1_step_{steps}.ckpt")
+        logs = sorted(os.listdir(os.path.join(cb, "logs")))
+        rec["train"] = {
+            "launches_per_micro_batch": per_step, "accumulated_steps": accum,
+            "steps": steps, "launches": launches, "losses": losses,
+            "eval_losses": eval_losses, "logs": logs,
+            "epoch_s": history[0]["seconds"], "call_s": train_s,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "checkpoint_mib": os.path.getsize(ckpt) / 2 ** 20}
+        log(f"CLI training lrs23_av ({gpu_line()}): {steps} steps of {accum} "
+            f"micro-batches of {args.setup.training_dataset.batch_size}; "
+            f"launches over the steps {launches} (want "
+            f"kernel_launches_per_step x {accum} x {steps} = {want}); "
+            f"epoch losses " + ", ".join(f"{k} {v:.4f}"
+                                         for k, v in losses.items())
+            + f"; eval loss {eval_losses['loss']:.4f}; training loop "
+            f"{history[0]['seconds']:.1f} s, call {train_s:.1f} s, peak "
+            f"{rec['train']['peak_gib']:.2f} GiB; logs {logs}, checkpoint "
+            f"{rec['train']['checkpoint_mib']:.0f} MiB")
+        finite = all(math.isfinite(v) for v in list(losses.values())
+                     + list(eval_losses.values()))
+        if not (launches == want and set(want) == {
+                "fused_ffn_fwd", "fused_ffn_bwd", "fused_att_fwd",
+                "fused_att_bwd", "fused_conv_stats", "fused_conv_fwd",
+                "fused_conv_bwd1", "fused_conv_bwd2", "bn_relu_pool"}
+                and finite and logs and os.path.isfile(ckpt)):
+            raise AssertionError(f"CLI training: {rec['train']}")
+        del trainer, args
+        torch.cuda.empty_cache()
+
+        # ---- (c) the other modes from that checkpoint
+        t0 = time.perf_counter()
+        base = ["-c", cfg("lrs23_av"), "--eval_steps", "1"]
+        args = cli.main(base + ["-m", "evaluation", "--load_last"])
+        if args.setup.trainer.step != steps:
+            raise AssertionError("evaluation did not load the checkpoint")
+        del args
+        args = cli.main(base + ["-m", "swa", "--swa_epochs", "1", "1",
+                                "--steps_per_epoch", "1"])
+        swa = os.path.join(cb, "checkpoints_swa-equal-1-1.ckpt")
+        del args
+        args = cli.main(base + ["-m", "eval_time", "--load_last"])
+        trainer = args.setup.trainer
+        loader = functions.load_datasets(args)[1][0]
+        one = [next(iter(loader))]
+        trainer.save_logits(one, cb)
+        with open(os.path.join(cb, "logits.pkl"), "rb") as f:
+            logits = pickle.load(f)
+        out = logits[0]["outputs"][0]
+        rec["modes"] = {"swa_written": os.path.isfile(swa),
+                        "logits_shape": list(out.shape),
+                        "logits_finite": bool(np.isfinite(out).all()),
+                        "outputs": sorted(logits[0]),
+                        "s": time.perf_counter() - t0}
+        log(f"CLI --load_last evaluation, swa ({os.path.basename(swa)}), "
+            f"eval_time from the step-{steps} checkpoint; save_logits on one "
+            f"batch: outputs {rec['modes']['outputs']}, logits "
+            f"{tuple(out.shape)} finite {rec['modes']['logits_finite']} "
+            f"({rec['modes']['s']:.1f} s)")
+        if not (rec["modes"]["swa_written"] and rec["modes"]["logits_finite"]
+                and len(rec["modes"]["outputs"]) == 6):
+            raise AssertionError(f"CLI modes: {rec['modes']}")
+        del trainer, args, loader
+        shutil.rmtree(cb, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+        # ---- (d) the AO config from a generated LRS tree
+        t0 = time.perf_counter()
+        paths = write_lrs_fixture("datasets", seed=0)
+        fixture_s = time.perf_counter() - t0
+        with _FitProbe() as probe:
+            args = cli.main(["-c", cfg("lrs23_ao"), "-m", "training",
+                             "--epochs", "1", "--steps_per_epoch", "2",
+                             "--eval_steps", "1", "--step_log_period", "1"])
+        setup = args.setup
+        decoder = setup.decoder
+        history = probe.histories[-1]
+        wers = [m.get("wer") for _, m in history[0]["eval"]]
+        mp4 = _mp4_probe(os.path.join(work, "probe.mp4"))
+        rec["ao_files"] = {
+            "train_set": [type(d).__name__ for d in
+                          setup.training_dataset.datasets],
+            "train_utterances": len(setup.training_dataset),
+            "decoder": type(decoder).__name__,
+            "beam_size": getattr(decoder, "beam_size", None),
+            "ngram": getattr(decoder, "lm", None) is not None,
+            "losses": history[0]["losses"], "wer": wers,
+            "fixture_s": fixture_s, "s": time.perf_counter() - t0,
+            "mp4": mp4, **paths}
+        log(f"CLI training lrs23_ao from a generated LRS2 + LRS3 tree "
+            f"({rec['ao_files']['train_utterances']} training utterances, "
+            f"written in {fixture_s:.1f} s): 2 steps, epoch loss "
+            f"{history[0]['losses']['loss']:.4f}; evaluated by "
+            f"{rec['ao_files']['decoder']} (beam "
+            f"{rec['ao_files']['beam_size']}, ARPA "
+            f"{rec['ao_files']['ngram']}): WER LRS2 test {wers[0]:.2f}, "
+            f"LRS3 test {wers[1]:.2f} (no bound: two steps from seeded "
+            f"weights); {mp4}; {rec['ao_files']['s']:.1f} s")
+        ok = (rec["ao_files"]["train_set"] == ["LRS", "LRS"]
+              and rec["ao_files"]["decoder"] == "CTCBeamSearchDecoder"
+              and rec["ao_files"]["beam_size"] == 16
+              and rec["ao_files"]["ngram"]
+              and all(math.isfinite(v) for v in
+                      history[0]["losses"].values())
+              and all(w is not None and math.isfinite(w) for w in wers))
+        del setup, decoder, args
+        torch.cuda.empty_cache()
+        if not ok:
+            raise AssertionError(f"CLI AO from files: {rec['ao_files']}")
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        os.chdir(here)
+        shutil.rmtree(work, ignore_errors=True)
+    rec["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 28 (the CLI) wall {rec['wall_s']:.1f} s")
+    detail["cli"] = rec
+    return rec["train"]["launches"]
 
 
 def fbank_stream_gap(model, decoder, utt) -> float:

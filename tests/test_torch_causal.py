@@ -11,7 +11,9 @@ identical greedy ids; the train step as `tests/test_torch_train_step*.py`
 holds it (losses 1e-4 relative, every gradient leaf 2e-3 of its largest
 entry plus 1e-7, updated BN statistics 1e-5), the port's fused
 convolution module (with `pad_lo` = 14) and fused FFN through their plain
-versions against the JAX step with its Pallas kernels in interpret mode.
+versions against the JAX step with its Pallas kernels in interpret mode;
+the bf16 offline forward against the JAX package's bf16 forward on tone
+audio with silent stretches, 3e-2 of the largest fp32 logit.
 Nothing in `avec_tpu/` changes.
 """
 
@@ -273,3 +275,65 @@ def test_causal_encoder_is_causal():
     safe = (s - 256) // 1280
     assert torch.equal(l1[:safe + 1], l2[:safe + 1])
     assert float((l1[safe + 2:] - l2[safe + 2:]).abs().max()) > 1e-3
+
+
+
+def _tone_audio(n: int, seed: int) -> np.ndarray:
+    """Tones that change frequency and loudness every 0.12 s, silent
+    stretches among them, as chip_smoke.py's requests make them."""
+    rng = np.random.RandomState(seed)
+    seg = 1920
+    freq = np.repeat(rng.uniform(100, 4000, n // seg + 1), seg)[:n]
+    amp = np.repeat(rng.uniform(0.0, 0.5, n // seg + 1), seg)[:n]
+    return (amp * np.sin(2 * np.pi * np.cumsum(freq) / 16000)).astype(
+        np.float32)
+
+
+def test_causal_bf16_offline_forward_matches_jax(causal):
+    """The offline causal forward in bf16 against the JAX package's bf16
+    forward on the same weights and samples: every output within 3e-2 of
+    the largest fp32 logit (the bf16 tolerance of test_torch_ffn.py's
+    kernel twins), lengths equal. Both packages cast the float samples to
+    bf16 before the net (avec_tpu/train/model.py:146-151), which moves the
+    near-silent log-mels: that forward is far from the fp32 one (0.65 of a
+    largest logit 1.28 here) in both alike, within the same 3e-2. The fbank
+    of the fp32 samples, then the cast (a forward hook on the preprocessing;
+    the streaming transcribers' order) stays within 3e-2 of the fp32
+    forward."""
+    jmodel, params, stats = causal
+    n = 27200
+    audio = np.stack([_tone_audio(n, 5), _tone_audio(n, 6)])
+    alen = np.array([n, 20000], np.int32)
+
+    def jax_forward(dtype):
+        jmodel._compute_dtype = dtype
+        try:
+            return jax.jit(lambda p, s, a, l: jmodel.apply_net(
+                p, s, [a, l], False)[0])(params, stats, audio, alen)
+        finally:
+            jmodel._compute_dtype = jnp.float32
+
+    want32, want = jax_forward(jnp.float32), jax_forward(jnp.bfloat16)
+    port = _port(params, stats)
+    with torch.no_grad():
+        got32 = port(t(audio), t(alen))["outputs"][0].numpy()
+        got = port(t(audio).to(torch.bfloat16), t(alen))
+        hook = port.encoder.preprocessing.register_forward_hook(
+            lambda m, i, o: (o[0].to(torch.bfloat16), o[1]))
+        fbank_first = port(t(audio), t(alen))["outputs"][0]
+        hook.remove()
+    w32 = np.asarray(want32["outputs"][0])
+    big = float(np.abs(w32).max())
+    for key in ("outputs", "ctc_0", "ctc_1"):
+        assert got[key][0].dtype == torch.bfloat16
+        g = got[key][0].float().numpy()
+        w = np.asarray(want[key][0].astype(jnp.float32))
+        assert np.abs(g - w).max() <= 3e-2 * big, key
+        np.testing.assert_array_equal(got[key][1].numpy(),
+                                      np.asarray(want[key][1]))
+    gap = np.abs(got["outputs"][0].float().numpy() - got32).max()
+    jax_gap = np.abs(np.asarray(want["outputs"][0].astype(jnp.float32))
+                     - w32).max()
+    assert abs(gap - jax_gap) <= 3e-2 * big
+    assert fbank_first.dtype == torch.bfloat16
+    assert np.abs(fbank_first.float().numpy() - w32).max() <= 3e-2 * big

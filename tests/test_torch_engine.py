@@ -612,13 +612,15 @@ def test_swa_matches_jax(env, epoch_checkpoints, swa_type):
     assert moved == len(old)
 
 
-def test_fit_checkpoints_match_jax(env, tmp_path):
+def test_fit_checkpoints_match_jax(env, tmp_path, monkeypatch):
     """fit for 2 epochs of 2 accumulated steps, a checkpoint per epoch: the
     JAX fit's file names (checkpoints_epoch_{epoch + 1}_step_{step}.ckpt,
-    avec_tpu/train/model.py:694-696, :720-722), model_step, the JAX
-    package's `find_last_checkpoint` on the port's files, and a resume from
-    the first. The loop is `set_epoch` then `train_step` per batch: its
-    state is bit-identical to those calls made by hand."""
+    avec_tpu/train/model.py:694-696, :720-722) beside its logs/ directory
+    (:1087-1101; JSON lines here), model_step, the JAX package's
+    `find_last_checkpoint` on the port's files, and a resume from the
+    first. The loop is `set_epoch` then `train_step` per batch: its state
+    is bit-identical to those calls made by hand."""
+    monkeypatch.setenv("AVEC_TPU_LOG_FORMAT", "jsonl")
     port_dir = tmp_path / "port"
     trainer = _trainer(env)
     train_t, _ = _loaders(False)
@@ -632,7 +634,8 @@ def test_fit_checkpoints_match_jax(env, tmp_path):
     assert [h["steps"] for h in history] == [2, 2]
     names = sorted(os.listdir(port_dir))
     want = [f"checkpoints_epoch_{e}_step_{2 * e}.ckpt" for e in (1, 2)]
-    assert names == want and trainer.step == 4
+    assert names == want + ["logs"] and trainer.step == 4
+    assert os.listdir(port_dir / "logs") == ["events.jsonl"]
     assert tckpt.find_last_checkpoint(str(port_dir)) == \
         jckpt.find_last_checkpoint(str(port_dir)) == want[-1]
     assert tckpt.find_last_checkpoint(str(port_dir), True) == \
@@ -695,7 +698,7 @@ def test_metric_names_eval_time_and_device_metrics(env):
     batch = next(iter(evals))
     trainer.model.eval()
     with torch.no_grad():
-        inputs, _ = trainer._to_device(batch, shard=False)
+        inputs, _ = trainer._to_device(batch)
         outputs = trainer.model(*inputs)
     jmodel = JaxModel()
     jmodel.output_names = sorted(OUTPUTS)

@@ -152,10 +152,11 @@ def train_step_dp_rank(device, state, model_kwargs, weights, batch,
     dropout and SpecAugment on and a digest of the parameters."""
     torch.set_num_threads(1)
     out = {"rank": dist.get_rank()}
+    shard = pdist.shard_batch(batch)
     for red in reductions:
         tr = _trainer(state, model_kwargs, weights, red, True)
         tr.model.set_regularization(False)
-        losses, grads = tr.loss_and_grads(batch)
+        losses, grads = tr.loss_and_grads(shard)
         out[red] = {
             "losses": {k: float(v) for k, v in losses.items()},
             "grads_digest": _digest(grads.values()),
@@ -165,7 +166,7 @@ def train_step_dp_rank(device, state, model_kwargs, weights, batch,
     tr = _trainer(state, model_kwargs, weights, reductions[0], True)
     out["launches_per_step"] = tr.model.kernel_launches_per_step()
     for _ in range(steps):
-        tr.train_step(batch)
+        tr.train_step(shard)
     out["params_digest"] = _digest(tr.model.parameters())
     out["moved"] = sum(not np.array_equal(p.detach().numpy(), state[n])
                        for n, p in tr.model.named_parameters())

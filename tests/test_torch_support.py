@@ -105,7 +105,16 @@ def test_port_imports_no_jax():
             "avec_tpu_torch.utils.spm_model, avec_tpu_torch.utils.flac, "
             "avec_tpu_torch.utils.media, avec_tpu_torch.data.transforms, "
             "avec_tpu_torch.demo, avec_tpu_torch.decode.streaming, "
-            "avec_tpu_torch.decode.causal_streaming\n"
+            "avec_tpu_torch.decode.causal_streaming, avec_tpu_torch.main, "
+            "avec_tpu_torch.cli.functions, avec_tpu_torch.utils.logging, "
+            "avec_tpu_torch.data.lipcrop, avec_tpu_torch.data.lrs, "
+            "avec_tpu_torch.data.lrw, avec_tpu_torch.data.datasets, "
+            "avec_tpu_torch.data.lrs_fixture, avec_tpu_torch.configs.common, "
+            "avec_tpu_torch.configs.lrs23_av, avec_tpu_torch.configs.lrs23_ao, "
+            "avec_tpu_torch.configs.lrs23_vo, "
+            "avec_tpu_torch.configs.lrs23_lm_gpt_small, "
+            "avec_tpu_torch.configs.lrs23_lm_gpt_small_demo, "
+            "avec_tpu_torch.configs.librispeech_gpt_small\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'avec_tpu')]\n"
             "assert not bad, bad\nprint('ok')\n")
@@ -185,4 +194,17 @@ def test_import_scan_covers_the_training_modules():
             "avec_tpu_torch/data/transforms.py", "avec_tpu_torch/demo.py",
             "avec_tpu_torch/decode/streaming.py",
             "avec_tpu_torch/decode/causal_streaming.py",
-            "avec_tpu_torch/serve.py"} <= names
+            "avec_tpu_torch/serve.py", "avec_tpu_torch/main.py",
+            "avec_tpu_torch/cli/__init__.py",
+            "avec_tpu_torch/cli/functions.py",
+            "avec_tpu_torch/utils/logging.py",
+            "avec_tpu_torch/data/lipcrop.py", "avec_tpu_torch/data/lrs.py",
+            "avec_tpu_torch/data/lrw.py", "avec_tpu_torch/data/datasets.py",
+            "avec_tpu_torch/data/lrs_fixture.py",
+            "avec_tpu_torch/configs/common.py",
+            "avec_tpu_torch/configs/lrs23_av.py",
+            "avec_tpu_torch/configs/lrs23_ao.py",
+            "avec_tpu_torch/configs/lrs23_vo.py",
+            "avec_tpu_torch/configs/lrs23_lm_gpt_small.py",
+            "avec_tpu_torch/configs/lrs23_lm_gpt_small_demo.py",
+            "avec_tpu_torch/configs/librispeech_gpt_small.py"} <= names

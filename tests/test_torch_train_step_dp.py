@@ -4,9 +4,9 @@ slice as a whole.
 
 Depths of configs/Synthetic/AV-Tone.py:72-75 (vocab 32), a global batch of 4
 utterances of 0.5-1.2 s (unequal lengths, padded to the longest), fp32. Every
-rank passes the same global batch; `Trainer` takes the rank's `shard_batch`
-slice, so each rank keeps the padded length and the batch statistics count
-the padding rows as the single-process step does. The port runs
+rank passes its `shard_batch` slice of the global batch to `Trainer`, so
+each rank keeps the padded length and the batch statistics count the
+padding rows as the single-process step does. The port runs
 `fused_conv=True` (the K3dp plain stages), `fused_att=True`, the fused FFN
 and stem "2d" in their data-parallel forms with sync-BN, and all-reduces the
 rank-weighted gradients; the JAX step (`test_torch_train_step._jax_step`) runs
