@@ -22,6 +22,11 @@ stream_forward` runs one chunk with carried state, a per-block list of
 {"att": {"K", "V"}, "conv": tail}: the attention modules take and return
 their Transformer-XL key/value caches (`hidden`), the convolution modules
 their depthwise conv's (k - 1)-frame input tails (`state`).
+
+The library blocks `MultiLayerPerceptron`, `InceptionModule` and
+`ConvTransposeNeuralNetwork` (conformer.py:677-820; no AVEC model uses them)
+name their children as the JAX modules do (linear_0, BatchNorm_0, convt_0,
+branch0, branch0_bn, ...).
 """
 
 import os
@@ -30,6 +35,7 @@ from typing import Dict, List, Optional, Sequence, Union
 import torch
 import torch.distributed as dist
 import torch.nn as nn
+import torch.nn.functional as F
 
 from avec_tpu_torch.ops.activations import get_act, glu, swish
 from avec_tpu_torch.ops.attention import (RelPos1dMultiHeadAttention,
@@ -40,8 +46,8 @@ from avec_tpu_torch.ops.conv_module import (conv_module_params,
                                             fused_conv_module_3d,
                                             fused_conv_module_3d_dp)
 from avec_tpu_torch.ops.ffn import fused_ffn_3d, fused_ffn_3d_dp
-from avec_tpu_torch.ops.layers import (BatchNorm, Conv, Dropout, LayerNorm,
-                                       Linear)
+from avec_tpu_torch.ops.layers import (BatchNorm, Conv, ConvTranspose,
+                                       Dropout, LayerNorm, Linear, norm_dict)
 from avec_tpu_torch.ops.masks import downsample_mask, strided_lengths
 
 
@@ -502,4 +508,139 @@ class ConvNeuralNetwork(nn.Module):
             x = self.act(bn(conv(x)))
             if lengths is not None:
                 lengths = torch.div(lengths - 1, 2, rounding_mode="floor") + 1
+        return x if lengths is None else (x, lengths)
+
+
+def _norm_layer(norm, dim: int):
+    """(JAX child name prefix, module) of a norm_dict name (or class) for
+    `dim` channels; the prefix is the JAX class's, which names it."""
+    cls = norm_dict[norm] if isinstance(norm, str) or norm is None else norm
+    if cls is None:
+        return None, None
+    return cls.__name__, cls(dim)
+
+
+def _apply_norm(norm: nn.Module, x, channels_last: bool):
+    """LayerNorm normalises the channel axis; the other norms take channels
+    first."""
+    if isinstance(norm, LayerNorm) != channels_last:
+        return norm(x.movedim(-1 if channels_last else 1,
+                              1 if channels_last else -1)).movedim(
+            1 if channels_last else -1, -1 if channels_last else 1)
+    return norm(x)
+
+
+def _per_layer(value, i: int):
+    return value[i] if isinstance(value, list) else value
+
+
+class MultiLayerPerceptron(nn.Module):
+    """Linear -> norm -> act -> dropout per layer (conformer.py:677-694),
+    over the last axis of (B, ..., D). `norm` names a norm_dict entry
+    (GroupNorm with its default 32 groups)."""
+
+    def __init__(self, dim_input: int, dim_layers: Sequence[int],
+                 act_fun="ReLU", norm=None, drop_rate: float = 0.0):
+        super().__init__()
+        self.act = get_act(act_fun)
+        self.names = []
+        prev = dim_input
+        for i, dim in enumerate(dim_layers):
+            setattr(self, f"linear_{i}", Linear(prev, dim))
+            prefix, mod = _norm_layer(norm, dim)
+            norm_name = f"{prefix}_{i}" if mod is not None else None
+            if mod is not None:
+                setattr(self, norm_name, mod)
+            drop = f"Dropout_{i}" if drop_rate > 0 else None
+            if drop:
+                setattr(self, drop, Dropout(drop_rate))
+            self.names.append((f"linear_{i}", norm_name, drop))
+            prev = dim
+
+    def forward(self, x):
+        for lin, norm, drop in self.names:
+            x = getattr(self, lin)(x)
+            if norm:
+                x = _apply_norm(getattr(self, norm), x, channels_last=True)
+            x = self.act(x)
+            if drop:
+                x = getattr(self, drop)(x)
+        return x
+
+
+class InceptionModule(nn.Module):
+    """GoogLeNet Inception module, channels first (conformer.py:697-725):
+    four branches concatenated on the channels in this order: 1x1 (c0);
+    1x1 (c1) -> k0 (c2); 1x1 (c3) -> k1 (c4); 3-wide stride-1 max pool
+    ("same", -inf pads) -> 1x1 (c5); every conv bias-free with
+    torch-default init, followed by BN and ReLU."""
+
+    _BRANCHES = (("branch0", None, 0), ("branch1a", None, 1),
+                 ("branch1b", 0, 2), ("branch2a", None, 3),
+                 ("branch2b", 1, 4), ("branch3", None, 5))
+
+    def __init__(self, in_channels: int, out_channels: Sequence[int],
+                 kernel_sizes: Sequence[int] = (3, 5), ndim: int = 2):
+        super().__init__()
+        self.ndim = ndim
+        c = list(out_channels)
+        ins = {"branch0": in_channels, "branch1a": in_channels,
+               "branch1b": c[1], "branch2a": in_channels, "branch2b": c[3],
+               "branch3": in_channels}
+        for name, k_idx, c_idx in self._BRANCHES:
+            k = 1 if k_idx is None else kernel_sizes[k_idx]
+            setattr(self, name, Conv(ins[name], c[c_idx], k, ndim=ndim,
+                                     bias=False, weight_init="default"))
+            setattr(self, name + "_bn", BatchNorm(c[c_idx]))
+
+    def _cbr(self, name, x):
+        return torch.relu(getattr(self, name + "_bn")(getattr(self, name)(x)))
+
+    def forward(self, x):
+        b0 = self._cbr("branch0", x)
+        b1 = self._cbr("branch1b", self._cbr("branch1a", x))
+        b2 = self._cbr("branch2b", self._cbr("branch2a", x))
+        pool = (F.max_pool1d, F.max_pool2d, F.max_pool3d)[self.ndim - 1]
+        b3 = pool(F.pad(x, (1, 1) * self.ndim, value=float("-inf")), 3, 1)
+        b3 = self._cbr("branch3", b3)
+        return torch.cat([b0, b1, b2, b3], dim=1)
+
+
+class ConvTransposeNeuralNetwork(nn.Module):
+    """ConvTranspose -> norm -> act -> dropout per layer, channels first
+    (conformer.py:781-820); `kernel_size`, `strides`, `padding` and
+    `output_padding` are one value or a list per layer. Lengths, when
+    given, come back unchanged."""
+
+    def __init__(self, in_ch: int, dim_layers, kernel_size, ndim: int = 2,
+                 strides=1, padding=0, output_padding=0, norm=None,
+                 act_fun="ReLU", drop_rate: float = 0.0):
+        super().__init__()
+        dims = [dim_layers] if isinstance(dim_layers, int) else list(dim_layers)
+        self.act = get_act(act_fun)
+        self.names = []
+        prev = in_ch
+        for i, dim in enumerate(dims):
+            setattr(self, f"convt_{i}", ConvTranspose(
+                prev, dim, _per_layer(kernel_size, i), ndim=ndim,
+                stride=_per_layer(strides, i), padding=_per_layer(padding, i),
+                output_padding=_per_layer(output_padding, i)))
+            prefix, mod = _norm_layer(norm, dim)
+            norm_name = f"{prefix}_{i}" if mod is not None else None
+            if mod is not None:
+                setattr(self, norm_name, mod)
+            drop = f"Dropout_{i}" if drop_rate > 0 else None
+            if drop:
+                setattr(self, drop, Dropout(drop_rate))
+            self.names.append((f"convt_{i}", norm_name, drop))
+            prev = dim
+
+    def forward(self, x, lengths=None):
+        for conv, norm, drop in self.names:
+            x = getattr(self, conv)(x)
+            if norm:
+                x = _apply_norm(getattr(self, norm), x, channels_last=False)
+            x = self.act(x)
+            if drop:
+                x = getattr(self, drop)(x)
         return x if lengths is None else (x, lengths)

@@ -89,14 +89,20 @@ class FusedVideoStem(nn.Module):
         return y.permute(0, 2, 3, 1)
 
 
-def _att_params_audio(att_type: str, num_heads: int, use_flash: bool
-                      ) -> List[Dict]:
-    """Per-stage attention specs (encoders.py:196). Patch attention carries
-    no use_flash, so flash runs only in the "regular" stages."""
+def _att_params_audio(att_type: str, num_heads: int, use_flash: bool,
+                      causal: bool = False) -> List[Dict]:
+    """Per-stage attention specs (encoders.py:196-226). Patch attention
+    carries no use_flash, so flash runs only in the "regular" stages;
+    "grouped" is the grouped Transformer-XL attention with groups of 3
+    frames in stage 1 and 1 in stages 2-3."""
     regular = {"class": "RelPos1dMultiHeadAttention",
                "params": {"num_heads": num_heads, "use_flash": use_flash}}
     if att_type == "regular":
         return [regular, regular, regular]
+    if att_type == "grouped":
+        return [{"class": "GroupedRelPosMultiHeadSelfAttention",
+                 "params": {"num_heads": num_heads, "group_size": g,
+                            "causal": causal}} for g in (3, 1, 1)]
     if att_type == "patch":
         patch = {"class": "RelPosPatch1dMultiHeadAttention",
                  "params": {"num_heads": num_heads, "patch_size": 3}}
@@ -148,7 +154,7 @@ class AudioEfficientConformerEncoder(nn.Module):
                   "params": {"num_heads": heads, "causal": True}}
             att_params = [xl, xl, xl]
         else:
-            att_params = _att_params_audio(att_type, heads, use_flash)
+            att_params = _att_params_audio(att_type, heads, use_flash, causal)
         self.back_end = ConformerInterCTC(
             dims, list(num_blocks), list(interctc_blocks), vocab_size,
             att_params, loss_prefix=loss_prefix,
@@ -228,7 +234,9 @@ class VisualEfficientConformerEncoder(nn.Module):
         dims = [256, 360]
         self.front_end = nn.ModuleDict({
             "0": FusedVideoStem(stem_mode or _stem_mode()),
-            "3": ResNet("ResNet18", dim_output=dims[0])})
+            "3": ResNet("ResNet18", dim_output=dims[0], include_stem=False,
+                        head_weight_init="default",
+                        head_bias_init="default")})
         att = {"class": "RelPos1dMultiHeadAttention",
                "params": {"num_heads": 4}}
         self.back_end = ConformerInterCTC(

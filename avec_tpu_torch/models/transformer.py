@@ -115,7 +115,8 @@ class GPTNet(nn.Module):
         super().__init__()
         cfg = GPT_CONFIGS[model]
         d = cfg["dim_model"]
-        self.embedding = Embedding(vocab_size, d, padding_idx=padding_idx)
+        self.embedding = Embedding(vocab_size, d, padding_idx=padding_idx,
+                                   embedding_init="normal_02")
         self.transformer = Transformer(
             dim_model=d, num_blocks=cfg["num_blocks"],
             att_params={"class": "MultiHeadAttention",

@@ -228,8 +228,10 @@ class AudioEfficientConformerInterCTC(ZooModel):
 
     forward(audio (B, Ta), audio_len (B,)) returns {"outputs": [logits
     (B, T, vocab), lengths], "ctc_<i>": [...]} for the InterCTC blocks.
-    `att_type` "patch" (stage 1 patch attention, stages 2-3 regular) or
-    "regular"; `use_flash` routes the regular layers through the flash
+    `att_type` "patch" (stage 1 patch attention, stages 2-3 regular),
+    "regular", or "grouped" (grouped Transformer-XL attention, groups of 3
+    frames in stage 1 and 1 in stages 2-3; plain products, no kernel);
+    `use_flash` routes the regular layers through the flash
     kernel. `causal=True` is the causal variant's offline path with a
     `left_context` of stage-1 frames (`AudioEfficientConformerEncoder`)."""
 

@@ -5,7 +5,10 @@ computes its relative scores through the exact sin/cos factorization (the JAX
 in-model default), or, with `use_flash`, through the flash kernel of
 `ops/flash_attention.py` with key-padding lengths. The Transformer-XL layer
 (`RelPosMultiHeadSelfAttention`, the causal audio encoder's) computes them
-through the relative table and the skew of `rel_to_abs`.
+through the relative table and the skew of `rel_to_abs`; its grouped form
+(`GroupedRelPosMultiHeadSelfAttention`) folds groups of G frames into the
+head width and attends at T / G resolution. `NdMultiHeadAttention` attends
+over the flattened positions of an N-d grid.
 """
 
 import numpy as np
@@ -18,6 +21,7 @@ from avec_tpu_torch.ops.layers import (Dropout, Linear, avg_pool,
                                        upsample_nearest)
 from avec_tpu_torch.ops.masks import apply_mask, min_pool_mask
 from avec_tpu_torch.ops.pos_embeddings import (device_constant,
+                                               grouped_relative_pos_encoding,
                                                relative_pos_encoding)
 
 
@@ -97,6 +101,18 @@ class MultiHeadAttention(nn.Module):
         scores = torch.einsum("bhqd,bhkd->bhqk", q, k) / self.dim_head ** 0.5
         return self.output_layer(_merge_heads(_attend(scores, v, mask,
                                                       self.dropout)))
+
+
+class NdMultiHeadAttention(MultiHeadAttention):
+    """MHA over the flattened positions of an N-d grid (attention.py:
+    171-182): (B, d1, ..., dn, C) -> (B, N, C) -> attention -> (B, d1, ...,
+    dn, C). A mask spans the N flattened positions."""
+
+    def forward(self, x, mask=None, lengths=None):
+        shape = x.shape
+        out = super().forward(x.reshape(shape[0], -1, shape[-1]), mask,
+                              lengths)
+        return out.reshape(shape[:-1] + (out.shape[-1],))
 
 
 class RelPos1dMultiHeadAttention(MultiHeadAttention):
@@ -191,8 +207,9 @@ class RelPosMultiHeadSelfAttention(MultiHeadAttention):
     the mask then spans (T, Th + T). With `return_hidden` the call returns
     (out, {"K", "V"}), the concatenated keys / values, detached."""
 
-    def __init__(self, dim_model: int, num_heads: int, causal: bool = False):
-        super().__init__(dim_model, num_heads)
+    def __init__(self, dim_model: int, num_heads: int, causal: bool = False,
+                 attn_drop_rate: float = 0.0, max_pos_encoding: int = 10000):
+        super().__init__(dim_model, num_heads, attn_drop_rate)
         self.causal = causal
         self.pos_layer = Linear(dim_model, dim_model)
         self.u = nn.Parameter(torch.zeros(dim_model))
@@ -217,17 +234,88 @@ class RelPosMultiHeadSelfAttention(MultiHeadAttention):
                               self.causal)
         scores = (scores_k + scores_e) / self.dim_head ** 0.5
         out = self.output_layer(_merge_heads(_attend(scores, split(v),
-                                                     mask)))
+                                                     mask, self.dropout)))
         if return_hidden:
             return out, {"K": k.detach(), "V": v.detach()}
         return out
 
 
+class GroupedRelPosMultiHeadSelfAttention(RelPosMultiHeadSelfAttention):
+    """Grouped Transformer-XL self-attention (attention.py:406-491): groups
+    of `group_size` (G) consecutive frames are folded into the head width,
+    dim_head = G * D / H, so the heads attend over T / G groups.
+
+    q, k and v are zero-padded to a multiple of G; when the keys were padded
+    and no mask is given, a key mask of the true length is built; a mask is
+    padded likewise, then taken at every G-th query and key. The output
+    unfolds back to frames, is cut to T, then projected. With `hidden` the
+    first Th % G cached frames are left out of the keys, and the returned
+    cache is the whole of it followed by this call's keys / values."""
+
+    def __init__(self, dim_model: int, num_heads: int, group_size: int = 3,
+                 causal: bool = False, attn_drop_rate: float = 0.0,
+                 max_pos_encoding: int = 10000):
+        super().__init__(dim_model, num_heads, causal, attn_drop_rate,
+                         max_pos_encoding)
+        self.group_size = group_size
+
+    @property
+    def dim_head(self):
+        return (self.group_size * self.dim_model) // self.num_heads
+
+    def forward(self, x, mask=None, lengths=None, hidden=None,
+                return_hidden: bool = False):
+        t, dtype, g = x.shape[1], x.dtype, self.group_size
+        q, k, v = self.query_layer(x), self.key_layer(x), self.value_layer(x)
+        if hidden is not None:
+            hk, hv = hidden["K"].to(dtype), hidden["V"].to(dtype)
+            trim = hk.shape[1] % g
+            new_hidden = {"K": torch.cat([hk, k], dim=1).detach(),
+                          "V": torch.cat([hv, v], dim=1).detach()}
+            k = torch.cat([hk[:, trim:], k], dim=1)
+            v = torch.cat([hv[:, trim:], v], dim=1)
+        else:
+            new_hidden = {"K": k.detach(), "V": v.detach()}
+        pad_q, pad_kv = (-t) % g, (-k.shape[1]) % g
+        if pad_q:
+            q = F.pad(q, (0, 0, 0, pad_q))
+        if pad_kv:
+            k, v = F.pad(k, (0, 0, 0, pad_kv)), F.pad(v, (0, 0, 0, pad_kv))
+        if mask is None and pad_kv:
+            mask = F.pad(torch.ones((1, 1, 1, k.shape[1] - pad_kv),
+                                    dtype=torch.bool, device=x.device),
+                         (0, pad_kv), value=False)
+        elif mask is not None and (pad_q or pad_kv):
+            qpad = pad_q if mask.shape[2] > 1 else 0
+            mask = F.pad(mask, (0, pad_kv, 0, qpad), value=False)
+        th = k.shape[1] - q.shape[1]
+        split = lambda a: _split_heads(a, self.num_heads, self.dim_head)
+        qu, qv = split(q + self.u.to(dtype)), split(q + self.v.to(dtype))
+        e = self.pos_layer(grouped_relative_pos_encoding(
+            q.shape[1], self.dim_model, g, self.causal, hidden_len=th,
+            device=x.device).to(dtype))
+        e = split(e)[0]                                   # (H, R / G, d)
+        scores_k = torch.einsum("bhqd,bhkd->bhqk", qu, split(k))
+        scores_e = rel_to_abs(torch.einsum("bhqd,hkd->bhqk", qv, e),
+                              self.causal)
+        scores = (scores_k + scores_e) / self.dim_head ** 0.5
+        if mask is not None:
+            mask = mask[:, :, ::g, ::g]
+        o = _attend(scores, split(v), mask, self.dropout)
+        o = o.transpose(1, 2).reshape(x.shape[0], -1, self.dim_model)[:, :t]
+        out = self.output_layer(o)
+        if return_hidden:
+            return out, new_hidden
+        return out
+
+
 att_dict = {
     "MultiHeadAttention": MultiHeadAttention,
+    "NdMultiHeadAttention": NdMultiHeadAttention,
     "RelPos1dMultiHeadAttention": RelPos1dMultiHeadAttention,
     "RelPosPatch1dMultiHeadAttention": RelPosPatch1dMultiHeadAttention,
     "RelPosMultiHeadSelfAttention": RelPosMultiHeadSelfAttention,
+    "GroupedRelPosMultiHeadSelfAttention": GroupedRelPosMultiHeadSelfAttention,
 }
 
 

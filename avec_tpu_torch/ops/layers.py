@@ -19,16 +19,23 @@ mask from an explicit `torch.Generator`, and a `Conv(bias_stop_gradient=True)`
 feeding a train-mode BatchNorm detaches its bias, whose gradient is
 analytically zero (autograd alone leaves rounding noise there, which Adam's
 first step would turn into a full lr-sized move).
+
+`ConvTranspose`, `GroupNorm` and `InstanceNorm` take channels-first tensors
+as `Conv` and `BatchNorm` do; `LSTM` and the global pools work on
+(B, ..., C) as the JAX layers do. `weight_init` / `bias_init` name an
+initializer of `ops/inits.py`, drawn from the generator of `init_params`.
 """
 
 import math
-from typing import Sequence, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
+from avec_tpu_torch.ops.inits import get_init, torch_default_bias
 from avec_tpu_torch.parallel.dist import all_reduce_sum
 
 PaddingLike = Union[str, int, Sequence]
@@ -61,14 +68,18 @@ def conv_padding(kernel_size: Tuple[int, ...], padding: PaddingLike):
     return tuple((p, p) for p in _tuple(padding, n))
 
 
-def _uniform_(t: torch.Tensor, bound: float, gen: torch.Generator):
-    with torch.no_grad():
-        t.uniform_(-bound, bound, generator=gen)
+def _init_bias(bias, bias_init, fan_in: int, gen) -> None:
+    """A bias from its registry name; "default" is torch's U(+-1/sqrt(fan_in))
+    of the layer's weight fan_in."""
+    if bias is not None:
+        (torch_default_bias(fan_in) if bias_init in (None, "default")
+         else get_init(bias_init))(bias, gen)
 
 
 class Linear(nn.Module):
-    """Dense layer over the last axis. Init: torch-default ("default"), or
-    the GPT's N(0, 0.02) weights ("normal_02") and zero biases ("zeros")."""
+    """Dense layer over the last axis. Init: `weight_init` / `bias_init`
+    registry names (`ops/inits.py`): torch-default ("default"), or e.g. the
+    GPT's N(0, 0.02) weights ("normal_02") and zero biases ("zeros")."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  weight_init: str = "default", bias_init: str = "default"):
@@ -78,17 +89,8 @@ class Linear(nn.Module):
         self.weight_init, self.bias_init = weight_init, bias_init
 
     def init_(self, gen: torch.Generator):
-        bound = 1.0 / math.sqrt(self.weight.shape[1])
-        with torch.no_grad():
-            if self.weight_init == "normal_02":
-                self.weight.normal_(0.0, 0.02, generator=gen)
-            else:
-                _uniform_(self.weight, bound, gen)
-            if self.bias is not None:
-                if self.bias_init == "zeros":
-                    self.bias.zero_()
-                else:
-                    _uniform_(self.bias, bound, gen)
+        get_init(self.weight_init)(self.weight, gen)
+        _init_bias(self.bias, self.bias_init, self.weight.shape[1], gen)
 
     def forward(self, x):
         b = None if self.bias is None else self.bias.to(x.dtype)
@@ -97,13 +99,28 @@ class Linear(nn.Module):
 
 class Conv(nn.Module):
     """N-d convolution (N, C, *spatial) with the reference padding policies.
-    Bias-free convs (the ResNet trunk) init he-normal, others torch-default.
-    bias_stop_gradient detaches the bias in training mode (layers.py:265)."""
+    `weight_init` None: bias-free convs (the ResNet trunk) init he-normal,
+    others torch-default. bias_stop_gradient detaches the bias in training
+    mode (layers.py:265). `kernel_mask` is a fixed mask of the JAX kernel
+    layout (*kernel, 1 or in, 1 or out), e.g. `pixelcnn_mask`, multiplied
+    into the weight at every call (layers.py:226-228)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size, ndim: int = 1,
                  stride=1, padding: PaddingLike = "same", groups: int = 1,
-                 bias: bool = True, bias_stop_gradient: bool = False):
+                 bias: bool = True, bias_stop_gradient: bool = False,
+                 weight_init: Optional[str] = None,
+                 bias_init: str = "default", kernel_mask=None):
         super().__init__()
+        self.weight_init = (weight_init if weight_init is not None
+                            else ("default" if bias else "he_normal"))
+        self.bias_init = bias_init
+        if kernel_mask is not None:
+            m = np.asarray(kernel_mask, np.float32)
+            m = m.transpose((ndim + 1, ndim) + tuple(range(ndim)))
+            self.register_buffer("kernel_mask", torch.from_numpy(
+                np.ascontiguousarray(m)), persistent=False)
+        else:
+            self.kernel_mask = None
         self.bias_stop_gradient = bias_stop_gradient
         self.ndim = ndim
         self.kernel_size = _tuple(kernel_size, ndim)
@@ -116,13 +133,8 @@ class Conv(nn.Module):
         self.training = False
 
     def init_(self, gen: torch.Generator):
-        fan_in = self.weight[0].numel()
-        with torch.no_grad():
-            if self.bias is None:
-                self.weight.normal_(0.0, math.sqrt(2.0 / fan_in), generator=gen)
-            else:
-                _uniform_(self.weight, 1.0 / math.sqrt(fan_in), gen)
-                _uniform_(self.bias, 1.0 / math.sqrt(fan_in), gen)
+        get_init(self.weight_init)(self.weight, gen)
+        _init_bias(self.bias, self.bias_init, self.weight[0].numel(), gen)
 
     def forward(self, x, pads=None):
         """`pads` ((lo, hi) per spatial axis) replaces the layer's padding
@@ -141,8 +153,50 @@ class Conv(nn.Module):
             if self.bias_stop_gradient and self.training:
                 b = b.detach()
             b = b.to(x.dtype)
-        return conv(x, self.weight.to(x.dtype), b, stride=self.stride,
+        w = self.weight
+        if self.kernel_mask is not None:
+            w = w * self.kernel_mask
+        return conv(x, w.to(x.dtype), b, stride=self.stride,
                     padding=padding, groups=self.groups)
+
+
+class ConvTranspose(nn.Module):
+    """N-d transposed convolution (N, C, *spatial) (layers.py:328-370):
+    output length (T - 1) * s - 2 p + k + output_padding per axis. The
+    weight has torch's (in, out, *kernel) layout: the JAX layer's kernel
+    K (*kernel, in, out), flipped and run as a convolution over the
+    s-dilated input padded (k - 1 - p, k - 1 - p + output_padding), is this
+    layer with weight[i, o, *j] = K[*j, i, o]. Fans (for `weight_init`) and
+    the default bias bound are those of the JAX kernel: fan_in =
+    in * prod(kernel)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size, ndim: int = 1,
+                 stride=1, padding=0, output_padding=0, bias: bool = True,
+                 weight_init: str = "default", bias_init: str = "default"):
+        super().__init__()
+        self.ndim = ndim
+        self.kernel_size = _tuple(kernel_size, ndim)
+        self.stride = _tuple(stride, ndim)
+        self.padding = _tuple(padding, ndim)
+        self.output_padding = _tuple(output_padding, ndim)
+        self.weight = nn.Parameter(
+            torch.empty((in_ch, out_ch) + self.kernel_size))
+        self.bias = nn.Parameter(torch.empty(out_ch)) if bias else None
+        self.weight_init, self.bias_init = weight_init, bias_init
+
+    def init_(self, gen: torch.Generator):
+        receptive = math.prod(self.kernel_size)
+        fans = (self.weight.shape[0] * receptive,
+                self.weight.shape[1] * receptive)
+        get_init(self.weight_init)(self.weight, gen, fans=fans)
+        _init_bias(self.bias, self.bias_init, fans[0], gen)
+
+    def forward(self, x):
+        conv = (F.conv_transpose1d, F.conv_transpose2d,
+                F.conv_transpose3d)[self.ndim - 1]
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return conv(x, self.weight.to(x.dtype), b, stride=self.stride,
+                    padding=self.padding, output_padding=self.output_padding)
 
 
 def _to_channels_first(x):
@@ -183,6 +237,35 @@ def avg_pool(x, kernel_size, strides=None, padding: PaddingLike = "valid"):
 def upsample_nearest(x, scale_factor: int, axis: int = 1):
     """Nearest-neighbour upsample along one axis."""
     return torch.repeat_interleave(x, scale_factor, dim=axis)
+
+
+def global_avg_pool(x, axes=None):
+    """Mean over the spatial axes of a channels-last (B, *spatial, C)
+    tensor, or over `axes` (layers.py:467-471)."""
+    if axes is None:
+        axes = tuple(range(1, x.ndim - 1))
+    return x.mean(dim=axes)
+
+
+def global_max_pool(x, axes=None):
+    """Max over the spatial axes of a channels-last (B, *spatial, C) tensor,
+    or over `axes` (layers.py:474-478)."""
+    if axes is None:
+        axes = tuple(range(1, x.ndim - 1))
+    return torch.amax(x, dim=axes)
+
+
+def pixelcnn_mask(kernel_size: Sequence[int], mask_type: str = "A"
+                  ) -> np.ndarray:
+    """PixelCNN causal kernel mask (layers.py:481-491), shape (*kernel, 1,
+    1): ones before the centre tap in raster order, the centre itself
+    included for type "B", zeros after."""
+    ks = tuple(kernel_size)
+    mask = np.ones(ks, dtype=np.float32)
+    flat = mask.reshape(-1)
+    centre = int(np.ravel_multi_index([k // 2 for k in ks], ks))
+    flat[centre if mask_type == "A" else centre + 1:] = 0.0
+    return mask.reshape(ks + (1, 1))
 
 
 class LayerNorm(nn.Module):
@@ -284,6 +367,72 @@ class BatchNorm(nn.Module):
         return (y * self.weight.view(shape) + self.bias.view(shape)).to(x.dtype)
 
 
+class GroupNorm(nn.Module):
+    """Group normalisation over channel axis 1 (flax's `nn.GroupNorm`,
+    which layers.py:610-618 wraps): the channels split into `num_groups`
+    contiguous groups, statistics per sample and group over the group's
+    channels and every spatial position, in fp32, the variance as E[x^2] -
+    E[x]^2 clamped at 0; scale and bias per channel."""
+
+    def __init__(self, num_channels: int, num_groups: int = 32,
+                 epsilon: float = 1e-5):
+        super().__init__()
+        if num_channels % num_groups:
+            raise ValueError(f"{num_groups} groups do not divide "
+                             f"{num_channels} channels")
+        self.num_groups, self.eps = num_groups, epsilon
+        self.weight = nn.Parameter(torch.ones(num_channels))
+        self.bias = nn.Parameter(torch.zeros(num_channels))
+
+    def init_(self, gen: torch.Generator):
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+
+    def forward(self, x):
+        n, c = x.shape[:2]
+        xf = x.float().reshape(n, self.num_groups, -1)
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mean * mean,
+                          min=0.0)
+        y = ((xf - mean) * torch.rsqrt(var + self.eps)).reshape(x.shape)
+        shape = (1, c) + (1,) * (x.ndim - 2)
+        return (y * self.weight.view(shape)
+                + self.bias.view(shape)).to(x.dtype)
+
+
+class InstanceNorm(nn.Module):
+    """Instance normalisation over channel axis 1 (layers.py:621-641):
+    statistics per sample and channel over the spatial axes, in fp32
+    (two-pass variance); with `affine`, a scale and bias per channel
+    (`num_features` of them)."""
+
+    def __init__(self, num_features: Optional[int] = None,
+                 epsilon: float = 1e-5, affine: bool = False):
+        super().__init__()
+        self.eps, self.affine = epsilon, affine
+        if affine:
+            self.weight = nn.Parameter(torch.ones(num_features))
+            self.bias = nn.Parameter(torch.zeros(num_features))
+
+    def init_(self, gen: torch.Generator):
+        if self.affine:
+            with torch.no_grad():
+                self.weight.fill_(1.0)
+                self.bias.zero_()
+
+    def forward(self, x):
+        axes = tuple(range(2, x.ndim))
+        xf = x.float()
+        mean = xf.mean(dim=axes, keepdim=True)
+        var = (xf - mean).square().mean(dim=axes, keepdim=True)
+        y = (xf - mean) * torch.rsqrt(var + self.eps)
+        if self.affine:
+            shape = (1, -1) + (1,) * (x.ndim - 2)
+            y = y * self.weight.view(shape) + self.bias.view(shape)
+        return y.to(x.dtype)
+
+
 class Dropout(nn.Module):
     """Inverted dropout (layers.py:666): in training mode keep each entry
     with probability 1 - rate and scale it by 1 / (1 - rate). The mask is
@@ -310,24 +459,89 @@ class Dropout(nn.Module):
 
 class Embedding(nn.Module):
     """Token embedding (layers.py:643-663): a gather of `weight` rows, drawn
-    N(0, 0.02) at init (the GPT's init, its only user) with the
-    `padding_idx` row zero. The pad row is gathered like any other and
-    takes its gradient, as the JAX gather does (no `padding_idx` in
-    `F.embedding`)."""
+    at init from `embedding_init` (a registry name; None: N(0, 1), as the
+    JAX layer; the GPT's is "normal_02") with the `padding_idx` row zero.
+    The pad row is gathered like any other and takes its gradient, as the
+    JAX gather does (no `padding_idx` in `F.embedding`)."""
 
-    def __init__(self, num_embeddings: int, features: int, padding_idx=None):
+    def __init__(self, num_embeddings: int, features: int, padding_idx=None,
+                 embedding_init: Optional[str] = None):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(num_embeddings, features))
         self.padding_idx = padding_idx
+        self.embedding_init = embedding_init
 
     def init_(self, gen: torch.Generator):
-        with torch.no_grad():
-            self.weight.normal_(0.0, 0.02, generator=gen)
-            if self.padding_idx is not None:
+        # the JAX table is (num_embeddings, features) as here: its fans
+        get_init(self.embedding_init, default="normal")(
+            self.weight, gen, fans=tuple(self.weight.shape))
+        if self.padding_idx is not None:
+            with torch.no_grad():
                 self.weight[self.padding_idx].zero_()
 
     def forward(self, ids):
         return F.embedding(ids, self.weight)
+
+
+class LSTM(nn.LSTM):
+    """Multi-layer, optionally bidirectional LSTM over (B, T, D) (layers.py:
+    681-705: flax's `OptimizedLSTMCell` under `nn.RNN`), returning the last
+    layer's outputs (B, T, H or 2H). The gates are i, f, g, o, as torch's;
+    the JAX input kernels have no bias, so `bias_ih_l{k}` stays zero where
+    `params_from_jax` carries a JAX LSTM; the reverse direction keeps the
+    time order, and the directions are concatenated forward first. Init as
+    the JAX cell: input weights LeCun-normal, recurrent weights orthogonal
+    per gate, biases zero. Runs in fp32 and returns x's dtype."""
+
+    def __init__(self, input_size: int, hidden_size: int,
+                 num_layers: int = 1, bidirectional: bool = False):
+        super().__init__(input_size, hidden_size, num_layers=num_layers,
+                         bidirectional=bidirectional, batch_first=True)
+
+    def init_(self, gen: torch.Generator):
+        h = self.hidden_size
+        with torch.no_grad():
+            for name, p in self.named_parameters():
+                if name.startswith("weight_ih"):
+                    p.normal_(0.0, math.sqrt(1.0 / p.shape[1]), generator=gen)
+                elif name.startswith("weight_hh"):
+                    for gate in range(4):
+                        nn.init.orthogonal_(p[gate * h:(gate + 1) * h],
+                                            generator=gen)
+                else:
+                    p.zero_()
+
+    def forward(self, x):
+        return super().forward(x.float())[0].to(x.dtype)
+
+
+# channels-first norms take their channel count first; LayerNorm normalises
+# the last axis (layers.py:707-719)
+norm_dict = {
+    "LayerNorm": LayerNorm,
+    "BatchNorm1d": BatchNorm,
+    "BatchNorm2d": BatchNorm,
+    "BatchNorm3d": BatchNorm,
+    "SyncBatchNorm": BatchNorm,
+    "GroupNorm": GroupNorm,
+    "InstanceNorm2d": InstanceNorm,
+    "InstanceNorm3d": InstanceNorm,
+    None: None,
+}
+
+# layers.py:721-734: the layer classes named in block configs
+layer_dict = {
+    "Linear": Linear,
+    "Conv1d": lambda *a, **k: Conv(*a, ndim=1, **k),
+    "Conv2d": lambda *a, **k: Conv(*a, ndim=2, **k),
+    "Conv3d": lambda *a, **k: Conv(*a, ndim=3, **k),
+    "ConvTranspose1d": lambda *a, **k: ConvTranspose(*a, ndim=1, **k),
+    "ConvTranspose2d": lambda *a, **k: ConvTranspose(*a, ndim=2, **k),
+    "ConvTranspose3d": lambda *a, **k: ConvTranspose(*a, ndim=3, **k),
+    "LSTM": LSTM,
+    "Embedding": Embedding,
+    "Dropout": Dropout,
+}
 
 
 def init_params(module: nn.Module, gen: torch.Generator) -> nn.Module:

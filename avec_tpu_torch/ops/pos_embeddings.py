@@ -64,6 +64,33 @@ def relative_pos_encoding(seq_len: int, dim_model: int, causal: bool = False,
     return _sinusoid(pos, dim_model)[None]
 
 
+def grouped_relative_pos_encoding(seq_len: int, dim_model: int,
+                                  group_size: int, causal: bool = False,
+                                  hidden_len: int = 0,
+                                  device=None) -> torch.Tensor:
+    """Grouped relative encoding (pos_embeddings.py:68-85) for seq_len
+    groups of `group_size` frames and hidden_len cached ones.
+
+    Causal: positions T + Th - 1 down to 0. Full context: the left section
+    T + Th - 1 - G // 2 down to G % 2 (1 for an odd G, 0 for an even G, so
+    an even G lists position 0 twice), then the right section 0 down to
+    -(T - G // 2 - 1). The table is made once per arguments and device."""
+    def make():
+        if causal:
+            pos = np.arange(seq_len + hidden_len - 1, -1, -1)
+        else:
+            left = np.arange(seq_len + hidden_len - 1 - group_size // 2,
+                             group_size % 2 - 1, -1)
+            right = np.arange(0, -(seq_len - group_size // 2), -1)
+            pos = np.concatenate([left, right])
+        return _sinusoid(torch.from_numpy(pos.astype(np.float32)),
+                         dim_model)[None]
+    return device_constant(("grouped_rel_pos", seq_len, dim_model,
+                            group_size, causal, hidden_len),
+                           torch.device("cpu") if device is None else device,
+                           make)
+
+
 class SinPosEmbedding(nn.Module):
     """x + the absolute sinusoidal encoding of its T positions
     (pos_embeddings.py:88-98); no parameters."""

@@ -1,14 +1,144 @@
 """Training losses (port of avec_tpu/train/losses.py and avec_tpu/ops/ctc.py:215).
 
-CTC is plain XLA in the JAX package, so here it is the library's
-`torch.nn.functional.ctc_loss` on an fp32 `log_softmax`; the softmax
-cross-entropy of the classifiers is an fp32 `log_softmax` and a gather.
+CTC is plain XLA in the JAX package, so the engine's `CTCLoss` is the
+library's `torch.nn.functional.ctc_loss` on an fp32 `log_softmax` (the JAX
+recursion itself is `ops/ctc.py:ctc_loss`); the softmax cross-entropy of
+the classifiers is an fp32 `log_softmax` and a gather. The regression
+losses (`MeanLoss`, `HingeLoss`, `MeanAbsoluteError`, `MeanSquaredError`,
+`HuberLoss`) reduce through `Reduction` (losses.py:24-135).
 """
 
 import torch
 import torch.nn.functional as F
 
 REDUCTIONS = ("mean", "sum", "default", "none")
+
+
+class Reduction:
+    """"sum", "mean" (over `n_elt` elements when given, else all of them)
+    or "mean_batch" (the mean over axis 0, summed) (losses.py:24-37)."""
+
+    def __init__(self, reduction: str = "mean"):
+        if reduction not in ("sum", "mean", "mean_batch"):
+            raise ValueError(f"reduction {reduction!r}")
+        self.reduction = reduction
+
+    def __call__(self, x, n_elt=None):
+        if self.reduction == "sum":
+            return x.sum()
+        if self.reduction == "mean":
+            return x.sum() / n_elt if n_elt is not None else x.mean()
+        return x.mean(dim=0).sum()
+
+
+def _targets(targets, outputs, fixed):
+    """The targets as a tensor on the outputs' device, or `fixed` in the
+    outputs' shape when the loss was given one."""
+    if fixed is not None:
+        return torch.full_like(outputs, fixed)
+    return torch.as_tensor(targets, device=outputs.device)
+
+
+def _one_hot(y, like):
+    return F.one_hot(y.long(), like.shape[-1]).to(like.dtype)
+
+
+class MeanLoss:
+    """The mean of the outputs, negated where the target is 1 when
+    `targets_as_sign` (losses.py:40-54)."""
+
+    def __init__(self, targets_as_sign: bool = True, targets=None,
+                 reduction: str = "mean"):
+        self.targets_as_sign = targets_as_sign
+        self.targets = targets
+        self.reduction = Reduction(reduction)
+
+    def __call__(self, targets, outputs):
+        y = _targets(targets, outputs, self.targets)
+        y_pred = torch.where(y == 1, -outputs, outputs) \
+            if self.targets_as_sign else outputs
+        return self.reduction(y_pred)
+
+
+class HingeLoss:
+    """relu(margin - y_pred) where the target is positive, relu(margin +
+    y_pred) elsewhere (losses.py:57-71)."""
+
+    def __init__(self, margin: float = 1.0, targets=None,
+                 reduction: str = "mean"):
+        self.margin = margin
+        self.targets = targets
+        self.reduction = Reduction(reduction)
+
+    def __call__(self, targets, outputs):
+        y = _targets(targets, outputs, self.targets)
+        loss = torch.where(y > 0, torch.relu(self.margin - outputs),
+                           torch.relu(self.margin + outputs))
+        return self.reduction(loss)
+
+
+class MeanAbsoluteError:
+    """|y_pred - y|; with `masked` the outputs are (y_pred, mask) and the
+    mean runs over the mask's nonzero entries (losses.py:74-96)."""
+
+    def __init__(self, convert_one_hot: bool = False, masked: bool = False,
+                 reduction: str = "mean"):
+        self.convert_one_hot = convert_one_hot
+        self.masked = masked
+        self.reduction = Reduction(reduction)
+
+    def __call__(self, targets, outputs):
+        y_pred, mask = outputs if self.masked else (outputs, None)
+        y = torch.as_tensor(targets, device=y_pred.device)
+        if self.convert_one_hot:
+            y = _one_hot(y, y_pred)
+        loss = (y_pred - y).abs()
+        if mask is not None:
+            loss = loss * mask
+            n = torch.count_nonzero(mask)
+        else:
+            n = loss.numel()
+        return self.reduction(loss, n_elt=n)
+
+
+class MeanSquaredError:
+    """factor * (y_pred - y)^2 (losses.py:99-114)."""
+
+    def __init__(self, convert_one_hot: bool = False, targets=None,
+                 factor: float = 1.0, reduction: str = "mean"):
+        self.convert_one_hot = convert_one_hot
+        self.targets = targets
+        self.factor = factor
+        self.reduction = Reduction(reduction)
+
+    def __call__(self, targets, outputs):
+        y = _targets(targets, outputs, self.targets)
+        if self.convert_one_hot:
+            y = _one_hot(y, outputs)
+        return self.reduction(self.factor * (outputs - y) ** 2)
+
+
+class HuberLoss:
+    """factor * (0.5 err^2 where err <= delta, else delta (err - delta / 2)),
+    err = |y_pred - y| (losses.py:117-135)."""
+
+    def __init__(self, convert_one_hot: bool = False, targets=None,
+                 delta: float = 1.0, factor: float = 1.0,
+                 reduction: str = "mean"):
+        self.convert_one_hot = convert_one_hot
+        self.targets = targets
+        self.delta = delta
+        self.factor = factor
+        self.reduction = Reduction(reduction)
+
+    def __call__(self, targets, outputs):
+        y = _targets(targets, outputs, self.targets)
+        if self.convert_one_hot:
+            y = _one_hot(y, outputs)
+        err = (outputs - y).abs()
+        loss = torch.where(err <= self.delta, 0.5 * err ** 2,
+                           self.delta * (err - 0.5 * self.delta))
+        return self.reduction(self.factor * loss)
 
 
 def rank_weight(reduction: str, world_size: int) -> float:
@@ -91,3 +221,9 @@ class SoftmaxCrossEntropy:
                             [..., None])[..., 0]
         nll = torch.where(valid, nll, torch.zeros_like(nll))
         return nll.mean() if self.reduction == "mean" else nll.sum()
+
+
+loss_dict = {
+    "SoftmaxCrossEntropy": SoftmaxCrossEntropy,
+    "CTC": CTCLoss,
+}

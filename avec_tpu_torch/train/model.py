@@ -59,6 +59,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from avec_tpu_torch.ops.module_utils import (clear_records,
+                                             harvest_aux_losses,
+                                             harvest_infos)
 from avec_tpu_torch.models.zoo import (  # noqa: F401 (AV_LOSS_WEIGHTS)
     AV_LOSS_WEIGHTS, AudioVisualEfficientConformerInterCTC, Classifier,
     resolve_device)
@@ -381,20 +384,37 @@ class Trainer:
                 for i, metric in enumerate(ms)}
 
     def _forward_backward(self, batch, accumulated_steps: int = 1,
-                          metrics: Optional[Dict[str, torch.Tensor]] = None
-                          ) -> Dict[str, torch.Tensor]:
+                          metrics: Optional[Dict[str, torch.Tensor]] = None,
+                          module_infos: Optional[Dict[str, torch.Tensor]]
+                          = None) -> Dict[str, torch.Tensor]:
         """The gradients (into .grad) and losses of a batch, summed over its
         micro-batches and divided by their count (model.py:478-527), of the
-        global batch in data-parallel mode. With a `metrics` dict, the
-        device metrics of the detached outputs are averaged into it the
-        same way (`eval_training`, model.py:473-475)."""
+        global batch in data-parallel mode. The auxiliary losses that the
+        model's modules record (`ops/module_utils.py`) join each
+        micro-batch's total with their weights and are reported as
+        `loss_<name>` (model.py:466-472); the records are cleared around
+        every forward. With a `metrics` dict, the device metrics of the
+        detached outputs are averaged into it the same way
+        (`eval_training`, model.py:473-475), and with a `module_infos`
+        dict the modules' infos."""
         self.model.train()
         self.optimizer.optimizer.zero_grad(set_to_none=True)
         total: Dict[str, torch.Tensor] = {}
         for micro in _split_micro(batch, accumulated_steps):
             inputs, targets = self._to_device(micro)
+            clear_records(self.model)
             outputs = self.model(*inputs)
             losses = self.compute_losses(outputs, targets, self.step)
+            aux = harvest_aux_losses(self.model)
+            for name, (value, weight) in aux.items():
+                losses["loss_" + name] = value
+                losses["loss"] = losses["loss"] + weight * value
+            if module_infos is not None:
+                for k, v in harvest_infos(self.model).items():
+                    v = torch.as_tensor(v).detach() / accumulated_steps
+                    module_infos[k] = (module_infos[k] + v
+                                       if k in module_infos else v)
+            clear_records(self.model)
             losses["loss"].backward()
             for k, v in losses.items():
                 total[k] = total[k] + v.detach() if k in total else v.detach()
@@ -428,11 +448,14 @@ class Trainer:
     def train_step(self, batch, accumulated_steps: int = 1):
         """One optimisation step over `accumulated_steps` micro-batches:
         (losses, {"lr", "grad_norm"} and, where `self.eval_training` is set
-        (by `fit`), "metrics"), tensors left on the device. The metrics are
-        this rank's."""
+        (by `fit`), "metrics", and where the model's modules record infos,
+        "module_infos"), tensors left on the device. The metrics and infos
+        are this rank's."""
         metrics: Optional[Dict[str, torch.Tensor]] = (
             {} if self.eval_training else None)
-        losses = self._forward_backward(batch, accumulated_steps, metrics)
+        module_infos: Dict[str, torch.Tensor] = {}
+        losses = self._forward_backward(batch, accumulated_steps, metrics,
+                                        module_infos)
         grads = [p.grad for p in self.model.parameters()]
         gnorm = torch.nn.utils.get_total_norm(grads)
         if self.grad_max_norm is not None:
@@ -447,6 +470,8 @@ class Trainer:
         infos = {"lr": lr, "grad_norm": gnorm}
         if metrics is not None:
             infos["metrics"] = metrics
+        if module_infos:
+            infos["module_infos"] = module_infos
         return losses, infos
 
     # --------------------------------------------------------------- fit

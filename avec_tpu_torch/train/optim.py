@@ -9,11 +9,19 @@ update, both scaled by lr). The learning rate is set from the scheduler at
 every step: lr = scheduler(step + 1), `step` being the counter before the
 update.
 
-`Adam(...)` and `AdamW(...)` take the JAX package's arguments, `lr` a number
-or a step scheduler, and return a function of the model (or of its
-parameters) that makes the `Optimizer`: the form the `Trainer`'s
-`optimizer` argument takes (a config builds the optimizer before the model
-has parameters).
+`SGD` and `RMSprop` follow the JAX package's optax chains (optim.py:64-127),
+not `torch.optim`'s own RMSprop: the L2 weight decay is added to the
+gradient first; SGD's momentum is `optax.trace` (no dampening, which the JAX
+SGD ignores too, and optax's Nesterov form g + m * trace, which
+`torch.optim.SGD` with dampening 0 computes); RMSprop is `scale_by_rms`,
+g / sqrt(nu + eps) with nu = alpha nu + (1 - alpha) g^2 from nu = 0, then
+`optax.trace` when momentum is set.
+
+`Adam(...)`, `AdamW(...)`, `SGD(...)` and `RMSprop(...)` take the JAX
+package's arguments, `lr` a number or a step scheduler, and return a
+function of the model (or of its parameters) that makes the `Optimizer`:
+the form the `Trainer`'s `optimizer` argument takes (a config builds the
+optimizer before the model has parameters). `optim_dict` maps their names.
 """
 
 from typing import Callable, Dict, Iterable, Tuple, Union
@@ -103,6 +111,78 @@ def AdamW(lr=0.001, betas: Tuple[float, float] = (0.9, 0.999),
     return make
 
 
+def SGD(lr, momentum: float = 0.0, dampening: float = 0.0,
+        weight_decay: float = 0.0, nesterov: bool = False
+        ) -> Callable[[ParamsLike], Optimizer]:
+    """SGD with L2 in the gradient and optax's momentum trace under `lr`
+    (optim.py:64-71); `dampening` is accepted and ignored, as the JAX SGD
+    ignores it. Returns `make(model or params) -> Optimizer`."""
+    scheduler = as_scheduler(lr)
+
+    def make(model) -> Optimizer:
+        sgd = torch.optim.SGD(_params(model), lr=scheduler(1),
+                              momentum=momentum, dampening=0.0,
+                              weight_decay=weight_decay,
+                              nesterov=nesterov and bool(momentum))
+        return Optimizer(sgd, scheduler)
+
+    return make
+
+
+class OptaxRMSprop(torch.optim.Optimizer):
+    """optax's chain add_decayed_weights(weight_decay), scale_by_rms(alpha,
+    eps) (eps inside the square root, nu starting at 0), trace(momentum),
+    then p -= lr * update. State per parameter: "nu", and "trace" with
+    momentum."""
+
+    def __init__(self, params, lr: float, alpha: float = 0.99,
+                 eps: float = 1e-8, weight_decay: float = 0.0,
+                 momentum: float = 0.0):
+        super().__init__(params, dict(lr=lr, alpha=alpha, eps=eps,
+                                      weight_decay=weight_decay,
+                                      momentum=momentum))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            alpha, m = group["alpha"], group["momentum"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad
+                if group["weight_decay"]:
+                    g = g + group["weight_decay"] * p
+                state = self.state[p]
+                if not state:
+                    state["nu"] = torch.zeros_like(p)
+                    if m:
+                        state["trace"] = torch.zeros_like(p)
+                nu = state["nu"]
+                nu.copy_((1 - alpha) * g.square() + alpha * nu)
+                u = torch.rsqrt(nu + group["eps"]) * g
+                if m:
+                    trace = state["trace"]
+                    trace.copy_(u + m * trace)
+                    u = trace
+                p.add_(-group["lr"] * u)
+
+
+def RMSprop(lr=0.01, alpha: float = 0.99, eps: float = 1e-8,
+            weight_decay: float = 0.0, momentum: float = 0.0
+            ) -> Callable[[ParamsLike], Optimizer]:
+    """RMSprop as the JAX package's optax chain (optim.py:118-126) under
+    `lr`; returns `make(model or params) -> Optimizer`."""
+    scheduler = as_scheduler(lr)
+
+    def make(model) -> Optimizer:
+        return Optimizer(OptaxRMSprop(_params(model), lr=scheduler(1),
+                                      alpha=alpha, eps=eps,
+                                      weight_decay=weight_decay,
+                                      momentum=momentum), scheduler)
+
+    return make
+
+
 def noam_adam(params) -> Optimizer:
     """Adam betas (0.9, 0.98), eps 1e-9, weight decay 1e-6 under the Noam
     schedule (warmup 10000, dim 360, factor 2): the conformer models'
@@ -110,3 +190,6 @@ def noam_adam(params) -> Optimizer:
     return Adam(lr=NoamDecayScheduler(warmup_steps=10000, dim_decay=360,
                                       val_factor=2),
                 betas=(0.9, 0.98), eps=1e-9, weight_decay=1e-6)(params)
+
+
+optim_dict = {"SGD": SGD, "RMSprop": RMSprop, "Adam": Adam, "AdamW": AdamW}

@@ -267,13 +267,38 @@ bounds and plain stages;
     one batch; `lrs23_ao` trained for 2 steps from a generated LRS2 + LRS3
     tree and evaluated by its beam decoder (beam 16, the tree's ARPA), its
     WER printed with no bound; details under `cli`.
+29. the rest of the library (`library_phase`): (a) the grouped-attention
+    audio-only model at the LRS23 AO widths (`att_type="grouped"`: groups
+    of 3 frames in stage 1, 1 in stages 2-3; vocab 256, blocks (5, 6, 5),
+    InterCTC 3, 6, 10, 13; seeded weights and BN statistics) served
+    through `Server(mode="ao")` (8 requests of 2-6 s in the 8 s bucket;
+    its attention is plain products, so no launch; fp32 kernels against
+    plain versions as phase 3: logits 2e-3, identical greedy ids; two
+    requests' fp32 logits on the card against the CPU's, 2e-3, identical
+    ids; the bf16 latency p50 / p95 and RTF) and trained on the fused
+    routes at B=16 / 6 s with the InterCTC blocks 3, 6, 10, 13 (32 + 32
+    FFN and 14 of each conv pass per step from the module tree, no K2 /
+    K4; the checks of phase 19; the step's
+    ms, utterances/s and peak GiB); 3 steps of it under `SGD(momentum=0.9,
+    nesterov=True)` and `ExpDecayScheduler` (finite losses, every leaf
+    moved but those of an exactly zero gradient); (b) `rnnt_loss` with its gradient at B=8,
+    T=151, U=32, V=256, fp32, against the CPU (loss 1e-4 relative,
+    gradient 1e-4 of its largest entry), its ms and device launches per
+    call; the functional `ctc_loss` (the JAX recursion) at (16, 76, 256)
+    against `F.ctc_loss` on the card, per sample, 1e-4 relative; (c)
+    ResNet50 with stem and head, forward and backward at 8 x 224 x 224 x
+    3, fp32, logits against the CPU's within 1e-3 of their largest entry;
+    a 2-layer bidirectional LSTM at (16, 151, 256) against the CPU, 1e-4.
+    Every time is printed beside the card's name and power limit; details
+    under `library`.
 The line before the last is a JSON `kernels` line of sixteen kernels (the
 nine of phase 18 with their launches there as `launches_learning_run`, the
 launches of phases 19-22 by phase as `launches_zoo`, those of phase 23 as
 `launches_learning_run_causal`, K4's and K5's per served forward of phase
 25 as `launches_decode`, K4's of phases 26 and 27 (a) as
 `launches_serve_files` and `launches_streaming`, the nine of phase 28 as
-`launches_cli`); the
+`launches_cli`, the six of phase 29's grouped model by path as
+`launches_grouped`); the
 last line is {"ok": true, "device": {...}}. Every time
 there ("ms", "plain_ms", "library_ms") is one of direct calls between CUDA
 events (`cuda_time_ms`), the host's cost of each call included; "device_ms"
@@ -915,6 +940,14 @@ def main() -> int:
     for entry in kernels:
         if entry["name"] in cli_launches:
             entry["launches_cli"] = cli_launches[entry["name"]]
+    # ---- 29. the rest of the library
+    grouped = library_phase(detail, root)
+    for entry in kernels:
+        by_path = {path: counts[entry["name"]]
+                   for path, counts in grouped.items()
+                   if entry["name"] in counts}
+        if by_path:
+            entry["launches_grouped"] = by_path
     detail["kernels"] = kernels
 
     os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
@@ -4474,6 +4507,259 @@ def cli_phase(detail, root) -> dict:
     log(f"phase 28 (the CLI) wall {rec['wall_s']:.1f} s")
     detail["cli"] = rec
     return rec["train"]["launches"]
+
+
+def library_phase(detail, root) -> dict:
+    """Phase 29: the rest of the library on the card. (a) The grouped-
+    attention audio-only model at the LRS23 AO widths
+    (`AudioEfficientConformerInterCTC(att_type="grouped", vocab_size=256,
+    num_blocks=(5, 6, 5))`, seeded weights and BN statistics): served
+    through `Server(mode="ao")` (no InterCTC, the server's AO default; 8
+    requests of 2-6 s in the 8 s bucket, ROUNDS batches; its grouped
+    attention runs no
+    kernel, so no launch; fp32 kernels against plain versions as phase 3:
+    logits 2e-3, identical greedy ids; the fp32 logits of two requests on
+    the card against the CPU's, 2e-3, identical ids; the bf16 latency
+    p50 / p95 and RTF); trained on the fused routes (fused FFN, attention
+    and convolution modules switched on; the grouped attention takes no
+    fused kernel) at B=16 / 6 s with the InterCTC blocks 3, 6, 10, 13:
+    32 + 32 FFN and 14 of each conv pass per step from the module tree,
+    the checks of phase 19, then the step's
+    ms, utterances/s and peak GiB. (b) `rnnt_loss` and its gradient at
+    B=8, T=151, U=32, V=256, fp32, against the CPU (loss 1e-4 relative,
+    gradient 1e-4 of its largest entry), its ms and device launches per
+    call (forward + backward); the functional `ctc_loss` (the JAX
+    recursion) on the train step's outputs' shape (16, 76, 256) against
+    `F.ctc_loss` on the card, per sample, 1e-4 relative. (c) ResNet50 with
+    stem and head at 8 x 224 x 224 x 3, fp32, eval with seeded BN
+    statistics: forward and backward on the card, logits against the
+    CPU's within 1e-3 of their largest entry; a 2-layer bidirectional LSTM
+    at (16, 151, 256) against the CPU, 1e-4; 3 `Trainer` steps of the
+    grouped model with `SGD(momentum=0.9, nesterov=True)` under
+    `ExpDecayScheduler`: finite losses, every parameter leaf moved but
+    those of an exactly zero gradient (the detached biases of the convs
+    that feed a BatchNorm, under 5% of the leaves). With --profile, one
+    traced train step of (a). Returns {path: launch counts of (a)}."""
+    import torch.nn.functional as F
+
+    from avec_tpu_torch.models import zoo
+    from avec_tpu_torch.models.resnet import ResNet
+    from avec_tpu_torch.ops import conv_module as cm
+    from avec_tpu_torch.ops.ctc import ctc_loss as ctc_recursion
+    from avec_tpu_torch.ops.layers import LSTM, init_params
+    from avec_tpu_torch.ops.rnnt import rnnt_loss
+    from avec_tpu_torch.serve import Server, _batch_bucket, _bucket
+    from avec_tpu_torch.train.losses import CTCLoss
+    from avec_tpu_torch.train.model import Trainer
+    from avec_tpu_torch.train.optim import SGD
+    from avec_tpu_torch.train.schedulers import ExpDecayScheduler
+
+    t_phase = time.perf_counter()
+    card = gpu_line()
+    log(f"phase 29 (the rest of the library) on {card}")
+    rec, runs = {}, {}
+    cfg = dict(vocab_size=256, att_type="grouped", num_blocks=(5, 6, 5))
+
+    # ---- (a) the grouped AO model, served
+    srv = Server(mode="ao", device="cuda", precision="bfloat16", seed=0,
+                 **cfg)
+    with torch.no_grad():
+        zoo.randomize_batch_stats(srv.model, torch.Generator().manual_seed(1))
+    reqs = [{"audio": r["audio"]}
+            for r in make_requests(np.random.RandomState(29))]
+    rec["serve"] = served_path(srv, reqs, {}, "grouped AO served")
+    runs["grouped_serve"] = rec["serve"]["launches"]
+    summary = srv.stats_summary()
+    rec["serve"].update({k: summary[k] for k in (
+        "latency_p50_s", "latency_p95_s", "rtf_mean")})
+    log(f"grouped AO served (bf16, {card}): latency p50 "
+        f"{summary['latency_p50_s'] * 1e3:.2f} ms")
+    log(f"grouped AO served (bf16, {card}): latency p95 "
+        f"{summary['latency_p95_s'] * 1e3:.2f} ms")
+    log(f"grouped AO served (bf16, {card}): RTF {summary['rtf_mean']:.5f}")
+    pair = reqs[:2]
+    inputs = srv._inputs_for_batch(pair, _bucket(max(
+        srv._request_samples(r) for r in pair)), _batch_bucket(len(pair)))
+    logits_gpu, len_gpu = srv.forward(inputs, torch.float32)
+    cpu_model = zoo.AudioEfficientConformerInterCTC(
+        device="cpu", interctc_blocks=(), **cfg)
+    cpu_model.load_state_dict(srv.model.state_dict())
+    with torch.no_grad():
+        out = cpu_model(*(torch.as_tensor(a) for a in inputs))["outputs"]
+    diff = max_abs(logits_gpu.cpu(), out[0])
+    ids_gpu = srv.decoder(srv.decoder.device_fn((logits_gpu, len_gpu)))
+    ids_cpu = srv.decoder(srv.decoder.device_fn(tuple(out)))
+    rec["serve"]["card_vs_cpu_fp32_logits_max_abs"] = diff
+    log(f"grouped AO fp32 logits of 2 requests, card vs CPU: max abs "
+        f"{diff:.3e} (tol 2e-3), greedy ids equal: {ids_gpu == ids_cpu}")
+    if not (diff <= 2e-3 and ids_gpu == ids_cpu):
+        raise AssertionError("grouped AO: the card disagrees with the CPU")
+    del srv, cpu_model
+    torch.cuda.empty_cache()
+
+    # ---- (a) the grouped AO model, trained on the fused routes
+    batch = make_train_batch(np.random.RandomState(0))
+    ao_batch = {"inputs": batch["inputs"][2:], "targets": batch["targets"]}
+    model = zoo.AudioEfficientConformerInterCTC(
+        device="cuda", fused_ffn=True, fused_att=True, fused_conv=True, **cfg)
+    trainer = Trainer(model=model, device="cuda", precision="bfloat16",
+                      loss=CTCLoss(zero_infinity=True), loss_weights=1.0)
+    per_step = {"fused_ffn_fwd": 32, "fused_ffn_bwd": 32,
+                **{name: 14 for name in cm.KERNELS}}
+    rec["train"], runs["grouped_train"] = trained_path(
+        trainer, ao_batch, per_step,
+        "grouped AO train (fused FFN and conv; B=16, 6 s)", 8)
+    trainer.train_step(ao_batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_time_ms(lambda: trainer.train_step(ao_batch), iters=5,
+                      warmup=0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rec["train"].update({"step_ms": ms, "utterances_per_s": 16e3 / ms,
+                         "peak_gib": peak})
+    log(f"grouped AO train step (bf16, B=16, 6 s, {card}): {ms:.2f} ms")
+    log(f"grouped AO train (bf16, {card}): {16e3 / ms:.2f} utterances/s")
+    log(f"grouped AO train (bf16, {card}): peak {peak:.2f} GiB")
+    if "--profile" in sys.argv[1:]:
+        rec["profile"] = profile_train_step(trainer, ao_batch)
+
+    # ---- (c) SGD with Nesterov momentum under the exponential decay
+    sched = ExpDecayScheduler(warmup_steps=2, val_max=1e-3, alpha=0.1,
+                              end_step=1000)
+    sgd = Trainer(model=model, device="cuda", precision="bfloat16",
+                  loss=CTCLoss(zero_infinity=True), loss_weights=1.0,
+                  optimizer=SGD(lr=sched, momentum=0.9, nesterov=True))
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    sgd_losses = []
+    for _ in range(3):
+        losses, infos = sgd.train_step(ao_batch)
+        sgd_losses.append((float(losses["loss"]), infos["lr"]))
+    # SGD without weight decay leaves a leaf whose gradient is exactly
+    # zero (the detached biases of the convs that feed a BatchNorm) where
+    # it was; every other leaf must move
+    still = {n for n, p in model.named_parameters()
+             if torch.equal(p, before[n])}
+    zero = {n for n, p in model.named_parameters() if not p.grad.any()}
+    rec["sgd"] = {"losses_lr": sgd_losses, "unmoved": sorted(still),
+                  "zero_gradient": sorted(zero), "leaves": len(before)}
+    log(f"grouped AO, SGD(momentum 0.9, Nesterov) under ExpDecay: (loss, "
+        f"lr) {sgd_losses}; leaves moved {len(before) - len(still)}/"
+        f"{len(before)}; the {len(still)} unmoved ones are those of an "
+        f"exactly zero gradient: {still == zero}")
+    if not (all(math.isfinite(v) for v, _ in sgd_losses) and still == zero
+            and len(zero) < 0.05 * len(before)):
+        raise AssertionError(f"SGD steps: {rec['sgd']}")
+    del trainer, sgd, model, before
+    torch.cuda.empty_cache()
+
+    # ---- (b) the RNN-T loss and the CTC recursion
+    gen = torch.Generator().manual_seed(29)
+    b, t_len, u, v = 8, 151, 32, 256
+    logits = torch.randn(b, t_len, u + 1, v, generator=gen)
+    t_lens = torch.tensor([151, 140, 120, 101, 90, 77, 60, 45])
+    labels = torch.randint(1, v, (b, u), generator=gen)
+    u_lens = torch.tensor([32, 30, 27, 25, 20, 16, 9, 1])
+
+    def rnnt_call(x):
+        x = x.detach().requires_grad_(True)
+        loss = rnnt_loss(x, t_lens.to(x.device), labels.to(x.device),
+                         u_lens.to(x.device))
+        loss.backward()
+        return loss.detach(), x.grad
+
+    dev_logits = logits.cuda()
+    loss_g, grad_g = rnnt_call(dev_logits)
+    loss_c, grad_c = rnnt_call(logits)
+    loss_rel = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
+    grad_rel = max_abs(grad_g.cpu(), grad_c) / float(grad_c.abs().max())
+    r_ms = cuda_time_ms(lambda: rnnt_call(dev_logits), iters=3, warmup=1)
+    rows, _ = traced_device_rows(lambda: rnnt_call(dev_logits))
+    r_launches = sum(c for _, c, _ in rows)
+    r_dev = sum(us for us, _, _ in rows) / 1e3
+    rec["rnnt"] = {"loss_rel": loss_rel, "grad_rel": grad_rel, "ms": r_ms,
+                   "device_ms": r_dev, "launches_per_call": r_launches}
+    log(f"rnnt_loss B={b} T={t_len} U={u} V={v} fp32, card vs CPU: loss "
+        f"rel {loss_rel:.2e} (tol 1e-4), gradient {grad_rel:.2e} of its "
+        f"largest entry (tol 1e-4)")
+    log(f"rnnt_loss forward + backward ({card}): {r_ms:.2f} ms per call")
+    log(f"rnnt_loss forward + backward ({card}): {r_launches} device "
+        f"launches per call, {r_dev:.2f} ms of device time")
+    if not (loss_rel <= 1e-4 and grad_rel <= 1e-4):
+        raise AssertionError(f"rnnt_loss on the card: {rec['rnnt']}")
+    del dev_logits, grad_g, grad_c
+
+    c_logits = torch.randn(16, 76, 256, generator=gen).cuda()
+    c_lens = torch.tensor([76, 70, 66, 61, 58, 55, 52, 50, 47, 46, 44, 43,
+                           41, 40, 39, 38], device="cuda")
+    c_labels = torch.randint(1, 256, (16, 32), generator=gen).cuda()
+    c_ulens = torch.full((16,), 32, device="cuda")
+    got = ctc_recursion(c_logits, c_lens, c_labels, c_ulens, reduction="none")
+    want = F.ctc_loss(torch.log_softmax(c_logits, -1).transpose(0, 1),
+                      c_labels.long(), c_lens.long(), c_ulens.long(),
+                      reduction="none")
+    c_rel = float(((got - want).abs() / want.abs()).max())
+    c_ms = cuda_time_ms(lambda: ctc_recursion(c_logits, c_lens, c_labels,
+                                              c_ulens), iters=3, warmup=1)
+    rec["ctc"] = {"max_rel": c_rel, "ms": c_ms}
+    log(f"ctc_loss (the JAX recursion) at (16, 76, 256), 32 labels, card: "
+        f"per-sample NLL vs F.ctc_loss max rel {c_rel:.2e} (tol 1e-4)")
+    log(f"ctc_loss (the JAX recursion) forward ({card}): {c_ms:.2f} ms")
+    if not c_rel <= 1e-4:
+        raise AssertionError(f"ctc_loss on the card: {rec['ctc']}")
+
+    # ---- (c) ResNet50 with stem and head; the LSTM
+    resnet = ResNet("ResNet50", dim_output=1000)
+    init_params(resnet, torch.Generator().manual_seed(50))
+    with torch.no_grad():
+        zoo.randomize_batch_stats(resnet, torch.Generator().manual_seed(51))
+    resnet.eval()
+    img = torch.rand(8, 3, 224, 224, generator=gen)
+    want = resnet(img)
+    want.square().mean().backward()
+    want = want.detach()
+    g_cpu = torch.sqrt(sum(p.grad.double().square().sum()
+                           for p in resnet.parameters()))
+    resnet.zero_grad(set_to_none=True)
+    resnet.cuda()
+    got = resnet(img.cuda())
+    got.square().mean().backward()
+    g_gpu = torch.sqrt(sum(p.grad.double().square().sum()
+                           for p in resnet.parameters()))
+    rn_rel = max_abs(got.detach().cpu(), want) / float(want.abs().max())
+    g_rel = abs(float(g_gpu) - float(g_cpu)) / float(g_cpu)
+    rn_ms = cuda_time_ms(lambda: resnet(img.cuda()).square().mean()
+                         .backward(), iters=3, warmup=1)
+    rec["resnet50"] = {"logits_rel": rn_rel, "grad_norm_rel": g_rel,
+                       "fwd_bwd_ms": rn_ms}
+    log(f"ResNet50 (stem and head) 8 x 224 x 224 x 3 fp32, card vs CPU: "
+        f"logits {rn_rel:.2e} of their largest entry (tol 1e-3); gradient "
+        f"norm rel {g_rel:.2e}")
+    log(f"ResNet50 forward + backward ({card}): {rn_ms:.2f} ms")
+    if not rn_rel <= 1e-3:
+        raise AssertionError(f"ResNet50 on the card: {rec['resnet50']}")
+    del resnet
+
+    lstm = LSTM(256, 256, num_layers=2, bidirectional=True)
+    init_params(lstm, torch.Generator().manual_seed(52))
+    seq = torch.randn(16, 151, 256, generator=gen)
+    with torch.no_grad():
+        want = lstm(seq)
+        lstm.cuda()
+        got = lstm(seq.cuda())
+    l_err = max_abs(got.cpu(), want)
+    l_ms = cuda_time_ms(lambda: lstm(seq.cuda()), iters=3, warmup=1)
+    rec["lstm"] = {"max_abs": l_err, "ms": l_ms}
+    log(f"LSTM 2 layers bidirectional at (16, 151, 256), card vs CPU: max "
+        f"abs {l_err:.2e} (tol 1e-4)")
+    log(f"LSTM forward ({card}): {l_ms:.2f} ms")
+    if not l_err <= 1e-4:
+        raise AssertionError(f"LSTM on the card: {rec['lstm']}")
+    del lstm
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 29: {rec['seconds']:.1f} s")
+    detail["library"] = rec
+    return runs
 
 
 def fbank_stream_gap(model, decoder, utt) -> float:

@@ -114,7 +114,11 @@ def test_port_imports_no_jax():
             "avec_tpu_torch.configs.lrs23_vo, "
             "avec_tpu_torch.configs.lrs23_lm_gpt_small, "
             "avec_tpu_torch.configs.lrs23_lm_gpt_small_demo, "
-            "avec_tpu_torch.configs.librispeech_gpt_small\n"
+            "avec_tpu_torch.configs.librispeech_gpt_small, "
+            "avec_tpu_torch.ops.rnnt, avec_tpu_torch.ops.pca, "
+            "avec_tpu_torch.ops.inits, avec_tpu_torch.ops.module_utils, "
+            "avec_tpu_torch.ops.variational_noise, avec_tpu_torch.ops.ctc, "
+            "avec_tpu_torch.ops.activations\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'avec_tpu')]\n"
             "assert not bad, bad\nprint('ok')\n")
@@ -207,4 +211,9 @@ def test_import_scan_covers_the_training_modules():
             "avec_tpu_torch/configs/lrs23_vo.py",
             "avec_tpu_torch/configs/lrs23_lm_gpt_small.py",
             "avec_tpu_torch/configs/lrs23_lm_gpt_small_demo.py",
-            "avec_tpu_torch/configs/librispeech_gpt_small.py"} <= names
+            "avec_tpu_torch/configs/librispeech_gpt_small.py",
+            "avec_tpu_torch/ops/rnnt.py", "avec_tpu_torch/ops/pca.py",
+            "avec_tpu_torch/ops/inits.py",
+            "avec_tpu_torch/ops/module_utils.py",
+            "avec_tpu_torch/ops/variational_noise.py",
+            "avec_tpu_torch/__init__.py"} <= names
