@@ -8,7 +8,7 @@ writes, under `root`:
   * LRS2: the split lists pretrain.txt, train.txt, val.txt and test.txt
     (test lines carry a second column, as the released list does), and per
     utterance `mvlrs_v1/{pretrain|main}/<speaker>/<id>` + `.txt`,
-    the audio and `.json` infos;
+    the audio and `.json` infos, each split with speakers of its own;
   * LRS3: per utterance `{pretrain|trainval|test}/<speaker>/<id>` + the
     same files;
   * LRS3/tokenizerbpe256.json, a 256-piece BPE tokenizer trained on every
@@ -70,9 +70,11 @@ def write_lrs_fixture(root: str, seed: int = 0,
     rng = np.random.RandomState(seed)
     items = []                                    # (version, split, base, text)
     lists: Dict = {}
-    for (version, split), n in sorted(sizes.items()):
+    for k, ((version, split), n) in enumerate(sorted(sizes.items())):
         for i in range(n):
-            speaker, utt = f"{5000 + i // 4:05d}", f"{i % 4:05d}"
+            # speakers of their own per split: LRS2's train, val and test
+            # utterances share the directory main/
+            speaker, utt = f"{5000 + 100 * k + i // 4:05d}", f"{i % 4:05d}"
             base = _base(root, version, split, speaker, utt)
             items.append((version, split, base, _line(rng)))
             lists.setdefault((version, split), []).append(f"{speaker}/{utt}")

@@ -11,6 +11,11 @@ Parameter names follow the reference state_dict: embedding.weight,
 transformer.pos_embedding.pos_encoding, transformer.blocks.{i}.
 {self_att_module.{norm, attention.*}, ff_module.layers.{0,1,4}},
 transformer.layernorm, head.
+
+Tensor parallelism (`Trainer(model_parallel=, param_sharding_rules=
+gpt_tensor_parallel_rules())`) keeps these forwards:
+`parallel.tensor_parallel.shard_module` puts the sharded Linear and
+Embedding layers behind their parallel forms, which place the collectives.
 """
 
 from typing import Dict, Optional

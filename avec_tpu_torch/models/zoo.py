@@ -84,8 +84,10 @@ class ZooModel(nn.Module):
         the dropout masks and SpecAugment's time masks, one on the CPU for
         the fused kernels' integer seeds (drawn without a device sync), and
         one on the model's device for SpecAugment's frequency bands. In
-        data-parallel mode the first is offset by the rank, so ranks draw
-        different dropout and time masks; the other two are not: the fused
+        data-parallel mode the first is offset by the rank in the data
+        group, so data ranks draw different dropout and time masks and the
+        ranks of one model group (tensor parallelism) draw the same masks
+        on their replicated activations; the other two are not: the fused
         kernels' wrappers offset the seeds they draw per rank as the JAX DP
         wrappers do, and every rank draws the same frequency bands for the
         global batch, as the JAX step draws them once from one key
@@ -360,7 +362,10 @@ class GPT(GPTNet, Classifier):
     softmax cross-entropy over (B, L, vocab) logits, accuracy and top-10
     accuracy on "output", and AdamW (betas (0.9, 0.95), eps 1e-8, decay 0.1
     on the Linear weights) under the cosine schedule of the size's GPT_LR
-    (warmup 750, end 520000)."""
+    (warmup 750, end 520000); "AdamW" is the name of that default
+    (`Trainer(optimizer="AdamW")`). Sharded by `Trainer(model_parallel=,
+    param_sharding_rules=gpt_tensor_parallel_rules())`, its layers run
+    on the shards (`parallel/tensor_parallel.py:shard_module`)."""
 
     def __init__(self, vocab_size: int = 25000,
                  padding_idx: Optional[int] = None,
@@ -387,11 +392,17 @@ class GPT(GPTNet, Classifier):
                                                 val_min=lr_min,
                                                 end_step=520000),
                     betas=(0.9, 0.95), eps=1e-8, weight_decay=0.1,
-                    decay_mask=gpt_decay_mask)}
+                    decay_mask=gpt_decay_mask),
+                "optimizer_name": "AdamW"}
 
     def forward(self, ids):
         with torch.set_grad_enabled(self.training):
             return {"output": super().forward(ids)}
+
+
+model_dict = {
+    "Classifier": Classifier,
+}
 
 
 def randomize_batch_stats(model: nn.Module, generator: torch.Generator):

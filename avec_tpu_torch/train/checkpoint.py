@@ -29,17 +29,112 @@ the optax tree, for `Trainer.load` to map (`format` is "jax").
 Names: "checkpoints_epoch_{E}_step_{S}.ckpt" and, for SWA,
 "checkpoints_swa-{type}-{first}-{last}.ckpt"; `find_last_checkpoint`
 picks the file of the largest step.
+
+Checkpoint surgery (checkpoint.py:40-49, 79-117): `state_dict_flatten` and
+`state_dict_unflatten` move a nested state between its tree and the flat
+{"a.b.c": array} form, and `restore_tree` loads a flat state into a tree (or
+a flat state_dict) shaped like a template, renaming and dropping keys on
+the way: the partial loads of the LRW front end (`Trainer.load(select=,
+rename=)`).
 """
 
 import glob
 import os
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
 
 _EXT_NDARRAY, _EXT_COMPLEX, _EXT_NPSCALAR = 1, 2, 3
 _CHUNKED = "__msgpack_chunked_array__"
+
+
+SEP = "."
+
+
+def _numpy(v) -> np.ndarray:
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu()
+        return (v.float() if v.dtype == torch.bfloat16 else v).numpy()
+    return np.asarray(v)
+
+
+def _flat_items(tree, prefix: str = ""):
+    """(dotted key, leaf) pairs of nested dicts, lists and tuples (a list's
+    entries keyed "0", "1", ... as flax's `to_state_dict` keys them); empty
+    containers give nothing."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = ((str(i), v) for i, v in enumerate(tree))
+    else:
+        yield prefix[:-len(SEP)], tree
+        return
+    for k, v in items:
+        yield from _flat_items(v, f"{prefix}{k}{SEP}")
+
+
+def state_dict_flatten(tree: Any) -> Dict[str, np.ndarray]:
+    """A nested state (dicts, lists, tuples of tensors or arrays) -> flat
+    {"a.b.c": numpy array} (checkpoint.py:40-45); None -> {}. A flat
+    state_dict flattens to itself, its tensors as arrays."""
+    if tree is None:
+        return {}
+    return {k: _numpy(v) for k, v in _flat_items(tree)}
+
+
+def state_dict_unflatten(flat: Dict[str, Any]) -> Dict[str, Any]:
+    """{"a.b.c": x} -> {"a": {"b": {"c": x}}} (checkpoint.py:48-49)."""
+    return unflatten(flat, SEP)
+
+
+def restore_tree(template: Any, flat: Dict[str, Any], strict: bool = True,
+                 rename: Optional[Callable[[str], Optional[str]]] = None
+                 ) -> Any:
+    """A flat state loaded into the structure of `template` (nested dicts /
+    lists or a flat state_dict of tensors or arrays), checkpoint.py:79-117:
+    `rename` maps each incoming key to the template's (None drops the
+    key); a shape that differs from the template's raises ValueError;
+    strict raises KeyError on a template key the state lacks and on an
+    incoming key the template lacks; non-strict keeps the template's value
+    for what is missing and ignores the rest. Values take the template
+    leaf's dtype (and device, for a tensor)."""
+    incoming = {}
+    for k, v in flat.items():
+        k2 = rename(k) if rename is not None else k
+        if k2 is not None:
+            incoming[k2] = v
+    keys = set()
+
+    def load(tv, key):
+        keys.add(key)
+        if key not in incoming:
+            if strict:
+                raise KeyError(f"missing key in checkpoint: {key}")
+            return tv
+        iv = incoming[key]
+        if tuple(iv.shape) != tuple(tv.shape):
+            raise ValueError(f"shape mismatch for {key}: ckpt "
+                             f"{tuple(iv.shape)} vs model {tuple(tv.shape)}")
+        if isinstance(tv, torch.Tensor):
+            iv = torch.as_tensor(iv if isinstance(iv, torch.Tensor)
+                                 else np.asarray(iv))
+            return iv.to(device=tv.device, dtype=tv.dtype)
+        return _numpy(iv).astype(np.asarray(tv).dtype)
+
+    def walk(node, prefix):
+        if isinstance(node, dict):
+            return {k: walk(v, f"{prefix}{k}{SEP}") for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v, f"{prefix}{i}{SEP}")
+                              for i, v in enumerate(node))
+        return load(node, prefix[:-len(SEP)])
+
+    out = walk(template, "")
+    extra = set(incoming) - keys
+    if strict and extra:
+        raise KeyError(f"unexpected keys in checkpoint: {sorted(extra)[:10]}")
+    return out
 
 
 def _to_cpu(state: Optional[Dict[str, torch.Tensor]]):

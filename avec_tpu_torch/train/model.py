@@ -46,7 +46,30 @@ the model runs with sync-BN and the kernels' DP forms
 (`set_data_parallel`), and one flat all-reduce sums the rank-weighted
 gradients and losses, so every rank holds the gradient and losses of the
 global batch and takes the same Adam step. Rank 0 prints and writes the
-checkpoints; evaluation runs the whole batch on every rank.
+checkpoints. Under data parallelism `fit` passes every training batch
+through `parallel.dist.host_local_batch_to_global` (model.py:655): the
+ranks' batches are padded to one shape, so a rank-sharded loader of ragged
+utterances gives the one-process step on the global batch. Evaluation
+differs from the JAX CLI's, which shards the evaluation loader and
+assembles each batch (model.py:807, 1022, 1075): here every rank evaluates
+the whole set, every batch whole (the CLI gives each rank the whole
+evaluation loader), so a last partial batch needs no gather and every rank
+holds the one-process losses and metrics.
+
+`Trainer(model_parallel=mp, param_sharding_rules=rules)` is the
+tensor-parallel case (model.py:128-133, 262-271): the ranks form the
+(world // mp, mp) mesh of `parallel.dist.make_mesh`, the parameters that
+`rules` match (e.g. `gpt_tensor_parallel_rules()`) hold only their shards
+(`parallel.tensor_parallel.shard_module`) and the model's forwards place
+the collectives. Gradients are all-reduced over the data group only; the
+global gradient norm sums the sharded gradients' squares over the model
+group and counts each replicated parameter once; the optimizer's moments
+and the EMA are sharded like their parameters; `save` gathers the shards
+into the file a one-rank run writes, and `load` shards what it reads.
+With data_parallel=True as well it is the 2-D case; without it the world
+size must equal mp. Every rank of a model group passes the same batch. At
+mp 1 the rules shard nothing (a model axis of one rank holds every
+parameter whole, as in the JAX package).
 """
 
 import glob
@@ -65,10 +88,15 @@ from avec_tpu_torch.ops.module_utils import (clear_records,
 from avec_tpu_torch.models.zoo import (  # noqa: F401 (AV_LOSS_WEIGHTS)
     AV_LOSS_WEIGHTS, AudioVisualEfficientConformerInterCTC, Classifier,
     resolve_device)
-from avec_tpu_torch.parallel.dist import sync_global_devices
-from avec_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
-from avec_tpu_torch.train.losses import rank_weight
-from avec_tpu_torch.train.optim import Optimizer, noam_adam
+from avec_tpu_torch.parallel import tensor_parallel as tp
+from avec_tpu_torch.parallel.dist import (assemble_batch, make_mesh,
+                                          padding_values, shard_like_params,
+                                          sync_global_devices)
+from avec_tpu_torch.train.checkpoint import (load_checkpoint, restore_tree,
+                                             save_checkpoint)
+from avec_tpu_torch.train.losses import loss_dict, rank_weight
+from avec_tpu_torch.train.metrics import metric_dict
+from avec_tpu_torch.train.optim import Optimizer, noam_adam, optim_dict
 from avec_tpu_torch.train.schedulers import as_scheduler
 
 # model.py:53-59: float16 configs run in bf16, which needs no loss scaler
@@ -227,6 +255,13 @@ class Trainer:
     every output.
     It runs on the card unless the caller passes device="cpu".
 
+    `loss`, `metrics`, `optimizer` and `decoders` may also be registry names,
+    as the JAX `compile` takes them (model.py:174-197): `loss_dict[name]()`,
+    `metric_dict[name]()`, `decoders.decoder_dict[name]()`, and
+    `optim_dict[name](lr=0.001)`, except the name of the model's own default
+    optimizer (the zoo models' "Adam", the GPT's "AdamW"), which takes that
+    default, as the JAX models' `compile` does.
+
     data_parallel=True needs the default `torch.distributed` process group
     (`avec_tpu_torch.parallel.dist.init_distributed`), over whose ranks the
     step runs. Rank 0's parameters and statistics are broadcast to the others
@@ -238,7 +273,8 @@ class Trainer:
                  grad_max_norm: Optional[float] = None,
                  data_parallel: bool = False,
                  optimizer: Optional[Callable[..., Optimizer]] = None,
-                 metrics="default", decoders=None, **model_kwargs):
+                 metrics="default", decoders=None, model_parallel: int = 1,
+                 param_sharding_rules=None, **model_kwargs):
         self.device = resolve_device(device)
         self.dtype = resolve_precision(precision)
         if model is None:
@@ -248,14 +284,24 @@ class Trainer:
         self.model = model.train()
         self.model.set_generators(seed)
         defaults = self.model.compile_defaults()
+        if isinstance(loss, str):
+            loss = loss_dict[loss]()
         self.loss = loss if loss is not None else defaults["loss"]
         self.loss_weights = _loss_weights(
             loss_weights if loss_weights is not None
             else defaults["loss_weights"])
-        self.optimizer = (optimizer or defaults.get("optimizer", noam_adam))(
-            self.model)
-        if isinstance(metrics, str) and metrics == "default":
-            metrics = defaults["metrics"]
+        if isinstance(optimizer, str):
+            optimizer = (defaults.get("optimizer", noam_adam)
+                         if optimizer == defaults.get("optimizer_name",
+                                                      "Adam")
+                         else optim_dict[optimizer](lr=0.001))
+        if isinstance(metrics, str):
+            metrics = (defaults["metrics"] if metrics == "default"
+                       else metric_dict[metrics]())
+        if isinstance(decoders, str):
+            from avec_tpu_torch.decode import decoder_dict
+
+            decoders = decoder_dict[decoders]()
         specs = (metrics.values() if isinstance(metrics, dict) else
                  metrics if isinstance(metrics, list) else [metrics])
         if not isinstance(self.model, Classifier) and any(
@@ -272,18 +318,36 @@ class Trainer:
         self.ema_tau = 0.0
         self.ema_state: Optional[Dict[str, torch.Tensor]] = None
         self.group = None
+        self.mesh = None
         self.rank = 0
         self.eval_training = False
         self._dist_log = False
-        if data_parallel:
+        if data_parallel or model_parallel > 1:
             if not (dist.is_available() and dist.is_initialized()):
-                raise RuntimeError("data_parallel=True needs an initialized "
-                                   "process group: call avec_tpu_torch."
-                                   "parallel.dist.init_distributed first")
-            self.group = dist.group.WORLD
-            self.rank = dist.get_rank(self.group)
-            self.model.set_data_parallel(self.group)
+                raise RuntimeError(
+                    f"data_parallel={data_parallel}, model_parallel="
+                    f"{model_parallel} needs an initialized process group: "
+                    "call avec_tpu_torch.parallel.dist.init_distributed "
+                    "first")
+            self.mesh = make_mesh(model_parallel)
+            self.rank = dist.get_rank()
+            if data_parallel:
+                self.group = (self.mesh.data if self.mesh.data is not None
+                              else dist.group.WORLD if model_parallel == 1
+                              else None)
+            elif self.mesh.data_size > 1:
+                raise ValueError(
+                    f"model_parallel={model_parallel} over "
+                    f"{dist.get_world_size()} ranks leaves a data axis of "
+                    f"{self.mesh.data_size}: pass data_parallel=True")
+            if self.group is not None:
+                self.model.set_data_parallel(self.group)
             self._broadcast_state()
+            if (param_sharding_rules is not None
+                    and self.mesh.model is not None):
+                tp.shard_module(self.model, self.mesh, param_sharding_rules)
+        self.optimizer = (optimizer or defaults.get("optimizer", noam_adam))(
+            self.model)
 
     # ------------------------------------------------------------- state
     def set_ema(self, ema_tau: float) -> None:
@@ -311,20 +375,25 @@ class Trainer:
             e.copy_(b)
 
     def _broadcast_state(self) -> None:
-        """Rank 0's parameters and buffers on every rank, in one broadcast."""
+        """Rank 0's parameters and buffers on every rank, in one broadcast
+        (before any sharding)."""
         state = list(self.model.parameters()) + list(self.model.buffers())
         flat = torch.cat([t.detach().reshape(-1).float() for t in state])
-        dist.broadcast(flat, src=0, group=self.group)
+        dist.broadcast(flat, src=0)
         with torch.no_grad():
             for t, v in zip(state, flat.split([t.numel() for t in state])):
                 t.copy_(v.view_as(t))
 
-    def _all_reduce(self, losses: Dict[str, torch.Tensor]
-                    ) -> Dict[str, torch.Tensor]:
+    def _all_reduce(self, losses: Dict[str, torch.Tensor],
+                    replicated: bool = False) -> Dict[str, torch.Tensor]:
         """The global batch's gradients (into every .grad) and losses: each
-        rank's weighted by `rank_weight` and summed in one all-reduce."""
+        rank's weighted by `rank_weight` and summed in one all-reduce over
+        the data group. Where every rank holds the whole batch
+        (`replicated`, the gather branch of `host_local_batch_to_global`)
+        each rank's share is 1 / world whatever the reduction."""
         world = dist.get_world_size(self.group)
-        weight = rank_weight(getattr(self.loss, "reduction", "mean"), world)
+        weight = (1.0 / world if replicated else
+                  rank_weight(getattr(self.loss, "reduction", "mean"), world))
         params = list(self.model.parameters())
         keys = list(losses)
         flat = torch.cat([p.grad.reshape(-1) for p in params]
@@ -386,7 +455,8 @@ class Trainer:
     def _forward_backward(self, batch, accumulated_steps: int = 1,
                           metrics: Optional[Dict[str, torch.Tensor]] = None,
                           module_infos: Optional[Dict[str, torch.Tensor]]
-                          = None) -> Dict[str, torch.Tensor]:
+                          = None, replicated: bool = False
+                          ) -> Dict[str, torch.Tensor]:
         """The gradients (into .grad) and losses of a batch, summed over its
         micro-batches and divided by their count (model.py:478-527), of the
         global batch in data-parallel mode. The auxiliary losses that the
@@ -434,7 +504,8 @@ class Trainer:
         if accumulated_steps > 1:
             torch._foreach_div_([p.grad for p in params], accumulated_steps)
             total = {k: v / accumulated_steps for k, v in total.items()}
-        return total if self.group is None else self._all_reduce(total)
+        return (total if self.group is None
+                else self._all_reduce(total, replicated))
 
     def loss_and_grads(self, batch):
         """One forward + backward without an update: (losses, gradients by
@@ -445,19 +516,20 @@ class Trainer:
                  for n, p in self.model.named_parameters()}
         return losses, grads
 
-    def train_step(self, batch, accumulated_steps: int = 1):
+    def train_step(self, batch, accumulated_steps: int = 1,
+                   replicated: bool = False):
         """One optimisation step over `accumulated_steps` micro-batches:
         (losses, {"lr", "grad_norm"} and, where `self.eval_training` is set
         (by `fit`), "metrics", and where the model's modules record infos,
         "module_infos"), tensors left on the device. The metrics and infos
-        are this rank's."""
+        are this rank's. `replicated`: every data rank passes the whole
+        global batch (see `_all_reduce`)."""
         metrics: Optional[Dict[str, torch.Tensor]] = (
             {} if self.eval_training else None)
         module_infos: Dict[str, torch.Tensor] = {}
         losses = self._forward_backward(batch, accumulated_steps, metrics,
-                                        module_infos)
-        grads = [p.grad for p in self.model.parameters()]
-        gnorm = torch.nn.utils.get_total_norm(grads)
+                                        module_infos, replicated)
+        gnorm = self._grad_norm()
         if self.grad_max_norm is not None:
             # scales by min(1, max_norm / (norm + 1e-6)), as model.py:531-534
             torch.nn.utils.clip_grads_with_norm_(
@@ -473,6 +545,30 @@ class Trainer:
         if module_infos:
             infos["module_infos"] = module_infos
         return losses, infos
+
+    def _sharded(self) -> bool:
+        return (self.mesh is not None and self.mesh.model is not None
+                and bool(tp.sharded_names(self.model)))
+
+    def _grad_norm(self) -> torch.Tensor:
+        """The global gradient norm: under tensor parallelism the squares of
+        the sharded gradients summed over the model group, each replicated
+        parameter's counted once."""
+        params = list(self.model.parameters())
+        if not self._sharded():
+            return torch.nn.utils.get_total_norm([p.grad for p in params])
+        split = [p.grad for p in params if tp.tp_dim(p) is not None]
+        whole = [p.grad for p in params if tp.tp_dim(p) is None]
+        sq = torch.nn.utils.get_total_norm(split) ** 2
+        dist.all_reduce(sq, group=self.mesh.model)
+        if whole:
+            sq = sq + torch.nn.utils.get_total_norm(whole) ** 2
+        return sq.sqrt()
+
+    def _saves(self) -> bool:
+        """Whether this rank calls `save`: rank 0, or every rank where the
+        parameters are sharded (save gathers them)."""
+        return self.rank == 0 or self._sharded()
 
     # --------------------------------------------------------------- fit
     def _log(self, *args) -> None:
@@ -554,9 +650,18 @@ class Trainer:
             n_steps = 0
             t_epoch = time.perf_counter()
             batches = iter(dataset_train)
+            padding = padding_values(getattr(dataset_train, "collate_fn",
+                                             None))
             try:
                 for batch in batches:
-                    losses, infos = self.train_step(batch, accumulated_steps)
+                    step_kw = {}
+                    if self.group is not None:
+                        batch, sharded = assemble_batch(batch, self.mesh, 0,
+                                                        padding)
+                        if not sharded:
+                            step_kw["replicated"] = True
+                    losses, infos = self.train_step(batch, accumulated_steps,
+                                                    **step_kw)
                     metrics = infos.pop("metrics", {})
                     n_steps += 1
                     for k, v in losses.items():
@@ -580,7 +685,7 @@ class Trainer:
                                        recompute_metrics, writer, self.step,
                                        "Evaluation-step")
                     if (saving_period_step and callback_path
-                            and self.rank == 0
+                            and self._saves()
                             and self.step % saving_period_step == 0):
                         os.makedirs(callback_path, exist_ok=True)
                         self.save(self._checkpoint_name(callback_path,
@@ -610,7 +715,7 @@ class Trainer:
                 record.update(self._evaluate(
                     dataset_eval, eval_steps, verbose_eval, recompute_metrics,
                     writer, epoch + 1, "Evaluation-epoch"))
-            if (saving_period_epoch and callback_path and self.rank == 0
+            if (saving_period_epoch and callback_path and self._saves()
                     and (epoch + 1) % saving_period_epoch == 0):
                 os.makedirs(callback_path, exist_ok=True)
                 self.save(self._checkpoint_name(callback_path, epoch + 1))
@@ -705,7 +810,9 @@ class Trainer:
         transcripts; the metrics of the device's outputs (accuracy) are
         taken per batch on the device and averaged (model.py:425-439).
         Batch i + 1's forward is issued before batch i is decoded on the
-        host."""
+        host. Under data parallelism every rank evaluates the whole of
+        `dataset_eval`, each batch whole (no shard, no gather): the
+        one-process losses and metrics on every rank."""
         if use_ema and self.ema_state is None:
             raise ValueError("use_ema=True without set_ema")
         was_training = self.model.training
@@ -878,19 +985,35 @@ class Trainer:
 
     # --------------------------------------------------------- save/load
     def save(self, path: str, save_optimizer: bool = True) -> None:
-        """A checkpoint in the reference's torch format (model.py:879-893)."""
+        """A checkpoint in the reference's torch format (model.py:879-893).
+        Under tensor parallelism every rank of the model group calls it: the
+        shards are gathered and rank 0 writes the file a one-rank run
+        writes (the same keys and shapes)."""
+        state = self.model.state_dict()
+        opt = (self.optimizer.optimizer.state_dict() if save_optimizer
+               else None)
+        ema = self.ema_state
+        if self._sharded():
+            group, dims = self.mesh.model, tp.sharded_names(self.model)
+            state = tp.gather_state(state, dims, group)
+            ema = None if ema is None else tp.gather_state(ema, dims, group)
+            if opt is not None:
+                params = [p for g in self.optimizer.optimizer.param_groups
+                          for p in g["params"]]
+                opt = tp.map_optimizer_state(
+                    opt, params, lambda v, d: tp.gather_tensor(v, d, group),
+                    whole=False)
+            if self.rank != 0:
+                return
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-        save_checkpoint(
-            path, self.model.state_dict(),
-            optimizer_state=(self.optimizer.optimizer.state_dict()
-                             if save_optimizer else None),
-            model_step=self.step, ema_state=self.ema_state)
+        save_checkpoint(path, state, optimizer_state=opt,
+                        model_step=self.step, ema_state=ema)
         self._log(f"Model saved at step {self.step}")
 
     def load(self, path: str, load_optimizer: bool = True,
              strict: bool = True,
              select: Optional[Callable[[str], bool]] = None,
-             rename: Optional[Callable[[str], str]] = None,
+             rename: Optional[Callable[[str], Optional[str]]] = None,
              verbose: bool = True) -> None:
         """Restore the model's parameters and buffers and, with
         load_optimizer, the optimizer state and the step (model.py:
@@ -901,7 +1024,12 @@ class Trainer:
         VO model (model.py:282-294, configs/LRS23/VO/EffConfInterCTC.py:
         77-86, `select=lambda k: "front_end" in k`) and, renamed into its
         video encoder, the AV model (configs/LRS23/AV/EffConfInterCTC.py:
-        80-91); a kept key the model lacks raises KeyError.
+        80-91); a kept key the model lacks raises KeyError. The model's
+        entries go through `train.checkpoint.restore_tree` with the JAX
+        semantics (checkpoint.py:79-117): `rename` returning None drops a
+        key; strict raises on a missing or unexpected key; non-strict keeps
+        the model's values for what is missing. Under tensor parallelism
+        every rank takes its shards of what it reads.
 
         A JAX msgpack checkpoint is read too (`train/checkpoint.py`): its
         parameters, batch statistics and EMA by `convert.params_from_jax`,
@@ -910,27 +1038,37 @@ class Trainer:
         that do not map one to one onto the model's parameters raise
         ValueError; none is skipped."""
         payload = load_checkpoint(path)
+        template = self.model.state_dict()
+        state = payload["model_state_dict"]
         if select is not None:
-            state = {(rename(k) if rename is not None else k): v
-                     for k, v in payload["model_state_dict"].items()
-                     if select(k)}
-            unknown = sorted(set(state) - set(self.model.state_dict()))
+            state = {k: v for k, v in state.items() if select(k)}
+        if rename is not None:
+            state = {k2: v for k, v in state.items()
+                     if (k2 := rename(k)) is not None}
+        state = self._shard_read(state)
+        if select is not None:
+            unknown = sorted(set(state) - set(template))
             if unknown or not state:
                 raise KeyError(f"partial load of {len(state)} entries; not "
                                f"in the model: {unknown[:5]}")
-            self.model.load_state_dict(state, strict=False)
+            self.model.load_state_dict(restore_tree(template, state,
+                                                    strict=False))
             self._log(f"Applied partial checkpoint load ({len(state)} "
                       "entries)")
             return
-        self.model.load_state_dict(payload["model_state_dict"], strict=strict)
+        self.model.load_state_dict(restore_tree(template, state,
+                                                strict=strict))
         if load_optimizer and payload.get("optimizer_state_dict") is not None:
             if payload["format"] == "jax":
                 self._load_optax_adam(payload["optimizer_state_dict"])
             else:
-                self.optimizer.optimizer.load_state_dict(
-                    payload["optimizer_state_dict"])
+                opt = payload["optimizer_state_dict"]
+                if self._sharded():
+                    opt = shard_like_params(opt, self.model, self.mesh,
+                                            self.optimizer.optimizer)
+                self.optimizer.optimizer.load_state_dict(opt)
             self.step = int(payload["model_step"])
-        ema = payload.get("ema_model_state_dict")
+        ema = self._shard_read(payload.get("ema_model_state_dict"))
         if ema is not None and self.ema_state is not None:
             missing = set(self.ema_state) - set(ema)
             if strict and (missing or set(ema) - set(self.ema_state)):
@@ -942,6 +1080,13 @@ class Trainer:
                         self.ema_state[k].copy_(v)
         if verbose:
             self._log(f"Rank {self.rank}: Model loaded at step {self.step}")
+
+    def _shard_read(self, state):
+        """A state read whole -> this rank's shards of the sharded
+        parameters' entries (as it is without tensor parallelism)."""
+        if state is None or not self._sharded():
+            return state
+        return shard_like_params(state, self.model, self.mesh)
 
     def _load_optax_adam(self, opt_state) -> None:
         """An optax Adam state (the JAX `Adam` / `AdamW` chains of
@@ -974,7 +1119,8 @@ class Trainer:
                 f"with load_optimizer=False to take the weights alone)")
         adam = found[0]
         params = dict(self.model.named_parameters())
-        moments = [dict(params_from_jax(adam[k])) for k in ("mu", "nu")]
+        moments = [self._shard_read(dict(params_from_jax(adam[k])))
+                   for k in ("mu", "nu")]
         for got in moments:
             missing = sorted(set(params) - set(got))
             extra = sorted(set(got) - set(params))
@@ -1058,7 +1204,7 @@ class Trainer:
         path = os.path.join(callback_path, f"checkpoints_swa-{swa_type}-"
                                            f"{epochs_list[0]}-"
                                            f"{epochs_list[-1]}.ckpt")
-        if self.rank == 0:
+        if self._saves():
             self.save(path, save_optimizer=False)
         if self.group is not None:
             sync_global_devices("swa", self.group)

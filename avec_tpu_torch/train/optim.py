@@ -77,11 +77,12 @@ def gpt_decay_mask(model: nn.Module) -> Dict[str, bool]:
     """The GPT's decay / no-decay split (optim.py:98-116) by parameter
     name: the weights of Linear and Conv layers decay; embeddings, position
     tables, norm affines (a LayerNorm's scale is also `weight`) and biases
-    do not."""
+    do not. A tensor-parallel `ParallelLinear` is a Linear layer."""
     from avec_tpu_torch.ops.layers import Conv, Linear
+    from avec_tpu_torch.parallel.tensor_parallel import ParallelLinear
 
     decayed = {id(m.weight) for m in model.modules()
-               if isinstance(m, (Linear, Conv))}
+               if isinstance(m, (Linear, Conv, ParallelLinear))}
     return {name: id(p) in decayed for name, p in model.named_parameters()}
 
 

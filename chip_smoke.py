@@ -236,8 +236,13 @@ bounds and plain stages;
     on the same batches, an {"file", "error"} row for a missing path.
     Printed: latency p50 / p95, mean RTF, the host ms of `submit_batch`
     beside `finish_batch`'s, and the host syncs of one submit
-    (`torch.cuda.set_sync_debug_mode("warn")`); details under
-    `serve_files`;
+    (`torch.cuda.set_sync_debug_mode("warn")`). Then mp4 requests
+    (`serve_mp4`): 8 seeded `_mouth.mp4` clips of 1-3 s from
+    `data/lrs_fixture.py` with the .wav beside each, served by the
+    full-width AV model (use_flash, stem "pallas": K4 7 and K5 1 per
+    forward) and the full-width VO model (stem "pallas": K5 1), texts
+    equal to those of the same decoded frames passed as arrays; a clip
+    that does not decode raises. Details under `serve_files`;
 27. streaming: (a) `StreamingTranscriber` on phase 26's model over a 6 s
     utterance in 200 ms pushes, unbounded: final token ids equal to the
     offline greedy ids of the same bucket; windowed (4 s) over one 20 s
@@ -265,8 +270,10 @@ bounds and plain stages;
     checkpoint and a TensorBoard or JSON lines log; `--load_last`
     evaluation, swa and eval_time from that checkpoint, `save_logits` on
     one batch; `lrs23_ao` trained for 2 steps from a generated LRS2 + LRS3
-    tree and evaluated by its beam decoder (beam 16, the tree's ARPA), its
-    WER printed with no bound; details under `cli`.
+    tree (with `_mouth.mp4` clips) and evaluated by its beam decoder (beam
+    16, the tree's ARPA), its WER printed with no bound; `lrs23_vo` trained
+    for 2 steps of 64 clips from the tree's mp4 clips, its WER printed with
+    no bound; details under `cli`.
 29. the rest of the library (`library_phase`): (a) the grouped-attention
     audio-only model at the LRS23 AO widths (`att_type="grouped"`: groups
     of 3 frames in stage 1, 1 in stages 2-3; vocab 256, blocks (5, 6, 5),
@@ -291,6 +298,25 @@ bounds and plain stages;
     a 2-layer bidirectional LSTM at (16, 151, 256) against the CPU, 1e-4.
     Every time is printed beside the card's name and power limit; details
     under `library`.
+30. distributed, the rest (`distributed_phase`, two gloo ranks sharing
+    the card): (a) the LRS23 AO, causal AO, VO and LRW models at full
+    width on the fused routes with stem "2d", data parallel, B=16 (LRW 32
+    clips) split 8 + 8: 1 warm-up + 2 counted steps, launches per step and
+    rank equal to `kernel_launches_per_step` (K1 / K1b, K2 / K2b, K3dp;
+    `launches_dp_zoo`), parameters bit-identical across the ranks, an fp32
+    step with dropout and SpecAugment off against the one-process step
+    (loss 1e-5, gradient norm 1e-3, every leaf 2e-3, the video front end
+    0.15, BN statistics 1e-5); (b) phase 16's 16 utterances with labels
+    of 8-32 tokens, each rank's 8 collated apart (audio and labels cut to
+    the rank's longest) and assembled by `host_local_batch_to_global`:
+    the AO model's fp32 step against one process on the global batch, the
+    same bounds;
+    (c) GPT-Small (d 768, 12 blocks, 12 heads, vocab 1025) at
+    model_parallel 2: FFN-in (1536, 768) a rank, the head replicated, 3
+    AdamW steps at 8 x 128 tokens, fp32, dropout off: losses within 2e-5
+    relative of one process, the gathered parameters within 1e-5 of the
+    largest entry; step ms and peak GiB per rank beside the card's name
+    and power limit; details under `distributed`.
 The line before the last is a JSON `kernels` line of sixteen kernels (the
 nine of phase 18 with their launches there as `launches_learning_run`, the
 launches of phases 19-22 by phase as `launches_zoo`, those of phase 23 as
@@ -298,7 +324,8 @@ launches of phases 19-22 by phase as `launches_zoo`, those of phase 23 as
 25 as `launches_decode`, K4's of phases 26 and 27 (a) as
 `launches_serve_files` and `launches_streaming`, the nine of phase 28 as
 `launches_cli`, the six of phase 29's grouped model by path as
-`launches_grouped`); the
+`launches_grouped`, those of phase 30 (a) by model as `launches_dp_zoo`);
+the
 last line is {"ok": true, "device": {...}}. Every time
 there ("ms", "plain_ms", "library_ms") is one of direct calls between CUDA
 events (`cuda_time_ms`), the host's cost of each call included; "device_ms"
@@ -948,6 +975,14 @@ def main() -> int:
                    if entry["name"] in counts}
         if by_path:
             entry["launches_grouped"] = by_path
+    # ---- 30. distributed, the rest
+    dp_zoo = distributed_phase(detail, root)
+    for entry in kernels:
+        by_model = {kind: counts[entry["name"]]
+                    for kind, counts in dp_zoo.items()
+                    if entry["name"] in counts}
+        if by_model:
+            entry["launches_dp_zoo"] = by_model
     detail["kernels"] = kernels
 
     os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
@@ -1085,8 +1120,8 @@ def kernel_call_shapes(trainer, batch):
 
 
 def counted_train_steps(trainer, batch, per_step, verbose: bool = True,
-                        n_values: int = 9):
-    """One warm-up step, then TRAIN_STEPS steps with the launch counts set to
+                        n_values: int = 9, steps: int = TRAIN_STEPS):
+    """One warm-up step, then `steps` steps with the launch counts set to
     0 just before and read just after: the counts must equal `per_step` per
     step, the `n_values` losses, learning rate and gradient norm (9 for the
     AV model's six outputs) must be finite, every parameter
@@ -1105,19 +1140,19 @@ def counted_train_steps(trainer, batch, per_step, verbose: bool = True,
     torch.cuda.synchronize()
     _cuda.reset_launches()
     history = []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         losses, infos = trainer.train_step(batch)
         history.append({**{k: float(v) for k, v in losses.items()},
                         "lr": infos["lr"],
                         "grad_norm": float(infos["grad_norm"])})
     torch.cuda.synchronize()
     train_launches = dict(_cuda.launches)
-    say(f"main path launches over {TRAIN_STEPS} train steps: {train_launches}")
+    say(f"main path launches over {steps} train steps: {train_launches}")
     for row in history:
         say("  step " + json.dumps({k: round(v, 6) if k != "lr" else v
                                     for k, v in row.items()}))
-    if train_launches != {k: v * TRAIN_STEPS for k, v in per_step.items()}:
-        raise AssertionError(f"launches {train_launches} != {TRAIN_STEPS} x "
+    if train_launches != {k: v * steps for k, v in per_step.items()}:
+        raise AssertionError(f"launches {train_launches} != {steps} x "
                              f"{per_step}")
     if len(history[-1]) != n_values or not all(
             math.isfinite(v) for row in history for v in row.values()):
@@ -1172,7 +1207,7 @@ def compare_fp32_step(model, batch, loss_tol, loss=None,
 
 
 def check_agreement(what, got, want, loss_tol, front_end_tol=2e-3,
-                    front_end: str = FRONT_END):
+                    front_end: str = FRONT_END, bn_scaled: bool = False):
     """Two fp32 steps, each (total loss, gradients by name, BN running
     statistics by name), `want` the reference: total loss within `loss_tol`
     and gradient norm within 1e-3, relative; every gradient leaf within 2e-3
@@ -1180,10 +1215,14 @@ def check_agreement(what, got, want, loss_tol, front_end_tol=2e-3,
     the analytically zero key and positional biases, left out), the video
     front end's (stem and ResNet trunk: the leaves named under `front_end`,
     none in an audio-only model) within `front_end_tol`; every BN
-    running statistic within 1e-5, absolute. Logs and returns the errors,
-    raises if one is out of tolerance."""
+    running statistic within 1e-5, absolute, or with `bn_scaled` within
+    1e-5 of the larger of 1 and its buffer's largest entry (fp32 keeps
+    about 7 digits: a variance of 36.6 is 4 ulps from 1.5e-5). Logs and
+    returns the errors, raises if one is out of tolerance."""
     (lk, grads_k, stats_k), (lp, grads_p, stats_p) = got, want
-    stats_err = max(max_abs(stats_k[n], b) for n, b in stats_p.items())
+    stats_err = max(max_abs(stats_k[n], b) / (
+        max(1.0, float(b.abs().max())) if bn_scaled else 1.0)
+        for n, b in stats_p.items())
 
     def gnorm(grads):
         return float(torch.sqrt(sum((g.double() ** 2).sum()
@@ -1217,9 +1256,11 @@ def check_agreement(what, got, want, loss_tol, front_end_tol=2e-3,
            "fp32_worst_leaf_rel": rows[0][0], "fp32_worst_leaf": rows[0][2],
            "fp32_worst_leaf_outside_front_end_rel": rest[0][0],
            "fp32_worst_front_end_leaf_rel": front[0][0],
-           "fp32_bn_stats_max_abs": stats_err}
-    log(f"  BN running statistics: max abs {stats_err:.2e} over "
-        f"{len(stats_p)} buffers (tol 1e-5)")
+           "fp32_bn_stats_max_abs": stats_err,
+           "fp32_bn_stats_scaled": bn_scaled}
+    log(f"  BN running statistics: max abs {stats_err:.2e}"
+        + (" of the larger of 1 and the buffer's largest entry"
+           if bn_scaled else "") + f" over {len(stats_p)} buffers (tol 1e-5)")
     if not (abs(lk - lp) <= loss_tol * abs(lp)
             and abs(nk - npl) <= 1e-3 * npl and rest[0][0] <= 2e-3
             and front[0][0] <= front_end_tol and stats_err <= 1e-5):
@@ -3838,7 +3879,8 @@ def serve_files_phase(detail, root, work: str):
     `transcribe_batch` over the 8 wav paths, over the 8 flac paths and over
     the samples as arrays, then `stdin_loop` over the flac paths from an
     in-memory stream with max_batch 4 (two batches, the second submitted
-    before the first is decoded); 11 flash launches per forward. Required:
+    before the first is decoded); 11 flash launches per forward; then the
+    mp4 requests of `serve_mp4`, counted apart. Required:
     identical texts from wav, flac and arrays, the loop's texts equal to
     `transcribe_batch` on the same two batches, an {"file", "error"} row for
     a missing path, texts not all empty. Then ROUNDS timed submit + finish
@@ -3948,7 +3990,9 @@ def serve_files_phase(detail, root, work: str):
         sub_ms.append((t1 - t0) * 1e3)
         fin_ms.append((t2 - t1) * 1e3)
     stats = srv.stats_summary()
+    mp4 = serve_mp4(work)
     rec = {"launches": launches, "checks": checks, "seconds": seconds,
+           "mp4": mp4,
            "texts": texts, "host_syncs_in_submit": len(syncs),
            "host_sync_messages": sorted(set(syncs)), "submit_trace": trace,
            "submit_host_ms": sub_ms,
@@ -3963,6 +4007,78 @@ def serve_files_phase(detail, root, work: str):
         f"{rec['wall_s']:.1f} s")
     detail["serve_files"] = rec
     return srv, tok_path, launches
+
+
+MP4_WANT = {"av": {"flash_attention_fwd": 7, "bn_relu_pool": 1},
+            "vo": {"bn_relu_pool": 1}}      # launches per served forward
+
+
+def serve_mp4(work: str) -> dict:
+    """Phase 26's mp4 requests: 8 seeded `_mouth.mp4` clips of 1-3 s
+    (`data/lrs_fixture.py` with video, 96 x 96 frames, OpenCV) with the .wav
+    beside each (`demo.load_av_inputs` reads `<clip>.wav`), served by the
+    full-width AV model (use_flash, stem "pallas") and the full-width VO
+    model (LRS23 VO widths, stem "pallas"), bf16, seeded weights and BN
+    statistics, the tree's tokenizer. For each: `transcribe_batch` over the
+    clip paths (launch counts set to 0 just before, read just after: K4 7
+    and K5 once per AV forward, K5 once per VO forward), then over the same
+    decoded frames (and audio) as arrays: the texts must be equal. A clip
+    that does not decode raises."""
+    import glob
+    import shutil
+
+    from avec_tpu_torch.data.lrs_fixture import write_lrs_fixture
+    from avec_tpu_torch.models.zoo import randomize_batch_stats
+    from avec_tpu_torch.ops import _cuda
+    from avec_tpu_torch.serve import Server
+
+    t0 = time.perf_counter()
+    root = os.path.join(work, "lrs")
+    paths = write_lrs_fixture(root, seed=26, sizes={("LRS3", "test"): 8},
+                              video=True)
+    clips = sorted(glob.glob(os.path.join(root, "LRS3", "test", "*",
+                                          "*_mouth.mp4")))
+    for clip in clips:
+        shutil.copy(clip[:-len("_mouth.mp4")] + ".wav", clip[:-4] + ".wav")
+    rec = {"clips": len(clips), "write_s": time.perf_counter() - t0}
+    card = gpu_line()
+    for mode, cfg in (("av", dict(use_flash=True)),
+                      ("vo", dict(interctc_blocks=(3, 6, 9),
+                                  num_blocks=(6, 6)))):
+        srv = Server(mode=mode, device="cuda", precision="bfloat16", seed=0,
+                     stem_mode="pallas", tokenizer=paths["tokenizer"],
+                     vocab_size=256, **cfg)
+        with torch.no_grad():
+            randomize_batch_stats(srv.model, torch.Generator().manual_seed(3))
+        arrays = [srv.load_request(c) for c in clips]
+        srv.transcribe_batch(clips[:2])              # warm-up (cuDNN plans)
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        t1 = time.perf_counter()
+        by_path = srv.transcribe_batch(clips)
+        torch.cuda.synchronize()
+        launches = dict(_cuda.launches)
+        call_ms = (time.perf_counter() - t1) * 1e3
+        by_array = srv.transcribe_batch(arrays)
+        texts = [r["text"] for r in by_path]
+        frames = [a["video"].shape[0] for a in arrays]
+        equal = texts == [r["text"] for r in by_array]
+        rec[mode] = {"launches": launches, "texts": texts,
+                     "texts_equal_arrays": equal, "frames": frames,
+                     "audio": "audio" in arrays[0], "call_ms": call_ms}
+        log(f"{mode.upper()} served from {len(clips)} mp4 clips ({card}): "
+            f"main path launches {launches} (one forward, want "
+            f"{MP4_WANT[mode]}); frames {min(frames)}-{max(frames)}, audio "
+            f"beside: {'audio' in arrays[0]}; texts from the clips == the "
+            f"same decoded frames as arrays: {equal}; transcribe_batch "
+            f"{call_ms:.1f} ms; text 0 {texts[0][:60]!r}")
+        if not (equal and launches == MP4_WANT[mode]
+                and all("audio" in a for a in arrays)):
+            raise AssertionError(f"mp4 serving ({mode}): {rec[mode]}")
+        del srv, arrays
+        torch.cuda.empty_cache()
+    rec["s"] = time.perf_counter() - t0
+    return rec
 
 
 def trace_submit(srv, paths):
@@ -4280,21 +4396,6 @@ class _FitProbe:
         self.cls.fit, self.cls._evaluate = self._saved
 
 
-def _mp4_probe(path: str) -> str:
-    """Whether this machine writes and reads back an mp4 clip through
-    `utils/media.py` (OpenCV): a report, not a check."""
-    from avec_tpu_torch.utils import media
-
-    frames = np.random.RandomState(0).randint(0, 256, (5, 96, 96, 3),
-                                              dtype=np.uint8)
-    try:
-        media.write_video(path, frames, 25.0)
-        got, fps = media.read_video(path)
-        return f"mp4 round trip through OpenCV: {got.shape} at {fps} fps"
-    except Exception as e:           # reported: mp4 is not on the main path
-        return f"mp4 round trip: {type(e).__name__}: {e}"
-
-
 def cli_phase(detail, root) -> dict:
     """Phase 28: the experiment CLI (`avec_tpu_torch/main.py`) on the
     card, from a new directory under build/ (no datasets/ there at first,
@@ -4316,7 +4417,10 @@ def cli_phase(detail, root) -> dict:
     16 test utterances of 1-3 s, flac and wav, its 256-piece tokenizer and
     order-6 ARPA) and `lrs23_ao` trained from it for 2 steps, evaluated by
     the config's own decoder (beam 16 with the ARPA, native search): the
-    WER is printed, with no bound. Returns (b)'s launches."""
+    WER is printed, with no bound. The tree also holds a `_mouth.mp4` clip
+    of each utterance: (e) `lrs23_vo` trained from them for 2 steps (64
+    clips a step) and evaluated by its decoder, the WER printed with no
+    bound; a clip that does not decode raises. Returns (b)'s launches."""
     import pickle
     import shutil
     import tempfile
@@ -4454,7 +4558,7 @@ def cli_phase(detail, root) -> dict:
 
         # ---- (d) the AO config from a generated LRS tree
         t0 = time.perf_counter()
-        paths = write_lrs_fixture("datasets", seed=0)
+        paths = write_lrs_fixture("datasets", seed=0, video=True)
         fixture_s = time.perf_counter() - t0
         with _FitProbe() as probe:
             args = cli.main(["-c", cfg("lrs23_ao"), "-m", "training",
@@ -4464,7 +4568,6 @@ def cli_phase(detail, root) -> dict:
         decoder = setup.decoder
         history = probe.histories[-1]
         wers = [m.get("wer") for _, m in history[0]["eval"]]
-        mp4 = _mp4_probe(os.path.join(work, "probe.mp4"))
         rec["ao_files"] = {
             "train_set": [type(d).__name__ for d in
                           setup.training_dataset.datasets],
@@ -4473,8 +4576,7 @@ def cli_phase(detail, root) -> dict:
             "beam_size": getattr(decoder, "beam_size", None),
             "ngram": getattr(decoder, "lm", None) is not None,
             "losses": history[0]["losses"], "wer": wers,
-            "fixture_s": fixture_s, "s": time.perf_counter() - t0,
-            "mp4": mp4, **paths}
+            "fixture_s": fixture_s, "s": time.perf_counter() - t0, **paths}
         log(f"CLI training lrs23_ao from a generated LRS2 + LRS3 tree "
             f"({rec['ao_files']['train_utterances']} training utterances, "
             f"written in {fixture_s:.1f} s): 2 steps, epoch loss "
@@ -4483,7 +4585,7 @@ def cli_phase(detail, root) -> dict:
             f"{rec['ao_files']['beam_size']}, ARPA "
             f"{rec['ao_files']['ngram']}): WER LRS2 test {wers[0]:.2f}, "
             f"LRS3 test {wers[1]:.2f} (no bound: two steps from seeded "
-            f"weights); {mp4}; {rec['ao_files']['s']:.1f} s")
+            f"weights); {rec['ao_files']['s']:.1f} s")
         ok = (rec["ao_files"]["train_set"] == ["LRS", "LRS"]
               and rec["ao_files"]["decoder"] == "CTCBeamSearchDecoder"
               and rec["ao_files"]["beam_size"] == 16
@@ -4495,6 +4597,39 @@ def cli_phase(detail, root) -> dict:
         torch.cuda.empty_cache()
         if not ok:
             raise AssertionError(f"CLI AO from files: {rec['ao_files']}")
+
+        # ---- (e) the VO config from the same tree's mp4 clips
+        t0 = time.perf_counter()
+        with _FitProbe() as probe:
+            args = cli.main(["-c", cfg("lrs23_vo"), "-m", "training",
+                             "--epochs", "1", "--steps_per_epoch", "2",
+                             "--eval_steps", "1", "--step_log_period", "1"])
+        setup = args.setup
+        history = probe.histories[-1]
+        sets = setup.training_dataset.datasets
+        wers = [m.get("wer") for _, m in history[0]["eval"]]
+        rec["vo_mp4"] = {
+            "train_set": [type(d).__name__ for d in sets],
+            "load_video": [d.load_video for d in sets],
+            "clips_per_step": setup.training_dataset.batch_size
+            * setup.accumulated_steps,
+            "losses": history[0]["losses"], "wer": wers,
+            "s": time.perf_counter() - t0}
+        log(f"CLI training lrs23_vo from the tree's _mouth.mp4 clips "
+            f"({gpu_line()}): 2 steps of "
+            f"{rec['vo_mp4']['clips_per_step']} clips, epoch loss "
+            f"{history[0]['losses']['loss']:.4f}; WER LRS2 test "
+            f"{wers[0]:.2f}, LRS3 test {wers[1]:.2f} (no bound); "
+            f"{rec['vo_mp4']['s']:.1f} s")
+        ok = (rec["vo_mp4"]["train_set"] == ["LRS", "LRS"]
+              and all(rec["vo_mp4"]["load_video"])
+              and all(math.isfinite(v) for v in
+                      history[0]["losses"].values())
+              and all(w is not None and math.isfinite(w) for w in wers))
+        del setup, args
+        torch.cuda.empty_cache()
+        if not ok:
+            raise AssertionError(f"CLI VO from mp4: {rec['vo_mp4']}")
     finally:
         for k, v in saved_env.items():
             if v is None:
@@ -4760,6 +4895,452 @@ def library_phase(detail, root) -> dict:
     log(f"phase 29: {rec['seconds']:.1f} s")
     detail["library"] = rec
     return runs
+
+
+# ---- 30. distributed, the rest
+DIST_ZOO = {              # phase 30 (a): the full-width models, stem "2d"
+    "ao": ("AudioEfficientConformerInterCTC",
+           dict(vocab_size=256, att_type="patch", interctc_blocks=(),
+                num_blocks=(5, 6, 5))),                   # configs/LRS23/AO
+    "ao_causal": ("AudioEfficientConformerInterCTC",
+                  dict(vocab_size=256, att_type="patch", interctc_blocks=(),
+                       num_blocks=(5, 6, 5), causal=True, left_context=64)),
+    "vo": ("VisualEfficientConformerInterCTC",
+           dict(vocab_size=256, interctc_blocks=(3, 6, 9), num_blocks=(6, 6),
+                stem_mode="2d")),                         # configs/LRS23/VO
+    "lrw": ("VisualEfficientConformerCE",
+            dict(vocab_size=500, num_blocks=(6, 6), stem_mode="2d")),
+}
+DIST_ROUTE = dict(fused_ffn=True, fused_att=True, fused_conv=True)
+DIST_STEPS = 2                     # counted steps after one warm-up
+GPT_TP = 2                         # phase 30 (c): the model axis
+GPT_TP_STEPS = 3
+GPT_TOKENS = (8, 128)
+GPT_TP_LR = 1e-4                   # constant: a parameter moves ~1e-4 a step
+
+
+def dist_zoo_batch(kind):
+    """The global batch of a DIST_ZOO model: phase 16's 16 utterances (audio
+    for the AO models, video for VO), 32 LRW clips of 29 frames."""
+    if kind == "lrw":
+        rng = np.random.RandomState(30)
+        return {"inputs": rng.rand(32, 29, 88, 88, 1).astype(np.float32),
+                "targets": rng.randint(0, 500, size=32).astype(np.int32)}
+    av = make_train_batch(np.random.RandomState(0))
+    inputs = av["inputs"][2:] if kind.startswith("ao") else av["inputs"][:2]
+    return {"inputs": inputs, "targets": av["targets"]}
+
+
+def dist_zoo_trainer(kind, precision, data_parallel):
+    """A DIST_ZOO model (seeded weights) on the fused routes and its trainer:
+    CTC (zero_infinity) for the CTC models, the LRW classifier's
+    cross-entropy."""
+    from avec_tpu_torch.models import zoo
+    from avec_tpu_torch.train.losses import CTCLoss
+    from avec_tpu_torch.train.model import Trainer
+
+    name, cfg = DIST_ZOO[kind]
+    model = getattr(zoo, name)(device="cuda", **cfg, **DIST_ROUTE)
+    return Trainer(model=model, device="cuda", precision=precision,
+                   loss=None if kind == "lrw" else CTCLoss(zero_infinity=True),
+                   loss_weights=None if kind == "lrw" else 1.0,
+                   data_parallel=data_parallel)
+
+
+def ragged_parts(rng, per_rank: int = 8):
+    """Phase 30 (b): phase 16's utterances (`make_train_batch`: 3-6 s, the
+    first 6 s, zeros past each length), the second rank's cut to half
+    their length, with labels of 17-32 tokens on the first rank and 8-16 on
+    the second; each rank's 8 collated apart: audio cut to the rank's
+    longest, labels padded with 0 to the rank's longest. Returns (the two
+    ranks' parts, the one-process global batch, padded to the longest of
+    all)."""
+    av = make_train_batch(np.random.RandomState(0), batch=2 * per_rank)
+    audio, alen = av["inputs"][2].copy(), av["inputs"][3].copy()
+    alen[per_rank:] //= 2
+    for i in range(per_rank, 2 * per_rank):
+        audio[i, alen[i]:] = 0.0
+    ulen = np.concatenate([rng.randint(17, 33, size=per_rank),
+                           rng.randint(8, 17, size=per_rank)]).astype(np.int32)
+    labels = np.zeros((len(alen), int(ulen.max())), np.int32)
+    for i, u in enumerate(ulen):
+        labels[i, :u] = rng.randint(1, 256, size=int(u))
+
+    def collate(idx):
+        return {"inputs": [audio[idx, :int(alen[idx].max())], alen[idx]],
+                "targets": (labels[idx, :int(ulen[idx].max())], ulen[idx])}
+
+    parts = [collate(np.arange(r * per_rank, (r + 1) * per_rank))
+             for r in range(2)]
+    return parts, {"inputs": [audio, alen], "targets": (labels, ulen)}
+
+
+def _fp32_step(trainer, batch):
+    """One fp32 forward + backward, dropout and SpecAugment off: (total
+    loss, gradients by name, BN running statistics by name), on the CPU."""
+    trainer.model.set_regularization(False)
+    losses, grads = trainer.loss_and_grads(batch)
+    return (float(losses["loss"]), {n: g.cpu() for n, g in grads.items()},
+            {n: b.detach().cpu() for n, b in trainer.model.named_buffers()
+             if "running_" in n})
+
+
+def gpt_tp_batch():
+    """8 seeded sequences of 128 GPT-Small tokens (ids 1-1024), the targets
+    the next token with -1 at the end."""
+    rng = np.random.RandomState(31)
+    ids = rng.randint(1, GPT_SMALL["vocab_size"], size=GPT_TOKENS
+                      ).astype(np.int64)
+    targets = np.concatenate([ids[:, 1:], np.full((ids.shape[0], 1), -1)],
+                             axis=1)
+    return {"inputs": [ids], "targets": targets}
+
+
+def gpt_tp_trainer(model_parallel):
+    """GPT-Small at full width (seeded weights, dropout off), fp32, the
+    cross-entropy with ignore_index -1 and the GPT's AdamW (betas (0.9,
+    0.95), eps 1e-8, decay 0.1 on the Linear weights) at a constant lr of
+    GPT_TP_LR, so that the steps move every parameter (the recipe's warmup
+    would move them by about 1e-6); sharded by `gpt_tensor_parallel_rules()`
+    over `model_parallel` ranks."""
+    from avec_tpu_torch.models.zoo import GPT
+    from avec_tpu_torch.parallel.dist import gpt_tensor_parallel_rules
+    from avec_tpu_torch.train.losses import SoftmaxCrossEntropy
+    from avec_tpu_torch.train.model import Trainer
+    from avec_tpu_torch.train.optim import AdamW, gpt_decay_mask
+
+    model = GPT(**GPT_SMALL, drop_rate=0.0, device="cuda",
+                generator=torch.Generator().manual_seed(0))
+    return Trainer(model=model, device="cuda", precision="float32",
+                   loss=SoftmaxCrossEntropy(ignore_index=-1), metrics=None,
+                   optimizer=AdamW(GPT_TP_LR, betas=(0.9, 0.95), eps=1e-8,
+                                   weight_decay=0.1,
+                                   decay_mask=gpt_decay_mask),
+                   model_parallel=model_parallel,
+                   param_sharding_rules=(gpt_tensor_parallel_rules()
+                                         if model_parallel > 1 else None))
+
+
+def distributed_rank(device, parts):
+    """Phase 30 on one of the two gloo ranks sharing the card. (a) For each
+    DIST_ZOO model: the data-parallel trainer (bf16) on this rank's half of
+    the global batch, 1 warm-up + DIST_STEPS counted steps (launches per
+    step from the module tree), a digest of the parameters, then one fp32
+    step with dropout and SpecAugment off (rank 0 keeps the global
+    gradients and BN statistics). (b) The AO model's fp32 data-parallel
+    step on this rank's own collated part, assembled by
+    `host_local_batch_to_global`. (c) GPT-Small sharded over the two ranks
+    (model_parallel 2): shard shapes, GPT_TP_STEPS AdamW steps on the whole
+    batch with their ms and the peak GiB; rank 0 gathers the parameters,
+    then runs the one-process GPT on the same weights and batch and keeps,
+    for each parameter, the largest difference, its largest entry and how
+    far the one-process steps moved it."""
+    import torch.distributed as dist
+
+    from avec_tpu_torch.parallel import dist as pdist
+    from avec_tpu_torch.parallel import tensor_parallel as tp
+
+    rank, world = _dp_rank_setup()
+    out = {"rank": rank, "zoo": {}}
+    for kind in DIST_ZOO:
+        t0 = time.perf_counter()
+        batch = pdist.shard_batch(dist_zoo_batch(kind))
+        trainer = dist_zoo_trainer(kind, "bfloat16", True)
+        per_step = trainer.model.kernel_launches_per_step()
+        history, launches = counted_train_steps(
+            trainer, batch, per_step, verbose=rank == 0,
+            n_values=7 if kind == "vo" else 3, steps=DIST_STEPS)
+        digest = _digest(trainer.model.parameters())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = cuda_time_ms(lambda: trainer.train_step(batch), iters=2,
+                               warmup=0)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        del trainer
+        torch.cuda.empty_cache()
+        fp32 = _fp32_step(dist_zoo_trainer(kind, "float32", True), batch)
+        torch.cuda.empty_cache()
+        out["zoo"][kind] = {
+            "launches_per_step": per_step, "launches": launches,
+            "history": history, "params_digest": digest,
+            "step_ms": step_ms, "peak_gib": peak, "fp32_loss": fp32[0],
+            "grads_digest": _digest(fp32[1].values()),
+            "fp32": fp32 if rank == 0 else None,
+            "s": time.perf_counter() - t0}
+
+    # (b) ragged parts assembled into one global batch
+    trainer = dist_zoo_trainer("ao", "float32", True)
+    batch = pdist.host_local_batch_to_global(parts[rank], trainer.mesh)
+    fp32 = _fp32_step(trainer, batch)
+    out["ragged"] = {"own_shape": list(parts[rank]["inputs"][0].shape),
+                     "own_label_shape": list(parts[rank]["targets"][0].shape),
+                     "assembled_shape": list(batch["inputs"][0].shape),
+                     "label_shape": list(batch["targets"][0].shape),
+                     "fp32_loss": fp32[0], "fp32": fp32 if rank == 0 else None}
+    del trainer
+    torch.cuda.empty_cache()
+
+    # (c) GPT-Small, tensor-parallel over the two ranks
+    gbatch = gpt_tp_batch()
+    trainer = gpt_tp_trainer(GPT_TP)
+    params = dict(trainer.model.named_parameters())
+    shards = {n: [list(p.shape), list(p.tp_shape)]
+              for n, p in params.items() if tp.tp_dim(p) is not None}
+    replicated = [n for n, p in params.items() if tp.tp_dim(p) is None]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, ms = [], [], []
+    for _ in range(GPT_TP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, infos = trainer.train_step(gbatch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(got["loss"]))
+        norms.append(float(infos["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    whole = tp.gather_state({n: p.detach() for n, p in params.items()},
+                            tp.sharded_names(trainer.model),
+                            trainer.mesh.model)
+    numel = sum(p.numel() for p in params.values())
+    out["gpt"] = {"shards": shards, "replicated": replicated,
+                  "numel_per_rank": numel, "losses": losses,
+                  "grad_norms": norms, "step_ms": ms, "peak_gib": peak}
+    del trainer
+    torch.cuda.empty_cache()
+    if rank == 0:
+        def one_process(batch):
+            ref = gpt_tp_trainer(1)
+            ls, ns = [], []
+            for _ in range(GPT_TP_STEPS):
+                got, infos = ref.train_step(batch)
+                ls.append(float(got["loss"]))
+                ns.append(float(infos["grad_norm"]))
+            return {n: p.detach() for n, p in ref.model.named_parameters()
+                    }, ls, ns
+
+        init = {n: p.detach().clone() for n, p in
+                gpt_tp_trainer(1).model.named_parameters()}
+        ref, ref_losses, ref_norms = one_process(gbatch)
+        rows = {"inputs": [gbatch["inputs"][0][::-1].copy()],
+                "targets": gbatch["targets"][::-1].copy()}
+        floor, _, _ = one_process(rows)
+        diffs = {}
+        for n, w in ref.items():
+            step = w - init[n]
+            norm = float(step.norm())
+            diffs[n] = {"max": float((whole[n] - w).abs().max()),
+                        "largest": float(w.abs().max()),
+                        "moved": float(step.abs().max()),
+                        "rel": float((whole[n] - w).norm()) / norm,
+                        "floor_max": float((floor[n] - w).abs().max()),
+                        "floor_rel": float((floor[n] - w).norm()) / norm}
+        out["gpt"].update({"ref_losses": ref_losses, "ref_grad_norms":
+                           ref_norms, "param_diffs": diffs,
+                           "ref_numel": sum(p.numel() for p in ref.values())})
+        del ref, floor
+    return out
+
+
+def distributed_phase(detail, root) -> dict:
+    """Phase 30: distributed, the rest. (a) The LRS23 AO, causal AO, VO and
+    LRW models at full width on the fused routes with stem "2d", data
+    parallel over two gloo ranks sharing the card (`dist.spawn`), B=16 (LRW
+    32 clips) split 8 + 8: launches per step and rank equal to
+    `kernel_launches_per_step` (K1 / K1b, K2 / K2b, K3dp), parameters
+    bit-identical across the ranks after the steps, and an fp32 step with
+    dropout and SpecAugment off against the one-process step on the same
+    utterances (loss 1e-5, gradient norm 1e-3, every leaf 2e-3, the video
+    front end 0.15, BN statistics 1e-5). (b) Phase 16's 16 utterances,
+    the second rank's at half length and with shorter labels
+    (`ragged_parts`), each rank's 8 collated apart (padded to different
+    lengths and label widths), assembled by `host_local_batch_to_global`:
+    the AO model's fp32 step against the one-process step on the global
+    batch, the same tolerances but for the BN statistics, held within 1e-5
+    of the larger of 1 and their buffer's largest entry (the stem's
+    running variance is about 36.6, where 1e-5 absolute is 3 ulps); the
+    one-process step on the same batch with its halves swapped is printed
+    beside as the fp32 reorder floor (held to the same bounds). (c)
+    GPT-Small (d 768, 12 blocks, 12 heads, vocab 1025) at model_parallel 2
+    on the two ranks: FFN-in (1536, 768) a rank, the head replicated (1025
+    is odd), 3 AdamW steps at lr GPT_TP_LR at 8 x 128 tokens, fp32, dropout
+    off; against the one-process run on the same weights: the losses
+    within 2e-5 relative, the gradient norms of every step within 1e-5
+    relative, every parameter moved by the one-process steps by more than
+    1e-5 of the parameters' largest entry, and each gathered parameter's
+    difference from the one-process parameter within 1e-2 of the
+    one-process update of that parameter, in norm (the attention key
+    biases, whose gradient is analytically zero and whose Adam steps follow
+    rounding noise, are held within 2 x 3 x lr of where they started
+    instead). The largest entrywise difference is printed beside the fp32
+    reorder floor (the one-process run on the batch's rows reversed): Adam
+    steps an entry whose gradient is at the rounding noise by up to lr
+    either way, so no entrywise bound below that holds at an lr the bound
+    can see. Step ms and peak GiB per rank. Returns {model: launches of
+    its counted steps} of (a)."""
+    from avec_tpu_torch.parallel.dist import spawn
+
+    t_phase = time.perf_counter()
+    card = gpu_line()
+    rec = {"card": card}
+    parts, whole = ragged_parts(np.random.RandomState(32))
+    # the one-process fp32 references, on the card before the ranks start
+    want = {}
+    for kind in DIST_ZOO:
+        want[kind] = _fp32_step(dist_zoo_trainer(kind, "float32", False),
+                                dist_zoo_batch(kind))
+        torch.cuda.empty_cache()
+    want_ragged = _fp32_step(dist_zoo_trainer("ao", "float32", False), whole)
+    torch.cuda.empty_cache()
+    ragged_floor = check_agreement(
+        "phase 30 ragged: fp32 reorder floor (one process, the global batch's "
+        "halves swapped)", _fp32_step(dist_zoo_trainer("ao", "float32", False),
+                                      reorder(whole)), want_ragged,
+        loss_tol=1e-5, front_end_tol=0.15, front_end="encoder.front_end.",
+        bn_scaled=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn(distributed_rank, 2, "gloo", "cuda:0", parts, timeout=900)
+    rec["ranks_s"] = time.perf_counter() - t0
+
+    launches = {}
+    for kind in DIST_ZOO:
+        got = [r["zoo"][kind] for r in ranks]
+        per_step = got[0]["launches_per_step"]
+        want_launch = {k: v * DIST_STEPS for k, v in per_step.items()}
+        same = len({g["params_digest"] for g in got}) == 1
+        agree_ranks = (len({g["grads_digest"] for g in got}) == 1
+                       and len({g["fp32_loss"] for g in got}) == 1)
+        front = "encoder.front_end."
+        agree = check_agreement(
+            f"phase 30 {kind}: fp32 data-parallel step (2 ranks) vs one "
+            f"process", got[0]["fp32"], want[kind], loss_tol=1e-5,
+            front_end_tol=0.15, front_end=front)
+        log(f"phase 30 {kind} ({card}): launches per step and rank "
+            f"{per_step}; over {DIST_STEPS} steps "
+            + json.dumps([g["launches"] for g in got])
+            + f"; parameters bit-identical across ranks: {same}; step ms "
+            f"per rank {[round(g['step_ms'], 2) for g in got]}, peak GiB "
+            f"{[round(g['peak_gib'], 2) for g in got]} (two ranks "
+            f"time-sliced on one card over gloo); {got[0]['s']:.1f} s on "
+            f"rank 0")
+        if not (same and agree_ranks and all(
+                g["launches"] == want_launch for g in got)
+                and {"fused_ffn_fwd", "fused_ffn_bwd", "fused_conv_dp_stats",
+                     "fused_conv_dp_fwd", "fused_conv_dp_bwd1",
+                     "fused_conv_dp_bwd2"} <= set(per_step)):
+            raise AssertionError(f"phase 30 {kind}: launches {per_step} "
+                                 f"{[g['launches'] for g in got]}, params "
+                                 f"same {same}, ranks agree {agree_ranks}")
+        launches[kind] = got[0]["launches"]
+        rec[kind] = {"launches_per_step": per_step,
+                     "launches_per_rank": [g["launches"] for g in got],
+                     "steps": got[0]["history"], "params_identical": same,
+                     "step_ms_per_rank": [g["step_ms"] for g in got],
+                     "peak_gib_per_rank": [g["peak_gib"] for g in got],
+                     "s_rank0": got[0]["s"], **agree}
+
+    # (b)
+    rg = [r["ragged"] for r in ranks]
+    log(f"phase 30 ragged: rank batches {[g['own_shape'] for g in rg]} "
+        f"(labels {[g['own_label_shape'] for g in rg]}) assembled to "
+        f"{[g['assembled_shape'] for g in rg]} (labels "
+        f"{[g['label_shape'] for g in rg]}); one process "
+        f"{list(whole['inputs'][0].shape)}")
+    shapes_ok = (rg[0]["own_shape"] != rg[1]["own_shape"]
+                 and rg[0]["own_label_shape"] != rg[1]["own_label_shape"]
+                 and all(
+        g["assembled_shape"] == [g["own_shape"][0],
+                                 whole["inputs"][0].shape[1]]
+        and g["label_shape"] == [g["own_shape"][0],
+                                 whole["targets"][0].shape[1]]
+        for g in rg) and rg[0]["fp32_loss"] == rg[1]["fp32_loss"])
+    agree = check_agreement(
+        "phase 30 ragged: fp32 data-parallel step on assembled batches vs "
+        "one process on the global batch", rg[0]["fp32"], want_ragged,
+        loss_tol=1e-5, front_end_tol=0.15, front_end="encoder.front_end.",
+        bn_scaled=True)
+    if not shapes_ok:
+        raise AssertionError("phase 30 ragged shapes: " + json.dumps(
+            [{k: v for k, v in g.items() if k != "fp32"} for g in rg]))
+    rec["ragged"] = {"own_shapes": [g["own_shape"] for g in rg],
+                     "own_label_shapes": [g["own_label_shape"] for g in rg],
+                     "assembled_shape": rg[0]["assembled_shape"], **agree,
+                     "reorder_floor": ragged_floor}
+
+    # (c)
+    g0, g1 = ranks[0]["gpt"], ranks[1]["gpt"]
+    ffn_in = "transformer.blocks.0.ff_module.layers.1.weight"
+    loss_rel = max(abs(a - b) / abs(b) for a, b in
+                   zip(g0["losses"], g0["ref_losses"]))
+    norm_rel = max(abs(a - b) / abs(b) for a, b in
+                   zip(g0["grad_norms"], g0["ref_grad_norms"]))
+    diffs = g0["param_diffs"]
+    largest = max(v["largest"] for v in diffs.values())
+    bound = 1e-5 * largest
+    key_bias = {n: v for n, v in diffs.items()
+                if n.endswith("key_layer.bias")}
+    compared = {n: v for n, v in diffs.items() if n not in key_bias}
+
+    def worst_of(key):
+        return max((v[key], n) for n, v in compared.items())
+
+    worst, worst_rel = worst_of("max"), worst_of("rel")
+    floor, floor_rel = worst_of("floor_max"), worst_of("floor_rel")
+    least_moved = min((v["moved"], n) for n, v in compared.items())
+    key_moved = max(v["moved"] + v["max"] for v in key_bias.values())
+    key_limit = 2 * GPT_TP_STEPS * GPT_TP_LR
+    log(f"phase 30 GPT-Small tensor-parallel (model_parallel {GPT_TP}, "
+        f"{card}): {ffn_in} shard {g0['shards'][ffn_in][0]} of "
+        f"{g0['shards'][ffn_in][1]}; head replicated: "
+        f"{'head.weight' in g0['replicated']}; {len(g0['shards'])} sharded "
+        f"parameters; parameters a rank {g0['numel_per_rank'] / 1e6:.2f}M of "
+        f"{g0['ref_numel'] / 1e6:.2f}M")
+    log(f"  losses {g0['losses']} vs one process {g0['ref_losses']} (max "
+        f"rel {loss_rel:.2e}, tol 2e-5); grad norms {g0['grad_norms']} vs "
+        f"{g0['ref_grad_norms']} (max rel {norm_rel:.2e}, tol 1e-5)")
+    log(f"  gathered parameters after {GPT_TP_STEPS} steps at lr "
+        f"{GPT_TP_LR}: difference / one-process update, in norm, worst "
+        f"{worst_rel[0]:.2e} ({worst_rel[1]}; tol 1e-2; reorder floor "
+        f"{floor_rel[0]:.2e}, {floor_rel[1]}); largest entrywise difference "
+        f"{worst[0]:.2e} ({worst[1]}), {worst[0] / largest:.2e} of the "
+        f"largest entry {largest:.3f} (reorder floor {floor[0]:.2e}, "
+        f"{floor[1]}); the least moved parameter moved {least_moved[0]:.2e} "
+        f"({least_moved[1]}; must pass {bound:.2e}); {len(key_bias)} key "
+        f"biases within {key_moved:.2e} of their start (tol {key_limit:.0e})")
+    log(f"  step ms per rank {[round(x, 2) for x in g0['step_ms']]}, "
+        f"{[round(x, 2) for x in g1['step_ms']]} (two ranks time-sliced on "
+        f"one card over gloo); peak {g0['peak_gib']:.2f} / "
+        f"{g1['peak_gib']:.2f} GiB ({card})")
+    from avec_tpu_torch.models.transformer import GPT_CONFIGS
+
+    d = GPT_CONFIGS[GPT_SMALL["model"]]["dim_model"]   # 768: FFN-in 1536
+    gpt_ok = (g0["shards"][ffn_in] == [[4 * d // GPT_TP, d], [4 * d, d]]
+              and "head.weight" in g0["replicated"]
+              and "head.bias" in g0["replicated"]
+              and g0["losses"] == g1["losses"] and loss_rel <= 2e-5
+              and norm_rel <= 1e-5 and worst_rel[0] <= 1e-2
+              and least_moved[0] > bound and key_moved <= key_limit)
+    rec["gpt"] = {**{k: v for k, v in g0.items() if k != "param_diffs"},
+                  "rank1_step_ms": g1["step_ms"],
+                  "rank1_peak_gib": g1["peak_gib"], "loss_rel": loss_rel,
+                  "grad_norm_rel": norm_rel, "worst_leaf": worst,
+                  "worst_leaf_update_rel": worst_rel,
+                  "reorder_floor_leaf": floor,
+                  "reorder_floor_update_rel": floor_rel,
+                  "largest_entry": largest, "least_moved": least_moved,
+                  "key_bias_moved": key_moved}
+    if not gpt_ok:
+        raise AssertionError("phase 30 GPT tensor parallel: " + json.dumps(
+            {k: rec["gpt"][k] for k in (
+                "losses", "ref_losses", "grad_norms", "ref_grad_norms",
+                "worst_leaf", "worst_leaf_update_rel", "reorder_floor_leaf",
+                "reorder_floor_update_rel", "largest_entry", "least_moved",
+                "key_bias_moved", "replicated")}))
+    rec["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 30 (distributed) wall {rec['wall_s']:.1f} s ({card})")
+    detail["distributed"] = rec
+    return launches
 
 
 def fbank_stream_gap(model, decoder, utt) -> float:
