@@ -65,7 +65,11 @@ _ATT_RE = re.compile(r".*Attention_\d+$")
 
 _CONV_MODULE_IDX = {"LayerNorm_0": "layers.0", "Conv_0": "layers.1",
                     "Conv_1": "layers.3", "BatchNorm_0": "layers.4",
-                    "Conv_2": "layers.6"}
+                    "Conv_2": "layers.6",
+                    # the variants (conformer.py:285-312): a transposed
+                    # depthwise conv, a LayerNorm in place of the BN
+                    "ConvTranspose_0": "layers.3", "LayerNorm_1": "layers.4"}
+_STEM_LAYER_RE = re.compile(r"^(conv|\w*Norm\d?d?)_(\d+)$")
 _FF_MODULE_IDX = {"LayerNorm_0": "layers.0", "Linear_0": "layers.1",
                   "Linear_1": "layers.4"}
 _RESNET_IDX = {"conv1": "layers.0", "bn1": "layers.1", "conv2": "layers.3",
@@ -151,7 +155,7 @@ def _leaf_rule(segs: List[str], leaf: str, in_batch_stats: bool):
     if leaf == "kernel":
         if parent == "linear":
             return "weight", _audio_stem_linear
-        if _CONVT_RE.match(parent):
+        if _CONVT_RE.match(parent) or parent == "conv_res_t":
             return "weight", _convt
         return "weight", _kernel
     if leaf == "pos_kernel":
@@ -197,10 +201,13 @@ def _map_segments(segs: List[str], ordinals: Dict[str, Dict[int, int]]) -> str:
                 out.append("front_end.3")
                 i += 1
         elif s == "subsampling_module":
-            out.append({"conv_0": "subsampling_module.layers.0.0",
-                        "BatchNorm_0": "subsampling_module.layers.0.1"}[
-                            segs[i + 1]])
+            m = _STEM_LAYER_RE.match(segs[i + 1])
+            out.append(f"subsampling_module.layers.{m.group(2)}."
+                       + ("0" if m.group(1) == "conv" else "1"))
             i += 2
+        elif s == "conv_res_t":
+            out.append("conv_res")
+            i += 1
         elif s == "fusion_module":
             out.append({"Linear_0": "fusion_module.layers.0",
                         "Linear_1": "fusion_module.layers.2"}[segs[i + 1]])
@@ -238,6 +245,26 @@ def _map_segments(segs: List[str], ordinals: Dict[str, Dict[int, int]]) -> str:
             out.append(s)
             i += 1
     return ".".join(out)
+
+
+def _canonical(paths) -> Dict[Tuple[str, ...], Tuple[str, ...]]:
+    """{path: the path the rules map}. In a transposed convolution module
+    (one with a ConvTranspose_0 child) flax numbers the last pointwise conv
+    Conv_1, which the rules take as Conv_2; a transposed block's conv_res is
+    a ConvTranspose, which the rules take as conv_res_t."""
+    transposed = {tuple(p[:i]) for p in paths for i, s in enumerate(p)
+                  if s == "ConvTranspose_0" and i and p[i - 1] == "conv_module"}
+    out = {}
+    for p in paths:
+        q = list(p)
+        for i, s in enumerate(p):
+            if s == "Conv_1" and tuple(p[:i]) in transposed:
+                q[i] = "Conv_2"
+            elif (s == "conv_res"
+                  and tuple(p[:i]) + ("conv_module",) in transposed):
+                q[i] = "conv_res_t"
+        out[tuple(p)] = tuple(q)
+    return out
 
 
 def _flatten(tree, prefix=()) -> Dict[Tuple[str, ...], np.ndarray]:
@@ -345,6 +372,8 @@ def params_from_jax(params, batch_stats=None, bidirectional_lstm=None
         node = cells.setdefault(segs[:j], {}).setdefault(
             int(_LSTM_RE.match(segs[j]).group(1)), {})
         node.setdefault(segs[j + 1], {})[segs[-1]] = arr
+    canon = _canonical([segs for segs, _, _ in plain])
+    plain = [(canon[tuple(segs)], arr, in_bs) for segs, arr, in_bs in plain]
     root = _resnet_root([segs for segs, _, _ in plain])
     if root:
         plain = [(("front_end_resnet",) + segs, arr, in_bs)
@@ -383,8 +412,10 @@ def _to_numpy(v) -> np.ndarray:
 
 def _tree_to_jax(values, template, in_bs: bool, ordinals):
     out = {}
-    for path in _flatten_paths(template):
-        segs, leaf = list(path[:-1]), path[-1]
+    paths = _flatten_paths(template)
+    canon = _canonical(paths)
+    for path in paths:
+        segs, leaf = list(canon[path][:-1]), path[-1]
         entries = _torch_entries(segs, leaf, in_bs, ordinals)
         arrs = [_INVERSE[tf](_to_numpy(values[key])) for key, tf in entries]
         arr = arrs[0] if len(arrs) == 1 else np.stack(arrs)

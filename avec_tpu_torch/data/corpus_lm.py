@@ -2,6 +2,9 @@
 24-50): one sample per line, tokenized lower-cased; a line longer than
 `max_length` tokens is replaced by another line drawn with a
 `RandomState(0)` of the dataset's own, until one fits.
+
+The corpus is placed by hand: `download=True` raises one error that names
+the file and where it goes; nothing is fetched.
 """
 
 from typing import Optional
@@ -14,10 +17,17 @@ from avec_tpu_torch.utils.tokenizer import load_tokenizer
 
 class CorpusLM(Dataset):
     def __init__(self, batch_size, collate_fn, root="datasets", shuffle=True,
+                 download=False,
                  tokenizer_path="datasets/LRS3/tokenizerbpe1024.json",
                  max_length: Optional[int] = None,
                  corpus_path="datasets/LibriSpeechCorpus/"
                              "librispeech-lm-norm.txt"):
+        if download:
+            raise RuntimeError(
+                "the LM corpus is not downloaded by this package: place the "
+                "LibriSpeech LM corpus (librispeech-lm-norm.txt, OpenSLR "
+                "resource SLR11, unzipped: one normalised sentence per line) "
+                f"at {corpus_path}")
         super().__init__(batch_size=batch_size, collate_fn=collate_fn,
                          shuffle=shuffle)
         self.root = root

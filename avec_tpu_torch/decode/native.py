@@ -37,10 +37,11 @@ def library_path() -> Path:
     return BUILD_ROOT / h.hexdigest()[:16] / "libbeamdecoder.so"
 
 
-def build_library() -> Path:
-    """Compile the decoder library once (idempotent); returns its path."""
+def build_library(force: bool = False) -> Path:
+    """Compile the decoder library once (idempotent; `force` compiles it
+    again); returns its path."""
     so = library_path()
-    if so.is_file():
+    if so.is_file() and not force:
         return so
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
@@ -89,16 +90,18 @@ class NativeBeamDecoder:
     def __init__(self, blank: int = 0, beam_size: int = 16, alpha: float = 0.6,
                  beta: float = 1.0, ngram_path: Optional[str] = None,
                  ngram_offset: int = 100, cutoff_top_n: Optional[int] = None,
-                 num_threads: int = 8):
+                 cutoff_prob: float = 1.0, num_threads: int = 8):
         self._lib = _load()
         path = (ngram_path or "").encode()
         self._handle = self._lib.bd_create(blank, beam_size, alpha, beta,
                                            path, ngram_offset)
         if not self._handle:
             raise RuntimeError(f"bd_create failed (ngram_path={ngram_path})")
-        if cutoff_top_n is not None:
-            # each frame's top n tokens and the blank (no cumulative-prob cut)
-            self._lib.bd_set_cutoff(self._handle, int(cutoff_top_n), 1.0)
+        if cutoff_top_n is not None or cutoff_prob < 1.0:
+            # per frame: the tokens by probability until their sum passes
+            # cutoff_prob, at most cutoff_top_n of them, and the blank
+            self._lib.bd_set_cutoff(self._handle, int(cutoff_top_n or 0),
+                                    float(cutoff_prob))
         self.beam_size = beam_size
         self.num_threads = num_threads
 

@@ -37,6 +37,7 @@ import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
+from avec_tpu_torch.models.remat import remat_call
 from avec_tpu_torch.ops.activations import get_act, glu, swish
 from avec_tpu_torch.ops.attention import (RelPos1dMultiHeadAttention,
                                           make_attention)
@@ -47,7 +48,8 @@ from avec_tpu_torch.ops.conv_module import (conv_module_params,
                                             fused_conv_module_3d_dp)
 from avec_tpu_torch.ops.ffn import fused_ffn_3d, fused_ffn_3d_dp
 from avec_tpu_torch.ops.layers import (BatchNorm, Conv, ConvTranspose,
-                                       Dropout, LayerNorm, Linear, norm_dict)
+                                       Dropout, LayerNorm, Linear, norm_dict,
+                                       upsample_nearest)
 from avec_tpu_torch.ops.masks import downsample_mask, strided_lengths
 
 
@@ -58,9 +60,10 @@ def _indexed(mods: Dict[int, nn.Module]) -> nn.ModuleDict:
 
 class FeedForwardModule(nn.Module):
     """Pre-norm FFN: LN(1e-6) -> Linear(d_ffn) -> act -> drop (inner) ->
-    Linear(d) -> drop (conformer.py:86-139). `act_fun` is "Swish" (the
-    conformer's) or "GELU" (the GPT's, with `inner_dropout=False` and the
-    Linear inits "normal_02" / "zeros").
+    Linear(d) -> drop (conformer.py:86-139); `prenorm=False` leaves the
+    LayerNorm out. `act_fun` names an activation of `ops/activations.py`:
+    "Swish" (the conformer's) or "GELU" (the GPT's, with
+    `inner_dropout=False` and the Linear inits "normal_02" / "zeros").
 
     With `fused_ffn` (None: the environment variable AVEC_TPU_FUSED_FFN) a
     (B, T, d) input in training mode goes through the fused kernel of
@@ -78,16 +81,19 @@ class FeedForwardModule(nn.Module):
     def __init__(self, dim_model: int, dim_ffn: int, drop_rate: float = 0.1,
                  fused_ffn: Optional[bool] = None, act_fun: str = "Swish",
                  inner_dropout: bool = True, weight_init: str = "default",
-                 bias_init: str = "default"):
+                 bias_init: str = "default", prenorm: bool = True):
         super().__init__()
         inits = dict(weight_init=weight_init, bias_init=bias_init)
-        self.layers = _indexed({0: LayerNorm(dim_model, 1e-6),
-                                1: Linear(dim_model, dim_ffn, **inits),
-                                4: Linear(dim_ffn, dim_model, **inits)})
+        layers = {1: Linear(dim_model, dim_ffn, **inits),
+                  4: Linear(dim_ffn, dim_model, **inits)}
+        if prenorm:
+            layers[0] = LayerNorm(dim_model, 1e-6)
+        self.layers = _indexed(dict(sorted(layers.items())))
         self.dropout = Dropout(drop_rate)
         self.drop_rate = drop_rate
         self.act_fun = act_fun
         self.inner_dropout = inner_dropout
+        self.prenorm = prenorm
         self.fused_ffn = (_fused_ffn_enabled() if fused_ffn is None
                           else bool(fused_ffn))
         self.use_kernel = True
@@ -99,12 +105,14 @@ class FeedForwardModule(nn.Module):
     def fused_eligible(self, ndim: int = 3) -> bool:
         """Whether a training-mode call with an input of `ndim` axes takes
         the fused kernels."""
-        return (self.fused_ffn and ndim == 3 and self.act_fun == "Swish"
+        return (self.fused_ffn and self.prenorm and ndim == 3
+                and self.act_fun == "Swish"
                 and (self.inner_dropout or self.drop_rate == 0.0))
 
     def forward(self, x):
-        norm, lin1, lin2 = (self.layers[k] for k in ("0", "1", "4"))
+        lin1, lin2 = self.layers["1"], self.layers["4"]
         if self.training and self.fused_eligible(x.ndim):
+            norm = self.layers["0"]
             rate = self.drop_rate if self.regularize else 0.0
             seed = _draw_seed(self.seed_generator) if rate > 0.0 else None
             fn, dp = _dp_route(fused_ffn_3d, fused_ffn_3d_dp,
@@ -113,7 +121,9 @@ class FeedForwardModule(nn.Module):
                       lin2.weight, lin2.bias, seed=seed, epsilon=norm.eps,
                       drop_rate=rate, deterministic=False,
                       use_kernel=self.use_kernel, **dp)
-        x = get_act(self.act_fun)(lin1(norm(x)))
+        if self.prenorm:
+            x = self.layers["0"](x)
+        x = get_act(self.act_fun)(lin1(x))
         if self.inner_dropout:
             x = self.dropout(x)
         return self.dropout(lin2(x))
@@ -149,8 +159,8 @@ def _dp_route(fn, fn_dp, group):
 
 
 class AttentionModule(nn.Module):
-    """Pre-norm attention + dropout (no residual inside the conformer
-    block).
+    """Pre-norm attention + dropout, + x with `residual` (conformer.py:
+    142-221; the conformer block's module has none, it adds its own).
 
     With `fused_att` (None: the environment variable AVEC_TPU_FUSED_ATT) the
     module runs as one fused kernel per direction (`ops/attention_module.py`)
@@ -164,8 +174,10 @@ class AttentionModule(nn.Module):
     plain version; `regularize=False` turns its dropout off."""
 
     def __init__(self, dim_model: int, att_params: dict,
-                 drop_rate: float = 0.1, fused_att: Optional[bool] = None):
+                 drop_rate: float = 0.1, fused_att: Optional[bool] = None,
+                 residual: bool = True):
         super().__init__()
+        self.residual = residual
         self.norm = LayerNorm(dim_model, 1e-6)
         self.attention = make_attention(dim_model, att_params)
         self.dropout = Dropout(drop_rate)
@@ -184,7 +196,8 @@ class AttentionModule(nn.Module):
         att = self.attention
         return (self.fused_att and ndim == 3
                 and type(att) is RelPos1dMultiHeadAttention
-                and not att.use_flash
+                and not att.use_flash and not att.causal
+                and att.output_layer is not None
                 and (mask is None or (mask.ndim == 4 and mask.shape[2] == 1))
                 and att.dim_model % att.num_heads == 0
                 and att.dim_model % 2 == 0)
@@ -197,7 +210,8 @@ class AttentionModule(nn.Module):
         if return_hidden:
             out, new_hidden = self.attention(
                 self.norm(x), mask=mask, hidden=hidden, return_hidden=True)
-            return self.dropout(out), new_hidden
+            out = self.dropout(out)
+            return (out + x if self.residual else out), new_hidden
         if self.training and self.fused_eligible(x.ndim, mask):
             att = self.attention
             rate = self.drop_rate if self.regularize else 0.0
@@ -215,22 +229,28 @@ class AttentionModule(nn.Module):
                 att.pos_layer.weight, att.pos_layer.bias,
                 att.output_layer.weight, att.output_layer.bias,
                 num_heads=att.num_heads, lengths=lengths, seed=seed,
-                drop_rate=rate, deterministic=False, residual=False,
+                drop_rate=rate, deterministic=False, residual=self.residual,
                 ln_eps=self.norm.eps, use_kernel=self.use_kernel, **dp)
-        return self.dropout(self.attention(self.norm(x), mask=mask,
-                                           lengths=lengths))
+        out = self.dropout(self.attention(self.norm(x), mask=mask,
+                                          lengths=lengths))
+        return out + x if self.residual else out
 
 
 class ConvolutionModule(nn.Module):
-    """LN -> pointwise 2E -> GLU -> depthwise k (stride) -> BN -> swish
-    -> pointwise E -> drop; channels-first inside, (B, T, D) at the boundary.
-    The depthwise conv feeds the BN, so its bias is detached in training.
+    """LN -> pointwise 2E -> GLU -> depthwise k (stride) -> BN -> act
+    -> pointwise E -> drop; channels-first inside, (B, T, D) at the boundary
+    (conformer.py:224-318). The depthwise conv feeds the BN, so its bias is
+    detached in training. `batch_norm=False` puts a LayerNorm (eps 1e-5,
+    over the channels) in place of the BN, and the depthwise bias then
+    trains; `transposed` puts a ConvTranspose of E channels in place of the
+    depthwise conv (padding (k - 1) // 2, output padding stride - 1: T times
+    the stride frames out); `act_fun` names the activation.
 
     With `fused_conv` (None: the environment variable AVEC_TPU_FUSED_CONV)
     the module runs as the fused kernels of `ops/conv_module.py` where the
     JAX gate of conformer.py:248-253 lets it: training mode, stride 1,
-    padding "same" or "causal", a 3-d input (BatchNorm and swish are the
-    port module's only choice). The batch statistics the kernels return move
+    padding "same" or "causal", a 3-d input, not transposed, BatchNorm and
+    Swish. The batch statistics the kernels return move
     the BatchNorm's running statistics; the 31-bit dropout seed comes from
     `seed_generator`, as in `FeedForwardModule`. With a `process_group`
     (data-parallel training) the fused route is the K3dp path
@@ -241,20 +261,32 @@ class ConvolutionModule(nn.Module):
 
     def __init__(self, dim_model: int, dim_expand: int, stride: int = 1,
                  kernel_size: int = 15, padding: str = "same",
-                 drop_rate: float = 0.1, fused_conv: Optional[bool] = None):
+                 drop_rate: float = 0.1, fused_conv: Optional[bool] = None,
+                 act_fun: str = "Swish", batch_norm: bool = True,
+                 transposed: bool = False):
         super().__init__()
+        if transposed:
+            depthwise = ConvTranspose(
+                dim_expand, dim_expand, kernel_size, ndim=1, stride=stride,
+                padding=(kernel_size - 1) // 2,
+                output_padding=max(stride - 1, 0))
+        else:
+            depthwise = Conv(dim_expand, dim_expand, kernel_size, ndim=1,
+                             stride=stride, padding=padding,
+                             groups=dim_expand, bias_stop_gradient=batch_norm)
         self.layers = _indexed({
             0: LayerNorm(dim_model, 1e-6),
             1: Conv(dim_model, 2 * dim_expand, 1, ndim=1),
-            3: Conv(dim_expand, dim_expand, kernel_size, ndim=1, stride=stride,
-                    padding=padding, groups=dim_expand,
-                    bias_stop_gradient=True),
-            4: BatchNorm(dim_expand),
+            3: depthwise,
+            4: BatchNorm(dim_expand) if batch_norm else LayerNorm(dim_expand),
             6: Conv(dim_expand, dim_expand, 1, ndim=1)})
         self.dropout = Dropout(drop_rate)
         self.drop_rate = drop_rate
         self.stride = stride
         self.padding = padding
+        self.act_fun = act_fun
+        self.batch_norm = batch_norm
+        self.transposed = transposed
         self.fused_conv = (_fused_conv_enabled() if fused_conv is None
                            else bool(fused_conv))
         self.use_kernel = True
@@ -267,7 +299,19 @@ class ConvolutionModule(nn.Module):
         """Whether a training-mode call with an input of `ndim` axes takes
         the fused kernels."""
         return (self.fused_conv and ndim == 3 and self.stride == 1
-                and self.padding in ("same", "causal"))
+                and self.padding in ("same", "causal")
+                and not self.transposed and self.batch_norm
+                and self.act_fun == "Swish")
+
+    def _norm_act(self, x):
+        """The norm (BN, or a LayerNorm over the channels) and the
+        activation of channels-first (B, E, T)."""
+        norm = self.layers["4"]
+        if self.batch_norm:
+            x = norm(x)
+        else:
+            x = norm(x.transpose(1, 2)).transpose(1, 2)
+        return get_act(self.act_fun)(x)
 
     def forward(self, x, state=None, return_state: bool = False):
         """With `return_state` (streaming, causal padding only) the
@@ -277,15 +321,16 @@ class ConvolutionModule(nn.Module):
         the causal conv of the whole sequence, chunk by chunk
         (conformer.py:290-317)."""
         if return_state:
-            if self.padding != "causal":
+            if self.padding != "causal" or self.transposed:
                 raise ValueError("streaming needs the causal convolution "
-                                 f"module, not padding {self.padding!r}")
+                                 f"module, not padding {self.padding!r}"
+                                 + (" transposed" if self.transposed else ""))
             x = glu(self.layers["1"](self.layers["0"](x).transpose(1, 2)),
                     dim=1)
             x = torch.cat([state.to(x.dtype), x], dim=2)
             depthwise = self.layers["3"]
             new_state = x[:, :, x.shape[2] - (depthwise.kernel_size[0] - 1):]
-            x = swish(self.layers["4"](depthwise(x, pads=((0, 0),))))
+            x = self._norm_act(depthwise(x, pads=((0, 0),)))
             return (self.dropout(self.layers["6"](x).transpose(1, 2)),
                     new_state)
         if self.training and self.fused_eligible(x.ndim):
@@ -304,7 +349,7 @@ class ConvolutionModule(nn.Module):
             return y
         x = self.layers["0"](x).transpose(1, 2)
         x = glu(self.layers["1"](x), dim=1)
-        x = swish(self.layers["4"](self.layers["3"](x)))
+        x = self._norm_act(self.layers["3"](x))
         return self.dropout(self.layers["6"](x).transpose(1, 2))
 
 
@@ -338,31 +383,47 @@ class FusionModule(nn.Module):
 
 
 class ConformerBlock(nn.Module):
-    """x += ff1/2; x += MHSA(LN(x)); x = res(x) + conv(x); x += ff2/2; LN.
-    A strided block downsamples in its conv module; its residual is a
-    stride-2 max pool (same dim) or a strided pointwise conv (new dim)."""
+    """x += ff1/2; x += MHSA(LN(x)); x = res(x) + conv(x); x += ff2/2; LN
+    (conformer.py:358-451). A strided block downsamples in its conv module;
+    its residual is a stride-2 max pool (same dim) or a strided pointwise
+    conv (new dim). A `transposed` block upsamples instead: its residual is
+    a nearest-neighbour repeat (same dim) or a strided pointwise
+    ConvTranspose (new dim). `act_fun`, `inner_dropout` and `batch_norm`
+    go to the modules; `block_norm=False` leaves the last LayerNorm out."""
 
     def __init__(self, dim_model: int, dim_expand: int, ff_ratio: int,
                  att_params: dict, conv_stride: int = 1, kernel_size: int = 15,
                  conv_padding: str = "same", drop_rate: float = 0.1,
                  fused_att: Optional[bool] = None,
                  fused_conv: Optional[bool] = None,
-                 fused_ffn: Optional[bool] = None):
+                 fused_ffn: Optional[bool] = None,
+                 inner_dropout: bool = True, act_fun: str = "Swish",
+                 batch_norm: bool = True, block_norm: bool = True,
+                 transposed: bool = False):
         super().__init__()
         self.stride = conv_stride
+        self.transposed = transposed
+        ff = dict(act_fun=act_fun, inner_dropout=inner_dropout)
         self.ff_module1 = FeedForwardModule(dim_model, dim_model * ff_ratio,
-                                            drop_rate, fused_ffn)
+                                            drop_rate, fused_ffn, **ff)
         self.self_att_module = AttentionModule(dim_model, att_params,
-                                               drop_rate, fused_att)
-        self.conv_module = ConvolutionModule(dim_model, dim_expand, conv_stride,
-                                             kernel_size, conv_padding,
-                                             drop_rate, fused_conv)
-        self.conv_res = (Conv(dim_model, dim_expand, 1, ndim=1,
-                              stride=conv_stride)
-                         if dim_model != dim_expand else None)
+                                               drop_rate, fused_att,
+                                               residual=False)
+        self.conv_module = ConvolutionModule(
+            dim_model, dim_expand, conv_stride, kernel_size, conv_padding,
+            drop_rate, fused_conv, act_fun=act_fun, batch_norm=batch_norm,
+            transposed=transposed)
+        self.conv_res = None
+        if dim_model != dim_expand:
+            self.conv_res = (
+                ConvTranspose(dim_model, dim_expand, 1, ndim=1,
+                              stride=conv_stride,
+                              output_padding=max(conv_stride - 1, 0))
+                if transposed else
+                Conv(dim_model, dim_expand, 1, ndim=1, stride=conv_stride))
         self.ff_module2 = FeedForwardModule(dim_expand, dim_expand * ff_ratio,
-                                            drop_rate, fused_ffn)
-        self.norm = LayerNorm(dim_expand, 1e-6)
+                                            drop_rate, fused_ffn, **ff)
+        self.norm = LayerNorm(dim_expand, 1e-6) if block_norm else None
 
     def forward(self, x, mask=None, lengths=None, state=None,
                 return_state: bool = False):
@@ -381,24 +442,37 @@ class ConformerBlock(nn.Module):
             conv_out = self.conv_module(x)
         if self.conv_res is not None:
             res = self.conv_res(x.transpose(1, 2)).transpose(1, 2)
+        elif self.transposed:
+            res = upsample_nearest(x, self.stride, axis=1)
         else:
             res = x[:, ::self.stride]
         x = res + conv_out
         x = x + 0.5 * self.ff_module2(x)
+        if self.norm is not None:
+            x = self.norm(x)
         if return_state:
-            return self.norm(x), {"att": att_state, "conv": conv_state}
-        return self.norm(x)
+            return x, {"att": att_state, "conv": conv_state}
+        return x
 
 
 class ConformerInterCTC(nn.Module):
     """Multi-stage conformer stack with InterCTC taps (conformer.py:483).
 
-    The block plan of the JAX `_block_plan` written out flat: stage s has
+    The blocks of the JAX `_block_plan` written out flat: stage s has
     num_blocks[s] blocks at dims[s]; the last block of every stage but the
     last strides by conv_stride into dims[s+1]. Block i (0-based) carries an
     InterCTC module when i+1 is in interctc_blocks; outputs are keyed
     "{loss_prefix}_{i}". Masks and lengths are re-strided after each strided
-    block. Dropout opens the stack (conformer.py:591)."""
+    block. Dropout opens the stack (conformer.py:591). `batch_norm` goes to
+    every block's convolution module.
+
+    `remat` rematerializes in training the blocks that the JAX package
+    rematerializes (conformer.py:594-611): those of the runs of
+    `block_plan` with more than one block (consecutive blocks of one
+    configuration, stride 1, no InterCTC tap); each such block keeps no
+    activation for the backward, which recomputes them
+    (`models/remat.py`). The parameters are the same with remat on and
+    off."""
 
     def __init__(self, dim_model: Union[int, Sequence[int]],
                  num_blocks: Union[int, Sequence[int]],
@@ -408,7 +482,8 @@ class ConformerInterCTC(nn.Module):
                  conv_padding: str = "same", drop_rate: float = 0.1,
                  fused_att: Optional[bool] = None,
                  fused_conv: Optional[bool] = None,
-                 fused_ffn: Optional[bool] = None):
+                 fused_ffn: Optional[bool] = None, batch_norm: bool = True,
+                 remat: bool = False):
         super().__init__()
         self.dropout = Dropout(drop_rate)
         dims = [dim_model] if isinstance(dim_model, int) else list(dim_model)
@@ -417,6 +492,8 @@ class ConformerInterCTC(nn.Module):
         self.interctc_at: List[int] = []
         self.kernel_size = kernel_size
         self.block_stage: List[int] = []
+        self.remat = remat
+        self._configs: List[Dict] = []
         blocks, inter = [], []
         i = 0
         for stage in range(len(nblocks)):
@@ -425,12 +502,21 @@ class ConformerInterCTC(nn.Module):
             for block_id in range(nblocks[stage]):
                 down = block_id == nblocks[stage] - 1 and stage < len(nblocks) - 1
                 dim_out = dims[stage + 1] if down else dims[stage]
+                config = dict(dim_model=dims[stage], dim_expand=dim_out,
+                              ff_ratio=ff_ratio, att_params=att,
+                              drop_rate=drop_rate,
+                              conv_stride=conv_stride if down else 1,
+                              kernel_size=kernel_size,
+                              conv_padding=conv_padding,
+                              batch_norm=batch_norm)
+                self._configs.append(config)
                 blocks.append(ConformerBlock(
                     dims[stage], dim_out, ff_ratio, att,
-                    conv_stride=conv_stride if down else 1,
+                    conv_stride=config["conv_stride"],
                     kernel_size=kernel_size, conv_padding=conv_padding,
                     drop_rate=drop_rate, fused_att=fused_att,
-                    fused_conv=fused_conv, fused_ffn=fused_ffn))
+                    fused_conv=fused_conv, fused_ffn=fused_ffn,
+                    batch_norm=batch_norm))
                 self.block_stage.append(stage)
                 if i + 1 in set(interctc_blocks):
                     self.interctc_at.append(i)
@@ -438,12 +524,42 @@ class ConformerInterCTC(nn.Module):
                 i += 1
         self.conformer_blocks = nn.ModuleList(blocks)
         self.interctc_modules = nn.ModuleList(inter)
+        self.remat_blocks = frozenset(
+            j for run in self.block_plan() if len(run) > 1 for j in run)
+
+    def block_plan(self) -> List[List[int]]:
+        """The blocks' indices grouped as the JAX `_block_plan` groups them
+        (conformer.py:521-573): consecutive blocks of stride 1, without an
+        InterCTC tap and of one configuration form a run; every other
+        block is a run of its own."""
+        runs: List[List[int]] = []
+        current: List[int] = []
+        for i, config in enumerate(self._configs):
+            if config["conv_stride"] == 1 and i not in self.interctc_at:
+                if current and self._configs[current[0]] == config:
+                    current.append(i)
+                    continue
+                if current:
+                    runs.append(current)
+                current = [i]
+            else:
+                if current:
+                    runs.append(current)
+                    current = []
+                runs.append([i])
+        if current:
+            runs.append(current)
+        return runs
 
     def forward(self, x, lengths=None, mask=None):
         interctc_outputs = {}
         x = self.dropout(x)
+        remat = self.remat and self.training and torch.is_grad_enabled()
         for i, block in enumerate(self.conformer_blocks):
-            x = block(x, mask=mask, lengths=lengths)
+            if remat and i in self.remat_blocks:
+                x = remat_call(block, x, mask=mask, lengths=lengths)
+            else:
+                x = block(x, mask=mask, lengths=lengths)
             logits = None
             if i in self.interctc_at:
                 x, logits = self.interctc_modules[self.interctc_at.index(i)](x)
@@ -461,7 +577,7 @@ class ConformerInterCTC(nn.Module):
         a streaming transcriber sizes each block's carried state from it."""
         return [dict(stage_id=stage, dim_model=b.ff_module1.layers["1"]
                      .weight.shape[1],
-                     dim_expand=b.norm.weight.shape[0],
+                     dim_expand=b.ff_module2.layers["1"].weight.shape[1],
                      kernel_size=self.kernel_size, stride=b.stride)
                 for stage, b in zip(self.block_stage, self.conformer_blocks)]
 
@@ -485,27 +601,41 @@ class ConformerInterCTC(nn.Module):
 
 
 class ConvNeuralNetwork(nn.Module):
-    """Conv -> BN -> act stack, channels-first; each layer updates lengths
-    by (len-1)//2+1 (the reference hardcodes stride-2 updates). Each conv
-    feeds a BN, so its bias is detached in training."""
+    """Conv -> norm -> act -> dropout per layer, channels first
+    (conformer.py:728-778); each layer updates lengths by (len-1)//2+1 (the
+    reference hardcodes stride-2 updates). `kernel_size` and `strides` are
+    one value or a list per layer; `norm` names a norm_dict entry (None:
+    none); a conv that feeds a BatchNorm has its bias detached in
+    training. `weight_init` / `bias_init` are the convs' inits. Layer i's
+    conv is `layers.{i}.0` and its norm `layers.{i}.1`."""
 
-    def __init__(self, in_ch: int, dim_layers: Sequence[int], kernel_size,
-                 ndim: int = 2, strides=1, act_fun="Swish",
-                 padding="same"):
+    def __init__(self, in_ch: int, dim_layers, kernel_size,
+                 ndim: int = 2, strides=1, norm=None, act_fun="ReLU",
+                 drop_rate: float = 0.0, padding="same",
+                 weight_init: str = "default", bias_init: str = "default"):
         super().__init__()
+        dims = [dim_layers] if isinstance(dim_layers, int) else list(dim_layers)
         layers, prev = [], in_ch
-        for dim in dim_layers:
-            layers.append(nn.ModuleList([
-                Conv(prev, dim, kernel_size, ndim=ndim, stride=strides,
-                     padding=padding, bias_stop_gradient=True),
-                BatchNorm(dim)]))
+        for i, dim in enumerate(dims):
+            _, mod = _norm_layer(norm, dim)
+            conv = Conv(prev, dim, _per_layer(kernel_size, i), ndim=ndim,
+                        stride=_per_layer(strides, i), padding=padding,
+                        bias_stop_gradient=isinstance(mod, BatchNorm),
+                        weight_init=weight_init, bias_init=bias_init)
+            layers.append(nn.ModuleList([conv] + ([mod] if mod else [])))
             prev = dim
         self.layers = nn.ModuleList(layers)
         self.act = get_act(act_fun)
+        self.dropout = Dropout(drop_rate) if drop_rate > 0 else None
 
     def forward(self, x, lengths=None):
-        for conv, bn in self.layers:
-            x = self.act(bn(conv(x)))
+        for layer in self.layers:
+            x = layer[0](x)
+            if len(layer) > 1:
+                x = _apply_norm(layer[1], x, channels_last=False)
+            x = self.act(x)
+            if self.dropout is not None:
+                x = self.dropout(x)
             if lengths is not None:
                 lengths = torch.div(lengths - 1, 2, rounding_mode="floor") + 1
         return x if lengths is None else (x, lengths)

@@ -10,7 +10,8 @@ Training mode (`nn.Module.train()`, the JAX `training=True`): SpecAugment
 after the fbank, batch statistics in every BatchNorm (audio stem, video stem,
 ResNet, convolution modules), dropout in the conformer stacks, and with
 `fused_ffn`, `fused_att` and `fused_conv` the fused feed-forward, attention
-and convolution kernels.
+and convolution kernels. `remat` rematerializes the conformer stacks' uniform
+block runs in training (`ConformerInterCTC`).
 The video stem trains in mode "2d" (plain PyTorch) or "pallas" (the BN + ReLU
 + pool kernel applied with batch statistics). In data-parallel training every
 BatchNorm takes the statistics of the global batch (the model's
@@ -53,9 +54,12 @@ class FusedVideoStem(nn.Module):
     (encoders.py:183-191). In data-parallel training mode "2d" syncs its
     BatchNorm over the ranks; mode "pallas" has single-device statistics, as
     the JAX kernel does (pallas_stem.py:38-42), and the model's
-    `set_data_parallel` refuses it for more than one rank."""
+    `set_data_parallel` refuses it for more than one rank. `momentum` (flax's
+    convention: the running statistics keep that share) and `epsilon` are
+    the BatchNorm's (encoders.py:103-104)."""
 
-    def __init__(self, mode: str = "2d"):
+    def __init__(self, mode: str = "2d", momentum: float = 0.9,
+                 epsilon: float = 1e-5):
         super().__init__()
         if mode not in ("2d", "pallas"):
             raise ValueError(f"stem mode {mode!r}: the port has '2d' and "
@@ -64,7 +68,7 @@ class FusedVideoStem(nn.Module):
         self.use_kernel = True
         self.layers = nn.ModuleList([nn.ModuleList([
             Conv(1, 64, (5, 7, 7), ndim=3, stride=(1, 2, 2)),
-            BatchNorm(64)])])
+            BatchNorm(64, eps=epsilon, momentum=1.0 - momentum)])])
         self.training = False
 
     def forward(self, x):
@@ -137,7 +141,7 @@ class AudioEfficientConformerEncoder(nn.Module):
                  causal: bool = False, left_context: Optional[int] = None,
                  fused_att: Optional[bool] = None,
                  fused_conv: Optional[bool] = None,
-                 fused_ffn: Optional[bool] = None):
+                 fused_ffn: Optional[bool] = None, remat: bool = False):
         super().__init__()
         n_mels, filters, dims, heads = 80, 180, [180, 256, 360], 4
         self.causal, self.left_context = causal, left_context
@@ -146,7 +150,8 @@ class AudioEfficientConformerEncoder(nn.Module):
             n_mels=n_mels, normalize=False)
         self.spec_augment = SpecAugment(mF=2, F=27, mT=5, pS=0.05)
         self.subsampling_module = ConvNeuralNetwork(
-            1, [filters], 3, ndim=2, strides=2, act_fun="Swish",
+            1, [filters], 3, ndim=2, strides=2, norm="BatchNorm2d",
+            act_fun="Swish",
             padding=("same", "causal") if causal else "same")
         self.linear = Linear(filters * (n_mels // 2), dims[0])
         if causal:
@@ -159,7 +164,7 @@ class AudioEfficientConformerEncoder(nn.Module):
             dims, list(num_blocks), list(interctc_blocks), vocab_size,
             att_params, loss_prefix=loss_prefix,
             conv_padding="causal" if causal else "same", fused_att=fused_att,
-            fused_conv=fused_conv, fused_ffn=fused_ffn)
+            fused_conv=fused_conv, fused_ffn=fused_ffn, remat=remat)
         self.head = Linear(dims[-1], vocab_size) if include_head else None
 
     def forward(self, x, lengths):
@@ -229,7 +234,7 @@ class VisualEfficientConformerEncoder(nn.Module):
                  stem_mode: Optional[str] = None,
                  fused_att: Optional[bool] = None,
                  fused_conv: Optional[bool] = None,
-                 fused_ffn: Optional[bool] = None):
+                 fused_ffn: Optional[bool] = None, remat: bool = False):
         super().__init__()
         dims = [256, 360]
         self.front_end = nn.ModuleDict({
@@ -242,7 +247,7 @@ class VisualEfficientConformerEncoder(nn.Module):
         self.back_end = ConformerInterCTC(
             dims, list(num_blocks), list(interctc_blocks), vocab_size, att,
             loss_prefix=loss_prefix, fused_att=fused_att,
-            fused_conv=fused_conv, fused_ffn=fused_ffn)
+            fused_conv=fused_conv, fused_ffn=fused_ffn, remat=remat)
         self.head = Linear(dims[-1], vocab_size) if include_head else None
 
     def forward(self, x, lengths):
@@ -269,26 +274,26 @@ class AudioVisualEfficientConformerEncoder(nn.Module):
                  stem_mode: Optional[str] = None,
                  fused_att: Optional[bool] = None,
                  fused_conv: Optional[bool] = None,
-                 fused_ffn: Optional[bool] = None):
+                 fused_ffn: Optional[bool] = None, remat: bool = False):
         super().__init__()
         dim = 360
         self.video_encoder = VisualEfficientConformerEncoder(
             include_head=False, vocab_size=vocab_size,
             interctc_blocks=v_interctc_blocks, num_blocks=v_num_blocks,
             loss_prefix="v_ctc", stem_mode=stem_mode, fused_att=fused_att,
-            fused_conv=fused_conv, fused_ffn=fused_ffn)
+            fused_conv=fused_conv, fused_ffn=fused_ffn, remat=remat)
         self.audio_encoder = AudioEfficientConformerEncoder(
             include_head=False, vocab_size=vocab_size,
             interctc_blocks=a_interctc_blocks, num_blocks=a_num_blocks,
             loss_prefix="a_ctc", use_flash=use_flash, fused_att=fused_att,
-            fused_conv=fused_conv, fused_ffn=fused_ffn)
+            fused_conv=fused_conv, fused_ffn=fused_ffn, remat=remat)
         self.fusion_module = FusionModule(dim, dim, dim)
         att = {"class": "RelPos1dMultiHeadAttention",
                "params": {"num_heads": 4}}
         self.audio_visual_encoder = ConformerInterCTC(
             dim, f_num_blocks, list(f_interctc_blocks), vocab_size, att,
             loss_prefix="f_ctc", fused_att=fused_att, fused_conv=fused_conv,
-            fused_ffn=fused_ffn)
+            fused_ffn=fused_ffn, remat=remat)
         self.head = Linear(dim, vocab_size) if include_head else None
 
     def forward(self, video, video_len, audio, audio_len):

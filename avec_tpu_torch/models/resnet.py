@@ -16,6 +16,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from avec_tpu_torch.ops.activations import get_act
 from avec_tpu_torch.ops.layers import BatchNorm, Conv, Linear
 
 _CONFIGS = {
@@ -32,61 +33,87 @@ _CONFIGS = {
 }
 
 
-def _residual(in_features, out_features, stride):
-    if stride == 1 and in_features == out_features:
+def _pair(v):
+    return tuple(v) if isinstance(v, (tuple, list)) else (v, v)
+
+
+def _residual(in_features, out_features, strides):
+    if strides == (1, 1) and in_features == out_features:
         return None
     return nn.ModuleDict({
-        "0": Conv(in_features, out_features, 1, ndim=2, stride=stride,
+        "0": Conv(in_features, out_features, 1, ndim=2, stride=strides,
                   bias=False),
         "1": BatchNorm(out_features)})
 
 
-class ResNetBlock(nn.Module):
-    """Basic residual block (resnet.py:43-76)."""
+def _join(block, y, x):
+    """The residual add and the block's last activation."""
+    if not block.joined_post_act:
+        y = block.act(y)
+    res = x if block.residual is None else \
+        block.residual["1"](block.residual["0"](x))
+    out = y + res
+    return block.act(out) if block.joined_post_act else out
 
-    def __init__(self, in_features: int, out_features: int, stride: int = 1):
+
+class ResNetBlock(nn.Module):
+    """Basic residual block (resnet.py:43-76): two `kernel_size` convs (the
+    first with the block's `strides`), each followed by BN, the activation
+    `act_fun` after the first; with `joined_post_act` the second's
+    activation follows the residual add, else it precedes it."""
+
+    def __init__(self, in_features: int, out_features: int, strides=1,
+                 kernel_size=3, act_fun: str = "ReLU",
+                 joined_post_act: bool = True):
         super().__init__()
+        strides = _pair(strides)
         self.layers = nn.ModuleDict({
-            "0": Conv(in_features, out_features, 3, ndim=2, stride=stride,
-                      bias=False),
+            "0": Conv(in_features, out_features, kernel_size, ndim=2,
+                      stride=strides, bias=False),
             "1": BatchNorm(out_features),
-            "3": Conv(out_features, out_features, 3, ndim=2, bias=False),
+            "3": Conv(out_features, out_features, kernel_size, ndim=2,
+                      bias=False),
             "4": BatchNorm(out_features)})
-        self.residual = _residual(in_features, out_features, stride)
+        self.residual = _residual(in_features, out_features, strides)
+        self.act = get_act(act_fun)
+        self.joined_post_act = joined_post_act
 
     def forward(self, x):
-        y = torch.relu(self.layers["1"](self.layers["0"](x)))
+        y = self.act(self.layers["1"](self.layers["0"](x)))
         y = self.layers["4"](self.layers["3"](y))
-        res = x if self.residual is None else \
-            self.residual["1"](self.residual["0"](x))
-        return torch.relu(y + res)
+        return _join(self, y, x)
 
 
 class ResNetBottleneckBlock(nn.Module):
     """Bottleneck block (resnet.py:79-117): 1x1 to in / bottleneck_ratio
-    channels, 3x3 with the block's stride, 1x1 to out_features; each conv
-    followed by BN, ReLU after the first two and after the residual add."""
+    channels, `kernel_size` with the block's `strides`, 1x1 to
+    out_features; each conv followed by BN, the activation `act_fun` after
+    the first two and, with `joined_post_act`, after the residual add (else
+    before it)."""
 
     def __init__(self, in_features: int, out_features: int,
-                 bottleneck_ratio: int, stride: int = 1):
+                 bottleneck_ratio: int, strides=1, kernel_size=3,
+                 act_fun: str = "ReLU", joined_post_act: bool = True):
         super().__init__()
+        strides = _pair(strides)
         mid = in_features // bottleneck_ratio
         self.layers = nn.ModuleDict({
             "0": Conv(in_features, mid, 1, ndim=2, bias=False),
             "1": BatchNorm(mid),
-            "3": Conv(mid, mid, 3, ndim=2, stride=stride, bias=False),
+            "3": Conv(mid, mid, kernel_size, ndim=2, stride=strides,
+                      bias=False),
             "4": BatchNorm(mid),
             "6": Conv(mid, out_features, 1, ndim=2, bias=False),
             "7": BatchNorm(out_features)})
-        self.residual = _residual(in_features, out_features, stride)
+        self.residual = _residual(in_features, out_features, strides)
+        self.act = get_act(act_fun)
+        self.joined_post_act = joined_post_act
 
     def forward(self, x):
-        y = torch.relu(self.layers["1"](self.layers["0"](x)))
-        y = torch.relu(self.layers["4"](self.layers["3"](y)))
+        y = self.act(self.layers["1"](self.layers["0"](x)))
+        y = self.act(self.layers["4"](self.layers["3"](y)))
         y = self.layers["7"](self.layers["6"](y))
-        res = x if self.residual is None else \
-            self.residual["1"](self.residual["0"](x))
-        return torch.relu(y + res)
+        return _join(self, y, x)
 
 
 class ResNet(nn.Module):

@@ -56,33 +56,46 @@ GPT_LR = {
 
 class TransformerBlock(nn.Module):
     """Pre-norm attention + FFN block (transformer.py:58-86): x +=
-    drop(MHA(LN(x))), x += FFN(x), the FFN GELU without inner dropout and
-    its Linear layers N(0, 0.02) with zero biases."""
+    drop(MHA(LN(x))), x += FFN(x), then a LayerNorm (eps 1e-5) with
+    `post_norm`. The FFN's activation is `act_fun`, its inner dropout
+    `inner_dropout`, its Linear inits `weight_init` / `bias_init` (the
+    GPT's: GELU, none, N(0, 0.02), zeros)."""
 
     def __init__(self, dim_model: int, att_params: Dict, ff_ratio: int = 4,
-                 drop_rate: float = 0.1):
+                 drop_rate: float = 0.1, inner_dropout: bool = False,
+                 act_fun: str = "GELU", weight_init: str = "normal_02",
+                 bias_init: str = "zeros", post_norm: bool = False):
         super().__init__()
         self.self_att_module = AttentionModule(dim_model, att_params,
-                                               drop_rate, fused_att=False)
+                                               drop_rate, fused_att=False,
+                                               residual=False)
         self.ff_module = FeedForwardModule(
             dim_model, dim_model * ff_ratio, drop_rate, fused_ffn=False,
-            act_fun="GELU", inner_dropout=False, weight_init="normal_02",
-            bias_init="zeros")
+            act_fun=act_fun, inner_dropout=inner_dropout,
+            weight_init=weight_init, bias_init=bias_init)
+        self.norm = LayerNorm(dim_model) if post_norm else None
 
     def forward(self, x, mask=None):
         x = x + self.self_att_module(x, mask=mask)
-        return x + self.ff_module(x)
+        x = x + self.ff_module(x)
+        return x if self.norm is None else self.norm(x)
 
 
 class Transformer(nn.Module):
-    """Position embedding ("sin", "learned" or None) -> dropout -> causal
-    blocks -> LayerNorm (transformer.py:89-126). The mask is the causal
-    band (right context 0), and the key padding of `lengths` when given."""
+    """Position embedding ("sin", "learned" or None) -> dropout -> blocks ->
+    LayerNorm (transformer.py:89-126). With `causal` the mask is the causal
+    band (right context 0), and the key padding of `lengths` when given;
+    without it, the key padding alone. With `post_norm` every block ends in
+    its own LayerNorm and the stack has none. `act_fun`, `inner_dropout`,
+    `weight_init` and `bias_init` go to the blocks' FFNs."""
 
     def __init__(self, dim_model: int, num_blocks: int, att_params: Dict,
                  ff_ratio: int = 4, emb_drop_rate: float = 0.1,
                  drop_rate: float = 0.1, pos_embedding: Optional[str] = None,
-                 max_pos_encoding: int = 2048):
+                 max_pos_encoding: int = 2048, act_fun: str = "GELU",
+                 causal: bool = True, inner_dropout: bool = False,
+                 weight_init: str = "normal_02", bias_init: str = "zeros",
+                 post_norm: bool = False):
         super().__init__()
         if pos_embedding not in (None, "sin", "learned"):
             raise ValueError(f"pos_embedding {pos_embedding!r}")
@@ -91,33 +104,42 @@ class Transformer(nn.Module):
             (SinPosEmbedding if pos_embedding == "sin" else PosEmbedding1d)(
                 max_pos_encoding, dim_model))
         self.dropout = Dropout(emb_drop_rate)
+        self.causal = causal
         self.blocks = nn.ModuleList([
-            TransformerBlock(dim_model, att_params, ff_ratio, drop_rate)
+            TransformerBlock(dim_model, att_params, ff_ratio, drop_rate,
+                             inner_dropout=inner_dropout, act_fun=act_fun,
+                             weight_init=weight_init, bias_init=bias_init,
+                             post_norm=post_norm)
             for _ in range(num_blocks)])
-        self.layernorm = LayerNorm(dim_model)
+        self.layernorm = None if post_norm else LayerNorm(dim_model)
 
     def forward(self, x, lengths=None):
         if self.pos_embedding is not None:
             x = self.pos_embedding(x)
         x = self.dropout(x)
         t = x.shape[1]
-        mask = band_mask(t, None, 0, device=x.device)
+        mask = band_mask(t, None, 0, device=x.device) if self.causal else None
         if lengths is not None:
-            mask = mask & padding_mask(lengths, t)
+            pad = padding_mask(lengths, t)
+            mask = pad if mask is None else mask & pad
         for block in self.blocks:
             x = block(x, mask=mask)
-        return self.layernorm(x)
+        return x if self.layernorm is None else self.layernorm(x)
 
 
 class GPTNet(nn.Module):
     """Embedding -> causal Transformer -> vocabulary head
-    (transformer.py:129-167); forward(ids (B, L)) -> logits (B, L, V)."""
+    (transformer.py:129-167); forward(ids (B, L)) -> logits (B, L, V). The
+    embeddings are cast to `compute_dtype`, the dtype the network runs in
+    (its parameters stay fp32)."""
 
     def __init__(self, vocab_size: int = 25000,
                  padding_idx: Optional[int] = None,
                  max_pos_encoding: int = 2048, model: str = "GPT-Small",
-                 pos_embedding: str = "learned", drop_rate: float = 0.1):
+                 pos_embedding: str = "learned", drop_rate: float = 0.1,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.compute_dtype = compute_dtype
         cfg = GPT_CONFIGS[model]
         d = cfg["dim_model"]
         self.embedding = Embedding(vocab_size, d, padding_idx=padding_idx,
@@ -135,4 +157,5 @@ class GPTNet(nn.Module):
                            bias_init="zeros")
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return self.head(self.transformer(self.embedding(ids)))
+        x = self.embedding(ids).to(self.compute_dtype)
+        return self.head(self.transformer(x))

@@ -141,9 +141,12 @@ class ZooModel(nn.Module):
         that takes the fused route the four conv kernels (statistics,
         forward, backward-1, backward-2) once each, under their K3dp names in
         data-parallel mode, and a "pallas" video stem its BN + ReLU + pool
-        kernel once (its backward launches no kernel). In data-parallel mode
+        kernel once (its backward launches no kernel). A rematerialized
+        block (`remat=True`) launches the forward kernels of its modules a
+        second time, in the backward's recompute. In data-parallel mode
         these are the launches of each rank."""
         from avec_tpu_torch.models.conformer import (AttentionModule,
+                                                     ConformerInterCTC,
                                                      ConvolutionModule,
                                                      FeedForwardModule)
         from avec_tpu_torch.ops import (attention_module, conv_module, ffn,
@@ -156,7 +159,7 @@ class ZooModel(nn.Module):
         # the flash route is RelPos1d's alone, never causal: the causal
         # encoder's layers are Transformer-XL ones
         n_flash = sum(isinstance(m, RelPos1dMultiHeadAttention)
-                      and m.use_flash for m in mods)
+                      and m.use_flash and not m.causal for m in mods)
         n_att = sum(isinstance(m, AttentionModule) and m.fused_eligible()
                     for m in mods)
         n_conv = sum(isinstance(m, ConvolutionModule) and m.fused_eligible()
@@ -173,6 +176,24 @@ class ZooModel(nn.Module):
                   attention_module.KERNEL_BWD: n_att,
                   **{name: n_conv for name in conv_names},
                   stem.KERNEL: n_stem}
+        for m in mods:
+            if not (isinstance(m, ConformerInterCTC) and m.remat):
+                continue
+            for i in m.remat_blocks:
+                again = list(m.conformer_blocks[i].modules())
+                counts[ffn.KERNEL_FWD] += sum(
+                    isinstance(x, FeedForwardModule) and x.fused_eligible()
+                    for x in again)
+                counts[flash_attention.KERNEL] += sum(
+                    isinstance(x, RelPos1dMultiHeadAttention) and x.use_flash
+                    and not x.causal for x in again)
+                counts[attention_module.KERNEL_FWD] += sum(
+                    isinstance(x, AttentionModule) and x.fused_eligible()
+                    for x in again)
+                for name in conv_names[:2]:       # statistics and forward
+                    counts[name] += sum(
+                        isinstance(x, ConvolutionModule)
+                        and x.fused_eligible() for x in again)
         return {k: v for k, v in counts.items() if v}
 
 
@@ -184,7 +205,10 @@ class AudioVisualEfficientConformerInterCTC(ZooModel):
     the reference blocks the six outputs `outputs`, `v_ctc_2`, `v_ctc_5`,
     `a_ctc_7`, `a_ctc_10`, `f_ctc_1`. The model is built in eval mode, where
     the forward records no graph; `.train()` does what `training=True` does
-    in the JAX package (zoo.py:211-227)."""
+    in the JAX package (zoo.py:211-227). `remat=True` rematerializes the
+    conformer blocks of the JAX plan's uniform runs in training (15 of the
+    reference depth's 24; `ConformerInterCTC`): the same step, with less
+    memory and the blocks' forward run twice."""
 
     model_name = "Audio-Visual Efficient Conformer Inter CTC"    # zoo.py:241
 
@@ -198,8 +222,8 @@ class AudioVisualEfficientConformerInterCTC(ZooModel):
                  f_num_blocks: int = 5, stem_mode: Optional[str] = None,
                  fused_att: Optional[bool] = None,
                  fused_conv: Optional[bool] = None,
-                 fused_ffn: Optional[bool] = None, device="cuda",
-                 generator: Optional[torch.Generator] = None):
+                 fused_ffn: Optional[bool] = None, remat: bool = False,
+                 device="cuda", generator: Optional[torch.Generator] = None):
         super().__init__()
         device = resolve_device(device)
         self.encoder = AudioVisualEfficientConformerEncoder(
@@ -208,7 +232,7 @@ class AudioVisualEfficientConformerInterCTC(ZooModel):
             f_interctc_blocks=f_interctc_blocks, v_num_blocks=v_num_blocks,
             a_num_blocks=a_num_blocks, f_num_blocks=f_num_blocks,
             use_flash=use_flash, stem_mode=stem_mode, fused_att=fused_att,
-            fused_conv=fused_conv, fused_ffn=fused_ffn)
+            fused_conv=fused_conv, fused_ffn=fused_ffn, remat=remat)
         self._finish_init(device, generator)
 
     def compile_defaults(self) -> Dict:

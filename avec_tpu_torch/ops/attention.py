@@ -73,23 +73,32 @@ class MultiHeadAttention(nn.Module):
     """Scaled dot-product MHA (attention.py:92-170). With `attn_drop_rate`
     the attention weights take a `Dropout` in training mode, its mask drawn
     from the owning model's generator. `weight_init` / `bias_init` are the
-    projections' inits (`Linear`): the GPT's are "normal_02" / "zeros"."""
+    projections' inits (`Linear`): the GPT's are "normal_02" / "zeros".
+    `output_proj=False` leaves the output projection out: the layer returns
+    the merged heads. `dim_kv` is accepted as the JAX layer declares it
+    (attention.py:101); neither package reads it."""
 
     def __init__(self, dim_model: int, num_heads: int,
                  attn_drop_rate: float = 0.0, weight_init: str = "default",
-                 bias_init: str = "default"):
+                 bias_init: str = "default", output_proj: bool = True,
+                 dim_kv=None):
         super().__init__()
         self.dim_model, self.num_heads = dim_model, num_heads
+        self.dim_kv = dim_kv
         inits = dict(weight_init=weight_init, bias_init=bias_init)
         self.query_layer = Linear(dim_model, dim_model, **inits)
         self.key_layer = Linear(dim_model, dim_model, **inits)
         self.value_layer = Linear(dim_model, dim_model, **inits)
-        self.output_layer = Linear(dim_model, dim_model, **inits)
+        self.output_layer = (Linear(dim_model, dim_model, **inits)
+                             if output_proj else None)
         self.dropout = Dropout(attn_drop_rate) if attn_drop_rate > 0 else None
 
     @property
     def dim_head(self):
         return self.dim_model // self.num_heads
+
+    def _proj_out(self, o):
+        return o if self.output_layer is None else self.output_layer(o)
 
     def _heads(self, q, k, v):
         q, k, v = self.query_layer(q), self.key_layer(k), self.value_layer(v)
@@ -99,7 +108,7 @@ class MultiHeadAttention(nn.Module):
     def forward(self, x, mask=None, lengths=None):
         q, k, v = self._heads(x, x, x)
         scores = torch.einsum("bhqd,bhkd->bhqk", q, k) / self.dim_head ** 0.5
-        return self.output_layer(_merge_heads(_attend(scores, v, mask,
+        return self._proj_out(_merge_heads(_attend(scores, v, mask,
                                                       self.dropout)))
 
 
@@ -122,11 +131,15 @@ class RelPos1dMultiHeadAttention(MultiHeadAttention):
     The flash route takes key-padding `lengths`; given none it recovers them
     from a (B, 1, 1, T) mask, and a full (B, 1, T, T) mask falls back to the
     exact factorized path. `use_kernel=False` runs the flash route through
-    the kernel's plain version on any device."""
+    the kernel's plain version on any device. `causal` takes the causal
+    relative table (positions T - 1 down to 0) through the causal skew of
+    `rel_to_abs`, never the flash route (attention.py:277-307)."""
 
-    def __init__(self, dim_model: int, num_heads: int, use_flash: bool = False):
+    def __init__(self, dim_model: int, num_heads: int, use_flash: bool = False,
+                 causal: bool = False):
         super().__init__(dim_model, num_heads)
         self.use_flash = use_flash
+        self.causal = causal
         self.use_kernel = True
         self.pos_layer = Linear(dim_model, dim_model)
 
@@ -151,7 +164,7 @@ class RelPos1dMultiHeadAttention(MultiHeadAttention):
     def forward(self, x, mask=None, lengths=None):
         t = x.shape[1]
         q, k, v = self._heads(x, x, x)
-        flash_ok = self.use_flash
+        flash_ok = self.use_flash and not self.causal
         if flash_ok and lengths is None and mask is not None:
             if mask.shape[2] == 1:
                 lengths = mask[:, 0, 0, :].sum(dim=-1).to(torch.int32)
@@ -162,10 +175,18 @@ class RelPos1dMultiHeadAttention(MultiHeadAttention):
                 q, k, v, self.pos_layer.weight.t(), self.pos_layer.bias,
                 self.dim_model, self.num_heads, lengths=lengths,
                 use_kernel=self.use_kernel)
-            return self.output_layer(_merge_heads(o))
+            return self._proj_out(_merge_heads(o))
+        if self.causal:
+            pe = relative_pos_encoding(t, self.dim_model, True,
+                                       device=x.device).to(q.dtype)
+            e = _split_heads(self.pos_layer(pe), self.num_heads,
+                             self.dim_head)
+            scores_e = rel_to_abs(torch.einsum("bhqd,xhkd->bhqk", q, e), True)
+        else:
+            scores_e = self._rel_scores_factorized(q, t)
         scores = (torch.einsum("bhqd,bhkd->bhqk", q, k)
-                  + self._rel_scores_factorized(q, t)) / self.dim_head ** 0.5
-        return self.output_layer(_merge_heads(_attend(scores, v, mask)))
+                  + scores_e) / self.dim_head ** 0.5
+        return self._proj_out(_merge_heads(_attend(scores, v, mask)))
 
 
 class RelPosPatch1dMultiHeadAttention(RelPos1dMultiHeadAttention):
@@ -233,7 +254,7 @@ class RelPosMultiHeadSelfAttention(MultiHeadAttention):
         scores_e = rel_to_abs(torch.einsum("bhqd,hkd->bhqk", qv, e),
                               self.causal)
         scores = (scores_k + scores_e) / self.dim_head ** 0.5
-        out = self.output_layer(_merge_heads(_attend(scores, split(v),
+        out = self._proj_out(_merge_heads(_attend(scores, split(v),
                                                      mask, self.dropout)))
         if return_hidden:
             return out, {"K": k.detach(), "V": v.detach()}
@@ -303,7 +324,7 @@ class GroupedRelPosMultiHeadSelfAttention(RelPosMultiHeadSelfAttention):
             mask = mask[:, :, ::g, ::g]
         o = _attend(scores, split(v), mask, self.dropout)
         o = o.transpose(1, 2).reshape(x.shape[0], -1, self.dim_model)[:, :t]
-        out = self.output_layer(o)
+        out = self._proj_out(o)
         if return_hidden:
             return out, new_hidden
         return out

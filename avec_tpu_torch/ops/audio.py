@@ -59,12 +59,23 @@ def _dft_basis(n_fft: int, win_length: int) -> np.ndarray:
     return (basis * win_full[:, None]).astype(np.float32)
 
 
-def spectrogram_frames(xp: torch.Tensor, n_frames: int, basis: torch.Tensor,
-                       n_fft: int = 512, hop_length: int = 160
+def _basis(basis: Optional[torch.Tensor], n_fft: int, win_length: int,
+           device) -> torch.Tensor:
+    if basis is not None:
+        return basis
+    return torch.from_numpy(_dft_basis(n_fft, win_length)).to(device)
+
+
+def spectrogram_frames(xp: torch.Tensor, n_frames: int,
+                       basis: Optional[torch.Tensor] = None, n_fft: int = 512,
+                       hop_length: int = 160, win_length: int = 400
                        ) -> torch.Tensor:
     """(B, n_frames, n_fft//2 + 1) power spectrum of an already padded
     signal (B, L): frame f covers xp[:, f*hop : f*hop + n_fft), L at least
-    (n_frames - 1) * hop + n_fft. fp32."""
+    (n_frames - 1) * hop + n_fft. fp32. `basis` is the windowed DFT basis
+    (`_dft_basis`; None: the one of a `win_length`-sample window,
+    audio.py:106-135)."""
+    basis = _basis(basis, n_fft, win_length, xp.device)
     frames = xp.float().unfold(-1, n_fft, hop_length)[:, :n_frames]
     out = frames @ basis
     n_freq = n_fft // 2 + 1
@@ -72,15 +83,16 @@ def spectrogram_frames(xp: torch.Tensor, n_frames: int, basis: torch.Tensor,
     return real * real + imag * imag
 
 
-def power_spectrogram(x: torch.Tensor, basis: torch.Tensor, n_fft: int = 512,
-                      hop_length: int = 160) -> torch.Tensor:
+def power_spectrogram(x: torch.Tensor, basis: Optional[torch.Tensor] = None,
+                      n_fft: int = 512, hop_length: int = 160,
+                      win_length: int = 400) -> torch.Tensor:
     """(B, T) -> (B, T // hop + 1, n_fft//2 + 1) power spectrum, fp32:
     reflect padding of n_fft // 2 (torch.stft's center=True), then
-    `spectrogram_frames`."""
+    `spectrogram_frames` (audio.py:83-103)."""
     pad = n_fft // 2
     xp = F.pad(x.float()[:, None, :], (pad, pad), mode="reflect")[:, 0]
     return spectrogram_frames(xp, x.shape[1] // hop_length + 1, basis, n_fft,
-                              hop_length)
+                              hop_length, win_length)
 
 
 class AudioPreprocessing(nn.Module):

@@ -26,6 +26,7 @@ as `Conv` and `BatchNorm` do; `LSTM` and the global pools work on
 initializer of `ops/inits.py`, drawn from the generator of `init_params`.
 """
 
+import contextlib
 import math
 from typing import Optional, Sequence, Tuple, Union
 
@@ -79,22 +80,31 @@ def _init_bias(bias, bias_init, fan_in: int, gen) -> None:
 class Linear(nn.Module):
     """Dense layer over the last axis. Init: `weight_init` / `bias_init`
     registry names (`ops/inits.py`): torch-default ("default"), or e.g. the
-    GPT's N(0, 0.02) weights ("normal_02") and zero biases ("zeros")."""
+    GPT's N(0, 0.02) weights ("normal_02") and zero biases ("zeros").
+    `dtype` (None: x's) is the dtype x is cast to before the product, whose
+    kernel is cast to x's own dtype (layers.py:88-95): the product runs in
+    the wider of the two."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
-                 weight_init: str = "default", bias_init: str = "default"):
+                 weight_init: str = "default", bias_init: str = "default",
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
         self.bias = nn.Parameter(torch.empty(out_features)) if bias else None
         self.weight_init, self.bias_init = weight_init, bias_init
+        self.dtype = dtype
 
     def init_(self, gen: torch.Generator):
         get_init(self.weight_init)(self.weight, gen)
         _init_bias(self.bias, self.bias_init, self.weight.shape[1], gen)
 
     def forward(self, x):
+        w = self.weight.to(x.dtype)
+        if self.dtype is not None:
+            ct = torch.promote_types(self.dtype, x.dtype)
+            x, w = x.to(self.dtype).to(ct), w.to(ct)
         b = None if self.bias is None else self.bias.to(x.dtype)
-        return F.linear(x, self.weight.to(x.dtype), b)
+        return F.linear(x, w, b)
 
 
 class Conv(nn.Module):
@@ -309,11 +319,26 @@ def sync_moments(mean, ex2, n: int, group):
             n * dist.get_world_size(group))
 
 
+_running_held = [0]
+
+
+@contextlib.contextmanager
+def running_statistics_held():
+    """Inside, no BatchNorm moves its running statistics: a rematerialized
+    block's recompute replays a forward whose update is already made."""
+    _running_held[0] += 1
+    try:
+        yield
+    finally:
+        _running_held[0] -= 1
+
+
 class BatchNorm(nn.Module):
     """BatchNorm over channel axis 1 (layers.py:537); the normalise-and-affine
     runs in fp32 and is rounded to x's dtype.
 
-    Eval uses the running statistics. Training uses the batch's: one pass
+    Eval, and training with `frozen` (layers.py:541-557), use the running
+    statistics. Training otherwise uses the batch's: one pass
     E[x^2] - E[x]^2 in fp32, clamped at 0, differentiated through; the
     running statistics move by `momentum` (0.1, flax 0.9) towards the batch
     mean and the unbiased batch variance. With a `process_group` (set by the
@@ -323,10 +348,11 @@ class BatchNorm(nn.Module):
     arithmetic is the single-process one."""
 
     def __init__(self, num_features: int, eps: float = 1e-5,
-                 momentum: float = 0.1):
+                 momentum: float = 0.1, frozen: bool = False):
         super().__init__()
         self.eps = eps
         self.momentum = momentum
+        self.frozen = frozen
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -344,7 +370,10 @@ class BatchNorm(nn.Module):
     @torch.no_grad()
     def update_running(self, mean, var, n: int) -> None:
         """Move the running statistics by `momentum` towards a batch mean and
-        the unbiased form of a (biased) batch variance over n positions."""
+        the unbiased form of a (biased) batch variance over n positions;
+        nothing inside `running_statistics_held`."""
+        if _running_held[0]:
+            return
         m = self.momentum
         self.running_mean.mul_(1 - m).add_(mean, alpha=m)
         self.running_var.mul_(1 - m).add_(var, alpha=m * n / max(n - 1, 1))
@@ -352,7 +381,7 @@ class BatchNorm(nn.Module):
     def forward(self, x):
         shape = (1, -1) + (1,) * (x.ndim - 2)
         xf = x.float()
-        if self.training:
+        if self.training and not self.frozen:
             axes = (0,) + tuple(range(2, x.ndim))
             mean = xf.mean(dim=axes)
             ex2 = (xf * xf).mean(dim=axes)

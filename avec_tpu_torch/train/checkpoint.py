@@ -146,13 +146,19 @@ def _to_cpu(state: Optional[Dict[str, torch.Tensor]]):
 def save_checkpoint(path: str, model_state: Dict[str, torch.Tensor],
                     optimizer_state: Optional[Dict[str, Any]] = None,
                     model_step: int = 0,
-                    ema_state: Optional[Dict[str, torch.Tensor]] = None):
+                    ema_state: Optional[Dict[str, torch.Tensor]] = None,
+                    extra: Optional[Dict[str, Any]] = None):
+    """Write a checkpoint (checkpoint.py:52-70): the model state, the
+    optimizer's, the step, the EMA state and `extra`, a dict of the
+    caller's (numbers, strings, lists, dicts and tensors; {} when None),
+    which `load_checkpoint` gives back under "extra"."""
     payload = {
         "model_state_dict": _to_cpu(model_state),
         "optimizer_state_dict": optimizer_state,
         "model_step": int(model_step),
         "is_distributed": False,
         "ema_model_state_dict": _to_cpu(ema_state),
+        "extra": extra or {},
     }
     tmp = path + ".tmp"
     torch.save(payload, tmp)
@@ -262,14 +268,16 @@ def _load_jax(path: str) -> Dict[str, Any]:
             "is_distributed": bool(raw.get("is_distributed", False)),
             "ema_model_state_dict": state_from_jax(
                 raw.get("ema_model_state_dict")),
+            "extra": raw.get("extra") or {},
             "format": "jax"}
 
 
 def load_checkpoint(path: str) -> Dict[str, Any]:
     """The checkpoint's dict, tensors on the CPU, from a torch file or a JAX
     msgpack file (its states converted to the port's names; "format" says
-    which). A torch file that holds a bare state_dict is read as a
-    checkpoint of step 0."""
+    which), the writer's `extra` under "extra" ({} when it wrote none). A
+    torch file that holds a bare state_dict is read as a checkpoint of
+    step 0."""
     if checkpoint_format(path) == "jax":
         return _load_jax(path)
     payload = torch.load(path, map_location="cpu", weights_only=True)
@@ -279,6 +287,7 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
     payload["model_state_dict"] = _strip_module(payload["model_state_dict"])
     payload["ema_model_state_dict"] = _strip_module(
         payload.get("ema_model_state_dict"))
+    payload.setdefault("extra", {})
     payload["format"] = "torch"
     return payload
 

@@ -317,6 +317,23 @@ bounds and plain stages;
     relative of one process, the gathered parameters within 1e-5 of the
     largest entry; step ms and peak GiB per rank beside the card's name
     and power limit; details under `distributed`.
+31. remat and the library's variants (`remat_phase`): (a) the flagship AV
+    model at reference depth, B=16 / 6 s, bf16, on the fused-conv route
+    (K1 / K1b, K2 / K2b, K3 x 4, K5) and on the flash route (K1 / K1b, K4 /
+    K4b), one trainer with `remat=True` and one without from the same
+    weights and seeds, each alone on the card: the first forward +
+    backward's losses bit-equal, every gradient leaf within 3e-2 of its
+    largest entry (the video front end 0.15), BN statistics within 1e-5 of
+    scale; 1 warm-up + 2 counted steps with the checks of phase 6,
+    backward launches equal and forward launches higher by the plan's count
+    (15 rematerialized blocks); peak GiB both ways (each trainer alone) and
+    step ms in turns (plain, remat, remat, plain) beside the card's name and
+    power limit. (b) a full-width (360) stack of a
+    transposed stride-2 block, a `batch_norm=False` block and a ReLU block
+    with the fused switches on: one bf16 training step launches K1 / K1b
+    4, K2 / K2b 3 and no K3 (the JAX gates), finite; fp32 kernels against
+    plain versions, output 1e-3, input gradient through the first two
+    blocks 1e-3. Details under `remat`.
 The line before the last is a JSON `kernels` line of sixteen kernels (the
 nine of phase 18 with their launches there as `launches_learning_run`, the
 launches of phases 19-22 by phase as `launches_zoo`, those of phase 23 as
@@ -324,7 +341,8 @@ launches of phases 19-22 by phase as `launches_zoo`, those of phase 23 as
 25 as `launches_decode`, K4's of phases 26 and 27 (a) as
 `launches_serve_files` and `launches_streaming`, the nine of phase 28 as
 `launches_cli`, the six of phase 29's grouped model by path as
-`launches_grouped`, those of phase 30 (a) by model as `launches_dp_zoo`);
+`launches_grouped`, those of phase 30 (a) by model as `launches_dp_zoo`,
+those of phase 31 (a)'s remat runs by route as `launches_remat`);
 the
 last line is {"ok": true, "device": {...}}. Every time
 there ("ms", "plain_ms", "library_ms") is one of direct calls between CUDA
@@ -983,6 +1001,14 @@ def main() -> int:
                     if entry["name"] in counts}
         if by_model:
             entry["launches_dp_zoo"] = by_model
+    # ---- 31. remat and the library's variants
+    remat = remat_phase(detail)
+    for entry in kernels:
+        by_route = {route: counts[entry["name"]]
+                    for route, counts in remat.items()
+                    if entry["name"] in counts}
+        if by_route:
+            entry["launches_remat"] = by_route
     detail["kernels"] = kernels
 
     os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
@@ -1966,7 +1992,7 @@ def fused_phases(detail, profile: bool, trainer2, batch):
         unfused = init_params(
             AttentionModule(d, {"class": "RelPos1dMultiHeadAttention",
                                 "params": {"num_heads": heads}}, 0.1,
-                            fused_att=False),
+                            fused_att=False, residual=False),
             torch.Generator().manual_seed(3)).to(dev).train()
         mask = (torch.arange(t, device=dev)[None, :]
                 < lt[:, None])[:, None, None, :]
@@ -5340,6 +5366,313 @@ def distributed_phase(detail, root) -> dict:
     rec["wall_s"] = time.perf_counter() - t_phase
     log(f"phase 30 (distributed) wall {rec['wall_s']:.1f} s ({card})")
     detail["distributed"] = rec
+    return launches
+
+
+# ---- 31. remat and the library's variants
+REMAT_ROUTES = {          # phase 31 (a): the flagship AV model's two routes
+    "fused_conv": dict(use_flash=False, stem_mode="pallas", fused_att=True,
+                       fused_conv=True, fused_ffn=True),
+    "flash": dict(use_flash=True, stem_mode="2d", fused_ffn=True)}
+REMAT_STEPS = 2                    # counted steps after one warm-up
+REMAT_GRAD_TOL = 3e-2              # phase 5's bf16 gradient bound
+REMAT_FRONT_END_TOL = 0.15         # the video front end's (phase 30)
+
+
+def remat_extra_forwards(model) -> dict:
+    """{kernel: launches} that the recompute adds to a step: the fused
+    forward kernels of the modules inside the blocks each stack
+    rematerializes (`ConformerInterCTC.remat_blocks`, the JAX plan's runs of
+    more than one block)."""
+    from avec_tpu_torch.models.conformer import ConformerInterCTC
+    from avec_tpu_torch.ops import attention_module, conv_module, ffn
+    from avec_tpu_torch.ops import flash_attention
+
+    extra = {}
+
+    def add(name, n):
+        if n:
+            extra[name] = extra.get(name, 0) + n
+
+    for stack in model.modules():
+        if not (isinstance(stack, ConformerInterCTC) and stack.remat):
+            continue
+        for i in sorted(stack.remat_blocks):
+            block = stack.conformer_blocks[i]
+            add(ffn.KERNEL_FWD, block.ff_module1.fused_eligible()
+                + block.ff_module2.fused_eligible())
+            att = block.self_att_module
+            add(attention_module.KERNEL_FWD, att.fused_eligible())
+            add(flash_attention.KERNEL, bool(
+                getattr(att.attention, "use_flash", False)
+                and not att.attention.causal))
+            if block.conv_module.fused_eligible():
+                add(conv_module.KERNEL_STATS, 1)
+                add(conv_module.KERNEL_FWD, 1)
+    return extra
+
+
+def _remat_trainer(route, remat):
+    from avec_tpu_torch.train.losses import CTCLoss
+    from avec_tpu_torch.train.model import Trainer
+
+    return Trainer(device="cuda", precision="bfloat16", seed=0,
+                   vocab_size=256, remat=remat,
+                   loss=CTCLoss(zero_infinity=True), **REMAT_ROUTES[route])
+
+
+def _remat_run(route, remat, batch, keep: bool = False):
+    """One trainer of the route (same weights and seeds either way), alone
+    on the card: the first forward + backward (losses, gradients and BN
+    statistics, moved to the host), then `counted_train_steps`, then the
+    peak memory of one more step. `keep` returns the trainer too."""
+    torch.cuda.empty_cache()
+    trainer = _remat_trainer(route, remat)
+    model = trainer.model
+    losses, grads = trainer.loss_and_grads(batch)
+    first = {"losses": {k: float(v) for k, v in losses.items()},
+             "grads": {n: g.float().cpu() for n, g in grads.items()},
+             "stats": {n: b.detach().cpu() for n, b in model.named_buffers()
+                       if "running_" in n}}
+    del grads
+    per_step = model.kernel_launches_per_step()
+    history, launches = counted_train_steps(trainer, batch, per_step,
+                                            steps=REMAT_STEPS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.train_step(batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    out = {"first": first, "history": history, "launches": launches,
+           "per_step": per_step, "extra_per_step": remat_extra_forwards(model),
+           "peak_gib": peak,
+           "remat_blocks": sum(len(m.remat_blocks) for m in model.modules()
+                               if getattr(m, "remat", False)
+                               and hasattr(m, "remat_blocks"))}
+    if keep:
+        out["trainer"] = trainer
+    del trainer, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _remat_step_ms(route, remat_trainer, batch) -> dict:
+    """Step ms of the route without and with remat in turns (plain, remat,
+    remat, plain), 2 steps a turn: a plain trainer is built again beside
+    the remat one."""
+    plain_trainer = _remat_trainer(route, False)
+    plain_trainer.train_step(batch)
+    turns = []
+    for name in ("plain", "remat", "remat", "plain"):
+        tr = remat_trainer if name == "remat" else plain_trainer
+        turns.append([name, cuda_time_ms(lambda: tr.train_step(batch),
+                                         iters=2, warmup=0)])
+    del plain_trainer
+    torch.cuda.empty_cache()
+    return {name: sum(ms for n, ms in turns if n == name) / 2
+            for name in ("plain", "remat")} | {"turns": turns}
+
+
+def _remat_agreement(route, got, want) -> dict:
+    """The remat run against the plain one: the first forward's losses
+    bit-equal, every gradient leaf within REMAT_GRAD_TOL of its largest
+    entry (the video front end's within REMAT_FRONT_END_TOL; leaves below
+    1e-6 of the largest gradient entry left out, as check_agreement does),
+    every BN running statistic within 1e-5 of the larger of 1 and its
+    buffer's largest entry, the backward launches equal and the forward
+    launches higher by REMAT_STEPS x the plan's count."""
+    g1, g0 = got["first"], want["first"]
+    loss_diff = {k: abs(g1["losses"][k] - v) for k, v in g0["losses"].items()}
+    gmax = max(float(g.abs().max()) for g in g0["grads"].values())
+    same = sum(torch.equal(g1["grads"][n], g) for n, g in g0["grads"].items())
+    worst, worst_front = (0.0, "none"), (0.0, "none")
+    for name, g in g0["grads"].items():
+        leaf_max = float(g.abs().max())
+        if leaf_max <= 1e-6 * gmax:
+            continue
+        err = (max_abs(g1["grads"][name], g) / leaf_max, name)
+        if FRONT_END in name:
+            worst_front = max(worst_front, err)
+        else:
+            worst = max(worst, err)
+    stats_err = max(max_abs(g1["stats"][n], b) / max(1.0, float(b.abs().max()))
+                    for n, b in g0["stats"].items())
+    extra = got["extra_per_step"]
+    fwd_diff = {k: got["launches"].get(k, 0) - want["launches"].get(k, 0)
+                for k in set(got["launches"]) | set(want["launches"])}
+    want_diff = {k: REMAT_STEPS * extra.get(k, 0) for k in fwd_diff}
+    out = {"remat_blocks": got["remat_blocks"],
+           "first_loss_max_abs_diff": max(loss_diff.values()),
+           "worst_leaf": worst, "worst_front_end_leaf": worst_front,
+           "leaves_bit_identical": [same, len(g0["grads"])],
+           "bn_stats_scaled_max_abs": stats_err,
+           "launch_diff": fwd_diff, "launch_diff_plan": want_diff,
+           "counted_loss_max_abs_diff": max(
+               abs(a["loss"] - b["loss"])
+               for a, b in zip(got["history"], want["history"]))}
+    log(f"phase 31 {route}: {got['remat_blocks']} blocks rematerialized; "
+        f"first step's losses max abs diff {out['first_loss_max_abs_diff']} "
+        f"(must be 0); gradient leaves bit-identical {same}/"
+        f"{len(g0['grads'])}; worst leaf {worst[1]} {worst[0]:.2e} (tol "
+        f"{REMAT_GRAD_TOL}), video front end {worst_front[1]} "
+        f"{worst_front[0]:.2e} (tol {REMAT_FRONT_END_TOL}); BN statistics "
+        f"{stats_err:.2e} of scale (tol 1e-5); counted steps' losses max abs "
+        f"diff {out['counted_loss_max_abs_diff']:.3e}")
+    log(f"phase 31 {route}: launches over {REMAT_STEPS} steps, remat minus "
+        f"plain {fwd_diff}; the plan's forwards x {REMAT_STEPS} {want_diff}")
+    if not (out["first_loss_max_abs_diff"] == 0.0
+            and worst[0] <= REMAT_GRAD_TOL
+            and worst_front[0] <= REMAT_FRONT_END_TOL
+            and stats_err <= 1e-5 and fwd_diff == want_diff
+            and all(not k.endswith(("_bwd", "_bwd1", "_bwd2", "_bwd_dq",
+                                    "_bwd_dkv")) for k in extra)
+            and got["remat_blocks"] == 15):
+        raise AssertionError(f"phase 31 {route}: remat disagrees: {out}")
+    return out
+
+
+def _variant_stack():
+    """Phase 31 (b)'s stack at full width (360, 4 heads): a transposed
+    stride-2 block, a `batch_norm=False` block and a ReLU block, the three
+    fused switches on."""
+    from avec_tpu_torch.models.conformer import ConformerBlock
+
+    att = {"class": "RelPos1dMultiHeadAttention", "params": {"num_heads": 4}}
+    kw = dict(fused_att=True, fused_conv=True, fused_ffn=True)
+    return torch.nn.ModuleList([
+        ConformerBlock(360, 360, 4, att, conv_stride=2, transposed=True, **kw),
+        ConformerBlock(360, 360, 4, att, batch_norm=False, **kw),
+        ConformerBlock(360, 360, 4, att, act_fun="ReLU", **kw)])
+
+
+def _run_variant_stack(blocks, x, lengths):
+    from avec_tpu_torch.ops.masks import make_mask
+
+    t = x.shape[1]
+    y = blocks[0](x, mask=make_mask(t, lengths))
+    mask2 = make_mask(2 * t, 2 * lengths)
+    for block in blocks[1:]:
+        y = block(y, mask=mask2)
+    return y
+
+
+def variant_stack_check(rec) -> dict:
+    """Phase 31 (b): one training step (forward, backward, SGD) of the
+    variant stack in bf16 at B=16, T=38 -> 76: the fused kernels launch
+    only where the JAX gates allow (K1 / K1b in the four Swish FFNs, K2 /
+    K2b in the three attention modules, no K3: transposed, without BN and
+    ReLU convolution modules all stay unfused, conformer.py:103-107,
+    :248-252), the output and every gradient finite; then fp32, dropout
+    off, kernels against plain versions: the stack's output within 1e-3 of
+    its largest entry, and the input's gradient through the first two
+    blocks (Swish) too. Through the ReLU block the input gradient is not
+    held: where the fused kernels' rounding (about 4e-7) moves a ReLU gate
+    across 0, the gradient jumps by about 1e-3 of its largest entry
+    (`tools/torch_variant_stack_dx.py`)."""
+    from avec_tpu_torch.ops import _cuda
+    from avec_tpu_torch.ops.layers import init_params
+
+    dev = torch.device("cuda")
+    blocks = init_params(_variant_stack(), torch.Generator().manual_seed(31))
+    blocks.to(dev).train()
+    for m in blocks.modules():
+        if hasattr(m, "seed_generator"):
+            m.seed_generator = torch.Generator().manual_seed(1)
+        if hasattr(m, "generator"):
+            m.generator = torch.Generator(device=dev).manual_seed(2)
+    want = {"fused_ffn_fwd": 4, "fused_ffn_bwd": 4, "fused_att_fwd": 3,
+            "fused_att_bwd": 3}
+    gate = {"ffn": sum(m.fused_eligible() for b in blocks
+                       for m in (b.ff_module1, b.ff_module2)),
+            "att": sum(b.self_att_module.fused_eligible() for b in blocks),
+            "conv": sum(b.conv_module.fused_eligible() for b in blocks)}
+    gen = torch.Generator().manual_seed(32)
+    lengths = torch.tensor([38] + [int(v) for v in torch.randint(
+        10, 38, (15,), generator=gen)], dtype=torch.int32, device=dev)
+    x = torch.randn(16, 38, 360, generator=gen).to(dev)
+    g = torch.randn(16, 76, 360, generator=gen).to(dev)
+    opt = torch.optim.SGD(blocks.parameters(), lr=1e-3)
+    _cuda.reset_launches()
+    xb = x.to(torch.bfloat16).requires_grad_(True)
+    y = _run_variant_stack(blocks, xb, lengths)
+    (y.float() * g).sum().backward()
+    opt.step()
+    torch.cuda.synchronize()
+    launches = dict(_cuda.launches)
+    finite = bool(torch.isfinite(y.float()).all()) and all(
+        p.grad is None or bool(torch.isfinite(p.grad).all())
+        for p in blocks.parameters())
+    # fp32, dropout off: kernels against plain versions
+    for m in blocks.modules():
+        if hasattr(m, "regularize"):
+            m.regularize = False
+    outs = []
+    for kernels in (True, False):
+        for m in blocks.modules():
+            if hasattr(m, "use_kernel"):
+                m.use_kernel = kernels
+        x32 = x.clone().requires_grad_(True)
+        (_run_variant_stack(blocks[:2], x32, lengths) * g).sum().backward()
+        with torch.no_grad():
+            outs.append((_run_variant_stack(blocks, x, lengths), x32.grad))
+    blocks.zero_grad(set_to_none=True)
+    err_y = max_abs(outs[0][0], outs[1][0]) / float(outs[1][0].abs().max())
+    err_x = max_abs(outs[0][1], outs[1][1]) / float(outs[1][1].abs().max())
+    out = {"launches": launches, "want": want, "gates": gate,
+           "shape": list(y.shape), "finite": finite,
+           "fp32_y_rel": err_y, "fp32_dx_rel": err_x}
+    log(f"phase 31 variant stack (360, 4 heads; transposed stride 2, "
+        f"batch_norm=False, ReLU; B=16 T 38 -> {y.shape[1]}): launches of "
+        f"one bf16 step {launches} (want {want}), output and gradients "
+        f"finite {finite}; fp32 kernels vs plain: y {err_y:.2e}, dx "
+        f"through the first two blocks {err_x:.2e} (tol 1e-3)")
+    if not (launches == want and gate == {"ffn": 4, "att": 3, "conv": 0}
+            and finite and list(y.shape) == [16, 76, 360]
+            and err_y <= 1e-3 and err_x <= 1e-3):
+        raise AssertionError(f"phase 31 variant stack: {out}")
+    return out
+
+
+def remat_phase(detail) -> dict:
+    """Phase 31: remat and the library's variants. (a) The flagship AV
+    model at reference depth, B=16 / 6 s (phase 6's batch), bf16, on the
+    fused-conv route (K1 / K1b, K2 / K2b, K3 x 4, K5) and on the flash route
+    (K1 / K1b, K4 / K4b): one trainer with remat and one without from the
+    same weights and seeds, each alone on the card: its first forward +
+    backward, 1 warm-up + REMAT_STEPS counted steps (`counted_train_steps`:
+    launches equal to `kernel_launches_per_step`, finite, everything moves),
+    then the peak memory of one more step; held by `_remat_agreement`; then
+    the step ms of both in turns (`_remat_step_ms`).
+    (b) `variant_stack_check`. Returns {route: launches of the remat run's
+    counted steps}."""
+    t_phase = time.perf_counter()
+    card = gpu_line()
+    rec = {"card": card, "routes": {}}
+    batch = make_train_batch(np.random.RandomState(0))
+    launches = {}
+    for route in REMAT_ROUTES:
+        plain = _remat_run(route, False, batch)
+        remat = _remat_run(route, True, batch, keep=True)
+        agree = _remat_agreement(route, remat, plain)
+        ms = _remat_step_ms(route, remat.pop("trainer"), batch)
+        torch.cuda.empty_cache()
+        row = {"step_ms_plain": ms["plain"], "step_ms_remat": ms["remat"],
+               "step_ms_turns": ms["turns"],
+               "peak_gib_plain": plain["peak_gib"],
+               "peak_gib_remat": remat["peak_gib"],
+               "launches_per_step_plain": plain["per_step"],
+               "launches_per_step_remat": remat["per_step"], **agree}
+        log(f"phase 31 {route} ({card}): train step B=16 bf16, plain / "
+            f"remat in turns {[round(t[1], 2) for t in ms['turns']]}: plain "
+            f"{ms['plain']:.2f} ms, peak {plain['peak_gib']:.3f} GiB; remat "
+            f"{ms['remat']:.2f} ms, peak {remat['peak_gib']:.3f} GiB")
+        rec["routes"][route] = row
+        launches[route] = remat["launches"]
+    rec["variant_stack"] = variant_stack_check(rec)
+    rec["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 31 (remat and the variants) wall {rec['wall_s']:.1f} s "
+        f"({card})")
+    detail["remat"] = rec
     return launches
 
 

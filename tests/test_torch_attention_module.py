@@ -192,7 +192,8 @@ def _module_pair(d, heads, drop, x, mask):
     jmod = JaxAttentionModule(dim_model=d, att_params=_att_params(heads),
                               drop_rate=drop, residual=False)
     params, _ = init_variables(jmod, jnp.asarray(x), mask, seed=5)
-    port = AttentionModule(d, _att_params(heads), drop, fused_att=True)
+    port = AttentionModule(d, _att_params(heads), drop, fused_att=True,
+                           residual=False)
     port.load_state_dict(port_state(params, wrap="self_att_module",
                                     strip="self_att_module."))
     return jmod, params, port
@@ -248,7 +249,8 @@ def test_module_gate_and_eval_route():
     rng = np.random.RandomState(6)
     x = rng.randn(b, tt, d).astype(np.float32)
     _, params, fused = _module_pair(d, heads, 0.3, x, None)
-    plain = AttentionModule(d, _att_params(heads), 0.3, fused_att=False)
+    plain = AttentionModule(d, _att_params(heads), 0.3, fused_att=False,
+                            residual=False)
     plain.load_state_dict(fused.state_dict())
     mask = make_mask(tt, torch.tensor([tt, 5]))
     assert torch.equal(fused(t(x), mask=mask), plain(t(x), mask=mask))

@@ -223,7 +223,7 @@ def test_resnet_block_train_gradients_match_jax():
 
     (want_p, want_x), want_y = jax.grad(loss, argnums=(0, 1), has_aux=True)(
         params, jnp.asarray(x))
-    block = ResNetBlock(16, 32, stride=2).train()
+    block = ResNetBlock(16, 32, strides=2).train()
     tree = {"front_end_resnet": {"block_0": params}}
     sd = {k.split("blocks.0.")[1]: v
           for k, v in params_from_jax(
