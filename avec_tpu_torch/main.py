@@ -13,7 +13,15 @@ WORLD_SIZE, MASTER_ADDR, MASTER_PORT; LOCAL_RANK picks the card) or from
 `--coordinator host:port --num_processes N --process_id R`, with "nccl" on
 cards and "gloo" under `--cpu`, and the trainer takes the data-parallel
 step. `--profile` writes a torch.profiler trace of the mode under
-callback_path/profile. The kernel routes come from AVEC_TPU_FUSED_FFN,
+callback_path/profile. The trace carries the port's `avec/` spans
+(`utils/spans.py`): each train step's phases (`avec/train/step`, `micro`,
+`to_device`, `forward`, `loss`, `backward`, `grad_norm`, `optimizer`, and
+`all_reduce` / `ema` where they run) and each hand-written kernel call
+(`avec/kernel/<name>`). In a trace viewer a gap in the card's lane lies
+under the span the host was in, so idle time and the runtime's sync calls
+(`cudaStreamSynchronize`, `cudaDeviceSynchronize`, `cudaEventSynchronize`,
+`cudaMemcpy`) read by phase; a kernel's launch links it to its span. The
+kernel routes come from AVEC_TPU_FUSED_FFN,
 AVEC_TPU_FUSED_ATT, AVEC_TPU_FUSED_CONV and AVEC_TPU_STEM, read when the
 config builds its model.
 

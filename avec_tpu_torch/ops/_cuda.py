@@ -8,8 +8,10 @@ failed build raises: no wrapper falls back to the plain version for a CUDA
 tensor. `control_library` builds one source with a define into a library
 of its own, for measurements that hold a kernel against a variant of it.
 
-`launches` counts kernel launches by wrapper name; each wrapper adds one where
-it launches its kernel and nowhere else.
+`launches` counts kernel launches by wrapper name. Each wrapper makes its C
+call inside `launch(name, ...)`, which counts one under each name once the
+call has passed `check`, and spans it as `avec/kernel/<name>` while a
+profiler records (`utils/spans.py`).
 """
 
 import collections
@@ -22,6 +24,8 @@ import threading
 from pathlib import Path
 
 import torch
+
+from avec_tpu_torch.utils import spans
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "avec_tpu_torch"
@@ -124,6 +128,27 @@ def library(name: str) -> ctypes.CDLL:
 def check(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+
+
+class launch:
+    """`with launch(*names): rc = <C call>; check(rc, names[0])`: the call
+    under the span `avec/kernel/<names[0]>`, then one launch counted under
+    each name where the block raised nothing."""
+
+    __slots__ = ("names", "span")
+
+    def __init__(self, *names: str):
+        self.names = names
+        self.span = spans.span(spans.KERNEL + names[0])
+
+    def __enter__(self):
+        self.span.__enter__()
+
+    def __exit__(self, kind, value, tb):
+        self.span.__exit__(kind, value, tb)
+        if kind is None:
+            for name in self.names:
+                launches[name] += 1
 
 
 def stream_ptr(t: torch.Tensor) -> int:

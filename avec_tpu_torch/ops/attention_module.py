@@ -236,11 +236,11 @@ class _FusedAttentionModule(torch.autograd.Function):
         tab = _interleaved_table(t, d, x.dtype, x.device)
         scratch = torch.empty(count, dtype=torch.float32, device=x.device)
         y = torch.empty_like(x)
-        rc = fwd(x.data_ptr(), tab.data_ptr(), lengths.data_ptr(),
-                 _pointers(params), y.data_ptr(), scratch.data_ptr(), *tail,
-                 _cuda.stream_ptr(x))
-        _cuda.check(rc, KERNEL_FWD)
-        _cuda.launches[KERNEL_FWD] += 1
+        with _cuda.launch(KERNEL_FWD):
+            rc = fwd(x.data_ptr(), tab.data_ptr(), lengths.data_ptr(),
+                     _pointers(params), y.data_ptr(), scratch.data_ptr(),
+                     *tail, _cuda.stream_ptr(x))
+            _cuda.check(rc, KERNEL_FWD)
         ctx.save_for_backward(x, lengths, *params)
         ctx.tail = tail
         return y
@@ -256,12 +256,12 @@ class _FusedAttentionModule(torch.autograd.Function):
                               dtype=torch.float32, device=x.device)
         dx = torch.empty_like(x)
         grads = [torch.empty_like(p) for p in params]  # the call writes them
-        rc = bwd(x.data_ptr(), g.data_ptr(), tab.data_ptr(),
-                 lengths.data_ptr(), _pointers(params), dx.data_ptr(),
-                 _pointers(grads), scratch.data_ptr(), *ctx.tail,
-                 _cuda.stream_ptr(x))
-        _cuda.check(rc, KERNEL_BWD)
-        _cuda.launches[KERNEL_BWD] += 1
+        with _cuda.launch(KERNEL_BWD):
+            rc = bwd(x.data_ptr(), g.data_ptr(), tab.data_ptr(),
+                     lengths.data_ptr(), _pointers(params), dx.data_ptr(),
+                     _pointers(grads), scratch.data_ptr(), *ctx.tail,
+                     _cuda.stream_ptr(x))
+            _cuda.check(rc, KERNEL_BWD)
         return (dx, *grads, None, None, None, None, None, None, None)
 
 

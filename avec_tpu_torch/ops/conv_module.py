@@ -379,9 +379,9 @@ class _Launch:
 
     def _run(self, stage: int, *ptrs):
         scratch = self.scratch(stage)
-        rc = self.fns[stage](*ptrs, scratch.data_ptr(), *self.tail)
-        _cuda.check(rc, self.names[stage])
-        _cuda.launches[self.names[stage]] += 1
+        with _cuda.launch(self.names[stage]):
+            rc = self.fns[stage](*ptrs, scratch.data_ptr(), *self.tail)
+            _cuda.check(rc, self.names[stage])
 
     def _zeros(self, *shape):
         return torch.zeros(shape, dtype=torch.float32, device=self.x.device)

@@ -167,11 +167,11 @@ class _FusedFFN(torch.autograd.Function):
                 inv_keep, int(x.dtype == torch.bfloat16))
         y = torch.empty_like(x)
         scratch = fwd_scratch(x, f)
-        rc = _lib()[0](x.data_ptr(), *(p.data_ptr() for p in params),
-                       y.data_ptr(), scratch.data_ptr(), *tail,
-                       _cuda.stream_ptr(x))
-        _cuda.check(rc, KERNEL_FWD)
-        _cuda.launches[KERNEL_FWD] += 1
+        with _cuda.launch(KERNEL_FWD):
+            rc = _lib()[0](x.data_ptr(), *(p.data_ptr() for p in params),
+                           y.data_ptr(), scratch.data_ptr(), *tail,
+                           _cuda.stream_ptr(x))
+            _cuda.check(rc, KERNEL_FWD)
         ctx.save_for_backward(x, *params)
         ctx.tail = tail
         return y
@@ -184,13 +184,13 @@ class _FusedFFN(torch.autograd.Function):
         grads = [torch.empty_like(p)  # the call writes them
                  for p in (ln_w, ln_b, w1, b1, w2, b2)]
         scratch = bwd_scratch(x, w1.shape[0])
-        rc = _lib()[1](x.data_ptr(), g.data_ptr(), ln_w.data_ptr(),
-                       ln_b.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-                       w2.data_ptr(), dx.data_ptr(),
-                       *(t.data_ptr() for t in grads), scratch.data_ptr(),
-                       *ctx.tail, _cuda.stream_ptr(x))
-        _cuda.check(rc, KERNEL_BWD)
-        _cuda.launches[KERNEL_BWD] += 1
+        with _cuda.launch(KERNEL_BWD):
+            rc = _lib()[1](x.data_ptr(), g.data_ptr(), ln_w.data_ptr(),
+                           ln_b.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+                           w2.data_ptr(), dx.data_ptr(),
+                           *(t.data_ptr() for t in grads), scratch.data_ptr(),
+                           *ctx.tail, _cuda.stream_ptr(x))
+            _cuda.check(rc, KERNEL_BWD)
         return (dx, *grads, None, None, None, None)
 
 

@@ -122,12 +122,12 @@ def flash_attention_fwd(q_aug, k_aug, v, lengths=None, scale=1.0
     out = torch.empty((b, h, t, dv), dtype=v.dtype, device=v.device)
     lse = torch.empty((b * h, t), dtype=torch.float32, device=v.device)
     scratch = fwd_scratch(q_aug, v)
-    rc = _lib()[0](q_aug.data_ptr(), k_aug.data_ptr(), v.data_ptr(),
-                   lengths.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                   scratch.data_ptr(), b * h, h, t, da, dv, float(scale),
-                   int(bf16), _cuda.stream_ptr(q_aug))
-    _cuda.check(rc, KERNEL)
-    _cuda.launches[KERNEL] += 1
+    with _cuda.launch(KERNEL):
+        rc = _lib()[0](q_aug.data_ptr(), k_aug.data_ptr(), v.data_ptr(),
+                       lengths.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                       scratch.data_ptr(), b * h, h, t, da, dv, float(scale),
+                       int(bf16), _cuda.stream_ptr(q_aug))
+        _cuda.check(rc, KERNEL)
     return out, lse
 
 
@@ -220,15 +220,15 @@ def flash_attention_bwd(q_aug, k_aug, v, dout, lse, delta, lengths=None,
     dk = torch.empty_like(k_aug)
     dvv = torch.empty_like(v)
     scratch = bwd_scratch(q_aug, v)
-    rc = _lib_bwd()[0](
-        q_aug.data_ptr(), k_aug.data_ptr(), v.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), lengths.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dvv.data_ptr(), scratch.data_ptr(), b * h, h, t, da,
-        dv, float(scale), int(q_aug.dtype == torch.bfloat16), BWD_ALL,
-        _cuda.stream_ptr(q_aug))
-    _cuda.check(rc, KERNEL_DQ)
-    _cuda.launches[KERNEL_DQ] += 1
-    _cuda.launches[KERNEL_DKV] += 1
+    with _cuda.launch(KERNEL_DQ, KERNEL_DKV):
+        rc = _lib_bwd()[0](
+            q_aug.data_ptr(), k_aug.data_ptr(), v.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            lengths.data_ptr(), dq.data_ptr(), dk.data_ptr(), dvv.data_ptr(),
+            scratch.data_ptr(), b * h, h, t, da, dv, float(scale),
+            int(q_aug.dtype == torch.bfloat16), BWD_ALL,
+            _cuda.stream_ptr(q_aug))
+        _cuda.check(rc, KERNEL_DQ)
     return dq, dk, dvv
 
 

@@ -56,11 +56,11 @@ def bn_relu_pool(y, a, b) -> torch.Tensor:
     req(y.data_ptr() % 16 == 0, "y must be 16-byte aligned")
     out = torch.empty((n, (h - 1) // 2 + 1, (w - 1) // 2 + 1, c),
                       dtype=y.dtype, device=y.device)
-    rc = _lib()(y.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                n, h, w, c, int(y.dtype == torch.bfloat16),
-                _cuda.stream_ptr(y))
-    _cuda.check(rc, KERNEL)
-    _cuda.launches[KERNEL] += 1
+    with _cuda.launch(KERNEL):
+        rc = _lib()(y.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                    n, h, w, c, int(y.dtype == torch.bfloat16),
+                    _cuda.stream_ptr(y))
+        _cuda.check(rc, KERNEL)
     return out
 
 

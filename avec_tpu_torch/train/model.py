@@ -19,6 +19,9 @@ Activations run in `precision` on fp32 parameters.
 gradients, losses and metrics are summed, then divided by A. Every
 micro-batch draws its own dropout masks and kernel seeds from the model's
 generators.
+While a profiler records, a step marks its phases with the `avec/train/*`
+spans of `utils/spans.py` (step, micro-batch, to_device, forward, loss,
+backward, all_reduce, grad_norm, optimizer, ema).
 
 `fit` runs epochs over a `DataLoader` with periodic evaluation and
 checkpoints, summing the losses on the device and reading them only at log
@@ -98,6 +101,7 @@ from avec_tpu_torch.train.losses import loss_dict, rank_weight
 from avec_tpu_torch.train.metrics import metric_dict
 from avec_tpu_torch.train.optim import Optimizer, noam_adam, optim_dict
 from avec_tpu_torch.train.schedulers import as_scheduler
+from avec_tpu_torch.utils.spans import span
 
 # model.py:53-59: float16 configs run in bf16, which needs no loss scaler
 _DTYPES = {"float32": torch.float32, "fp32": torch.float32,
@@ -471,30 +475,36 @@ class Trainer:
         self.optimizer.optimizer.zero_grad(set_to_none=True)
         total: Dict[str, torch.Tensor] = {}
         for micro in _split_micro(batch, accumulated_steps):
-            inputs, targets = self._to_device(micro)
-            clear_records(self.model)
-            outputs = self.model(*inputs)
-            losses = self.compute_losses(outputs, targets, self.step)
-            aux = harvest_aux_losses(self.model)
-            for name, (value, weight) in aux.items():
-                losses["loss_" + name] = value
-                losses["loss"] = losses["loss"] + weight * value
-            if module_infos is not None:
-                for k, v in harvest_infos(self.model).items():
-                    v = torch.as_tensor(v).detach() / accumulated_steps
-                    module_infos[k] = (module_infos[k] + v
-                                       if k in module_infos else v)
-            clear_records(self.model)
-            losses["loss"].backward()
-            for k, v in losses.items():
-                total[k] = total[k] + v.detach() if k in total else v.detach()
-            if metrics is not None:
-                with torch.no_grad():
-                    for k, v in self.device_metrics(
-                            _detach(outputs), targets).items():
-                        metrics[k] = (metrics[k] + v / accumulated_steps
-                                      if k in metrics
-                                      else v / accumulated_steps)
+            with span("avec/train/micro"):
+                with span("avec/train/to_device"):
+                    inputs, targets = self._to_device(micro)
+                clear_records(self.model)
+                with span("avec/train/forward"):
+                    outputs = self.model(*inputs)
+                with span("avec/train/loss"):
+                    losses = self.compute_losses(outputs, targets, self.step)
+                    aux = harvest_aux_losses(self.model)
+                    for name, (value, weight) in aux.items():
+                        losses["loss_" + name] = value
+                        losses["loss"] = losses["loss"] + weight * value
+                if module_infos is not None:
+                    for k, v in harvest_infos(self.model).items():
+                        v = torch.as_tensor(v).detach() / accumulated_steps
+                        module_infos[k] = (module_infos[k] + v
+                                           if k in module_infos else v)
+                clear_records(self.model)
+                with span("avec/train/backward"):
+                    losses["loss"].backward()
+                for k, v in losses.items():
+                    total[k] = (total[k] + v.detach() if k in total
+                                else v.detach())
+                if metrics is not None:
+                    with torch.no_grad():
+                        for k, v in self.device_metrics(
+                                _detach(outputs), targets).items():
+                            metrics[k] = (metrics[k] + v / accumulated_steps
+                                          if k in metrics
+                                          else v / accumulated_steps)
         params = list(self.model.parameters())
         # A detached conv bias has no gradient; the JAX package gives it an
         # exact zero, which still takes the optimizer's weight decay.
@@ -504,8 +514,10 @@ class Trainer:
         if accumulated_steps > 1:
             torch._foreach_div_([p.grad for p in params], accumulated_steps)
             total = {k: v / accumulated_steps for k, v in total.items()}
-        return (total if self.group is None
-                else self._all_reduce(total, replicated))
+        if self.group is None:
+            return total
+        with span("avec/train/all_reduce"):
+            return self._all_reduce(total, replicated)
 
     def loss_and_grads(self, batch):
         """One forward + backward without an update: (losses, gradients by
@@ -524,21 +536,25 @@ class Trainer:
         "module_infos"), tensors left on the device. The metrics and infos
         are this rank's. `replicated`: every data rank passes the whole
         global batch (see `_all_reduce`)."""
-        metrics: Optional[Dict[str, torch.Tensor]] = (
-            {} if self.eval_training else None)
-        module_infos: Dict[str, torch.Tensor] = {}
-        losses = self._forward_backward(batch, accumulated_steps, metrics,
-                                        module_infos, replicated)
-        gnorm = self._grad_norm()
-        if self.grad_max_norm is not None:
-            # scales by min(1, max_norm / (norm + 1e-6)), as model.py:531-534
-            torch.nn.utils.clip_grads_with_norm_(
-                self.model.parameters(), self.grad_max_norm, gnorm)
-        lr = self.optimizer.update(self.step)
-        self.step += 1
-        if self.ema_state is not None:
-            with torch.no_grad():
-                self._update_ema()
+        with span("avec/train/step"):
+            metrics: Optional[Dict[str, torch.Tensor]] = (
+                {} if self.eval_training else None)
+            module_infos: Dict[str, torch.Tensor] = {}
+            losses = self._forward_backward(batch, accumulated_steps, metrics,
+                                            module_infos, replicated)
+            with span("avec/train/grad_norm"):
+                gnorm = self._grad_norm()
+                if self.grad_max_norm is not None:
+                    # scales by min(1, max_norm / (norm + 1e-6)), as
+                    # model.py:531-534
+                    torch.nn.utils.clip_grads_with_norm_(
+                        self.model.parameters(), self.grad_max_norm, gnorm)
+            with span("avec/train/optimizer"):
+                lr = self.optimizer.update(self.step)
+            self.step += 1
+            if self.ema_state is not None:
+                with torch.no_grad(), span("avec/train/ema"):
+                    self._update_ema()
         infos = {"lr": lr, "grad_norm": gnorm}
         if metrics is not None:
             infos["metrics"] = metrics
