@@ -46,14 +46,29 @@ def _residual(in_features, out_features, strides):
         "1": BatchNorm(out_features)})
 
 
-def _join(block, y, x):
-    """The residual add and the block's last activation."""
-    if not block.joined_post_act:
-        y = block.act(y)
+def _join(block, bn, z, x):
+    """The block's last BatchNorm `bn` on its last conv's output z, the
+    residual add and the block's last activation. A ReLU block hands the add
+    and the ReLU to the BatchNorm, whose training kernels apply them in the
+    same pass."""
     res = x if block.residual is None else \
         block.residual["1"](block.residual["0"](x))
+    if block.act is torch.relu:
+        if block.joined_post_act:
+            return bn(z, residual=res, relu=True)
+        return bn(z, relu=True) + res
+    y = bn(z)
+    if not block.joined_post_act:
+        y = block.act(y)
     out = y + res
     return block.act(out) if block.joined_post_act else out
+
+
+def _bn_act(block, bn, z):
+    """BatchNorm then the block's activation, a ReLU inside the BatchNorm."""
+    if block.act is torch.relu:
+        return bn(z, relu=True)
+    return block.act(bn(z))
 
 
 class ResNetBlock(nn.Module):
@@ -79,9 +94,8 @@ class ResNetBlock(nn.Module):
         self.joined_post_act = joined_post_act
 
     def forward(self, x):
-        y = self.act(self.layers["1"](self.layers["0"](x)))
-        y = self.layers["4"](self.layers["3"](y))
-        return _join(self, y, x)
+        y = _bn_act(self, self.layers["1"], self.layers["0"](x))
+        return _join(self, self.layers["4"], self.layers["3"](y), x)
 
 
 class ResNetBottleneckBlock(nn.Module):
@@ -110,10 +124,9 @@ class ResNetBottleneckBlock(nn.Module):
         self.joined_post_act = joined_post_act
 
     def forward(self, x):
-        y = self.act(self.layers["1"](self.layers["0"](x)))
-        y = self.act(self.layers["4"](self.layers["3"](y)))
-        y = self.layers["7"](self.layers["6"](y))
-        return _join(self, y, x)
+        y = _bn_act(self, self.layers["1"], self.layers["0"](x))
+        y = _bn_act(self, self.layers["4"], self.layers["3"](y))
+        return _join(self, self.layers["7"], self.layers["6"](y), x)
 
 
 class ResNet(nn.Module):
@@ -160,7 +173,7 @@ class ResNet(nn.Module):
 
     def forward(self, x):
         if self.stem is not None:
-            x = torch.relu(self.stem["1"](self.stem["0"](x)))
+            x = self.stem["1"](self.stem["0"](x), relu=True)
             x = F.max_pool2d(F.pad(x, (1, 1, 1, 1), value=float("-inf")),
                              3, 2)
         for block in self.blocks:

@@ -140,8 +140,12 @@ class ZooModel(nn.Module):
         fused attention forward and backward once, every convolution module
         that takes the fused route the four conv kernels (statistics,
         forward, backward-1, backward-2) once each, under their K3dp names in
-        data-parallel mode, and a "pallas" video stem its BN + ReLU + pool
-        kernel once (its backward launches no kernel). A rematerialized
+        data-parallel mode, a "pallas" video stem its BN + ReLU + pool
+        kernel and the BatchNorm statistics kernel once forward and the two
+        BatchNorm backward kernels once, and every other BatchNorm that
+        trains on its batch statistics without a process group (the ResNet
+        trunk's, a "2d" stem's, the audio stem's, an unfused convolution
+        module's) the four BatchNorm kernels once each. A rematerialized
         block (`remat=True`) launches the forward kernels of its modules a
         second time, in the backward's recompute. In data-parallel mode
         these are the launches of each rank."""
@@ -149,9 +153,11 @@ class ZooModel(nn.Module):
                                                      ConformerInterCTC,
                                                      ConvolutionModule,
                                                      FeedForwardModule)
-        from avec_tpu_torch.ops import (attention_module, conv_module, ffn,
-                                        flash_attention, stem)
+        from avec_tpu_torch.ops import (attention_module, batch_norm,
+                                        conv_module, ffn, flash_attention,
+                                        stem)
         from avec_tpu_torch.ops.attention import RelPos1dMultiHeadAttention
+        from avec_tpu_torch.ops.layers import BatchNorm
 
         mods = list(self.modules())
         n_ffn = sum(isinstance(m, FeedForwardModule) and m.fused_eligible()
@@ -168,6 +174,17 @@ class ZooModel(nn.Module):
                      for m in mods)
         conv_names = (conv_module.KERNELS if self.process_group is None
                       else conv_module.KERNELS_DP)
+        # BatchNorms whose owners run them through other kernels
+        owned = {id(m.layers["4"]) for m in mods
+                 if isinstance(m, ConvolutionModule) and m.fused_eligible()}
+        owned |= {id(m.layers[0][1]) for m in mods
+                  if isinstance(m, FusedVideoStem) and m.mode == "pallas"}
+
+        def n_bn(ms):
+            return sum(isinstance(m, BatchNorm) and not m.frozen
+                       and m.process_group is None and id(m) not in owned
+                       for m in ms)
+
         counts = {ffn.KERNEL_FWD: n_ffn, ffn.KERNEL_BWD: n_ffn,
                   flash_attention.KERNEL: n_flash,
                   flash_attention.KERNEL_DQ: n_flash,
@@ -175,12 +192,15 @@ class ZooModel(nn.Module):
                   attention_module.KERNEL_FWD: n_att,
                   attention_module.KERNEL_BWD: n_att,
                   **{name: n_conv for name in conv_names},
-                  stem.KERNEL: n_stem}
+                  stem.KERNEL: n_stem,
+                  **batch_norm.launches(n_bn(mods), n_stem)}
         for m in mods:
             if not (isinstance(m, ConformerInterCTC) and m.remat):
                 continue
             for i in m.remat_blocks:
                 again = list(m.conformer_blocks[i].modules())
+                counts[batch_norm.KERNEL_STATS] += n_bn(again)
+                counts[batch_norm.KERNEL_APPLY] += n_bn(again)
                 counts[ffn.KERNEL_FWD] += sum(
                     isinstance(x, FeedForwardModule) and x.fused_eligible()
                     for x in again)

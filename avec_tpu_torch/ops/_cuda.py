@@ -30,7 +30,7 @@ from avec_tpu_torch.utils import spans
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "avec_tpu_torch"
 SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu", "ffn.cu",
-           "stem.cu", "attention_module.cu", "conv_module.cu")
+           "stem.cu", "attention_module.cu", "conv_module.cu", "batch_norm.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -152,7 +152,9 @@ class launch:
 
 
 def stream_ptr(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current stream on t's device (without building
+    a `torch.cuda.Stream`, which costs more host time than a launch)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def require(cond: bool, msg: str) -> None:

@@ -36,6 +36,7 @@ import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
+from avec_tpu_torch.ops import batch_norm
 from avec_tpu_torch.ops.inits import get_init, torch_default_bias
 from avec_tpu_torch.parallel.dist import all_reduce_sum
 
@@ -339,7 +340,9 @@ class BatchNorm(nn.Module):
 
     Eval, and training with `frozen` (layers.py:541-557), use the running
     statistics. Training otherwise uses the batch's: one pass
-    E[x^2] - E[x]^2 in fp32, clamped at 0, differentiated through; the
+    E[x^2] - E[x]^2 in fp32, clamped at 0, differentiated through (the sums
+    added in the order of the statistics kernel of `ops/batch_norm.py`, so
+    that its plain version gives its bits); the
     running statistics move by `momentum` (0.1, flax 0.9) towards the batch
     mean and the unbiased batch variance. With a `process_group` (set by the
     model's `set_data_parallel`) the statistics are those of the global
@@ -358,6 +361,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
         self.process_group = None
+        self.use_kernel = True
         self.training = False
 
     def init_(self, gen: torch.Generator):
@@ -378,22 +382,43 @@ class BatchNorm(nn.Module):
         self.running_mean.mul_(1 - m).add_(mean, alpha=m)
         self.running_var.mul_(1 - m).add_(var, alpha=m * n / max(n - 1, 1))
 
-    def forward(self, x):
+    def forward(self, x, residual=None, relu: bool = False):
+        """relu?(BN(x) + residual?): `residual` (x's shape and dtype) is
+        added to the normalised x rounded to its dtype, then the ReLU. In
+        training with the batch's own statistics and no process group a
+        CUDA x takes the kernels of `ops/batch_norm.py` (bf16 or fp32; they
+        raise for another dtype), which do all of it in one pass each way;
+        `use_kernel` False (the model's `set_kernels(False)`) takes the
+        plain arithmetic below, their plain version."""
+        if (self.training and not self.frozen and self.process_group is None
+                and self.use_kernel and batch_norm.in_scope(x)):
+            out, st = batch_norm.batch_norm_train(
+                x, self.weight, self.bias, self.eps, residual, relu)
+            self.update_running(st[0], st[1], x.numel() // x.shape[1])
+            return out
         shape = (1, -1) + (1,) * (x.ndim - 2)
+        if self.training and not self.frozen and batch_norm.layout(x) is None:
+            x = x.contiguous()                      # as the kernels take it
         xf = x.float()
         if self.training and not self.frozen:
-            axes = (0,) + tuple(range(2, x.ndim))
-            mean = xf.mean(dim=axes)
-            ex2 = (xf * xf).mean(dim=axes)
+            # the kernels' plain version: their sums' order, so that a plain
+            # step (or one rank's) normalises with their bits
             n = x.numel() // x.shape[1]
+            mean, ex2 = batch_norm.moments(*batch_norm.sums_reference(x, xf),
+                                           n)
             if self.process_group is not None:
                 mean, ex2, n = sync_moments(mean, ex2, n, self.process_group)
             var = torch.clamp(ex2 - mean * mean, min=0.0)
+            rstd = batch_norm.rstd(var, self.eps)
             self.update_running(mean, var, n)
         else:
-            mean, var = self.running_mean, self.running_var
-        y = (xf - mean.view(shape)) * torch.rsqrt(var + self.eps).view(shape)
-        return (y * self.weight.view(shape) + self.bias.view(shape)).to(x.dtype)
+            mean = self.running_mean
+            rstd = torch.rsqrt(self.running_var + self.eps)
+        y = (xf - mean.view(shape)) * rstd.view(shape)
+        y = (y * self.weight.view(shape) + self.bias.view(shape)).to(x.dtype)
+        if residual is not None:
+            y = y + residual
+        return torch.relu(y) if relu else y
 
 
 class GroupNorm(nn.Module):

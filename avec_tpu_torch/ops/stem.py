@@ -5,7 +5,8 @@ CUDA tensors and computes the plain version for CPU tensors;
 `bn_relu_pool_reference` is that plain version. The stem conv itself stays a
 plain `F.conv3d`, as the JAX package leaves it to XLA. `fused_stem_eval`
 applies the kernel with the running statistics, `fused_stem_train` with the
-batch's, with a plain PyTorch backward as the JAX package's is plain XLA.
+batch's, computed by the BatchNorm kernels of `ops/batch_norm.py`, which
+also run its BN backward (the JAX package's backward is plain XLA).
 """
 
 import ctypes
@@ -13,7 +14,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from avec_tpu_torch.ops import _cuda
+from avec_tpu_torch.ops import _cuda, batch_norm
 
 KERNEL = "bn_relu_pool"
 
@@ -85,25 +86,21 @@ class _FusedStemTrain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, weight, bias, scale, bn_bias, eps, use_kernel):
         y = stem_conv(x, weight.detach(), bias.detach())
-        n = y.numel() // y.shape[-1]
-        yf = y.float()
-        mean = yf.sum(dim=(0, 1, 2)) / n
-        var = torch.clamp(yf.square().sum(dim=(0, 1, 2)) / n - mean * mean,
-                          min=0.0)
-        del yf
-        a = scale.detach().float() * torch.rsqrt(var + eps)
+        stats = batch_norm.stats if use_kernel else batch_norm.stats_reference
+        st = stats(y.view(-1, y.shape[-1]), eps)               # (rows, 64)
+        mean, var = st[0], st[1]
+        a = scale.detach().float() * st[2]
         b = bn_bias.detach().float() - mean * a
         fn = bn_relu_pool if use_kernel else bn_relu_pool_reference
         pooled = fn(y, a.contiguous(), b.contiguous())
-        ctx.save_for_backward(x, weight, y, mean, var, scale, a, b)
-        ctx.eps = eps
+        ctx.save_for_backward(x, weight, y, st, scale, a, b)
+        ctx.use_kernel = use_kernel
         ctx.mark_non_differentiable(mean, var)
         return pooled, mean, var
 
     @staticmethod
     def backward(ctx, gp, _gmean, _gvar):
-        x, weight, y, mean, var, scale, a, b = ctx.saved_tensors
-        n = y.numel() // y.shape[-1]
+        x, weight, y, st, scale, a, b = ctx.saved_tensors
         # the pre-pool activation with the forward's rounding; the pool's
         # backward runs in y's dtype and the ReLU gate follows it
         z = torch.relu(y.float() * a + b).to(y.dtype).permute(0, 3, 1, 2)
@@ -113,16 +110,20 @@ class _FusedStemTrain(torch.autograd.Function):
         ghat, = torch.autograd.grad(pooled, zr,
                                     gp.permute(0, 3, 1, 2).to(y.dtype))
         ghat = torch.where(z > 0, ghat, torch.zeros_like(ghat))
-        gf = ghat.permute(0, 2, 3, 1).float()
+        c = y.shape[-1]
+        g = ghat.permute(0, 2, 3, 1).reshape(-1, c)
         del z, zr, pooled, ghat
-        # train-mode BN backward, reductions in fp32
-        inv = torch.rsqrt(var + ctx.eps)
-        yhat = (y.float() - mean) * inv
-        dbn_bias = gf.sum(dim=(0, 1, 2))
-        dscale = (gf * yhat).sum(dim=(0, 1, 2))
-        dy = ((scale.float() * inv)
-              * (gf - dbn_bias / n - yhat * (dscale / n))).to(y.dtype)
-        del gf, yhat
+        # train-mode BN backward over the (rows, 64) view, reductions in fp32
+        y2 = y.view(-1, c)
+        if ctx.use_kernel:
+            red = batch_norm.bwd_reduce(g, y2, None, st, scale)
+            dy = batch_norm.bwd_dx(g, y2, None, st, red)[0]
+        else:
+            red = batch_norm.bwd_reduce_reference(g, y2, None, st, scale)
+            dy = batch_norm.bwd_dx_reference(g, y2, None, st, red)[0]
+        dy = dy.view(y.shape)
+        dbn_bias, dscale = red[0], red[1]
+        del g
         bsz, t = x.shape[0], x.shape[1]
         dy5 = dy.reshape((bsz, t) + dy.shape[1:]).permute(0, 4, 1, 2, 3)
         dweight = torch.nn.grad.conv3d_weight(
@@ -138,14 +139,17 @@ def fused_stem_train(x, conv_weight, conv_bias, scale, bn_bias,
                      eps: float = 1e-5, use_kernel: bool = True):
     """Training-mode stem (pallas_stem.py:174): the conv, batch statistics in
     one fp32 pass over all B*T*44*44 positions (var = max(E[y^2] - mean^2,
-    0)), then BN with them + ReLU + pool in one kernel.
+    0); the `ops/batch_norm.py` stats kernel), then BN with them + ReLU +
+    pool in one kernel.
 
     x: (B, T, 88, 88, 1) channels-last. Returns (pooled (B*T, 22, 22, 64),
     batch mean, batch var); the caller updates the running statistics. The
-    backward is plain PyTorch: max-pool backward in y's dtype on the
-    recomputed activation, the ReLU gate, the train-mode BN backward, the
-    conv's weight gradient, a zero conv-bias gradient and no input gradient.
-    use_kernel=False takes the kernel's plain version on any device."""
+    backward: max-pool backward in y's dtype on the recomputed activation
+    and the ReLU gate in plain PyTorch, the train-mode BN backward in the
+    `ops/batch_norm.py` kernels, the conv's weight gradient, a zero
+    conv-bias gradient and no input gradient. use_kernel=False takes the
+    plain versions of the BN + ReLU + pool kernel and of the BatchNorm
+    kernels on any device."""
     return _FusedStemTrain.apply(x, conv_weight, conv_bias, scale, bn_bias,
                                  eps, use_kernel)
 

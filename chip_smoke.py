@@ -334,13 +334,25 @@ bounds and plain stages;
     4, K2 / K2b 3 and no K3 (the JAX gates), finite; fp32 kernels against
     plain versions, output 1e-3, input gradient through the first two
     blocks 1e-3. Details under `remat`.
-The line before the last is a JSON `kernels` line of sixteen kernels (the
-nine of phase 18 with their launches there as `launches_learning_run`, the
+32. (run after phase 4) the four training BatchNorm kernels (bn_stats,
+    bn_apply, bn_bwd_reduce, bn_bwd_dx) through their wrappers against
+    their plain versions at one `av_train` micro-batch of 6432 frames in
+    bf16: the ResNet trunk's stage 1 and stage 4 (channels-last) and the
+    stem's (rows, 64): statistics, apply and bwd-dx bit-identical, the
+    backward's sums within 1e-5 of the largest entry, the same bits over
+    two calls; each kernel's time at stage 1 beside its byte bound and its
+    plain version. Details under `batch_norm`. With the kernels every
+    training path's launches per step include the BatchNorm kernels: each
+    BatchNorm that trains on its batch's statistics without a process
+    group and that no fused convolution module holds launches all four,
+    a "pallas" stem the statistics and both backward kernels.
+The line before the last is a JSON `kernels` line of twenty kernels (the
+thirteen of phase 18 with their launches there as `launches_learning_run`, the
 launches of phases 19-22 by phase as `launches_zoo`, those of phase 23 as
 `launches_learning_run_causal`, K4's and K5's per served forward of phase
 25 as `launches_decode`, K4's of phases 26 and 27 (a) as
-`launches_serve_files` and `launches_streaming`, the nine of phase 28 as
-`launches_cli`, the six of phase 29's grouped model by path as
+`launches_serve_files` and `launches_streaming`, the thirteen of phase 28 as
+`launches_cli`, the ten of phase 29's grouped model by path as
 `launches_grouped`, those of phase 30 (a) by model as `launches_dp_zoo`,
 those of phase 31 (a)'s remat runs by route as `launches_remat`);
 the
@@ -366,6 +378,9 @@ import warnings
 
 import numpy as np
 import torch
+
+from avec_tpu_torch.ops.batch_norm import KERNELS as BN_KERNELS
+from avec_tpu_torch.ops.batch_norm import launches as bn_launches
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_OPS = {"bf16": 989e12, "fp32": 67e12}
@@ -905,6 +920,10 @@ def main() -> int:
     del srv, inputs, logits, k_logits, p_logits, y
     torch.cuda.empty_cache()
 
+    # ---- 32. the BatchNorm kernels against their plain versions at the
+    # main path's shapes
+    kernels += bn_phase(detail)
+
     # ---- 5-7. the training slice
     profile = "--profile" in sys.argv[1:]
     entries, trainer, batch = training_phases(detail, profile)
@@ -1292,6 +1311,130 @@ def check_agreement(what, got, want, loss_tol, front_end_tol=2e-3,
             and front[0][0] <= front_end_tol and stats_err <= 1e-5):
         raise AssertionError(f"{what} disagree: {out}")
     return out
+
+
+BN_FRAMES = 6432      # one av_train micro-batch: 32 utterances of ~201 frames
+
+
+def bn_phase(detail) -> list:
+    """Phase 32: the four training BatchNorm kernels (`ops/batch_norm.py`)
+    through their wrappers against their plain versions (the `*_reference`
+    entry points) at the main path's shapes, BN_FRAMES frames in bf16: the
+    ResNet trunk's stage 1 (64 x 22 x 22) and stage 4 (512 x 3 x 3),
+    channels-last, and the stem's (rows, 64) view of its conv output (44 x
+    44 rows a frame). The statistics bit for bit (the plain version adds in
+    the kernel's order), the backward's sums within 1e-5 of their row's
+    largest entry (fp32 sums in another order); apply (plain, and with the
+    residual add and the ReLU) and bwd-dx (plain, and gated by that output
+    writing g') bit for bit given the same statistics and sums;
+    stats, bwd-reduce and bwd-dx the same bits on a second call. Then each
+    kernel at the stage-1 shape (direct calls and device time) beside its
+    byte bound and its plain version. Returns the kernels' entries."""
+    from avec_tpu_torch.ops import _cuda
+    from avec_tpu_torch.ops import batch_norm as bn
+
+    dev = torch.device("cuda")
+    n = BN_FRAMES
+    shapes = {"stage1": ((n, 64, 22, 22), torch.channels_last),
+              "stage4": ((n, 512, 3, 3), torch.channels_last),
+              "stem": ((n * 44 * 44, 64), torch.contiguous_format)}
+    n0 = dict(_cuda.launches)
+    errs = {name: {} for name in BN_KERNELS}
+    rec, entries = {}, []
+    for where, (shape, fmt) in shapes.items():
+        gen = torch.Generator(device=dev).manual_seed(32)
+
+        def act(scale=1.0, shift=0.0):
+            return (torch.randn(shape, generator=gen, device=dev) * scale
+                    + shift).to(torch.bfloat16).contiguous(memory_format=fmt)
+
+        x, g, res = act(2.0, 0.5), act(), act()
+        c = shape[1]
+        w = 1.0 + 0.1 * torch.randn(c, generator=gen, device=dev)
+        b = 0.1 * torch.randn(c, generator=gen, device=dev)
+        st = bn.stats(x, 1e-5)
+        same = torch.equal(st, bn.stats(x, 1e-5))
+        want = bn.stats_reference(x, 1e-5)
+        errs[bn.KERNEL_STATS][where] = max(rel_err(st[i], want[i])
+                                           for i in range(3))
+        exact = {"stats": torch.equal(st, want)}
+        for residual, relu in ((None, False), (res, True)):
+            y = bn.apply(x, st, w, b, residual, relu)
+            exact[f"apply_relu{int(relu)}"] = torch.equal(
+                y, bn.apply_reference(x, st, w, b, residual, relu))
+        errs[bn.KERNEL_APPLY][where] = max_abs(
+            y, bn.apply_reference(x, st, w, b, res, True))
+        e_red, e_dx = 0.0, 0.0
+        for gate in (None, y):
+            write = gate is not None
+            red = bn.bwd_reduce(g, x, gate, st, w)
+            same = same and torch.equal(red, bn.bwd_reduce(g, x, gate, st, w))
+            want = bn.bwd_reduce_reference(g, x, gate, st, w)
+            e_red = max(e_red, *(rel_err(red[i], want[i]) for i in range(5)))
+            dx, gres = bn.bwd_dx(g, x, gate, st, red, write)
+            same = same and torch.equal(
+                dx, bn.bwd_dx(g, x, gate, st, red, write)[0])
+            want_dx, want_g = bn.bwd_dx_reference(g, x, gate, st, red, write)
+            exact[f"bwd_dx_gated{int(write)}"] = torch.equal(dx, want_dx)
+            e_dx = max(e_dx, max_abs(dx, want_dx))
+            if write:
+                exact["g_prime"] = torch.equal(gres, want_g)
+            del dx, gres, want_dx, want_g
+        errs[bn.KERNEL_BWD_REDUCE][where] = e_red
+        errs[bn.KERNEL_BWD_DX][where] = e_dx
+        rec[where] = {"shape": list(shape), "exact": exact,
+                      "same_bits_twice": same,
+                      **{k: errs[k][where] for k in BN_KERNELS}}
+        e_st = errs[bn.KERNEL_STATS][where]
+        log(f"phase 32 BatchNorm kernels {where} {tuple(shape)} bf16 "
+            f"against the plain versions: stats {e_st:.2e} (must be 0), "
+            f"bwd_reduce {e_red:.2e} of the largest entry (tol 1e-5); "
+            f"bit-identical {exact}; bit-identical over two calls: {same}")
+        if not (e_red <= 1e-5
+                and all(exact.values()) and same):
+            raise AssertionError(f"phase 32 BatchNorm kernels {where}: "
+                                 f"{rec[where]}")
+        if where == "stage1":
+            e = x.numel() * x.element_size()
+            calls = {
+                bn.KERNEL_STATS: (lambda: bn.stats(x, 1e-5),
+                                  lambda: bn.stats_reference(x, 1e-5), e),
+                bn.KERNEL_APPLY: (
+                    lambda: bn.apply(x, st, w, b, res, True),
+                    lambda: bn.apply_reference(x, st, w, b, res, True), 3 * e),
+                bn.KERNEL_BWD_REDUCE: (
+                    lambda: bn.bwd_reduce(g, x, y, st, w),
+                    lambda: bn.bwd_reduce_reference(g, x, y, st, w), 3 * e),
+                bn.KERNEL_BWD_DX: (
+                    lambda: bn.bwd_dx(g, x, y, st, red, True),
+                    lambda: bn.bwd_dx_reference(g, x, y, st, red, True),
+                    5 * e)}
+            for name, (fn, plain_fn, nbytes) in calls.items():
+                ms = cuda_time_ms(fn)
+                dev_ms = device_time_ms(fn)[0]
+                plain = cuda_time_ms(plain_fn, iters=5)
+                b_ms, b_by = bound(nbytes, 0.0, "bf16")
+                log(f"{name} stage 1 ({n} frames): {ms:.4f} ms (device "
+                    f"{dev_ms:.4f}), plain {plain:.4f}, bound {b_ms:.5f} "
+                    f"({b_by}): {dev_ms / b_ms:.2f}x the bound on the device")
+                entries.append({
+                    "name": name, "route": "cuda",
+                    "source": "avec_tpu_torch/csrc/batch_norm.cu",
+                    "replaces": "none (XLA fuses BN in the JAX package)",
+                    "ms": ms, "device_ms": dev_ms, "plain_ms": plain,
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+        del x, g, res, y, st, red, want
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    launched = {k: _cuda.launches[k] - n0.get(k, 0) for k in BN_KERNELS}
+    for entry in entries:
+        name = entry["name"]
+        key = ("max_abs_err" if name in (bn.KERNEL_APPLY, bn.KERNEL_BWD_DX)
+               else "max_rel_err")
+        entry.update({"launches": launched[name],
+                      key: max(errs[name].values())})
+    detail["batch_norm"] = rec
+    return entries
 
 
 def training_phases(detail, profile: bool):
@@ -1939,8 +2082,11 @@ def fused_phases(detail, profile: bool, trainer2, batch):
     per_step = model.kernel_launches_per_step()
     log(f"train (fused attention, stem pallas, no flash): launches per step "
         f"derived from the module tree: {per_step}")
+    # BatchNorm kernels: the trunk's 19, the audio stem's and the 24 conv
+    # modules' BatchNorms, the stem's statistics and BN backward
     want_steps = {"fused_att_fwd": 19, "fused_att_bwd": 19,
-                  "fused_ffn_fwd": 48, "fused_ffn_bwd": 48, "bn_relu_pool": 1}
+                  "fused_ffn_fwd": 48, "fused_ffn_bwd": 48, "bn_relu_pool": 1,
+                  **bn_launches(44, 1)}
     if per_step != want_steps:
         raise AssertionError(f"launches per step {per_step} != {want_steps}")
     history, launches = counted_train_steps(trainer, batch, per_step)
@@ -2326,9 +2472,11 @@ def conv_phases(detail, profile: bool, trainer_att, batch):
     per_step = model.kernel_launches_per_step()
     log(f"train (fused conv, fused attention, stem pallas, no flash): "
         f"launches per step derived from the module tree: {per_step}")
+    # BatchNorm kernels: the trunk's 19, the audio stem's and the 3 strided
+    # conv modules' BatchNorms, the stem's statistics and BN backward
     want_steps = {"fused_att_fwd": 19, "fused_att_bwd": 19,
                   "fused_ffn_fwd": 48, "fused_ffn_bwd": 48, "bn_relu_pool": 1,
-                  **{name: 21 for name in cm.KERNELS}}
+                  **{name: 21 for name in cm.KERNELS}, **bn_launches(23, 1)}
     if per_step != want_steps:
         raise AssertionError(f"launches per step {per_step} != {want_steps}")
     history, launches = counted_train_steps(trainer, batch, per_step)
@@ -3040,7 +3188,8 @@ def learning_phase(detail, root, profile: bool, lm_dir: str) -> dict:
         per_step = setup.model.kernel_launches_per_step()
         want = {"fused_ffn_fwd", "fused_ffn_bwd", "fused_att_fwd",
                 "fused_att_bwd", "fused_conv_stats", "fused_conv_fwd",
-                "fused_conv_bwd1", "fused_conv_bwd2", "bn_relu_pool"}
+                "fused_conv_bwd1", "fused_conv_bwd2", "bn_relu_pool",
+                *BN_KERNELS}
         if set(per_step) != want:
             raise AssertionError(f"AV-Tone route kernels {per_step}")
         n_params = sum(p.numel() for p in setup.model.parameters())
@@ -3315,8 +3464,10 @@ def zoo_phases(detail, root):
                                                 **route)
     trainer = Trainer(model=model, device="cuda", precision="bfloat16",
                       loss=CTCLoss(zero_infinity=True), loss_weights=1.0)
+    # BatchNorm kernels: the audio stem's and the 2 strided conv modules'
     rec["ao_train"], runs["ao_train"] = trained_path(
-        trainer, ao_batch, {**ffn(32), **att(11), **conv(14)},
+        trainer, ao_batch, {**ffn(32), **att(11), **conv(14),
+                            **bn_launches(3)},
         "AO train (fused FFN, attention, conv; B=16, 6 s)", 3)
     del trainer, model
     torch.cuda.empty_cache()
@@ -3334,7 +3485,7 @@ def zoo_phases(detail, root):
     trainer = Trainer(model=model, device="cuda", precision="bfloat16",
                       loss=CTCLoss(zero_infinity=True), loss_weights=1.0)
     rec["causal_train"], runs["causal_train"] = trained_path(
-        trainer, ao_batch, {**ffn(32), **conv(14)},
+        trainer, ao_batch, {**ffn(32), **conv(14), **bn_launches(3)},
         "causal AO train (left context 64; fused FFN and conv at pad_lo 14)",
         3)
     model.eval()
@@ -3397,7 +3548,7 @@ def zoo_phases(detail, root):
                       loss=CTCLoss(zero_infinity=True))
     rec["vo_train"], runs["vo_train"] = trained_path(
         trainer, vo_batch, {**ffn(24), **att(12), **conv(11),
-                            "bn_relu_pool": 1},
+                            "bn_relu_pool": 1, **bn_launches(20, 1)},
         "VO train (stem pallas, fused FFN, attention, conv; B=16 x 151 "
         "frames)", 7, front_end="encoder.front_end.")
     vo_trainer = trainer
@@ -3416,7 +3567,7 @@ def zoo_phases(detail, root):
             f"{batch['targets'].shape}")
         rec["lrw_train"], runs["lrw_train"] = trained_path(
             setup.trainer, batch, {**ffn(24), **att(12), **conv(11),
-                                   "bn_relu_pool": 1},
+                                   "bn_relu_pool": 1, **bn_launches(20, 1)},
             "LRW train (stem pallas, fused FFN, attention, conv; B=32 x 29 "
             "frames)", 3, loss=SoftmaxCrossEntropy(),
             front_end="encoder.front_end.")
@@ -3496,7 +3647,8 @@ def causal_learning_phase(detail, root) -> dict:
         trainer = setup.trainer
         per_step = setup.model.kernel_launches_per_step()
         want = {"fused_ffn_fwd", "fused_ffn_bwd", "fused_conv_stats",
-                "fused_conv_fwd", "fused_conv_bwd1", "fused_conv_bwd2"}
+                "fused_conv_fwd", "fused_conv_bwd1", "fused_conv_bwd2",
+                *BN_KERNELS}
         if set(per_step) != want:
             raise AssertionError(f"AO-Tone-Causal route kernels {per_step}")
         n_params = sum(p.numel() for p in setup.model.parameters())
@@ -4540,7 +4692,8 @@ def cli_phase(detail, root) -> dict:
         if not (launches == want and set(want) == {
                 "fused_ffn_fwd", "fused_ffn_bwd", "fused_att_fwd",
                 "fused_att_bwd", "fused_conv_stats", "fused_conv_fwd",
-                "fused_conv_bwd1", "fused_conv_bwd2", "bn_relu_pool"}
+                "fused_conv_bwd1", "fused_conv_bwd2", "bn_relu_pool",
+                *BN_KERNELS}
                 and finite and logs and os.path.isfile(ckpt)):
             raise AssertionError(f"CLI training: {rec['train']}")
         del trainer, args
@@ -4766,7 +4919,7 @@ def library_phase(detail, root) -> dict:
     trainer = Trainer(model=model, device="cuda", precision="bfloat16",
                       loss=CTCLoss(zero_infinity=True), loss_weights=1.0)
     per_step = {"fused_ffn_fwd": 32, "fused_ffn_bwd": 32,
-                **{name: 14 for name in cm.KERNELS}}
+                **{name: 14 for name in cm.KERNELS}, **bn_launches(3)}
     rec["train"], runs["grouped_train"] = trained_path(
         trainer, ao_batch, per_step,
         "grouped AO train (fused FFN and conv; B=16, 6 s)", 8)
@@ -5383,10 +5536,13 @@ def remat_extra_forwards(model) -> dict:
     """{kernel: launches} that the recompute adds to a step: the fused
     forward kernels of the modules inside the blocks each stack
     rematerializes (`ConformerInterCTC.remat_blocks`, the JAX plan's runs of
-    more than one block)."""
+    more than one block), and the BatchNorm statistics and apply kernels of
+    each BatchNorm there that no fused convolution module holds."""
     from avec_tpu_torch.models.conformer import ConformerInterCTC
     from avec_tpu_torch.ops import attention_module, conv_module, ffn
     from avec_tpu_torch.ops import flash_attention
+    from avec_tpu_torch.ops.batch_norm import KERNEL_APPLY, KERNEL_STATS
+    from avec_tpu_torch.ops.layers import BatchNorm
 
     extra = {}
 
@@ -5409,6 +5565,10 @@ def remat_extra_forwards(model) -> dict:
             if block.conv_module.fused_eligible():
                 add(conv_module.KERNEL_STATS, 1)
                 add(conv_module.KERNEL_FWD, 1)
+            n_bn = (sum(isinstance(m, BatchNorm) for m in block.modules())
+                    - block.conv_module.fused_eligible())
+            add(KERNEL_STATS, n_bn)
+            add(KERNEL_APPLY, n_bn)
     return extra
 
 
@@ -5562,7 +5722,8 @@ def variant_stack_check(rec) -> dict:
     only where the JAX gates allow (K1 / K1b in the four Swish FFNs, K2 /
     K2b in the three attention modules, no K3: transposed, without BN and
     ReLU convolution modules all stay unfused, conformer.py:103-107,
-    :248-252), the output and every gradient finite; then fp32, dropout
+    :248-252; the BatchNorm kernels for the BatchNorms of the first and
+    last), the output and every gradient finite; then fp32, dropout
     off, kernels against plain versions: the stack's output within 1e-3 of
     its largest entry, and the input's gradient through the first two
     blocks (Swish) too. Through the ReLU block the input gradient is not
@@ -5580,8 +5741,9 @@ def variant_stack_check(rec) -> dict:
             m.seed_generator = torch.Generator().manual_seed(1)
         if hasattr(m, "generator"):
             m.generator = torch.Generator(device=dev).manual_seed(2)
+    # the first and last blocks' (unfused) convolution modules' BatchNorms
     want = {"fused_ffn_fwd": 4, "fused_ffn_bwd": 4, "fused_att_fwd": 3,
-            "fused_att_bwd": 3}
+            "fused_att_bwd": 3, **bn_launches(2)}
     gate = {"ffn": sum(m.fused_eligible() for b in blocks
                        for m in (b.ff_module1, b.ff_module2)),
             "att": sum(b.self_att_module.fused_eligible() for b in blocks),

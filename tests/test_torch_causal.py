@@ -36,6 +36,7 @@ from avec_tpu_torch.models.zoo import (AudioEfficientConformerInterCTC,
 from avec_tpu_torch.ops import masks, pos_embeddings
 from avec_tpu_torch.ops.attention import (RelPosMultiHeadSelfAttention,
                                           rel_to_abs)
+from avec_tpu_torch.ops.batch_norm import launches as bn_launches
 from avec_tpu_torch.train.losses import CTCLoss
 from avec_tpu_torch.train.model import Trainer
 
@@ -233,7 +234,8 @@ def test_causal_train_step_matches_jax(causal, no_jax_noise, jax_fused_conv):
                   fused_att=True)
     assert model.kernel_launches_per_step() == {
         "fused_ffn_fwd": 6, "fused_ffn_bwd": 6, "fused_conv_stats": 1,
-        "fused_conv_fwd": 1, "fused_conv_bwd1": 1, "fused_conv_bwd2": 1}
+        "fused_conv_fwd": 1, "fused_conv_bwd1": 1, "fused_conv_bwd2": 1,
+        **bn_launches(3)}
     trainer = Trainer(model=model, device="cpu", precision="float32",
                       loss=CTCLoss(zero_infinity=True), loss_weights=WEIGHTS)
     trainer.model.set_regularization(False)

@@ -30,7 +30,8 @@ ROUTE = {"AVEC_TPU_FUSED_FFN": "1", "AVEC_TPU_FUSED_ATT": "1",
          "AVEC_TPU_FUSED_CONV": "1", "AVEC_TPU_STEM": "pallas"}
 KERNELS = {"fused_ffn_fwd", "fused_ffn_bwd", "fused_att_fwd", "fused_att_bwd",
            "fused_conv_stats", "fused_conv_fwd", "fused_conv_bwd1",
-           "fused_conv_bwd2", "bn_relu_pool"}
+           "fused_conv_bwd2", "bn_relu_pool", "bn_stats", "bn_apply",
+           "bn_bwd_reduce", "bn_bwd_dx"}
 
 
 def _config(name):

@@ -214,7 +214,8 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("name", ["ffn", "flash_attention_bwd",
                                   "flash_attention", "stem",
-                                  "attention_module", "conv_module"])
+                                  "attention_module", "conv_module",
+                                  "batch_norm"])
 def test_missing_nvcc_raises_for_every_library(monkeypatch, tmp_path, name):
     """Every kernel library is built from source: asking for any of them
     without nvcc raises instead of falling back."""

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 from avec_tpu_torch.models import zoo
 from avec_tpu_torch.ops import _cuda
+from avec_tpu_torch.ops.batch_norm import launches as bn_launches
 from avec_tpu_torch.ops.ctc import ctc_loss
 from avec_tpu_torch.ops.rnnt import rnnt_loss
 from avec_tpu_torch.serve import Server
@@ -82,7 +83,8 @@ def test_grouped_ao_train_step_kernel_path_matches_plain_path(cuda_device):
         **SMALL)
     assert model.kernel_launches_per_step() == {
         "fused_ffn_fwd": 6, "fused_ffn_bwd": 6, "fused_conv_stats": 1,
-        "fused_conv_fwd": 1, "fused_conv_bwd1": 1, "fused_conv_bwd2": 1}
+        "fused_conv_fwd": 1, "fused_conv_bwd1": 1, "fused_conv_bwd2": 1,
+        **bn_launches(3)}
     model.train()
     model.set_regularization(False)
     rng = np.random.RandomState(1)

@@ -243,6 +243,94 @@ def test_resnet_block_train_gradients_match_jax():
     assert np.abs(gx - np.asarray(want_x)).max() <= 1e-4 * np.abs(gx).max()
 
 
+@pytest.mark.parametrize("route", ["plain", "kernels"])
+@pytest.mark.parametrize("kind", ["basic", "bottleneck", "resnet18"])
+def test_resnet_train_gradients_match_jax_on_both_batch_norm_routes(
+        monkeypatch, kind, route):
+    """A strided residual block, a strided bottleneck block and the AV front
+    end's ResNet18 trunk (with its head) in training mode, on the plain
+    BatchNorm route and on the kernels' route (`ops/batch_norm.py`'s
+    autograd function with its closed-form backward and the residual add
+    and ReLU handed to the BatchNorm; on the CPU it runs the kernels' plain
+    entry points): output, every parameter gradient and the input gradient
+    to 1e-4 of the largest entry of the JAX package's, for a random
+    cotangent. The trunk's BatchNorm biases are 3, so that no ReLU input
+    lies within rounding of 0: a gate that flips between the two packages
+    moves a leaf of a batch this small by percents."""
+    from avec_tpu.models import resnet as jr
+    from avec_tpu_torch.models import resnet as pr
+    from avec_tpu_torch.ops import batch_norm
+    from avec_tpu_torch.ops.layers import BatchNorm
+    from test_torch_support import init_variables, t
+
+    rng = np.random.RandomState(0)
+    if kind == "resnet18":
+        x = rng.randn(8, 22, 22, 64).astype(np.float32)
+        jmod = jr.ResNet(model="ResNet18", dim_output=16, include_stem=False)
+        port = pr.ResNet("ResNet18", dim_output=16, include_stem=False)
+        wrap, prefix = (lambda tree: tree), ""
+    else:
+        x = np.maximum(rng.randn(6, 10, 10, 16), 0).astype(np.float32)
+        if kind == "basic":
+            jmod = jr.ResNetBlock(out_features=32, strides=(2, 2))
+            port = pr.ResNetBlock(16, 32, strides=2)
+        else:
+            jmod = jr.ResNetBottleneckBlock(out_features=32,
+                                            bottleneck_ratio=2,
+                                            strides=(2, 2))
+            port = pr.ResNetBottleneckBlock(16, 32, 2, 2)
+        wrap, prefix = (lambda tree: {"block_0": tree}), "blocks.0."
+    params, stats = init_variables(jmod, jnp.asarray(x))
+    sd = params_from_jax(wrap(params), wrap(stats))
+    port.load_state_dict({k[len(prefix):]: v for k, v in sd.items()},
+                         strict=True)
+    if kind == "resnet18":
+        with torch.no_grad():
+            for m in port.modules():
+                if isinstance(m, BatchNorm):
+                    m.bias.fill_(3.0)
+        params, stats = state_to_jax(port.state_dict(), params, stats)
+    port.train()
+
+    def loss(p, x, g):
+        y, _ = jmod.apply({"params": p, "batch_stats": stats}, x,
+                          deterministic=False, mutable=["batch_stats"])
+        return (y * g).sum(), y
+
+    y_shape = jax.eval_shape(lambda a: loss(params, a, 1.0)[1],
+                             jnp.asarray(x)).shape
+    g = rng.randn(*y_shape).astype(np.float32)
+    (want_p, want_x), want_y = jax.grad(loss, argnums=(0, 1), has_aux=True)(
+        params, jnp.asarray(x), jnp.asarray(g))
+
+    calls = []
+    orig = batch_norm.batch_norm_train
+
+    def record(*args, **kwargs):
+        calls.append(1)
+        return orig(*args, **kwargs)
+
+    monkeypatch.setattr(batch_norm, "batch_norm_train", record)
+    if route == "kernels":
+        monkeypatch.setattr(batch_norm, "in_scope", lambda a: True)
+    xt = t(x).permute(0, 3, 1, 2).requires_grad_(True)
+    y = port(xt)
+    gt = t(g) if y.ndim == 2 else t(g).permute(0, 3, 1, 2)
+    (y * gt).sum().backward()
+    assert len(calls) == (0 if route == "plain" else sum(
+        isinstance(m, BatchNorm) for m in port.modules()))
+    got_y = y.detach() if y.ndim == 2 else y.detach().permute(0, 2, 3, 1)
+    want_y = np.asarray(want_y)
+    assert np.abs(got_y.numpy() - want_y).max() <= 1e-4 * np.abs(want_y).max()
+    grads = {prefix + n: p.grad for n, p in port.named_parameters()}
+    got = dict(_leaves(grads_to_jax_layout(grads, wrap(params))))
+    for k, w in _leaves(wrap(want_p)):
+        assert np.abs(got[k] - w).max() <= 1e-4 * np.abs(w).max(), k
+    gx = xt.grad.permute(0, 2, 3, 1).numpy()
+    want_x = np.asarray(want_x)
+    assert np.abs(gx - want_x).max() <= 1e-4 * np.abs(want_x).max()
+
+
 def test_train_step_ragged_batch_losses_and_statistics(av, no_jax_noise):
     jmodel, params, stats = av
     batch = _batch([27200, 16000])

@@ -30,6 +30,7 @@ from avec_tpu.ops import pallas_conv_module as jconv
 from avec_tpu_torch.convert import grads_to_jax_layout, state_to_jax
 from avec_tpu_torch.models.conformer import ConvolutionModule
 from avec_tpu_torch.models.zoo import AudioVisualEfficientConformerInterCTC
+from avec_tpu_torch.ops.batch_norm import launches as bn_launches
 from avec_tpu_torch.train.model import Trainer
 
 from test_torch_serve import AV_TONE
@@ -64,7 +65,7 @@ def test_conv_train_step_matches_jax_on_a_ragged_batch(av, no_jax_noise,
     assert trainer.model.kernel_launches_per_step() == {
         "fused_ffn_fwd": 20, "fused_ffn_bwd": 20, "fused_att_fwd": 8,
         "fused_att_bwd": 8, "bn_relu_pool": 1,
-        **{name: 7 for name in CONV_COUNTS}}
+        **{name: 7 for name in CONV_COUNTS}, **bn_launches(23, 1)}
     losses, grads = trainer.loss_and_grads(batch)
     assert set(losses) == {"loss"} | {"loss_" + k for k in OUTPUTS}
     for k, want in want_losses.items():
@@ -99,7 +100,7 @@ def test_conv_gate_and_launch_counts_at_reference_depth():
     assert model.kernel_launches_per_step() == {
         "fused_ffn_fwd": 48, "fused_ffn_bwd": 48, "fused_att_fwd": 19,
         "fused_att_bwd": 19, "bn_relu_pool": 1,
-        **{name: 21 for name in CONV_COUNTS}}
+        **{name: 21 for name in CONV_COUNTS}, **bn_launches(23, 1)}
     convs = [m for m in model.modules() if isinstance(m, ConvolutionModule)]
     assert len(convs) == 24
     assert sorted(m.stride for m in convs if not m.fused_eligible()) == [2] * 3

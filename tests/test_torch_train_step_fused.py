@@ -33,6 +33,7 @@ from avec_tpu.ops import pallas_ffn as jffn
 from avec_tpu_torch.convert import (grads_to_jax_layout, params_from_jax,
                                     state_to_jax)
 from avec_tpu_torch.models.zoo import AudioVisualEfficientConformerInterCTC
+from avec_tpu_torch.ops.batch_norm import launches as bn_launches
 from avec_tpu_torch.train.losses import CTCLoss
 from avec_tpu_torch.train.model import Trainer
 
@@ -76,7 +77,7 @@ def test_fused_train_step_matches_jax_on_a_ragged_batch(av, no_jax_noise,
                             stem_mode="pallas", use_flash=False)
     assert trainer.model.kernel_launches_per_step() == {
         "fused_ffn_fwd": 20, "fused_ffn_bwd": 20, "fused_att_fwd": 8,
-        "fused_att_bwd": 8, "bn_relu_pool": 1}
+        "fused_att_bwd": 8, "bn_relu_pool": 1, **bn_launches(30, 1)}
     losses, grads = trainer.loss_and_grads(batch)
     assert set(losses) == {"loss"} | {"loss_" + k for k in OUTPUTS}
     for k, want in want_losses.items():
@@ -116,7 +117,7 @@ def test_gate_and_launch_counts_at_reference_depth(use_flash, want):
         use_flash=use_flash)
     counts = model.kernel_launches_per_step()
     assert counts == {"fused_ffn_fwd": 48, "fused_ffn_bwd": 48,
-                      "bn_relu_pool": 1, **want}
+                      "bn_relu_pool": 1, **want, **bn_launches(44, 1)}
     off = AudioVisualEfficientConformerInterCTC(
         device="cpu", fused_att=False, stem_mode="2d", use_flash=use_flash,
         **AV_TONE).kernel_launches_per_step()

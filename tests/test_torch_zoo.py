@@ -44,6 +44,7 @@ from avec_tpu_torch.convert import (grads_to_jax_layout, params_from_jax,
 from avec_tpu_torch.data import synthetic
 from avec_tpu_torch.data.collate import CollateFn
 from avec_tpu_torch.models import zoo
+from avec_tpu_torch.ops.batch_norm import launches as bn_launches
 from avec_tpu_torch.serve import Server, _batch_bucket, _bucket
 from avec_tpu_torch.train.losses import CTCLoss, SoftmaxCrossEntropy
 from avec_tpu_torch.train.metrics import CategoricalAccuracy
@@ -117,7 +118,7 @@ def test_ao_eval_matches_jax(ao):
     n_flash = 2 if att_type == "patch" else 3
     assert port.kernel_launches_per_step() == {
         "flash_attention_fwd": n_flash, "flash_attention_bwd_dq": n_flash,
-        "flash_attention_bwd_dkv": n_flash}
+        "flash_attention_bwd_dkv": n_flash, **bn_launches(4)}
     got = port(*(t(a) for a in inputs))
     assert set(got) == set(out) == {"outputs", "ctc_0", "ctc_1"}
     for key in got:
@@ -216,7 +217,8 @@ def test_ao_train_step_matches_jax(ao, no_jax_noise, jax_fused_conv):
     n_att = 2 if att_type == "patch" else 3
     assert model.kernel_launches_per_step() == {
         "fused_ffn_fwd": 6, "fused_ffn_bwd": 6, "fused_att_fwd": n_att,
-        "fused_att_bwd": n_att, **{k: 1 for k in CONV_KERNELS}}
+        "fused_att_bwd": n_att, **{k: 1 for k in CONV_KERNELS},
+        **bn_launches(3)}
     trainer = Trainer(model=model, device="cpu", precision="float32",
                       loss=CTCLoss(zero_infinity=True),
                       loss_weights=[0.25, 0.25, 0.5])
@@ -392,28 +394,31 @@ def test_launch_counts_at_reference_depth():
     depth: the flash kernels only in RelPos1d layers with use_flash, the
     fused attention module only in non-causal RelPos1d layers (not patch,
     not Transformer-XL), the conv kernels in every stride-1 block (pad_lo
-    14 in the causal model), the stem kernel once for the "pallas" stem."""
+    14 in the causal model), the stem kernel once for the "pallas" stem, the
+    BatchNorm kernels for the audio stem's BatchNorm, the strided blocks'
+    (2 in audio, 1 in video) and the ResNet trunk's 19."""
     route = dict(fused_ffn=True, fused_att=True, fused_conv=True,
                  device="cpu")
     conv = {k: 14 for k in CONV_KERNELS}
     ao_flash = zoo.AudioEfficientConformerInterCTC(use_flash=True, **route)
     assert ao_flash.kernel_launches_per_step() == {
         "fused_ffn_fwd": 32, "fused_ffn_bwd": 32, "flash_attention_fwd": 11,
-        "flash_attention_bwd_dq": 11, "flash_attention_bwd_dkv": 11, **conv}
+        "flash_attention_bwd_dq": 11, "flash_attention_bwd_dkv": 11, **conv,
+        **bn_launches(3)}
     ao_fused = zoo.AudioEfficientConformerInterCTC(**route)
     assert ao_fused.kernel_launches_per_step() == {
         "fused_ffn_fwd": 32, "fused_ffn_bwd": 32, "fused_att_fwd": 11,
-        "fused_att_bwd": 11, **conv}
+        "fused_att_bwd": 11, **conv, **bn_launches(3)}
     causal = zoo.AudioEfficientConformerInterCTC(causal=True, left_context=64,
                                                  use_flash=True, **route)
     assert causal.kernel_launches_per_step() == {
-        "fused_ffn_fwd": 32, "fused_ffn_bwd": 32, **conv}
+        "fused_ffn_fwd": 32, "fused_ffn_bwd": 32, **conv, **bn_launches(3)}
     pads = {m.padding for m in causal.modules()
             if hasattr(m, "fused_conv") and m.fused_eligible()}
     assert pads == {"causal"}
     video = {"fused_ffn_fwd": 24, "fused_ffn_bwd": 24, "fused_att_fwd": 12,
              "fused_att_bwd": 12, "bn_relu_pool": 1,
-             **{k: 11 for k in CONV_KERNELS}}
+             **{k: 11 for k in CONV_KERNELS}, **bn_launches(20, 1)}
     for cls in (zoo.VisualEfficientConformerInterCTC,
                 zoo.VisualEfficientConformerCE):
         assert cls(stem_mode="pallas", **route).kernel_launches_per_step() \
