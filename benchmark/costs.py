@@ -1,12 +1,11 @@
-"""The yardstick's arithmetic: the card's peaks, the bytes and operations a
-hand-written kernel call needs (copied from the port's proof script, with
-the stem kernel's added), and the model's forward FLOPs on padded shapes.
+"""The yardstick's arithmetic that every model family shares: the card's
+peaks and the bytes and operations a hand-written kernel call needs (copied
+from the port's proof script, with the stem kernel's added). A family's
+model FLOPs are its own (`families/<family>.py:forward_flops`); a training
+step counts 3 forwards, no recompute.
 
 A kernel's bound is the larger of its bytes over the HBM bandwidth and its
-operations over the bf16 tensor-core peak. Model FLOPs count the products
-of the plain reference (`reference/model.py`): linear layers, convolutions,
-attention scores and values, the relative-position table's projection and
-the mel filterbank; a training step counts 3 forwards, no recompute.
+operations over the bf16 tensor-core peak.
 """
 
 from typing import Dict, Sequence
@@ -74,94 +73,6 @@ def stem_cost(frames, es):
     frames: each input byte read once, (N, 22, 22, 64) written, 2 (64,)
     fp32 vectors; no product."""
     return frames * 64 * (44 * 44 + 22 * 22) * es + 2 * 64 * 4, 0.0
-
-
-# ------------------------------------------------------------ model FLOPs
-def _restride(t: int, s: int) -> int:
-    return (t - 1) // s + 1
-
-
-def _attention(b, t, d, heads=4):
-    """q, k, v, out projections; the relative table (2T - 1 rows) through
-    the positional projection; q against the table, q k^T, a v."""
-    dh = d // heads
-    return (8.0 * b * t * d * d + 2.0 * (2 * t - 1) * d * d
-            + 2.0 * b * heads * t * (2 * t - 1) * dh
-            + 4.0 * b * heads * t * t * dh)
-
-
-def _stack(b, t, dims, num_blocks, interctc, kinds, vocab, k=15):
-    flops = 0.0
-    i = 0
-    for stage, n in enumerate(num_blocks):
-        d = dims[stage]
-        for j in range(n):
-            down = j == n - 1 and stage < len(num_blocks) - 1
-            e = dims[stage + 1] if down else d
-            s = 2 if down else 1
-            t2 = _restride(t, s)
-            flops += 2 * 2.0 * b * t * d * 4 * d           # ff1
-            ta = -(-t // 3) if kinds[stage] == "patch" else t
-            flops += _attention(b, ta, d)
-            flops += 2.0 * b * t * d * 2 * e               # pw1
-            flops += 2.0 * b * t2 * e * k                  # depthwise
-            flops += 2.0 * b * t2 * e * e                  # pw2
-            if e != d:
-                flops += 2.0 * b * t2 * d * e              # strided shortcut
-            flops += 2 * 2.0 * b * t2 * e * 4 * e          # ff2
-            if i + 1 in interctc:
-                flops += 4.0 * b * t2 * e * vocab
-            t = t2
-            i += 1
-    return flops, t
-
-
-def _audio(b, samples, spec):
-    t = samples // 160 + 1
-    flops = 2.0 * b * t * 257 * 80                         # mel filterbank
-    t = _restride(t, 2)
-    flops += 2.0 * b * 40 * t * 9 * 180                   # stem conv
-    flops += 2.0 * b * t * 7200 * 180                      # stem linear
-    kinds = ["patch" if spec["att_type"] == "patch" else "regular",
-             "regular", "regular"]
-    f, t = _stack(b, t, [180, 256, 360], spec["a_num_blocks"],
-                  spec["a_interctc_blocks"], kinds, spec["vocab_size"])
-    return flops + f, t
-
-
-def _video(b, frames, spec):
-    n = b * frames
-    flops = 2.0 * n * 44 * 44 * 64 * 245                   # Conv3d stem
-    hw, c = 22, 64
-    for stage, dim in enumerate((64, 128, 256, 512)):
-        for j in range(2):
-            s = 2 if (j == 0 and stage > 0) else 1
-            ho = _restride(hw, s)
-            flops += 2.0 * n * ho * ho * dim * c * 9
-            flops += 2.0 * n * ho * ho * dim * dim * 9
-            if s != 1 or c != dim:
-                flops += 2.0 * n * ho * ho * dim * c
-            hw, c = ho, dim
-    flops += 2.0 * n * 512 * 256                            # head
-    f, _ = _stack(b, frames, [256, 360], spec["v_num_blocks"],
-                  spec["v_interctc_blocks"], ["regular", "regular"],
-                  spec["vocab_size"])
-    return flops + f
-
-
-def forward_flops(spec: dict, batch: int, samples: int, frames: int = 0
-                  ) -> float:
-    """Forward FLOPs of the model `spec` on a batch padded to `samples`
-    audio samples (and `frames` video frames)."""
-    fa, t = _audio(batch, samples, spec)
-    if spec["kind"] == "ao":
-        return fa + 2.0 * batch * t * 360 * spec["vocab_size"]
-    fv = _video(batch, frames, spec)
-    ff = 2.0 * batch * t * 720 * 1440 + 2.0 * batch * t * 1440 * 360
-    fs, _ = _stack(batch, t, [360], [spec["f_num_blocks"]],
-                   spec["f_interctc_blocks"], ["regular"],
-                   spec["vocab_size"])
-    return fa + fv + ff + fs + 2.0 * batch * t * 360 * spec["vocab_size"]
 
 
 def kernel_bounds(calls: Sequence[Dict]) -> float:

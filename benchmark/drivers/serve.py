@@ -1,7 +1,7 @@
-"""Open-loop serving of array requests (16 kHz audio and 25 fps mouth
-frames) through `Server.submit_batch` / `finish_batch`: requests fall due
-at a fixed Poisson rate (`rate` a second; the gaps at the quantiles of the
-exponential law, in a seeded order) whether or not the server keeps up,
+"""Open-loop serving of the family's requests through `Server.submit_batch`
+/ `finish_batch`: requests fall due at a fixed Poisson rate (`rate` a
+second; the gaps at the quantiles of the exponential law, in a seeded
+order) whether or not the server keeps up,
 and are batched by a frozen copy of the rule of `serve.stdin_loop` (block
 on the first request, gather more for up to `window_ms`, at most
 `max_batch`; batch N is submitted before batch N-1 is finished; an empty
@@ -9,7 +9,8 @@ queue finishes the pending batch at once). A request's latency runs from
 the time it fell due to the return of the `finish_batch` that holds it.
 The requests are a pool made at set-up on the host (lengths evenly spread
 over the traffic's range), replayed in a seeded order. Set-up serves
-`warmup_seconds` at the cell's rate.
+`warmup_seconds` at the cell's rate. What depends on the model comes
+from `cell.family`.
 """
 
 import queue
@@ -19,7 +20,8 @@ import time
 import numpy as np
 import torch
 
-from benchmark import costs, data, port, served
+from benchmark import costs, data, harness, served
+
 
 
 class Driver:
@@ -27,14 +29,15 @@ class Driver:
         cfg, tr = cell.config, cell.traffic
         self.spec, self.tr, self.device = cfg["model"], tr, device
         self.rate = tr["rate"]
-        model, state = port.build_model(self.spec, cfg["serve"]["route"],
-                                        data.torch_seed(seed, 0), device)
+        self.family = cell.family
+        model, state = self.family.build_model(
+            self.spec, cfg["serve"]["route"], data.torch_seed(seed, 0), device)
         names = {n for n, _ in model.named_parameters()}
         self.P = {k: v for k, v in state.items() if k in names}
         self.B = {k: v for k, v in state.items() if k not in names}
-        self.srv = port.server(model, cfg["serve"], self.spec["kind"], device)
-        self.calls = port.KernelCalls(model, training=False)
-        self.capture = served.Capture(self.srv, seed)
+        self.srv = self.family.server(model, cfg["serve"], self.spec, device)
+        self.calls = self.family.kernel_calls(model, training=False)
+        self.capture = served.Capture(self.srv, seed, self.family)
         self.seed = seed
         self.pool = self._pool(tr["pool"], seed)
         self.order = data.rng(seed, 6).permutation(len(self.pool))
@@ -45,16 +48,8 @@ class Driver:
         samples = data.utterance_samples(self.tr, n, seed)
         pool = []
         for i in range(0, n, 16):
-            s = samples[i:i + 16]
-            a = data.audio(s, seed * 4096 + i, self.device).cpu().numpy()
-            f = data.video_frames(s)
-            v = (data.video(f, seed * 4096 + i, self.device).cpu().numpy()
-                 if self.spec["kind"] == "av" else None)
-            for j, k in enumerate(s):
-                req = {"audio": a[j, :k].copy()}
-                if v is not None:
-                    req["video"] = v[j, :f[j]].copy()
-                pool.append(req)
+            pool += self.family.requests(self.spec, samples[i:i + 16],
+                                         seed * 4096 + i, self.device)
         return pool
 
     def _run(self, seconds: float, seed: int) -> dict:
@@ -151,7 +146,7 @@ class Driver:
             "window_s": seconds, "busy_s": union,
             "submit_ms": list(self.capture.submit_ms),
             "batch_rows": list(self.capture.batch_rows),
-            "flops": sum(costs.forward_flops(self.spec, *shape)
+            "flops": sum(self.family.forward_flops(self.spec, *shape)
                          for shape in self.capture.shapes),
             "p50_ms": 1e3 * lat[len(lat) // 2]}
         return {"serve_p95_ms": 1e3 * p95}
@@ -175,29 +170,20 @@ class Driver:
         self.calls.remove()
         self.capture.restore()
         self.srv = self.calls = None
-        port.release()
+        harness.release()
 
     def _inputs_of(self, c):
-        """The captured request's arrays padded as its batch was: audio to
-        the batch's samples, video to its frames."""
-        req = c["item"]
-        pads = c["padded"]
-        a = torch.zeros((1, pads[-1]), device=self.device)
-        a[0, :len(req["audio"])] = torch.from_numpy(req["audio"])
-        alen = torch.tensor([len(req["audio"])], device=self.device)
-        if "video" not in req:
-            return [a, alen]
-        v = torch.zeros((1, pads[0], 88, 88, 1), device=self.device)
-        v[0, :len(req["video"])] = torch.from_numpy(req["video"])
-        vlen = torch.tensor([len(req["video"])], device=self.device)
-        return [v, vlen, a, alen]
+        return self.family.reference_inputs(c["item"], c["shape"],
+                                            self.device)
 
     def check(self) -> dict:
-        return served.check(self.spec, self.P, self.B, self.capture.rows,
+        return served.check(self.family.reference_forward, self.spec,
+                            self.P, self.B, self.capture.rows,
                             self._inputs_of)
 
     def control(self, fault: str = "fp8") -> dict:
-        return served.control(self.spec, self.P, self.B, self.capture.rows,
+        return served.control(self.family.reference_forward, self.spec,
+                              self.P, self.B, self.capture.rows,
                               self._inputs_of)
 
 

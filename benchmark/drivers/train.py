@@ -1,7 +1,7 @@
 """Training traffic: `Trainer.train_step` over a seeded pool of batches
 replayed in order, `utterances_per_step` utterances a step split into
 `accumulated_steps` micro-batches, the batch padded to its longest
-utterance.
+utterance. What depends on the model comes from `cell.family`.
 
 Set-up builds the trainer once and drives it through its first steps on
 the pool's first batches, recording what the check compares (each step's
@@ -17,53 +17,42 @@ import time
 import numpy as np
 import torch
 
-from benchmark import costs, data, port
+from benchmark import costs, data, harness
 from benchmark.reference import train as ref_train
+
 
 
 class Driver:
     def __init__(self, cell, seed: int, device, root: str):
         cfg, tr = cell.config, cell.traffic
         self.spec, self.train_cfg, self.tr = cfg["model"], cfg["train"], tr
-        self.device = device
+        self.device, self.family = device, cell.family
         self.tseed = data.torch_seed(seed, 7) % (2 ** 31)
-        model, state = port.build_model(self.spec, self.train_cfg["route"],
-                                         data.torch_seed(seed, 0), device)
+        model, state = self.family.build_model(
+            self.spec, self.train_cfg["route"], data.torch_seed(seed, 0),
+            device)
         self.P0 = {k: state[k] for k, _ in model.named_parameters()}
         del state
         self.model = model
-        self.trainer = port.trainer(model, self.train_cfg, self.tseed, device)
-        self.calls = port.KernelCalls(model, training=True)
+        self.trainer = self.family.trainer(model, self.train_cfg, self.tseed,
+                                           device)
+        self.calls = self.family.kernel_calls(model, training=True)
         n, steps = tr["utterances_per_step"], tr["pool_steps"]
         samples = data.utterance_samples(tr, n * steps, seed)
         self.pool, self.audio_s, self.flops = [], [], []
         for i in range(steps):
             s = samples[i * n:(i + 1) * n]
-            self.pool.append(self._batch(s, seed * 64 + i))
+            self.pool.append(self.family.train_batch(
+                self.spec, s, tr, seed * 64 + i, device))
             self.audio_s.append(data.real_seconds(s))
             frames = int(data.video_frames(s).max())
-            self.flops.append(3.0 * costs.forward_flops(
+            self.flops.append(3.0 * self.family.forward_flops(
                 self.spec, n, int(s.max()), frames))
         self.readings = self._first_steps()
         for i in range(self.checked, steps):
             self._step(i)
         self.next = 0
         torch.cuda.synchronize() if device.type == "cuda" else None
-
-    def _batch(self, s, seed):
-        audio = data.audio(s, seed, self.device)
-        alen = torch.as_tensor(s, dtype=torch.int32, device=self.device)
-        labels, u = data.labels(s, self.tr, seed)
-        if self.spec["kind"] == "ao":
-            inputs = [audio, alen]
-        else:
-            f = data.video_frames(s)
-            inputs = [data.video(f, seed, self.device),
-                      torch.as_tensor(f, dtype=torch.int32,
-                                      device=self.device), audio, alen]
-        return {"inputs": inputs,
-                "targets": (torch.as_tensor(labels, device=self.device),
-                            torch.as_tensor(u, device=self.device))}
 
     def _step(self, i):
         return self.trainer.train_step(
@@ -133,7 +122,7 @@ class Driver:
     def release_program(self):
         self.calls.remove()
         self.trainer = self.model = self.calls = None
-        port.release()
+        harness.release()
 
     def _reference(self, fp8: bool = False, half: bool = False) -> dict:
         """The reference's readings on the checked batches; `half` keeps
@@ -151,7 +140,8 @@ class Driver:
             batches.append({"inputs": rows[0], "labels": rows[1],
                             "label_len": rows[2]})
         return ref_train.train_readings(
-            self.spec, {**self.train_cfg, "accumulated_steps": accum},
+            self.family.reference_forward, self.spec,
+            {**self.train_cfg, "accumulated_steps": accum},
             self.P0, batches, self.tseed, fp8=fp8)
 
     def check(self) -> dict:

@@ -6,7 +6,8 @@ traffic's range and contents from a fixed seed, written once into the
 checkout's `build/bench_wavs/` and read from there by every run; the run's
 seed orders the pool. Set-up serves `warmup_requests` through the same
 loop; the window feeds paths for `seconds` and counts the audio seconds of
-the results that returned inside it.
+the results that returned inside it. What depends on the model comes
+from `cell.family`.
 """
 
 import hashlib
@@ -20,7 +21,7 @@ import wave
 import numpy as np
 import torch
 
-from benchmark import costs, data, port, served
+from benchmark import costs, data, harness, served
 
 
 _POOL_SEED = 20211                # the files' contents, the same for all seeds
@@ -83,14 +84,15 @@ class Driver:
         cfg, tr = cell.config, cell.traffic
         self.spec, self.tr, self.device = cfg["model"], tr, device
         self.stdin_loop = stdin_loop
-        model, state = port.build_model(self.spec, cfg["serve"]["route"],
-                                        data.torch_seed(seed, 0), device)
+        self.family = cell.family
+        model, state = self.family.build_model(
+            self.spec, cfg["serve"]["route"], data.torch_seed(seed, 0), device)
         names = {n for n, _ in model.named_parameters()}
         self.P = {k: v for k, v in state.items() if k in names}
         self.B = {k: v for k, v in state.items() if k not in names}
-        self.srv = port.server(model, cfg["serve"], self.spec["kind"], device)
-        self.calls = port.KernelCalls(model, training=False)
-        self.capture = served.Capture(self.srv, seed)
+        self.srv = self.family.server(model, cfg["serve"], self.spec, device)
+        self.calls = self.family.kernel_calls(model, training=False)
+        self.capture = served.Capture(self.srv, seed, self.family)
         n = tr["files"]
         self.samples = np.sort(data.utterance_samples(tr, n, 0))
         self.paths = self._pool(root, self.samples)
@@ -165,7 +167,7 @@ class Driver:
         self.window_info = {
             "window_s": seconds, "submit_ms": list(self.capture.submit_ms),
             "batch_rows": list(self.capture.batch_rows),
-            "flops": sum(costs.forward_flops(self.spec, *shape)
+            "flops": sum(self.family.forward_flops(self.spec, *shape)
                          for shape in self.capture.shapes)}
         return {"transcribe_audio_s_per_s": audio_s / seconds}
 
@@ -191,20 +193,20 @@ class Driver:
         self.calls.remove()
         self.capture.restore()
         self.srv = self.calls = None
-        port.release()
+        harness.release()
 
     def _inputs_of(self, c):
         from benchmark.reference.wav import read_wav
 
-        x = torch.from_numpy(read_wav(c["item"])).to(self.device)
-        pad = torch.zeros((1, c["padded"][0]), device=self.device)
-        pad[0, :len(x)] = x
-        return [pad, torch.tensor([len(x)], device=self.device)]
+        return self.family.reference_inputs({"audio": read_wav(c["item"])},
+                                            c["shape"], self.device)
 
     def check(self) -> dict:
-        return served.check(self.spec, self.P, self.B, self.capture.rows,
+        return served.check(self.family.reference_forward, self.spec,
+                            self.P, self.B, self.capture.rows,
                             self._inputs_of)
 
     def control(self, fault: str = "fp8") -> dict:
-        return served.control(self.spec, self.P, self.B, self.capture.rows,
+        return served.control(self.family.reference_forward, self.spec,
+                              self.P, self.B, self.capture.rows,
                               self._inputs_of)

@@ -1,10 +1,13 @@
 """Finds a cell's pieces by the names in BENCHMARK.json: its configuration
-(`configs/<config>.json`), its traffic mix (`traffic/<traffic>.json`, whose
-"driver" names `drivers/<driver>.py`), its correctness limits
+(`configs/<config>.json`, whose "family" names `families/<family>.py`,
+what depends on the model), its traffic mix (`traffic/<traffic>.json`,
+whose "driver" names `drivers/<driver>.py`), its correctness limits
 (`limits/<workload>.json`) and one reader per per-layer metric
 (`metrics/<metric>.py`, a function `read(ctx)` that returns a number or
-None). A cell, a mix or a metric is added by adding files and entries."""
+None). A cell, a mix, a metric or a configuration of a new architecture
+is added by adding files and entries."""
 
+import gc
 import importlib.util
 import json
 import os
@@ -32,6 +35,16 @@ def load_module(path: str, name: str):
     return mod
 
 
+def load_family(here: str, config: dict, source: str):
+    """The module `families/<family>.py` that the configuration names."""
+    name = config.get("family")
+    path = os.path.join(here, "families", f"{name}.py")
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"{source} names the family {name!r}: "
+                                f"no file {path}")
+    return load_module(path, f"bench_family_{name}")
+
+
 class Cell:
     """One workload of BENCHMARK.json with everything it names."""
 
@@ -46,6 +59,7 @@ class Cell:
         self.config_entry = configs[self.workload["config"]]
         root = os.path.dirname(here)
         self.config = load_json(os.path.join(root, self.config_entry["file"]))
+        self.family = load_family(here, self.config, self.config_entry["file"])
         self.traffic = load_json(os.path.join(
             here, "traffic", self.workload["traffic"] + ".json"))
         self.limits = load_json(os.path.join(here, "limits",
@@ -89,3 +103,12 @@ def verdict(numbers: Dict[str, float], limits: Dict[str, float]) -> bool:
         if v is None or not (v == v) or v == float("inf") or v > limit:
             ok = False
     return ok
+
+
+def release() -> None:
+    """Return the memory of the program's dropped objects to the card."""
+    gc.collect()
+    import torch
+
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()

@@ -6,7 +6,8 @@ batch, infeasible samples zero), the gradients averaged over the
 micro-batches, and Adam with the L2 term in the gradient (betas, eps and the
 Noam schedule as the configuration states them). It returns per step the
 losses, after step 1 the gradient each leaf handed to the optimizer (with
-its L2 term), and after the last step each leaf's change.
+its L2 term), and after the last step each leaf's change. Both take the
+family's `reference_forward(ctx, P, B, spec, inputs)`.
 """
 
 from typing import Dict, List
@@ -14,7 +15,7 @@ from typing import Dict, List
 import torch
 import torch.nn.functional as F
 
-from benchmark.reference import model as ref
+from benchmark.reference.model import Ctx
 
 
 def no_tf32():
@@ -40,8 +41,9 @@ def ctc_losses(outputs, labels, label_len, weights: Dict[str, float]):
     return losses
 
 
-def train_readings(spec: dict, train: dict, P0: Dict[str, torch.Tensor],
-                   batches: List[dict], seed: int, fp8: bool = False):
+def train_readings(forward, spec: dict, train: dict,
+                   P0: Dict[str, torch.Tensor], batches: List[dict],
+                   seed: int, fp8: bool = False):
     """Follow len(batches) optimizer steps from the weights P0 (the names
     of the model's parameters; buffers are not read in training). Each
     batch is {"inputs": [...], "labels", "label_len"}, split into
@@ -54,7 +56,7 @@ def train_readings(spec: dict, train: dict, P0: Dict[str, torch.Tensor],
     v2 = {k: torch.zeros_like(v) for k, v in P.items()}
     b1, b2 = train["betas"]
     eps, wd = train["eps"], train["weight_decay"]
-    ctx = ref.Ctx(True, seed, dev, fp8)
+    ctx = Ctx(True, seed, dev, fp8)
     accum = train["accumulated_steps"]
     steps = []
     first_grad = None
@@ -66,7 +68,7 @@ def train_readings(spec: dict, train: dict, P0: Dict[str, torch.Tensor],
         for a in range(accum):
             sl = slice(a * mb, (a + 1) * mb)
             inputs = [x[sl] for x in batch["inputs"]]
-            out = ref.forward(ctx, P, {}, spec, inputs)
+            out = forward(ctx, P, {}, spec, inputs)
             losses = ctc_losses(out, batch["labels"][sl],
                                 batch["label_len"][sl], train["loss_weights"])
             g = torch.autograd.grad(losses["loss"], list(P.values()),
@@ -97,9 +99,9 @@ def train_readings(spec: dict, train: dict, P0: Dict[str, torch.Tensor],
 
 
 @torch.no_grad()
-def eval_logits(spec: dict, P, B, inputs, fp8: bool = False):
+def eval_logits(forward, spec: dict, P, B, inputs, fp8: bool = False):
     """The eval forward's final logits and lengths (batch statistics from
     the running buffers, no dropout)."""
     no_tf32()
-    out = ref.forward(ref.Ctx(False, fp8=fp8), P, B, spec, inputs)
+    out = forward(Ctx(False, fp8=fp8), P, B, spec, inputs)
     return out["outputs"]

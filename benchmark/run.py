@@ -3,6 +3,9 @@
     python3 benchmark/run.py --workload av_train --seed 7 --seconds 30 \\
         --trace 0
 
+The cell's pieces, its model family among them, are found by name
+(`harness.Cell`).
+
 Set-up (timed as `setup_s`): CUDA, the kernels (built into the checkout's
 `build/` on a first run, loaded after), the model and the seeded weights,
 the traffic, and the cell's first steps or requests, which warm every

@@ -27,9 +27,9 @@ from benchmark.reference import train as ref_train
 
 
 class Capture:
-    def __init__(self, srv, seed: int, per_batch: int = 2,
+    def __init__(self, srv, seed: int, family, per_batch: int = 2,
                  share: float = 0.25):
-        self.srv = srv
+        self.srv, self.family = srv, family
         self.rng = np.random.default_rng([int(seed) % 2 ** 63, 11])
         self.per_batch, self.share = per_batch, share
         self.rows: List[dict] = []
@@ -64,21 +64,19 @@ class Capture:
 
     def forward(self, inputs, dtype=None):
         logits, lengths = self._forward(inputs, dtype)
-        if self.timing:                # (batch, samples[, frames]) padded
-            self.shapes.append((inputs[-1].shape[0], inputs[-2].shape[1])
-                               + ((inputs[0].shape[1],) if len(inputs) == 4
-                                  else ()))
+        shape, row_len = self.family.served_batch(inputs)
+        if self.timing:
+            self.shapes.append(shape)
         if self.recording and self.rng.random() < self.share:
             n = len(self._items)
-            alen = np.asarray(inputs[-1][:n])
-            rows = {int(np.argmax(alen))}
+            rows = {int(np.argmax(np.asarray(row_len[:n])))}
             while len(rows) < min(self.per_batch, n):
                 rows.add(int(self.rng.integers(n)))
             for r in sorted(rows):
                 row = {"item": self._items[r], "row": r,
                        "logits": logits[r].detach().clone(),
                        "length": lengths[r].detach().clone(),
-                       "padded": [a.shape[1] for a in inputs[0::2]]}
+                       "shape": shape}
                 self.rows.append(row)
                 self._open.setdefault(self._batch, []).append(row)
         return logits, lengths
@@ -97,11 +95,12 @@ def collapse(ids: np.ndarray, blank: int = 0) -> List[int]:
     return out
 
 
-def check(spec: dict, P, B, captured: List[dict], inputs_of,
+def check(forward, spec: dict, P, B, captured: List[dict], inputs_of,
           fp8: bool = False) -> dict:
-    """`inputs_of(row)`: the captured request's reference inputs at the
-    row's padded length. A captured request without a result, or with an
-    error, counts in tokens_off."""
+    """`forward`: the family's plain reference; `inputs_of(row)`: the
+    captured request's reference inputs at its batch's padded shape. A
+    captured request without a result, or with an error, counts in
+    tokens_off."""
     err, off, checked, frames = 0.0, 0, 0, 0
     for c in captured:
         res = c.get("result")
@@ -110,7 +109,8 @@ def check(spec: dict, P, B, captured: List[dict], inputs_of,
             continue
         logits = c["logits"].float()
         n = int(c["length"])
-        want, _ = ref_train.eval_logits(spec, P, B, inputs_of(c), fp8=fp8)
+        want, _ = ref_train.eval_logits(forward, spec, P, B, inputs_of(c),
+                                        fp8=fp8)
         want = want[0, :n].float()
         served = logits[:n].argmax(dim=-1)
         err = max(err, float((logits[:n] - want).norm() / want.norm()))
@@ -123,15 +123,16 @@ def check(spec: dict, P, B, captured: List[dict], inputs_of,
             "checked": checked, "frames": frames}
 
 
-def control(spec: dict, P, B, captured: List[dict], inputs_of) -> dict:
+def control(forward, spec: dict, P, B, captured: List[dict], inputs_of
+            ) -> dict:
     """The control in the program's place: the float8 reference's logits
     of the captured requests against the reference's."""
     err = 0.0
     for c in captured:
         n = int(c["length"])
         inputs = inputs_of(c)
-        want, _ = ref_train.eval_logits(spec, P, B, inputs)
-        low, _ = ref_train.eval_logits(spec, P, B, inputs, fp8=True)
+        want, _ = ref_train.eval_logits(forward, spec, P, B, inputs)
+        low, _ = ref_train.eval_logits(forward, spec, P, B, inputs, fp8=True)
         want, low = want[0, :n].float(), low[0, :n].float()
         err = max(err, float((low - want).norm() / want.norm()))
     return {"logit_err": err if captured else float("inf")}

@@ -12,7 +12,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 sys.path.insert(0, ROOT)
 
-from benchmark import costs, port, weights  # noqa: E402
+from benchmark import costs, weights  # noqa: E402
+from benchmark.families import avec  # noqa: E402
 from benchmark.reference import model as ref  # noqa: E402
 
 SPECS = {
@@ -34,7 +35,7 @@ ROUTE = dict(fused_ffn=True, fused_att=True, fused_conv=True,
     ("ao_regular", 2, 11000)])
 def test_forward_flops_match_the_counter(name, batch, samples):
     spec = SPECS[name]
-    model, state = port.build_model(spec, ROUTE, 1, torch.device("cpu"))
+    model, state = avec.build_model(spec, ROUTE, 1, torch.device("cpu"))
     names = {n for n, _ in model.named_parameters()}
     P = {k: v for k, v in state.items() if k in names}
     B = {k: v for k, v in state.items() if k not in names}
@@ -46,9 +47,9 @@ def test_forward_flops_match_the_counter(name, batch, samples):
         inputs = [torch.rand(batch, frames, 88, 88, 1),
                   torch.full((batch,), frames)] + inputs
     with FlopCounterMode(display=False) as counter:
-        ref.forward(ref.Ctx(False), P, B, spec, inputs)
+        avec.reference_forward(ref.Ctx(False), P, B, spec, inputs)
     want = counter.get_total_flops()
-    got = costs.forward_flops(spec, batch, samples, frames)
+    got = avec.forward_flops(spec, batch, samples, frames)
     assert got == pytest.approx(want, rel=1e-9)
 
 
@@ -65,7 +66,7 @@ def test_bounds_take_the_larger_side():
 
 
 def test_weights_cover_every_state_entry():
-    model, state = port.build_model(SPECS["ao"], ROUTE, 2,
+    model, state = avec.build_model(SPECS["ao"], ROUTE, 2,
                                     torch.device("cpu"))
     assert set(state) == set(model.state_dict())
     again = weights.make_state({k: tuple(v.shape) for k, v in state.items()},

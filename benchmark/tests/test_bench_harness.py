@@ -1,12 +1,16 @@
 """The harness on the CPU at small depths: the files that BENCHMARK.json
-names, a cell added as files alone, seeded traffic, the modules a run
-loads, and runs whose timed path is broken underneath coming out not
-correct. Besides the listed cells, the drivers run the cells measured but
-not listed (`unlisted_cells.json`: too noisy on the card so far; see
-PERF.md). The test marked `cuda` runs a short cell on the card."""
+names, a cell and a configuration of a new architecture (the toy family of
+`toy/`) added as files alone, seeded traffic, the modules a run loads, and
+runs whose timed path is broken underneath coming out not correct.
+Besides the listed cells, the drivers run the cells measured but not
+listed (`unlisted_cells.json`: too noisy on the card so far; see PERF.md).
+The test marked `cuda` runs a short cell on the card."""
 
+import glob
+import hashlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -40,6 +44,8 @@ TRAFFIC = {
               "trace_seconds": 1, "seconds": [0.5, 1.0]},
 }
 LISTED = harness.benchmark_file(ROOT)
+HERE = os.path.join(ROOT, "benchmark")
+TOY = os.path.join(os.path.dirname(os.path.abspath(__file__)), "toy")
 
 
 def _with_unlisted(bench):
@@ -82,6 +88,17 @@ def _run(workload, seed=2 ** 31 + 5, trace=False):
                          bench=BENCH)
 
 
+def _family_names(driver: str) -> set:
+    """The names a driver, and the serving module if it uses it, call on
+    the family."""
+    with open(driver) as f:
+        text = f.read()
+    if "served." in text:
+        with open(os.path.join(HERE, "served.py")) as f:
+            text += f.read()
+    return set(re.findall(r"family\.(\w+)", text))
+
+
 def test_every_cell_finds_its_files():
     assert {w["name"] for w in LISTED["workloads"]} <= set(WORKLOADS)
     names = set()
@@ -98,6 +115,26 @@ def test_every_cell_finds_its_files():
         assert m["moves"] in {e["name"] for e in BENCH["end_to_end"]}
         for w in m.get("workloads", []):
             assert w in names
+    for c in BENCH["configs"]:
+        config = harness.load_json(os.path.join(ROOT, c["file"]))
+        assert harness.load_family(HERE, config, c["file"])
+    for w in BENCH["workloads"]:
+        cell = harness.Cell(BENCH, w["name"])
+        for name in _family_names(cell.driver.__file__):
+            assert callable(getattr(cell.family, name)), (w["name"], name)
+    for config in ({"family": "no_such_family"}, {}):
+        with pytest.raises(FileNotFoundError, match="families"):
+            harness.load_family(HERE, config, "x.json")
+    generic = glob.glob(os.path.join(HERE, "drivers", "*.py")) + [
+        os.path.join(HERE, f) for f in ("run.py", "harness.py", "served.py",
+                                        os.path.join("reference",
+                                                     "train.py"))]
+    for path in generic:
+        with open(path) as f:
+            text = f.read()
+        for word in ('["kind"]', "['kind']", "models.zoo", "models import",
+                     '"video"', "inputs[", "len(inputs)"):
+            assert word not in text, (path, word)
 
 
 def test_a_cell_added_as_files_alone_loads(tmp_path):
@@ -125,6 +162,104 @@ def test_a_cell_added_as_files_alone_loads(tmp_path):
     assert cell.readers and cell.end_to_end
 
 
+def _hashes(root) -> dict:
+    out = {}
+    for d, dirs, files in os.walk(root):
+        dirs[:] = [x for x in dirs if x != "__pycache__"]
+        for name in files:
+            path = os.path.join(d, name)
+            with open(path, "rb") as f:
+                out[os.path.relpath(path, root)] = hashlib.sha256(
+                    f.read()).hexdigest()
+    return out
+
+
+_TOY_RUNS = """
+import json, sys
+sys.path.insert(0, %(root)r)
+import torch
+from benchmark import harness, run
+from avec_tpu_torch.train import model as tm
+assert harness.__file__.startswith(%(root)r), harness.__file__
+cpu, quiet, out = torch.device("cpu"), lambda *a, **k: None, {}
+for trace in (False, True):
+    out[trace] = run.run("toy_train", %(seed)d, 1.0, trace, cpu, log=quiet)
+split = tm._split_micro
+tm._split_micro = lambda batch, accum: [
+    {"inputs": [x[:x.shape[0] // 2] for x in m["inputs"]],
+     "targets": tuple(y[:y.shape[0] // 2] for y in m["targets"])}
+    for m in split(batch, accum)]
+out["half_batch"] = run.run("toy_train", %(seed)d, 1.0, False, cpu,
+                            log=quiet)
+out["forbidden"] = harness.forbidden_modules()
+from torch.utils.flop_counter import FlopCounterMode
+from benchmark.reference.model import Ctx
+family = harness.Cell(harness.benchmark_file(%(root)r), "toy_train",
+                      %(root)r + "/benchmark").family
+spec = harness.load_json(%(root)r + "/benchmark/configs/toy.json")["model"]
+_, state = family.build_model(spec, {}, 1, cpu)
+out["flops"] = []
+for batch, samples in ((2, 8000), (3, 12345)):
+    inputs = [torch.randn(batch, samples), torch.full((batch,), samples)]
+    with FlopCounterMode(display=False) as counter:
+        family.reference_forward(Ctx(False), state, {}, spec, inputs)
+    out["flops"].append([family.forward_flops(spec, batch, samples),
+                         counter.get_total_flops()])
+print(json.dumps(out, default=float))
+"""
+
+
+def test_a_new_architecture_added_as_files_alone_runs(tmp_path):
+    """A configuration of a model outside the port's zoo (`toy/`: its
+    family, reference, configuration, traffic and limits) is added to a
+    copy of the benchmark by new files and BENCHMARK.json entries alone,
+    with no file that was there changed, and runs on the CPU through the
+    unchanged train driver: correct, with its end-to-end and per-layer
+    metrics and FLOPs equal to its reference's products; with half of each
+    micro-batch dropped, not correct."""
+    root = tmp_path / "checkout"
+    shutil.copytree(HERE, root / "benchmark",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    os.symlink(os.path.join(ROOT, "avec_tpu_torch"), root / "avec_tpu_torch")
+    before = _hashes(root / "benchmark")
+    for path in glob.glob(os.path.join(TOY, "*", "*.*")):
+        dest = root / "benchmark" / os.path.relpath(path, TOY)
+        assert not dest.exists(), dest
+        shutil.copy(path, dest)
+    bench = json.loads(json.dumps(LISTED))
+    bench["configs"].append({
+        "name": "toy",
+        "source": "https://www.cs.toronto.edu/~graves/icml_2006.pdf",
+        "file": "benchmark/configs/toy.json", "reduced": [],
+        "why": "two linear layers over log-mels: a family outside the zoo"})
+    bench["workloads"].append({
+        "name": "toy_train", "config": "toy", "traffic": "toy_4x2",
+        "chips": 1, "why": "Trainer.train_step on the toy family"})
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if m["name"] in ("train_audio_s_per_s", "mfu.train"):
+            m["workloads"].append("toy_train")
+    (root / "BENCHMARK.json").write_text(json.dumps(bench, indent=2))
+    out = subprocess.run(
+        [sys.executable, "-c", _TOY_RUNS % {"root": str(root),
+                                            "seed": 2 ** 31 + 21}],
+        capture_output=True, text=True, timeout=600, cwd=root,
+        env=dict(os.environ, PYTHONDONTWRITEBYTECODE="1"))
+    assert out.returncode == 0, out.stderr[-4000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    after = _hashes(root / "benchmark")
+    assert {k: after[k] for k in before} == before
+    assert res["forbidden"] == []
+    untraced, traced = res["false"], res["true"]
+    assert untraced["correct"] and traced["correct"], (untraced["compared"],
+                                                       traced["compared"])
+    assert untraced["metrics"]["train_audio_s_per_s"]["value"] > 0
+    assert set(traced["metrics"]) == {"mfu.train"}
+    assert traced["metrics"]["mfu.train"]["value"] > 0
+    assert not res["half_batch"]["correct"], res["half_batch"]["compared"]
+    for got, want in res["flops"]:
+        assert got == pytest.approx(want, rel=1e-9)
+
+
 def test_traffic_is_fixed_by_the_seed():
     tr = {"seconds": [2.0, 8.0], "labels_per_second": 4,
           "label_ids": [1, 255]}
@@ -150,7 +285,8 @@ def test_traffic_is_fixed_by_the_seed():
 def test_no_module_of_a_run_is_jax_or_the_jax_package():
     code = (
         "import sys; sys.path.insert(0, %r)\n"
-        "from benchmark import harness, run, served, port, trace, costs\n"
+        "from benchmark import harness, run, served, trace, costs\n"
+        "from benchmark.families import avec\n"
         "from benchmark.reference import model, train, wav\n"
         "b = harness.benchmark_file(%r)\n"
         "for w in b['workloads']:\n"

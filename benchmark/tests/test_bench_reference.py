@@ -14,7 +14,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 sys.path.insert(0, ROOT)
 
-from benchmark import port, weights  # noqa: E402
+from benchmark import weights  # noqa: E402
+from benchmark.families import avec  # noqa: E402
 from benchmark.reference import model as ref  # noqa: E402
 from benchmark.reference import train as ref_train  # noqa: E402
 
@@ -58,7 +59,7 @@ def _batch(kind, seed, n=4):
 def built(request):
     kind = request.param
     torch.manual_seed(0)
-    model, state = port.build_model(SPECS[kind], ROUTE, 5, torch.device("cpu"))
+    model, state = avec.build_model(SPECS[kind], ROUTE, 5, torch.device("cpu"))
     names = {n for n, _ in model.named_parameters()}
     P = {k: v.clone() for k, v in state.items() if k in names}
     B = {k: v.clone() for k, v in state.items() if k not in names}
@@ -69,13 +70,14 @@ def built(request):
 def test_eval_logits_match(built, route):
     kind, model, P, B = built
     if route == "serve":
-        model, _ = port.build_model(SPECS[kind], SERVE, 5,
+        model, _ = avec.build_model(SPECS[kind], SERVE, 5,
                                     torch.device("cpu"))
     inputs, _, _ = _batch(kind, 1)
     model.eval()
     with torch.no_grad():
         got, got_len = model(*inputs)["outputs"]
-    want, want_len = ref_train.eval_logits(SPECS[kind], P, B, inputs)
+    want, want_len = ref_train.eval_logits(avec.reference_forward,
+                                           SPECS[kind], P, B, inputs)
     assert torch.equal(got_len, want_len)
     scale = want.abs().max().item()
     assert (got - want).abs().max().item() < 1e-5 * scale
@@ -83,7 +85,7 @@ def test_eval_logits_match(built, route):
 
 def test_train_step_losses_and_gradients_match(built):
     kind, model, P, B = built
-    tr = port.trainer(model, {"precision": "float32",
+    tr = avec.trainer(model, {"precision": "float32",
                               "loss_weights": TRAIN["loss_weights"]},
                       1234, torch.device("cpu"))
     model.load_state_dict({**P, **B})
@@ -94,7 +96,7 @@ def test_train_step_losses_and_gradients_match(built):
     got_g = {n: (opt.state[p]["exp_avg"] / 0.1).norm().item()
              for n, p in model.named_parameters()}
     want = ref_train.train_readings(
-        SPECS[kind], TRAIN, P,
+        avec.reference_forward, SPECS[kind], TRAIN, P,
         [{"inputs": inputs, "labels": labels, "label_len": u}], 1234)
     for key, value in want["losses"][0].items():
         k = "loss" if key == "loss" else "loss_" + key
@@ -108,8 +110,10 @@ def test_train_step_losses_and_gradients_match(built):
 def test_control_in_float8_departs(built):
     kind, _, P, B = built
     inputs, _, _ = _batch(kind, 3)
-    want, _ = ref_train.eval_logits(SPECS[kind], P, B, inputs)
-    low, _ = ref_train.eval_logits(SPECS[kind], P, B, inputs, fp8=True)
+    forward = avec.reference_forward
+    want, _ = ref_train.eval_logits(forward, SPECS[kind], P, B, inputs)
+    low, _ = ref_train.eval_logits(forward, SPECS[kind], P, B, inputs,
+                                   fp8=True)
     rel = (low - want).abs().max().item() / want.abs().max().item()
     assert rel > 1e-3
 
